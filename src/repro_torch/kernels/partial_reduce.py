@@ -1,0 +1,325 @@
+"""Front ends of the fused score + PartialReduce kernels.
+
+Port of ``src/repro/kernels/partial_reduce.py``.  Operand contract (the
+reference's): a packed ``(n_pad, d_pad)`` f32 database, a ``(1, n_pad)``
+f32 bias row (metric bias, tombstones and tail mask fused) and ``(m, d)``
+f32 queries with ``d <= d_pad``; only the query block is padded here.
+The port's layout (``repro_torch.search.packed``) makes ``n_pad`` a
+multiple of ``max(bin_size, BLOCK_N)`` and ``d_pad`` a multiple of 128.
+
+  * :func:`partial_reduce_packed` (two-pass, B2): every bin winner,
+    ``(m, n_pad // bin_size)`` values and raw int32 global indices.
+  * :func:`partial_reduce_fused` (fused, B1): the top-``k_scan`` bin
+    winners per query, values descending (earlier rows first among
+    ties), masked winners as ``(MASK_VALUE, -1)``.
+
+Each front end runs its kernel's plain PyTorch version for a tensor on
+the CPU, and launches the CUDA kernel (``csrc/partial_reduce.cu``) for a
+tensor on a CUDA device; any other device raises.  ``LAUNCHES`` counts
+kernel launches and ``PLAIN_CALLS`` calls of the plain versions, by
+name, so a run can show which path it took.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import partial_reduce_ref
+from repro_torch.search.telemetry import AtomicCounter
+
+__all__ = [
+    "BLOCK_M",
+    "BLOCK_N",
+    "LAUNCHES",
+    "MAX_K_SCAN",
+    "PLAIN_CALLS",
+    "fused_carry_merge",
+    "fused_carry_merge_plain",
+    "fused_scan",
+    "partial_reduce_fused",
+    "partial_reduce_fused_plain",
+    "partial_reduce_packed",
+    "partial_reduce_packed_plain",
+    "reset_counts",
+    "split_plan",
+]
+
+# Tiles and limits compiled into csrc/partial_reduce.cu (its BM, BN,
+# MAX_K_SCAN, MAX_SPLITS); the C entry points reject arguments that
+# disagree with them.
+BLOCK_M = 64
+BLOCK_N = 128
+MAX_K_SCAN = 128
+MAX_SPLITS = 64
+# Blocks the split plan aims for on each SM: enough waves that the last
+# one's tail stays short.
+_BLOCKS_PER_SM = 8
+
+_MASK = float(np.finfo(np.float32).min)  # stages.MASK_VALUE
+
+LAUNCHES = AtomicCounter()
+PLAIN_CALLS = AtomicCounter()
+
+
+def reset_counts() -> None:
+    """Zero ``LAUNCHES`` and ``PLAIN_CALLS``."""
+    LAUNCHES.clear()
+    PLAIN_CALLS.clear()
+
+
+# --- plain PyTorch versions (the CPU path and the kernels' oracle) -----------
+
+
+def partial_reduce_packed_plain(
+    q: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, *,
+    bin_size: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the two-pass kernel over ``d_pad``-wide queries."""
+    PLAIN_CALLS.inc("partial_reduce_packed")
+    return partial_reduce_ref(q, database, bias, bin_size=bin_size)
+
+
+def partial_reduce_fused_plain(
+    q: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, *,
+    k_scan: int, bin_size: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the fused kernel: all bin winners, masked ones
+    paired with -1, then a stable descending sort.
+
+    The reference's carry starts as ``k_scan`` (MASK, -1) entries that
+    precede the winners; appending them instead is the same result,
+    because a winner that ties them at MASK is itself (MASK, -1).
+    """
+    PLAIN_CALLS.inc("partial_reduce_fused")
+    vals, idxs = partial_reduce_ref(q, database, bias, bin_size=bin_size)
+    idxs = torch.where(vals > _MASK * 0.5, idxs, torch.full_like(idxs, -1))
+    m = q.shape[0]
+    vals = torch.cat([vals, vals.new_full((m, k_scan), _MASK)], dim=1)
+    idxs = torch.cat([idxs, idxs.new_full((m, k_scan), -1)], dim=1)
+    top, pos = torch.sort(vals, dim=1, descending=True, stable=True)
+    return top[:, :k_scan], torch.gather(idxs, 1, pos[:, :k_scan])
+
+
+# --- front ends ---------------------------------------------------------------
+
+
+def _front(queries, database, bias, bin_size) -> torch.Tensor:
+    """Check the operand contract; return the queries padded to d_pad."""
+    if queries.ndim != 2 or database.ndim != 2:
+        raise ValueError(
+            f"queries and database must be 2-D, got {tuple(queries.shape)} "
+            f"and {tuple(database.shape)}"
+        )
+    n_pad, d_pad = database.shape
+    if queries.shape[1] > d_pad:
+        raise ValueError(f"query dim {queries.shape[1]} exceeds packed dim {d_pad}")
+    if tuple(bias.shape) != (1, n_pad):
+        raise ValueError(f"bias must be (1, {n_pad}), got {tuple(bias.shape)}")
+    for name, t in (("queries", queries), ("database", database), ("bias", bias)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.device != database.device:
+            raise ValueError(
+                f"{name} on {t.device}, database on {database.device}"
+            )
+    if bin_size <= 0 or bin_size & (bin_size - 1) or n_pad % bin_size:
+        raise ValueError(
+            f"bin_size={bin_size} must be a power of two dividing n_pad={n_pad}"
+        )
+    return F.pad(queries, (0, d_pad - queries.shape[1]))
+
+
+def _cuda_operands(q, database, bias, bin_size):
+    """Contiguity, alignment and tiling checks of the CUDA kernels."""
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"partial_reduce kernels run on CPU or CUDA tensors, got {q.device}"
+        )
+    q, database, bias = (t.contiguous() for t in (q, database, bias))
+    n_pad, d_pad = database.shape
+    if d_pad % 16 or n_pad % max(bin_size, BLOCK_N):
+        raise ValueError(
+            f"CUDA tiling contract: d_pad={d_pad} must be a multiple of 16 "
+            f"and n_pad={n_pad} of max(bin_size={bin_size}, {BLOCK_N})"
+        )
+    if n_pad >= 2**31:
+        raise ValueError(f"n_pad={n_pad} overflows the int32 row indices")
+    for t in (q, database):
+        if t.data_ptr() % 16:
+            raise ValueError("operands must be 16-byte aligned")
+    return q, database, bias
+
+
+def split_plan(m: int, n_pad: int, bin_size: int, num_sms: int) -> Tuple[int, int]:
+    """(tiles_per_split, splits): cut the row range into bin-aligned
+    splits so that ceil(m / BLOCK_M) * splits blocks fill ``num_sms``.
+
+    >>> split_plan(10_000, 1_003_520, 4096, 132)
+    (1120, 7)
+    >>> split_plan(512, 1_003_520, 4096, 132)
+    (128, 62)
+    """
+    tiles_per_bin = max(1, bin_size // BLOCK_N)
+    groups = n_pad // BLOCK_N // tiles_per_bin
+    q_tiles = -(-m // BLOCK_M)
+    want = -(-_BLOCKS_PER_SM * num_sms // q_tiles)
+    splits = max(1, min(groups, want, MAX_SPLITS))
+    per = -(-groups // splits)
+    return per * tiles_per_bin, -(-groups // per)
+
+
+def _launch_setup(q):
+    lib = build.load_library()
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return lib, sms, torch.cuda.current_stream(q.device).cuda_stream
+
+
+def partial_reduce_packed(
+    queries: torch.Tensor,
+    database: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    bin_size: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-pass bin winners: (m, n_pad // bin_size) values + int32 indices
+    (raw: masked bins keep their own first index; the caller applies
+    ``stages.sentinelize_masked``)."""
+    q = _front(queries, database, bias, bin_size)
+    if q.device.type == "cpu":
+        return partial_reduce_packed_plain(q, database, bias, bin_size=bin_size)
+    q, database, bias = _cuda_operands(q, database, bias, bin_size)
+    m, d = q.shape
+    n_pad = database.shape[0]
+    out_v = torch.empty((m, n_pad // bin_size), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((m, n_pad // bin_size), dtype=torch.int32, device=q.device)
+    if m == 0:
+        return out_v, out_i
+    with torch.cuda.device(q.device):
+        lib, sms, stream = _launch_setup(q)
+        tps, splits = split_plan(m, n_pad, bin_size, sms)
+        code = lib.pr_two_pass(
+            q.data_ptr(), database.data_ptr(), bias.data_ptr(), m, d, n_pad,
+            int(math.log2(bin_size)), tps, splits,
+            out_v.data_ptr(), out_i.data_ptr(), stream,
+        )
+        build.check(lib, code, "partial_reduce_packed kernel")
+        LAUNCHES.inc("partial_reduce_packed")
+    return out_v, out_i
+
+
+def partial_reduce_fused(
+    queries: torch.Tensor,
+    database: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    k_scan: int,
+    bin_size: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-pass scan→select: (m, k_scan) values sorted descending and
+    int32 indices; masked entries are (MASK_VALUE, -1).
+
+    On CUDA this is two launches, :func:`fused_scan` then
+    :func:`fused_carry_merge`, and ``k_scan`` is at most ``MAX_K_SCAN``
+    (the carry lives in shared memory); larger values raise
+    ``ValueError``.
+    """
+    if k_scan <= 0:
+        raise ValueError(f"k_scan must be positive, got {k_scan}")
+    q = _front(queries, database, bias, bin_size)
+    if q.device.type == "cpu":
+        return partial_reduce_fused_plain(
+            q, database, bias, k_scan=k_scan, bin_size=bin_size
+        )
+    return fused_carry_merge(
+        *fused_scan(q, database, bias, k_scan=k_scan, bin_size=bin_size)
+    )
+
+
+def fused_scan(
+    q: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, *,
+    k_scan: int, bin_size: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1's scan kernel on CUDA operands (queries already ``d_pad`` wide):
+    each split of the row range keeps its own top-``k_scan`` carry.
+    Returns the carries, (splits, m, k_scan) values and int32 indices."""
+    if not 0 < k_scan <= MAX_K_SCAN:
+        raise ValueError(
+            f"k_scan={k_scan} outside the CUDA fused kernel's limit of "
+            f"1..{MAX_K_SCAN} (its carry lives in shared memory); use "
+            "fused_select=False"
+        )
+    q, database, bias = _cuda_operands(q, database, bias, bin_size)
+    m, d = q.shape
+    n_pad = database.shape[0]
+    with torch.cuda.device(q.device):
+        lib, sms, stream = _launch_setup(q)
+        tps, splits = split_plan(max(m, 1), n_pad, bin_size, sms)
+        part_v = torch.empty((splits, m, k_scan), dtype=torch.float32, device=q.device)
+        part_i = torch.empty((splits, m, k_scan), dtype=torch.int32, device=q.device)
+        if m == 0:
+            return part_v, part_i
+        code = lib.pr_fused_scan(
+            q.data_ptr(), database.data_ptr(), bias.data_ptr(), m, d, n_pad,
+            int(math.log2(bin_size)), k_scan, tps, splits,
+            part_v.data_ptr(), part_i.data_ptr(), stream,
+        )
+        build.check(lib, code, "partial_reduce_fused kernel")
+        LAUNCHES.inc("partial_reduce_fused")
+    return part_v, part_i
+
+
+def fused_carry_merge_plain(
+    part_v: torch.Tensor, part_i: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the carry merge: a stable descending sort of the
+    splits' carries laid end to end (split order is row order)."""
+    PLAIN_CALLS.inc("fused_carry_merge")
+    splits, m, k_scan = part_v.shape
+    vals = part_v.permute(1, 0, 2).reshape(m, splits * k_scan)
+    idxs = part_i.permute(1, 0, 2).reshape(m, splits * k_scan)
+    top, pos = torch.sort(vals, dim=1, descending=True, stable=True)
+    return top[:, :k_scan], torch.gather(idxs, 1, pos[:, :k_scan])
+
+
+def fused_carry_merge(
+    part_v: torch.Tensor, part_i: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1's second kernel: merge (splits, m, k_scan) sorted carries into
+    the (m, k_scan) result; among equal values the lower split wins."""
+    if part_v.ndim != 3 or part_v.shape != part_i.shape:
+        raise ValueError(
+            f"carries must be two (splits, m, k_scan) tensors, got "
+            f"{tuple(part_v.shape)} and {tuple(part_i.shape)}"
+        )
+    if part_v.dtype != torch.float32 or part_i.dtype != torch.int32:
+        raise ValueError("carries must be float32 values and int32 indices")
+    if part_v.device.type == "cpu":
+        return fused_carry_merge_plain(part_v, part_i)
+    if part_v.device.type != "cuda" or part_i.device != part_v.device:
+        raise ValueError(f"carries on {part_v.device} and {part_i.device}")
+    splits, m, k_scan = part_v.shape
+    if not 0 < splits <= MAX_SPLITS or not 0 < k_scan <= MAX_K_SCAN:
+        raise ValueError(
+            f"{splits} splits of k_scan={k_scan} exceed the merge kernel's "
+            f"limits ({MAX_SPLITS}, {MAX_K_SCAN})"
+        )
+    part_v, part_i = part_v.contiguous(), part_i.contiguous()
+    out_v = torch.empty((m, k_scan), dtype=torch.float32, device=part_v.device)
+    out_i = torch.empty((m, k_scan), dtype=torch.int32, device=part_v.device)
+    if m == 0:
+        return out_v, out_i
+    with torch.cuda.device(part_v.device):
+        lib = build.load_library()
+        code = lib.pr_merge(
+            part_v.data_ptr(), part_i.data_ptr(), m, k_scan, splits,
+            out_v.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(part_v.device).cuda_stream,
+        )
+        build.check(lib, code, "fused_carry_merge kernel")
+        LAUNCHES.inc("fused_carry_merge")
+    return out_v, out_i

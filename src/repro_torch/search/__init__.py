@@ -1,0 +1,80 @@
+"""Public search API of the port (``src/repro/search/``): ``Index``,
+``SearchSpec``, the metric registry, the packed state and the backends.
+
+>>> import torch
+>>> from repro_torch.search import Index
+>>> idx = Index.build(torch.eye(8), metric="l2", k=2, device="cpu")
+>>> int(idx.search(torch.eye(8)[:1]).indices[0, 0])
+0
+"""
+from repro_torch.search.backends import (
+    DISPATCH_COUNTS,
+    cuda_search_packed,
+    default_backend,
+    dense_search,
+)
+from repro_torch.search.index import Index, SearchResult
+from repro_torch.search.metrics import (
+    Metric,
+    available_metrics,
+    exact_cosine_nns,
+    exact_l2nns,
+    exact_mips,
+    exact_search,
+    get_metric,
+    half_norms,
+    l2_normalize,
+    register_metric,
+)
+from repro_torch.search.packed import (
+    PACK_EVENTS,
+    PackedState,
+    fuse_bias,
+    pack_state,
+    scan_k_for,
+    state_from_arrays,
+)
+from repro_torch.search.spec import BACKENDS, SearchSpec
+from repro_torch.search.stages import (
+    MASK_VALUE,
+    finalize_values,
+    merge_topk,
+    pad_queries_to,
+    scan_candidates,
+    score_rows,
+    sentinelize_masked,
+)
+
+__all__ = [
+    "BACKENDS",
+    "DISPATCH_COUNTS",
+    "Index",
+    "MASK_VALUE",
+    "Metric",
+    "PACK_EVENTS",
+    "PackedState",
+    "SearchResult",
+    "SearchSpec",
+    "available_metrics",
+    "cuda_search_packed",
+    "default_backend",
+    "dense_search",
+    "exact_cosine_nns",
+    "exact_l2nns",
+    "exact_mips",
+    "exact_search",
+    "finalize_values",
+    "fuse_bias",
+    "get_metric",
+    "half_norms",
+    "l2_normalize",
+    "merge_topk",
+    "pack_state",
+    "pad_queries_to",
+    "register_metric",
+    "scan_candidates",
+    "scan_k_for",
+    "score_rows",
+    "sentinelize_masked",
+    "state_from_arrays",
+]

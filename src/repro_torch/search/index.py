@@ -1,0 +1,358 @@
+"""Index: the index-free front door of the search API.
+
+Port of ``src/repro/search/index.py`` (f32 tier, one device, no cluster
+pruning).  ``Index.build`` does the only precompute the algorithm needs —
+metric preparation and packing into the backend's layout
+(``repro_torch.search.packed``) — and ``add``/``delete`` patch that state
+in place: only appended rows are prepared, deletes rewrite bias entries,
+and capacity grows in ``capacity_block`` steps with a bin re-plan.
+
+``device=`` is the torch device the index lives on (the reference's
+``device=`` names a hardware profile; the profile comes with the planner
+slice).  The default is ``"cuda"``: without a CUDA device ``build``
+raises unless the caller asks for ``device="cpu"``.
+
+On a CUDA device the ``"cuda"`` backend searches any number of queries
+with a fixed number of kernel launches.  The plain paths — the
+``"torch"`` backend anywhere, and the ``"cuda"`` backend's plain kernel
+versions on the CPU — stream queries in ``spec.query_block`` blocks to
+bound their (query_block, N) score tile.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.binning import BinPlan, plan_bins, round_up
+from repro_torch.kernels import partial_reduce as kernels
+from repro_torch.search import backends, packed as packedlib
+from repro_torch.search.metrics import Metric, get_metric
+from repro_torch.search.spec import SearchSpec
+
+__all__ = ["Index", "SearchResult"]
+
+# A plain path's (query_block, N) f32 score tile is kept under this many
+# bytes; the block is a power of two in [8, DEFAULT_QUERY_BLOCK] (the
+# reference planner's rule for its XLA path).
+SCORE_TILE_BUDGET = 64 * 2**20
+DEFAULT_QUERY_BLOCK = 4096
+
+
+class SearchResult(NamedTuple):
+    """(values, indices), both (M, k); value conventions per the metric
+    contract in ``repro_torch.search.metrics``."""
+
+    values: torch.Tensor
+    indices: torch.Tensor
+
+
+def _plan_query_block(n: int) -> int:
+    qb = SCORE_TILE_BUDGET // max(1, 4 * n)
+    if qb >= DEFAULT_QUERY_BLOCK:
+        return DEFAULT_QUERY_BLOCK
+    return 1 << max(3, int(math.floor(math.log2(max(8, qb)))))
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "Index.build runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path"
+        )
+    return device
+
+
+class Index:
+    """Searchable database under one ``SearchSpec``.
+
+    Build one with ``Index.build(db, metric=..., k=..., ...)``.  ``add`` and
+    ``delete`` update in place and return ``self``.
+    """
+
+    def __init__(
+        self,
+        spec: SearchSpec,
+        db: torch.Tensor,
+        live: torch.Tensor,
+        size: int,
+        num_live: Union[int, torch.Tensor],
+        *,
+        capacity_block: int = 1024,
+    ):
+        self.spec = spec
+        self._db = db
+        self._live = live
+        self._size = size          # append high-water mark (<= capacity)
+        self._num_live = num_live  # live rows; int, or a lazy device scalar
+        self._capacity_block = capacity_block
+        self._packed: Optional[packedlib.PackedState] = None
+
+    # -- construction --------------------------------------------------------
+
+    @classmethod
+    def build(
+        cls,
+        database,
+        *,
+        metric: str = "mips",
+        k: int = 10,
+        recall_target: float = 0.95,
+        backend: str = "auto",
+        spec: Optional[SearchSpec] = None,
+        capacity: Optional[int] = None,
+        capacity_block: int = 1024,
+        plan: str = "model",
+        device=None,
+        **spec_kwargs,
+    ) -> "Index":
+        """Create an index over ``database`` rows (N, D) on ``device``.
+
+        ``spec`` overrides the individual (metric, k, ...) arguments when
+        given.  ``capacity`` pre-allocates room for ``add`` beyond N.
+        ``plan="model"`` resolves the tile fields to the CUDA kernels'
+        fixed tiles and the bins to ``plan_bins``; ``"measure"`` and plan
+        objects come with the planner slice.
+
+        >>> import torch
+        >>> idx = Index.build(torch.eye(32), metric="mips", k=2, device="cpu")
+        >>> idx.spec.resolved, idx.plan.num_bins
+        (True, 32)
+        """
+        if spec is None:
+            spec = SearchSpec(
+                metric=metric, k=k, recall_target=recall_target,
+                backend=backend, **spec_kwargs,
+            )
+        get_metric(spec.metric)  # fail early on an unknown metric
+        if plan != "model":
+            raise NotImplementedError(
+                f"plan={plan!r}: only the model plan is ported (measured "
+                "plans: ROADMAP queue A item 5)"
+            )
+        device = _resolve_device(device)
+        database = torch.as_tensor(database, dtype=torch.float32, device=device)
+        if database.ndim != 2:
+            raise ValueError(
+                f"database must be (N, D), got {tuple(database.shape)}"
+            )
+        n = database.shape[0]
+        cap = max(n, capacity or n)
+        if cap > n:
+            cap = round_up(cap, capacity_block)
+            database = F.pad(database, (0, 0, 0, cap - n))
+        for field, fixed in (("block_m", kernels.BLOCK_M),
+                             ("max_block_n", kernels.BLOCK_N)):
+            value = getattr(spec, field)
+            if value is not None and value != fixed:
+                raise NotImplementedError(
+                    f"{field}={value}: the CUDA kernels' tiles are fixed at "
+                    f"{fixed} (tile planning: ROADMAP queue A item 5)"
+                )
+        spec = dataclasses.replace(
+            spec, block_m=kernels.BLOCK_M, max_block_n=kernels.BLOCK_N,
+            query_block=spec.query_block or _plan_query_block(cap),
+        )
+        live = torch.zeros((cap,), dtype=torch.bool, device=device)
+        live[:n] = True
+        index = cls(spec, database, live, size=n, num_live=n,
+                    capacity_block=capacity_block)
+        index.pack()
+        return index
+
+    # -- introspection -------------------------------------------------------
+
+    @property
+    def metric(self) -> Metric:
+        return get_metric(self.spec.metric)
+
+    @property
+    def device(self) -> torch.device:
+        return self._db.device
+
+    @property
+    def capacity(self) -> int:
+        return self._db.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self._db.shape[1]
+
+    @property
+    def size(self) -> int:
+        """Number of live rows (reading it materializes the lazy count
+        that ``delete`` leaves on the device)."""
+        if not isinstance(self._num_live, int):
+            self._num_live = int(self._num_live)
+        return self._num_live
+
+    @property
+    def num_appended(self) -> int:
+        """Rows ever appended (live + tombstoned)."""
+        return self._size
+
+    def __len__(self) -> int:
+        return self.size
+
+    @property
+    def plan(self) -> BinPlan:
+        """Bin plan (and analytic E[recall], Eq. 13) of the packed layout."""
+        if self._packed is not None:
+            return self._packed.plan
+        return plan_bins(
+            self.capacity,
+            packedlib.scan_k_for(self.spec, self.capacity),
+            self.spec.recall_target,
+            reduction_input_size_override=self.spec.reduction_input_size_override,
+        )
+
+    @property
+    def expected_recall(self) -> float:
+        return self.plan.expected_recall
+
+    def __repr__(self) -> str:
+        return (
+            f"Index(metric={self.spec.metric!r}, k={self.spec.k}, "
+            f"backend={self._resolve_backend()!r}, size={self.size}, "
+            f"capacity={self.capacity}, dim={self.dim}, device={self.device})"
+        )
+
+    # -- packed state --------------------------------------------------------
+
+    def _resolve_backend(self) -> str:
+        b = self.spec.backend
+        return backends.default_backend(self.device) if b == "auto" else b
+
+    def pack(self) -> packedlib.PackedState:
+        """The packed operands, built once and then patched by add/delete."""
+        if self._packed is None:
+            self._packed = packedlib.pack_state(
+                self._db, self._live, self.metric, self.spec,
+                self._resolve_backend(),
+            )
+        return self._packed
+
+    # -- search --------------------------------------------------------------
+
+    def search(self, queries) -> SearchResult:
+        """Top-k neighbours of each query row: (M, D) -> SearchResult (M, k).
+
+        If fewer than k live rows exist, the tail of a row holds
+        MASK_VALUE-based sentinel values.
+
+        >>> import torch
+        >>> index = Index.build(torch.eye(16), metric="mips", k=3, device="cpu")
+        >>> values, indices = index.search(torch.eye(16)[:4])
+        >>> tuple(indices.shape), int(indices[0, 0])
+        ((4, 3), 0)
+        """
+        queries = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        if queries.ndim != 2:
+            raise ValueError(f"queries must be (M, D), got {tuple(queries.shape)}")
+        if queries.shape[1] != self.dim:
+            raise ValueError(
+                f"query dim {queries.shape[1]} != index dim {self.dim}"
+            )
+        on_kernels = self._resolve_backend() == "cuda" and self.device.type == "cuda"
+        if on_kernels or queries.shape[0] <= self.spec.query_block:
+            return SearchResult(*self._search_block(queries))
+        return self._search_stream(queries)
+
+    def _search_block(self, q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        backend = self._resolve_backend()
+        pk = self.pack()
+        spec = self.spec
+        backends.DISPATCH_COUNTS.inc(backend)
+        if backend == "torch":
+            return backends.dense_search(
+                q, pk.db, pk.bias,
+                metric=spec.metric, k=spec.k,
+                recall_target=spec.recall_target,
+                reduction_input_size_override=spec.reduction_input_size_override,
+                aggregate_to_topk=spec.aggregate_to_topk,
+                use_bitonic=spec.use_bitonic,
+            )
+        return backends.cuda_search_packed(
+            q, pk.db, pk.bias,
+            metric=spec.metric, k=spec.k, n=pk.n, bin_size=pk.bin_size,
+            aggregate_to_topk=spec.aggregate_to_topk,
+            use_bitonic=spec.use_bitonic,
+            fused_select=spec.fused_select_enabled,
+        )
+
+    def _search_stream(self, queries: torch.Tensor) -> SearchResult:
+        """The plain paths' executor: one ``_search_block`` per
+        ``query_block`` rows (each result row depends on its query only)."""
+        qb = self.spec.query_block
+        parts = [self._search_block(queries[s : s + qb])
+                 for s in range(0, queries.shape[0], qb)]
+        return SearchResult(
+            torch.cat([v for v, _ in parts]), torch.cat([i for _, i in parts])
+        )
+
+    # -- updates (the paper's frequent-update path) --------------------------
+
+    def add(self, rows) -> "Index":
+        """Append rows; grows capacity in ``capacity_block`` steps.
+
+        Only the appended slice is metric-prepared; growth re-lays-out the
+        packed operands (one device copy, bins re-planned for the new
+        capacity) without re-preparing existing rows.
+        """
+        rows = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
+        rows = torch.atleast_2d(rows)
+        if rows.ndim != 2 or rows.shape[1] != self.dim:
+            raise ValueError(
+                f"rows must be (R, {self.dim}), got {tuple(rows.shape)}"
+            )
+        r = rows.shape[0]
+        required = self._size + r
+        had_packed = self._packed is not None
+        if not self.metric.rowwise:
+            # Coupled preparation: the incremental patches are undefined.
+            self._packed = None
+        if required > self.capacity:
+            # Linear growth, not doubling: spare capacity is masked but
+            # still scored on every search.
+            new_cap = round_up(required, self._capacity_block)
+            grow = new_cap - self.capacity
+            self._db = F.pad(self._db, (0, 0, 0, grow))
+            self._live = torch.cat([
+                self._live,
+                torch.zeros((grow,), dtype=torch.bool, device=self.device),
+            ])
+            if self._packed is not None:
+                self._packed = self._packed.relayout(
+                    self._packed.backend, new_cap, self.spec
+                )
+        self._db[self._size : required] = rows
+        self._live[self._size : required] = True
+        if self._packed is not None:
+            self._packed.update_rows(self._size, rows, self.metric)
+        self._size = required
+        self._num_live = self._num_live + r
+        if had_packed and self._packed is None:
+            self.pack()
+        return self
+
+    def delete(self, ids) -> "Index":
+        """Tombstone rows by index (their ids never appear in later
+        results).  Repeated ids count once; ids outside the capacity
+        raise."""
+        ids = torch.as_tensor(ids, dtype=torch.int64, device=self.device).reshape(-1)
+        if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= self.capacity):
+            raise IndexError(
+                f"delete ids must lie in [0, {self.capacity}), got "
+                f"[{int(ids.min())}, {int(ids.max())}]"
+            )
+        self._live[ids] = False
+        # Recount rather than decrement: ids may repeat.  Kept on the
+        # device; ``size`` reads it.
+        self._num_live = self._live.sum()
+        if self._packed is not None:
+            self._packed.delete_rows(ids)
+        return self

@@ -1,0 +1,176 @@
+"""Metric registry: the single owner of score transforms and sign conventions.
+
+Port of ``src/repro/search/metrics.py``.  Every backend reduces every
+metric to one internal problem: *maximize* ``<q', x'> + bias(x')`` over
+metric-prepared queries ``q'`` and rows ``x'``, negating once at the API
+boundary for distance metrics.  Value contract:
+
+  * ``mips``:   inner products ``<q, x>``; descending.
+  * ``cosine``: cosine similarities; descending.
+  * ``l2``:     relaxed distances ``||x||^2/2 - <q, x>`` (Eq. 19);
+                ascending.
+
+>>> get_metric("l2").negate_output
+True
+>>> "cosine" in available_metrics()
+True
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.rescoring import stable_topk
+
+__all__ = [
+    "Metric",
+    "register_metric",
+    "get_metric",
+    "available_metrics",
+    "half_norms",
+    "l2_normalize",
+    "exact_mips",
+    "exact_l2nns",
+    "exact_cosine_nns",
+    "exact_search",
+]
+
+Tensor = torch.Tensor
+
+
+def half_norms(database: Tensor) -> Tensor:
+    """Precomputed ``||x||^2 / 2`` per database row (Eq. 19)."""
+    return 0.5 * torch.sum(database * database, dim=-1)
+
+
+def l2_normalize(x: Tensor, eps: float = 1e-12) -> Tensor:
+    norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    return x / torch.clamp(norm, min=eps)
+
+
+@dataclasses.dataclass(frozen=True)
+class Metric:
+    """One similarity/distance mode, reduced to biased-MIPS form.
+
+    Attributes:
+      name: registry key.
+      negate_output: True when public values are ascending distances.
+      prepare_database: db -> (db', row_bias or None), once per build.
+      prepare_queries: q -> q' on every search.
+      exact: (q, db_raw, k) -> (values, int32 indices), the exact
+        baseline under the same value contract.
+      rowwise: ``prepare_database`` is a per-row map, so ``Index.add``
+        may prepare only the appended slice.
+    """
+
+    name: str
+    negate_output: bool
+    prepare_database: Callable[[Tensor], Tuple[Tensor, Optional[Tensor]]]
+    prepare_queries: Callable[[Tensor], Tensor]
+    exact: Callable[[Tensor, Tensor, int], Tuple[Tensor, Tensor]]
+    rowwise: bool = True
+
+    def prepare_update(self, rows: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+        """Incremental preparation of an appended row slice (row-wise
+        metrics only; others need a full repack)."""
+        if not self.rowwise:
+            raise ValueError(
+                f"metric {self.name!r} is not row-wise; incremental "
+                "preparation is undefined — repack the full database"
+            )
+        return self.prepare_database(rows)
+
+
+_REGISTRY: Dict[str, Metric] = {}
+
+
+def register_metric(metric: Metric, *, overwrite: bool = False) -> Metric:
+    if metric.name in _REGISTRY and not overwrite:
+        raise ValueError(f"metric {metric.name!r} already registered")
+    _REGISTRY[metric.name] = metric
+    return metric
+
+
+def get_metric(metric) -> Metric:
+    if isinstance(metric, Metric):
+        return metric
+    try:
+        return _REGISTRY[metric]
+    except KeyError:
+        raise ValueError(
+            f"unknown metric {metric!r}; registered: {sorted(_REGISTRY)}"
+        ) from None
+
+
+def available_metrics() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+# --- Exact baselines (recall evaluation / Faiss-Flat analogue) --------------
+
+
+def _topk(scores: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    vals, idxs = stable_topk(scores, k)
+    return vals, idxs.to(torch.int32)
+
+
+def exact_mips(queries: Tensor, database: Tensor, k: int = 10):
+    return _topk(torch.einsum("ik,jk->ij", queries, database), k)
+
+
+def exact_l2nns(queries: Tensor, database: Tensor, k: int = 10):
+    dists = half_norms(database)[None, :] - torch.einsum(
+        "ik,jk->ij", queries, database
+    )
+    vals, idxs = _topk(-dists, k)
+    return -vals, idxs
+
+
+def exact_cosine_nns(queries: Tensor, database: Tensor, k: int = 10):
+    scores = torch.einsum(
+        "ik,jk->ij", l2_normalize(queries), l2_normalize(database)
+    )
+    return _topk(scores, k)
+
+
+def exact_search(queries: Tensor, database: Tensor, k: int = 10, *,
+                 metric="mips"):
+    """Exact top-k under any registered metric (same value contract)."""
+    return get_metric(metric).exact(queries, database, k)
+
+
+# --- Built-in metrics -------------------------------------------------------
+
+register_metric(
+    Metric(
+        name="mips",
+        negate_output=False,
+        prepare_database=lambda db: (db, None),
+        prepare_queries=lambda q: q,
+        exact=exact_mips,
+    )
+)
+
+register_metric(
+    Metric(
+        name="l2",
+        negate_output=True,
+        # bias = -||x||^2/2: maximizing <q,x> + bias == minimizing the
+        # relaxed distance (Eq. 19, one COP folded into the bias row).
+        prepare_database=lambda db: (db, -half_norms(db)),
+        prepare_queries=lambda q: q,
+        exact=exact_l2nns,
+    )
+)
+
+register_metric(
+    Metric(
+        name="cosine",
+        negate_output=False,
+        prepare_database=lambda db: (l2_normalize(db), None),
+        prepare_queries=l2_normalize,
+        exact=exact_cosine_nns,
+    )
+)

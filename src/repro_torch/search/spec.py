@@ -1,0 +1,173 @@
+"""SearchSpec: the frozen, hashable description of a search problem.
+
+Port of ``src/repro/search/spec.py``.  The field names are the
+reference's; the backends are the port's own:
+
+  * ``"torch"`` — plain PyTorch scores + PartialReduce (the reference's
+    ``"xla"`` path, ``backends.dense_search``);
+  * ``"cuda"``  — the hand-written Hopper kernels
+    (``repro_torch.kernels.partial_reduce``; the reference's
+    ``"pallas"``).  On a CPU tensor the kernels' front ends run their
+    plain PyTorch versions, which is how the CPU tests drive this path;
+  * ``"auto"``  — ``"cuda"`` for an index on a CUDA device, else
+    ``"torch"``.
+
+Fields the reference has but this slice does not serve raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
+``cluster`` defaults to ``"off"`` here (the reference defaults to
+``"auto"``) until the cluster slice lands.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+__all__ = ["BACKENDS", "SearchSpec"]
+
+BACKENDS = ("auto", "torch", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchSpec:
+    """Frozen description of an approximate-KNN search problem.
+
+    Attributes (reference semantics unless noted):
+      metric: registered metric name ("mips", "l2", "cosine", ...).
+      k: neighbours returned per query.
+      recall_target: analytic E[recall] target used to plan bins (Eq. 14).
+      backend: one of ``BACKENDS`` (see the module docstring).
+      dtype: compute dtype; only None or "float32" in this slice.
+      storage: only "f32" in this slice (quantized tiers: ROADMAP queue A
+        item 6).
+      cluster: only "off" in this slice (ROADMAP queue A item 7).
+      rescore: must stay None/False with f32 storage.
+      block_m / max_block_n: kernel tiles.  ``Index.build`` resolves them
+        to the CUDA kernels' fixed tiles; other values wait for the
+        planner slice (ROADMAP queue A item 5).
+      query_block: rows per block when a search streams queries.  Only the
+        plain paths stream (to bound their (query_block, N) score tile);
+        the CUDA kernels take any M in one call.
+      stream: only True (the port's one executor).  False, the
+        reference's per-block dispatch loop, raises until the benchmarks
+        that use it as a baseline are ported (ROADMAP queue A item 13).
+      aggregate_to_topk: rescore to the top-k (True) or return the raw
+        bin winners (False).
+      use_bitonic: the bitonic rescoring network; not ported yet.
+      fused_select: on the cuda backend, the single-pass scan→select
+        kernel (None resolves to True when a selection happens); False
+        runs the two-pass bin-winner kernel, then ``sentinelize_masked``
+        and ``merge_topk``.
+      reduction_input_size_override: recall-accounting N (-1: own N).
+      serve_buckets: only None (serving: ROADMAP queue A item 8).
+      residency: only "hbm" (host tier: ROADMAP queue A item 10).
+      segment_rows: only None (host tier: ROADMAP queue A item 10).
+
+    >>> SearchSpec(metric="l2", k=4).resolved
+    False
+    >>> SearchSpec(k=4, block_m=64, max_block_n=128, query_block=4096).resolved
+    True
+    """
+
+    metric: str = "mips"
+    k: int = 10
+    recall_target: float = 0.95
+    backend: str = "auto"
+    dtype: Optional[str] = None
+    storage: str = "f32"
+    cluster: str = "off"
+    rescore: Optional[bool] = None
+    block_m: Optional[int] = None
+    max_block_n: Optional[int] = None
+    query_block: Optional[int] = None
+    stream: bool = True
+    aggregate_to_topk: bool = True
+    use_bitonic: bool = False
+    fused_select: Optional[bool] = None
+    reduction_input_size_override: int = -1
+    serve_buckets: Optional[Tuple[int, ...]] = None
+    residency: str = "hbm"
+    segment_rows: Optional[int] = None
+
+    def __post_init__(self):
+        if self.k <= 0:
+            raise ValueError(f"k must be positive, got {self.k}")
+        if not 0.0 < self.recall_target < 1.0:
+            raise ValueError(
+                f"recall_target must be in (0, 1), got {self.recall_target}"
+            )
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"backend must be one of {BACKENDS}, got {self.backend!r}"
+            )
+        if self.storage != "f32":
+            raise NotImplementedError(
+                f"storage={self.storage!r}: quantized tiers are not ported "
+                "yet (ROADMAP queue A item 6)"
+            )
+        if self.residency != "hbm":
+            raise NotImplementedError(
+                f"residency={self.residency!r}: the host-RAM tier is not "
+                "ported yet (ROADMAP queue A item 10)"
+            )
+        if self.dtype not in (None, "float32"):
+            raise NotImplementedError(
+                f"dtype={self.dtype!r}: this slice computes in float32 only "
+                "(reduced-precision tiers: ROADMAP queue A item 6)"
+            )
+        if self.cluster != "off":
+            raise NotImplementedError(
+                f"cluster={self.cluster!r}: cluster pruning is not ported "
+                'yet (ROADMAP queue A item 7); use cluster="off"'
+            )
+        if not self.stream:
+            raise NotImplementedError(
+                "stream=False: the per-block dispatch loop is not ported "
+                "yet (ROADMAP queue A item 13); the port has one executor"
+            )
+        if self.serve_buckets is not None:
+            raise NotImplementedError(
+                "serve_buckets: serving is not ported yet (ROADMAP queue A "
+                "item 8)"
+            )
+        if self.segment_rows is not None:
+            raise NotImplementedError(
+                "segment_rows: the host-RAM tier is not ported yet (ROADMAP "
+                "queue A item 10)"
+            )
+        if self.rescore:
+            raise ValueError(
+                "rescore=True requires a quantized storage tier; "
+                'storage="f32" is already exact'
+            )
+        if self.fused_select and not self.aggregate_to_topk:
+            raise ValueError(
+                "fused_select=True needs aggregate_to_topk=True: the fused "
+                "kernel's carry is the top-k selection, so there are no raw "
+                "bin winners to return"
+            )
+        for field in ("block_m", "max_block_n", "query_block"):
+            v = getattr(self, field)
+            if v is not None and v <= 0:
+                raise ValueError(f"{field} must be positive, got {v}")
+
+    @property
+    def fused_select_enabled(self) -> bool:
+        """Resolved ``fused_select`` (the cuda backend consults this).
+
+        >>> SearchSpec().fused_select_enabled
+        True
+        >>> SearchSpec(fused_select=False).fused_select_enabled
+        False
+        """
+        if self.fused_select is not None:
+            return self.fused_select
+        return self.aggregate_to_topk
+
+    @property
+    def resolved(self) -> bool:
+        """True once every planner-deferred block field holds a value."""
+        return not (
+            self.block_m is None
+            or self.max_block_n is None
+            or self.query_block is None
+        )

@@ -1,0 +1,105 @@
+"""Search stages: score -> scan -> merge -> finalize.
+
+Port of the f32 stage primitives of ``src/repro/search/stages.py``, over
+metric-prepared operands in the internal max convention (maximize
+``<q', x'> + bias``, negate once at the end).  On the cuda backend the
+fused kernel (``repro_torch.kernels.partial_reduce.partial_reduce_fused``)
+subsumes score + scan + ``merge_topk``; the two-pass composition is its
+parity oracle (``SearchSpec(fused_select=False)``).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.rescoring import exact_rescoring
+from repro_torch.core.topk import approx_max_k
+
+__all__ = [
+    "MASK_VALUE",
+    "finalize_values",
+    "merge_topk",
+    "pad_queries_to",
+    "scan_candidates",
+    "score_rows",
+    "sentinelize_masked",
+]
+
+# Finite -inf surrogate (float32 min): keeps the score paths free of NaN
+# while still losing every comparison against real scores.
+MASK_VALUE = float(np.finfo(np.float32).min)
+
+Tensor = torch.Tensor
+
+
+def sentinelize_masked(vals: Tensor, idxs: Tensor, n: int) -> Tensor:
+    """Pair masked candidates (value <= MASK/2) with the sentinel index -1
+    and clamp live winners into ``[0, n)``, so a masked winner can never
+    alias row ``n - 1`` after ``merge_topk`` ties at MASK."""
+    return torch.where(
+        vals > MASK_VALUE * 0.5,
+        torch.clamp(idxs, max=n - 1),
+        torch.full_like(idxs, -1),
+    )
+
+
+def pad_queries_to(q: Tensor, width: int) -> Tensor:
+    """Zero-pad query lanes up to a packed layout's d_pad (exact for dot
+    products: the database's padded lanes are zero too)."""
+    if q.shape[1] == width:
+        return q
+    return F.pad(q, (0, width - q.shape[1]))
+
+
+def score_rows(q: Tensor, database: Tensor,
+               row_bias: Optional[Tensor] = None) -> Tensor:
+    """Biased-MIPS score tile ``q @ db.T + bias``."""
+    scores = torch.einsum("ik,jk->ij", q, database)
+    if row_bias is not None:
+        scores = scores + row_bias[None, :]
+    return scores
+
+
+def scan_candidates(
+    scores: Tensor,
+    k: int,
+    *,
+    recall_target: float,
+    reduction_input_size_override: int = -1,
+    aggregate_to_topk: bool = True,
+    use_bitonic: bool = False,
+) -> Tuple[Tensor, Tensor]:
+    """PartialReduce the score tile into L bin winners (or the top-k)."""
+    return approx_max_k(
+        scores,
+        k,
+        recall_target=recall_target,
+        reduction_input_size_override=reduction_input_size_override,
+        aggregate_to_topk=aggregate_to_topk,
+        use_bitonic=use_bitonic,
+    )
+
+
+def merge_topk(
+    vals: Tensor,
+    idxs: Tensor,
+    k: int,
+    *,
+    extra_vals: Optional[Tensor] = None,
+    extra_idxs: Optional[Tensor] = None,
+    use_bitonic: bool = False,
+) -> Tuple[Tensor, Tensor]:
+    """Exact top-k of one or two candidate streams (stable: among equal
+    values the earlier position wins)."""
+    if extra_vals is not None:
+        vals = torch.cat([vals, extra_vals], dim=-1)
+        idxs = torch.cat([idxs, extra_idxs], dim=-1)
+    return exact_rescoring(vals, idxs, k, mode="max", use_bitonic=use_bitonic)
+
+
+def finalize_values(vals: Tensor, negate_output: bool) -> Tensor:
+    """The single internal-max -> public-value sign flip."""
+    return -vals if negate_output else vals

@@ -1,0 +1,152 @@
+"""repro_torch's kernel front ends (plain versions, on the CPU) against the
+reference's Pallas kernels in interpret mode, on the same numpy inputs.
+
+Values must be allclose and indices equal up to near ties
+(``repro_torch.testing``).  The CUDA kernels themselves are held against
+these plain versions on the card by ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.partial_reduce import partial_reduce_fused as ref_fused
+from repro.kernels.partial_reduce import partial_reduce_packed as ref_packed
+from repro_torch.kernels import partial_reduce as prk
+from repro_torch.search.stages import (
+    MASK_VALUE,
+    merge_topk,
+    pad_queries_to,
+    sentinelize_masked,
+)
+from repro_torch.testing import (
+    KERNEL_CASES,
+    assert_bin_winners_close,
+    assert_topk_close,
+    bias_scorer,
+    packed_operands,
+)
+
+
+def _ref_block_n(n_pad, bin_size):
+    """A reference tile that divides the port's padded layout."""
+    return next(b for b in (1024, 512, 256, 128, bin_size)
+                if b >= bin_size and n_pad % b == 0)
+
+
+def _case(name):
+    case = KERNEL_CASES[name]
+    q, db, bias = packed_operands(**case, seed=len(name))
+    jq, jdb, jbias = (jnp.asarray(t.numpy()) for t in (q, db, bias))
+    kw = dict(bin_size=case["bin_size"],
+              block_n=_ref_block_n(db.shape[0], case["bin_size"]),
+              interpret=True)
+    return case, (q, db, bias), (jq, jdb, jbias), kw
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_CASES))
+def test_packed_plain_matches_pallas(name):
+    case, (q, db, bias), (jq, jdb, jbias), kw = _case(name)
+    ref_v, ref_i = ref_packed(jq, jdb, jbias, **kw)
+    prk.reset_counts()
+    vals, idxs = prk.partial_reduce_packed(q, db, bias, bin_size=case["bin_size"])
+    assert prk.PLAIN_CALLS["partial_reduce_packed"] == 1 and not prk.LAUNCHES
+    assert vals.shape == (case["m"], db.shape[0] // case["bin_size"])
+    assert idxs.dtype == torch.int32
+    assert_bin_winners_close(ref_v, ref_i, vals, idxs,
+                             bin_size=case["bin_size"],
+                             score=bias_scorer(q, db, bias))
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_CASES))
+def test_fused_plain_matches_pallas(name):
+    case, (q, db, bias), (jq, jdb, jbias), kw = _case(name)
+    k_scan = case["k_scan"]
+    ref_v, ref_i = ref_fused(jq, jdb, jbias, k_scan=k_scan, **kw)
+    vals, idxs = prk.partial_reduce_fused(
+        q, db, bias, k_scan=k_scan, bin_size=case["bin_size"]
+    )
+    assert vals.shape == idxs.shape == (case["m"], k_scan)
+    assert_topk_close(ref_v, ref_i, vals, idxs, score=bias_scorer(q, db, bias))
+    # masked entries are exactly (MASK, -1), live ones sorted descending
+    masked = idxs.numpy() < 0
+    assert (vals.numpy()[masked] == MASK_VALUE).all()
+    assert (np.diff(vals.numpy(), axis=1) <= 0).all()
+    if name == "kscan_gt_bins":
+        assert masked[:, -(k_scan - db.shape[0] // case["bin_size"]):].all()
+
+
+@pytest.mark.parametrize("name", [n for n, c in KERNEL_CASES.items()
+                                  if c["k_scan"] * c["bin_size"] <= c["n"]])
+def test_fused_equals_two_pass_merge(name):
+    """fused == two-pass + sentinelize_masked + merge_topk, exactly: the
+    same scores, ordered by one stable rule."""
+    case = KERNEL_CASES[name]
+    q, db, bias = packed_operands(**case, seed=1)
+    fv, fi = prk.partial_reduce_fused(
+        q, db, bias, k_scan=case["k_scan"], bin_size=case["bin_size"]
+    )
+    v, i = prk.partial_reduce_packed(q, db, bias, bin_size=case["bin_size"])
+    mv, mi = merge_topk(v, sentinelize_masked(v, i, case["n"]), case["k_scan"])
+    np.testing.assert_array_equal(fv.numpy(), mv.numpy())
+    np.testing.assert_array_equal(fi.numpy(), mi.numpy())
+
+
+@pytest.mark.parametrize("name", ["bin16_d100", "tomb90_l2", "masked_tile"])
+def test_split_carries_merge_to_one_carry(name):
+    """The CUDA design in plain form: carries of bin-aligned row splits,
+    merged by fused_carry_merge, equal the carry of the whole range."""
+    case = KERNEL_CASES[name]
+    q, db, bias = packed_operands(**case, seed=2)
+    qp = pad_queries_to(q, db.shape[1])
+    kw = dict(k_scan=case["k_scan"], bin_size=case["bin_size"])
+    whole = prk.partial_reduce_fused_plain(qp, db, bias, **kw)
+    bounds = [0, 128, 384, 512, db.shape[0]]
+    parts = []
+    for a, b in zip(bounds, bounds[1:]):
+        v, i = prk.partial_reduce_fused_plain(qp, db[a:b], bias[:, a:b], **kw)
+        parts.append((v, torch.where(i >= 0, i + a, i)))
+    merged = prk.fused_carry_merge(torch.stack([v for v, _ in parts]),
+                                   torch.stack([i for _, i in parts]))
+    for a, b in zip(whole, merged):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_fused_tie_order_is_stable_sort():
+    """Among exactly equal scores the earlier row comes first, and every
+    fully masked bin is (MASK, -1) — the order the reference's carry
+    produces, pinned on data made of ties."""
+    bin_size, n = 4, 256
+    q = torch.ones((3, 128))
+    db = torch.zeros((n, 128))
+    db[:, 0] = torch.tensor(np.random.default_rng(0).integers(0, 3, n),
+                            dtype=torch.float32)
+    bias = torch.zeros((1, n))
+    bias[0, 40:120] = MASK_VALUE
+    vals, idxs = prk.partial_reduce_fused(q, db, bias, k_scan=n // bin_size,
+                                          bin_size=bin_size)
+    ref_v, ref_i = ref_fused(jnp.asarray(q.numpy()), jnp.asarray(db.numpy()),
+                             jnp.asarray(bias.numpy()), k_scan=n // bin_size,
+                             bin_size=bin_size, block_n=128, interpret=True)
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(ref_v))
+    np.testing.assert_array_equal(idxs.numpy(), np.asarray(ref_i))
+    live = idxs[0][idxs[0] >= 0].numpy()
+    keyed = list(zip(-vals[0][: len(live)].numpy(), live))
+    assert keyed == sorted(keyed)
+    assert (idxs[0][len(live):] == -1).all()
+
+
+def test_front_end_contract():
+    q, db, bias = packed_operands(m=4, n=256, d=8, bin_size=16)
+    with pytest.raises(ValueError, match="bias must be"):
+        prk.partial_reduce_packed(q, db, bias[:, :-1], bin_size=16)
+    with pytest.raises(ValueError, match="power of two"):
+        prk.partial_reduce_packed(q, db, bias, bin_size=24)
+    with pytest.raises(ValueError, match="exceeds packed dim"):
+        prk.partial_reduce_fused(torch.zeros((4, 200)), db, bias, k_scan=2,
+                                 bin_size=16)
+    with pytest.raises(ValueError, match="float32"):
+        prk.partial_reduce_fused(q.double(), db, bias, k_scan=2, bin_size=16)
+    with pytest.raises(ValueError, match="k_scan"):
+        prk.partial_reduce_fused(q, db, bias, k_scan=0, bin_size=16)
