@@ -6,20 +6,27 @@ run in order and the first failure exits non-zero:
 
   1. the card and toolchain lines;
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-  3. each kernel against its plain PyTorch version, at the small test
-     shapes and at the Sift1M shape (512 queries, full N, 10% tombstones);
-  4. the main path at the Sift1M shape (N=1,000,000, D=128, l2, k=10,
+  3. each kernel, in each stored form (f32, bf16, int8, int4), against
+     its plain PyTorch version, at the small test shapes and at the
+     Sift1M shape (512 queries, full N, 10% tombstones); and the fused
+     kernel at k_scan 129 and 512 (its carry in device memory);
+  4. the f32 main path at the Sift1M shape (N=1,000,000, D=128, l2, k=10,
      recall target 0.95, 10,000 queries): ``Index.build`` -> ``search``
      -> recall against an exact oracle -> ``add`` 10,000 rows ->
      ``delete`` 50,000 ids -> ``search`` again, and the two-pass path
      (``fused_select=False``) against the fused one;
   5. the same at the Glove1.2M shape (N=1,183,514, D=100, cosine), with
      fewer queries after the updates;
-  6. launch counts of the main path (every kernel launched, no plain
-     version called); then each kernel against its plain version at the
-     main path's own shapes (all 10,000 queries, Sift1M and Glove1.2M,
-     before and after the updates);
-  7. CUDA-event timings at the Sift1M shape, and the launches of one
+  6. the quantized main path: phase 4 once per storage tier (bf16, int8,
+     int4) at the Sift1M shape, and int4 at the Glove1.2M shape (2,000
+     queries after the updates), each also checking that the returned
+     values are the exact scores of the returned ids (the rescore ran);
+  7. launch counts, read after each path (every kernel of the path
+     launched, no plain version called); then each kernel against its
+     plain version at the main paths' own shapes (all 10,000 queries);
+  8. CUDA-event timings at the Sift1M shape, f32 and each tier, at
+     M=10,000 and M=16, the fused kernel at k_scan 128 (carry in shared
+     memory), 129 and 512 (in device memory), and the launches of one
      search.
 
 It prints the ``kernels`` JSON line, the card's name and power limit, and
@@ -32,6 +39,7 @@ import argparse
 import json
 import math
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -39,8 +47,8 @@ import time
 
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores (the
-# f32 tier may not use TF32), and HBM3.
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores (every
+# tier's scan multiplies in f32, without TF32), and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 DELTA = 1e-6  # Hoeffding false-failure budget of the recall checks
@@ -48,6 +56,24 @@ DELTA = 1e-6  # Hoeffding false-failure budget of the recall checks
 SIFT = dict(name="sift1m", n=1_000_000, d=128, metric="l2", m=10_000)
 GLOVE = dict(name="glove1.2m", n=1_183_514, d=100, metric="cosine", m=10_000)
 K, TARGET = 10, 0.95
+TIERS = ("bf16", "int8", "int4")
+FORMS = ("f32",) + TIERS
+STORED_BYTES = {"f32": 4, "bf16": 2, "int8": 1, "int4": 0.5}
+SRC = "src/repro_torch/kernels/csrc/partial_reduce.cu"
+REF = "src/repro/kernels/partial_reduce.py"
+# The Pallas body each (kernel, form) replaces: f32 as listed since the
+# first slice (the entry points), bf16 the unscaled bodies, int8 and int4
+# the scaled ones.
+REPLACES = {
+    ("partial_reduce_fused", "f32"): f"{REF}:417",
+    ("partial_reduce_packed", "f32"): f"{REF}:352",
+    ("partial_reduce_fused", "bf16"): f"{REF}:316",
+    ("partial_reduce_packed", "bf16"): f"{REF}:285",
+    ("partial_reduce_fused", "int8"): f"{REF}:323",
+    ("partial_reduce_packed", "int8"): f"{REF}:300",
+    ("partial_reduce_fused", "int4"): f"{REF}:323",
+    ("partial_reduce_packed", "int4"): f"{REF}:300",
+}
 
 
 def log(*parts):
@@ -83,6 +109,25 @@ def bound_ms(flops: float, nbytes: float):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def kernel_label(mangled: str) -> str:
+    """``pr_scan_kernel<fused, form>`` from a mangled kernel name."""
+    found = re.search(r"(pr_[a-z_]*kernel)(?:ILb([01])E(?:Li(\d)E)?E)?", mangled)
+    if not found:
+        return mangled
+    name, fused, form = found.groups()
+    args = [{"0": "two-pass", "1": "fused"}[fused]] if fused else []
+    args += [FORMS[int(form)]] if form else []
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
+def names_of(form: str):
+    """Counter names of the kernels of one stored form."""
+    from repro_torch.kernels.partial_reduce import kernel_name
+
+    return (kernel_name("partial_reduce_fused", form), "fused_carry_merge",
+            kernel_name("partial_reduce_packed", form))
+
+
 def exact_topk(metric, q, rows, live, k, chunk=1000):
     """Exact oracle: chunked f32 matmul + topk over the live rows."""
     from repro_torch.search import half_norms, l2_normalize
@@ -97,6 +142,17 @@ def exact_topk(metric, q, rows, live, k, chunk=1000):
         scores = q[s : s + chunk] @ rows.T + bias
         out.append(torch.topk(scores, k, dim=1).indices)
     return torch.cat(out)
+
+
+def exact_values(metric, q, rows, idx):
+    """float64 public values (the metric's value contract) of the rows
+    ``idx`` (m, k) for each query: what a rescored search returns."""
+    x, qq = rows[idx.long().clamp_min(0)].double(), q.double()
+    if metric == "cosine":
+        x = x / x.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        qq = qq / qq.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    dots = (x @ qq[:, :, None])[..., 0]
+    return 0.5 * (x * x).sum(-1) - dots if metric == "l2" else dots
 
 
 def recall(approx: torch.Tensor, truth: torch.Tensor) -> float:
@@ -121,27 +177,41 @@ def card_lines() -> str:
     return smi
 
 
-def compare_kernels(prk, testing, label, q, db, bias, bs, ks, acc, chunk=512):
+def widened_rows(db, scale, int4_packed):
+    """A packed database's stored rows as f32, scale applied: what the
+    kernels score against, for the tie-tolerant scorer."""
+    from repro_torch.search import dequantize_rows, unpack_int4_rows
+
+    rows = unpack_int4_rows(db) if int4_packed else db
+    return dequantize_rows(rows, None if scale is None else scale[0])
+
+
+def compare_kernels(prk, testing, label, q, db, bias, bs, ks, acc, *,
+                    scale=None, int4_packed=False, chunk=512):
     """Each kernel against its plain version on one set of operands, on
     the card.  The plain versions run ``chunk`` queries at a time to
     bound their (chunk, n_pad) score tile; ``acc`` gathers the largest
     difference and the index agreement of each kernel."""
     from repro_torch.search import pad_queries_to
 
-    qp = pad_queries_to(q, db.shape[1]).contiguous()
-    score = testing.bias_scorer(q, db, bias)
-    v, i = prk.partial_reduce_packed(q, db, bias, bin_size=bs)
-    carries = prk.fused_scan(qp, db, bias, k_scan=ks, bin_size=bs)
+    form = prk.storage_form(db, scale, int4_packed)
+    fused, merge, packed = names_of(form)
+    widened = widened_rows(db, scale, int4_packed)
+    qp = pad_queries_to(q, widened.shape[1]).contiguous()
+    score = testing.bias_scorer(q, widened, bias)
+    kw = dict(bin_size=bs, int4_packed=int4_packed)
+    v, i = prk.partial_reduce_packed(q, db, bias, scale, **kw)
+    carries = prk.fused_scan(qp, db, bias, scale, k_scan=ks, **kw)
     fv, fi = prk.fused_carry_merge(*carries)
     torch.cuda.synchronize()
-    packed, fused = [], []
+    plain_packed, plain_fused = [], []
     for s in range(0, qp.shape[0], chunk):
-        packed.append(prk.partial_reduce_packed_plain(qp[s : s + chunk], db, bias,
-                                                      bin_size=bs))
-        fused.append(prk.partial_reduce_fused_plain(qp[s : s + chunk], db, bias,
-                                                    k_scan=ks, bin_size=bs))
-    pv, pi = (torch.cat(t) for t in zip(*packed))
-    pfv, pfi = (torch.cat(t) for t in zip(*fused))
+        plain_packed.append(prk.partial_reduce_packed_plain(
+            qp[s : s + chunk], db, bias, scale, **kw))
+        plain_fused.append(prk.partial_reduce_fused_plain(
+            qp[s : s + chunk], db, bias, scale, k_scan=ks, **kw))
+    pv, pi = (torch.cat(t) for t in zip(*plain_packed))
+    pfv, pfi = (torch.cat(t) for t in zip(*plain_fused))
     mv, mi = prk.fused_carry_merge_plain(*carries)
     testing.assert_bin_winners_close(pv.cpu(), pi.cpu(), v.cpu(), i.cpu(),
                                      bin_size=bs, score=score)
@@ -149,87 +219,96 @@ def compare_kernels(prk, testing, label, q, db, bias, bs, ks, acc, chunk=512):
                               score=score)
     if not (torch.equal(mv, fv) and torch.equal(mi, fi)):
         fail(f"{label}: fused_carry_merge differs from its plain version")
-    for kernel, a, b, x, y in (("partial_reduce_packed", i, pi, v, pv),
-                               ("partial_reduce_fused", fi, pfi, fv, pfv),
-                               ("fused_carry_merge", fi, mi, fv, mv)):
+    for kernel, a, b, x, y in ((packed, i, pi, v, pv), (fused, fi, pfi, fv, pfv),
+                               (merge, fi, mi, fv, mv)):
         acc["agree"][kernel] += int((a == b).sum())
         acc["total"][kernel] += a.numel()
         acc["errs"][kernel] = max(acc["errs"][kernel], float((x - y).abs().max()))
-    log(f"kernels vs plain [{label}]: m={q.shape[0]} n_pad={db.shape[0]} "
+    log(f"kernels vs plain [{label}, {form}]: m={q.shape[0]} n_pad={db.shape[0]} "
         f"bin={bs} k_scan={ks} splits={carries[0].shape[0]}: ok (max |diff| "
         f"packed {float((v - pv).abs().max()):.3g}, fused "
         f"{float((fv - pfv).abs().max()):.3g})")
 
 
+# Bins and k_scan that plan_bins gives the Sift1M shape per tier (the
+# main path's own; k_scan = quant.scan_k).
+SIFT_PLAN = {"f32": (4096, K), "bf16": (2048, 15), "int8": (2048, 20),
+             "int4": (1024, 30)}
+# k_scan of the fused kernel's carry-placement timings: the largest in
+# shared memory, the smallest in device memory, and a large one.
+KSCAN_TIMED = (128, 129, 512)
+
+
 def phase_kernels(prk, testing, seed, acc):
-    """Phase 3: every kernel against its plain version at the small test
-    shapes and on 512 queries at the Sift1M shape."""
+    """Phase 3: every kernel in every stored form against its plain
+    version at the small test shapes and on 512 queries at the Sift1M
+    shape; then the fused kernel at k_scan 129 and 512."""
     cases = dict(testing.KERNEL_CASES)
     cases["sift1m_512"] = dict(m=512, n=SIFT["n"], d=SIFT["d"], bin_size=4096,
                                k_scan=K, dead=0.1, l2=True)
     for name, case in cases.items():
         q, db, bias = testing.packed_operands(**case, seed=seed, device="cuda")
-        compare_kernels(prk, testing, name, q, db, bias, case["bin_size"],
-                        case["k_scan"], acc)
+        for form in FORMS:
+            bs, ks = case["bin_size"], case["k_scan"]
+            if name == "sift1m_512":
+                bs, ks = SIFT_PLAN[form]
+            stored, scale, packed, _ = testing.stored_operands(db, form)
+            compare_kernels(prk, testing, name, q, stored, bias, bs, ks, acc,
+                            scale=scale, int4_packed=packed)
+            del stored, scale
+        if name == "sift1m_512":  # the carry in device memory
+            for ks in (129, 512):
+                compare_kernels(prk, testing, f"{name} k_scan={ks}", q, db,
+                                bias, 256, ks, acc)
         del q, db, bias
 
 
-def phase_main_shapes(prk, testing, data, acc):
-    """Phase 6: every kernel against its plain version at the main path's
-    own shapes: all of its queries over each shape's index before the
-    updates (a fresh build over the same rows) and after them
-    (tombstones, appended rows, bins re-planned for the new capacity)."""
-    from repro_torch.search import Index, get_metric
-
-    for cfg in (SIFT, GLOVE):
-        db, q, updated = data[cfg["name"]]
-        fresh = Index.build(db, metric=cfg["metric"], k=K,
-                            recall_target=TARGET, cluster="off")
-        qm = get_metric(cfg["metric"]).prepare_queries(q)
-        for when, index in (("before updates", fresh), ("after updates", updated)):
-            pk = index.pack()
-            compare_kernels(prk, testing, f"{cfg['name']} M={q.shape[0]} {when}",
-                            qm, *pk.operands(), pk.bin_size, K, acc)
-        del fresh
-
-
-def drive(cfg, seed, m_after, results):
-    """Phases 4/5: build -> search -> recall -> add -> delete -> search,
-    and the two-pass path against the fused one."""
-    from repro_torch.search import Index
-    from repro_torch.testing import assert_topk_close, public_scorer
-
+def make_data(cfg, seed):
+    """The random database, queries, appended rows and deleted ids of one
+    shape, on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    n, d, metric = cfg["n"], cfg["d"], cfg["metric"]
+    n, d = cfg["n"], cfg["d"]
     db = torch.randn((n, d), generator=g, device="cuda")
     q = torch.randn((cfg["m"], d), generator=g, device="cuda")
     extra = torch.randn((10_000, d), generator=g, device="cuda")
     dead = torch.randperm(n, generator=g, device="cuda")[:50_000]
+    return db, q, extra, dead
+
+
+def drive(cfg, data, m_after, results, storage="f32"):
+    """Phases 4-6: build -> search -> recall -> add -> delete -> search,
+    and the two-pass path against the fused one; a quantized tier also
+    returns the exact scores of its ids (the rescore ran)."""
+    from repro_torch.search import Index
+    from repro_torch.testing import assert_topk_close, public_scorer
+
+    db, q, extra, dead = data
+    n, metric = cfg["n"], cfg["metric"]
+    label = cfg["name"] if storage == "f32" else f"{cfg['name']} {storage}"
+    kw = dict(metric=metric, k=K, recall_target=TARGET, cluster="off",
+              storage=storage)
 
     t0 = time.perf_counter()
-    index = Index.build(db, metric=metric, k=K, recall_target=TARGET,
-                        cluster="off")
+    index = Index.build(db, **kw)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     plan = index.plan
-    log(f"[{cfg['name']}] build {build_s:.2f} s: L={plan.num_bins} bins of "
-        f"{plan.bin_size}, E[recall]={plan.expected_recall:.4f}, "
-        f"backend={index._resolve_backend()}")
+    log(f"[{label}] build {build_s:.2f} s: L={plan.num_bins} bins of "
+        f"{plan.bin_size}, k_scan={index.k_scan}, E[recall]="
+        f"{plan.expected_recall:.4f}, backend={index._resolve_backend()}")
     v, i = index.search(q)
     torch.cuda.synchronize()
     live = torch.ones(n, dtype=torch.bool, device="cuda")
     truth = exact_topk(metric, q, db, live, K)
     r1 = recall(i, truth)
     floor = plan.expected_recall - hoeffding_eps(q.shape[0])
-    log(f"[{cfg['name']}] search M={q.shape[0]}: recall {r1:.4f} "
-        f"(floor {floor:.4f})")
+    log(f"[{label}] search M={q.shape[0]}: recall {r1:.4f} (floor {floor:.4f})")
     if not r1 >= floor:
-        fail(f"{cfg['name']}: recall {r1} < {floor}")
+        fail(f"{label}: recall {r1} < {floor}")
     if not torch.isfinite(v).all() or tuple(v.shape) != (q.shape[0], K):
-        fail(f"{cfg['name']}: non-finite or misshapen values")
+        fail(f"{label}: non-finite or misshapen values")
 
-    two_pass = Index.build(db, metric=metric, k=K, recall_target=TARGET,
-                           cluster="off", fused_select=False)
+    two_pass = Index.build(db, fused_select=False, **kw)
     for idx in (index, two_pass):
         idx.add(extra)
         idx.delete(dead)
@@ -241,30 +320,71 @@ def drive(cfg, seed, m_after, results):
     rows = torch.cat([db, extra])
     live = torch.ones(rows.shape[0], dtype=torch.bool, device="cuda")
     live[dead] = False
-    if torch.isin(i.long(), dead).any():
-        fail(f"{cfg['name']}: a deleted id was returned")
+    if torch.isin(i.long(), dead).any() or torch.isin(ti.long(), dead).any():
+        fail(f"{label}: a deleted id was returned")
     if index.size != n + 10_000 - 50_000:
-        fail(f"{cfg['name']}: size {index.size}")
+        fail(f"{label}: size {index.size}")
     r2 = recall(i, exact_topk(metric, qa, rows, live, K))
     floor = plan.expected_recall - hoeffding_eps(qa.shape[0])
-    log(f"[{cfg['name']}] add 10000 + delete 50000 -> capacity "
-        f"{index.capacity}, L={plan.num_bins}: recall {r2:.4f} (floor "
-        f"{floor:.4f})")
+    log(f"[{label}] add 10000 + delete 50000 -> capacity {index.capacity}, "
+        f"L={plan.num_bins}: recall {r2:.4f} (floor {floor:.4f})")
     if not r2 >= floor:
-        fail(f"{cfg['name']}: recall after updates {r2} < {floor}")
+        fail(f"{label}: recall after updates {r2} < {floor}")
     assert_topk_close(v.cpu(), i.cpu(), tv.cpu(), ti.cpu(),
                       score=public_scorer(metric, qa, rows))
-    log(f"[{cfg['name']}] fused_select=False agrees with the fused path")
-    results[cfg["name"]] = dict(
+    log(f"[{label}] fused_select=False agrees with the fused path")
+    if storage != "f32":
+        exact = exact_values(metric, qa, rows, i)
+        err = float(((v.double() - exact).abs()
+                     - 1e-5 * exact.abs()).max())
+        if (i < 0).any() or not err <= 1e-4:
+            fail(f"{label}: returned values are not the exact scores of the "
+                 f"returned ids (excess {err})")
+        log(f"[{label}] values are the exact scores of the returned ids "
+            f"(largest |diff| beyond rtol 1e-5: {err:.3g})")
+    results[label] = dict(
         build_s=build_s, recall=r1, recall_after_updates=r2,
         expected_recall=index.expected_recall, bins=plan.num_bins,
+        k_scan=index.k_scan,
     )
-    return db, q, index
+    del two_pass
+    return index
+
+
+def read_counts(prk, label, forms, results):
+    """The launches of the path just driven: every kernel of ``forms``
+    launched at least once, no plain version called."""
+    launches, plain = dict(prk.LAUNCHES), dict(prk.PLAIN_CALLS)
+    log(f"[{label}] launches {launches}, plain calls {plain}")
+    for form in forms:
+        for name in names_of(form):
+            if launches.get(name, 0) <= 0:
+                fail(f"kernel {name} was not launched on the {label} path")
+    if sum(plain.values()):
+        fail(f"plain versions ran on the {label} path: {plain}")
+    for key, counts in (("launches", launches), ("plain_calls", plain)):
+        for name, count in counts.items():
+            results[key][name] = results[key].get(name, 0) + count
+
+
+def phase_main_shapes(prk, testing, cases, acc):
+    """Phase 7: every kernel against its plain version at the main paths'
+    own shapes: all of each index's queries, over its packed operands."""
+    from repro_torch.search import get_metric
+
+    for label, cfg, index, q in cases:
+        pk = index.pack()
+        ops = pk.operands()
+        scale = None if pk.storage == "f32" else ops[2]
+        qm = get_metric(cfg["metric"]).prepare_queries(q)
+        compare_kernels(prk, testing, f"{label} M={q.shape[0]}", qm, ops[0],
+                        ops[1], pk.bin_size, index.k_scan, acc, scale=scale,
+                        int4_packed=pk.int4_packed)
 
 
 def time_sift(prk, db, q, results):
-    """Phase 7: CUDA-event timings at the Sift1M shape (M=10,000), on a
-    fresh index over the main path's data (before its updates)."""
+    """Phase 8 (f32): CUDA-event timings at the Sift1M shape (M=10,000),
+    on a fresh index over the main path's data (before its updates)."""
     from repro_torch.search import Index, pad_queries_to
 
     index = Index.build(db, metric=SIFT["metric"], k=K, recall_target=TARGET,
@@ -301,6 +421,20 @@ def time_sift(prk, db, q, results):
         "merge_plain": cuda_ms(merge_plain, reps=20),
         "gemm": cuda_ms(gemm, reps=3),
     }
+    q16 = qp[:16].contiguous()
+    c16 = prk.fused_scan(q16, db, bias, k_scan=K, bin_size=bs)
+    t["fused_m16"] = cuda_ms(lambda: prk.fused_scan(q16, db, bias, k_scan=K,
+                                                    bin_size=bs), reps=20)
+    t["merge_m16"] = cuda_ms(lambda: prk.fused_carry_merge(*c16), reps=20)
+    # The carry in shared memory (k_scan <= 128) against the carry in
+    # device memory (above), at bins of 256 rows: 3,920 bins, enough
+    # winners to fill a carry of 512.
+    for ks in KSCAN_TIMED:
+        ck = prk.fused_scan(qp, db, bias, k_scan=ks, bin_size=256)
+        t[f"fused_k{ks}"] = cuda_ms(lambda: prk.fused_scan(
+            qp, db, bias, k_scan=ks, bin_size=256))
+        t[f"merge_k{ks}"] = cuda_ms(lambda: prk.fused_carry_merge(*ck))
+        del ck
     prk.reset_counts()
     index.search(q)
     torch.cuda.synchronize()
@@ -309,34 +443,42 @@ def time_sift(prk, db, q, results):
 
     def counts(name):
         """Main-path launches and plain calls, and the share of indices
-        equal to the plain version's in phases 3 and 6 (the rest are near
+        equal to the plain version's in phases 3 and 7 (the rest are near
         ties)."""
-        return dict(launches=results["launches"][name],
+        return dict(launches=results["launches"].get(name, 0),
                     plain_calls=results["plain_calls"].get(name, 0),
                     index_agreement=results["index_agreement"][name])
     fb = bound_ms(flops, in_bytes + 8.0 * splits * m * K)
     pb = bound_ms(flops, in_bytes + 8.0 * m * (n_pad // bs))
     mb = bound_ms(m * K * splits, 8.0 * (splits + 1) * m * K)
-    src = "src/repro_torch/kernels/csrc/partial_reduce.cu"
-    ref = "src/repro/kernels/partial_reduce.py"
+    fb16 = bound_ms(2.0 * 16 * n_pad * d_pad,
+                    4.0 * (16 * d_pad + n_pad * d_pad + n_pad)
+                    + 8.0 * c16[0].shape[0] * 16 * K)
     kernels = [
-        dict(name="partial_reduce_fused", route="cuda", source=src,
-             replaces=f"{ref}:417", **counts("partial_reduce_fused"),
+        dict(name="partial_reduce_fused", route="cuda", source=SRC,
+             replaces=REPLACES[("partial_reduce_fused", "f32")],
+             **counts("partial_reduce_fused"),
              max_abs_err=err["partial_reduce_fused"], ms=t["fused"],
              plain_ms=t["fused_plain"], bound_ms=fb[0], bound_by=fb[1],
-             library_ms=None, gemm_ms=t["gemm"]),
-        dict(name="fused_carry_merge", route="cuda", source=src,
-             replaces=f"{ref}:417", **counts("fused_carry_merge"),
+             library_ms=None, gemm_ms=t["gemm"], ms_m16=t["fused_m16"],
+             bound_ms_m16=fb16[0], bound_by_m16=fb16[1],
+             ms_bin256_by_k_scan={ks: t[f"fused_k{ks}"] for ks in KSCAN_TIMED},
+             merge_ms_bin256_by_k_scan={ks: t[f"merge_k{ks}"]
+                                        for ks in KSCAN_TIMED}),
+        dict(name="fused_carry_merge", route="cuda", source=SRC,
+             replaces=REPLACES[("partial_reduce_fused", "f32")],
+             **counts("fused_carry_merge"),
              max_abs_err=err["fused_carry_merge"], ms=t["merge"],
              plain_ms=t["merge_plain"], bound_ms=mb[0], bound_by=mb[1],
-             library_ms=None),
-        dict(name="partial_reduce_packed", route="cuda", source=src,
-             replaces=f"{ref}:352", **counts("partial_reduce_packed"),
+             library_ms=None, ms_m16=t["merge_m16"]),
+        dict(name="partial_reduce_packed", route="cuda", source=SRC,
+             replaces=REPLACES[("partial_reduce_packed", "f32")],
+             **counts("partial_reduce_packed"),
              max_abs_err=err["partial_reduce_packed"], ms=t["packed"],
              plain_ms=t["packed_plain"], bound_ms=pb[0], bound_by=pb[1],
              library_ms=None, gemm_ms=t["gemm"]),
     ]
-    log(f"timing at M={m}, n_pad={n_pad}, d_pad={d_pad}, bin={bs}, "
+    log(f"timing f32 at M={m}, n_pad={n_pad}, d_pad={d_pad}, bin={bs}, "
         f"splits={splits} (CUDA events, median):")
     for key, ms in t.items():
         log(f"  {key:13s} {ms:10.3f} ms")
@@ -344,7 +486,111 @@ def time_sift(prk, db, q, results):
         f"({100 * fb[0] / t['fused']:.1f}% of the {fb[1]} bound), "
         f"{in_bytes / t['fused'] / 1e6:.1f} GB/s; search QPS "
         f"{m / t['search'] * 1e3:.0f} at recall "
-        f"{results['sift1m']['recall']:.4f}; launches per search: {per_search}")
+        f"{results['sift1m']['recall']:.4f}; launches per search: {per_search}; "
+        f"M=16 scan {t['fused_m16']:.3f} ms ({100 * fb16[0] / t['fused_m16']:.1f}% "
+        f"of the {fb16[1]} bound)")
+    return kernels, per_search
+
+
+def time_tier(prk, db, q, storage, results):
+    """Phase 8 (a quantized tier): CUDA-event timings at the Sift1M shape
+    on a fresh index of the tier over the main path's data, at M=10,000
+    and M=16: the scan, the merge, the two-pass kernel, their plain
+    versions, the rescore stage and the whole search."""
+    from repro_torch.search import (Index, get_metric, pad_queries_to,
+                                    rescore_candidates)
+
+    index = Index.build(db, metric=SIFT["metric"], k=K, recall_target=TARGET,
+                        cluster="off", storage=storage)
+    pk = index.pack()
+    sdb, bias, scale, rdb, rbias = pk.operands()
+    bs, ks, i4 = pk.bin_size, index.k_scan, pk.int4_packed
+    m, n_pad = q.shape[0], sdb.shape[0]
+    d_pad = sdb.shape[1] * (2 if i4 else 1)
+    qm = get_metric(SIFT["metric"]).prepare_queries(q)
+    qp = pad_queries_to(qm, d_pad).contiguous()
+    kw = dict(bin_size=bs, int4_packed=i4)
+    carries = prk.fused_scan(qp, sdb, bias, scale, k_scan=ks, **kw)
+    fv, fi = prk.fused_carry_merge(*carries)
+    splits = carries[0].shape[0]
+    chunk = 512
+
+    def plain(fn, **extra):
+        for s in range(0, m, chunk):
+            fn(qp[s : s + chunk], sdb, bias, scale, **kw, **extra)
+
+    t = {
+        "fused": cuda_ms(lambda: prk.fused_scan(qp, sdb, bias, scale, k_scan=ks, **kw)),
+        "merge": cuda_ms(lambda: prk.fused_carry_merge(*carries), reps=20),
+        "packed": cuda_ms(lambda: prk.partial_reduce_packed(qp, sdb, bias, scale, **kw)),
+        "rescore": cuda_ms(lambda: rescore_candidates(qm, fv, fi, rdb, rbias, K, ks),
+                           reps=20),
+        "search": cuda_ms(lambda: index.search(q)),
+        "fused_plain": cuda_ms(lambda: plain(prk.partial_reduce_fused_plain, k_scan=ks),
+                               reps=3),
+        "packed_plain": cuda_ms(lambda: plain(prk.partial_reduce_packed_plain), reps=3),
+    }
+    q16 = qp[:16].contiguous()
+    c16 = prk.fused_scan(q16, sdb, bias, scale, k_scan=ks, **kw)
+    t["fused_m16"] = cuda_ms(lambda: prk.fused_scan(q16, sdb, bias, scale,
+                                                    k_scan=ks, **kw), reps=20)
+    t["merge_m16"] = cuda_ms(lambda: prk.fused_carry_merge(*c16), reps=20)
+    t["search_m16"] = cuda_ms(lambda: index.search(q[:16]), reps=20)
+    prk.reset_counts()
+    index.search(q)
+    torch.cuda.synchronize()
+    per_search = dict(prk.LAUNCHES)
+    if sum(per_search.values()) != 2:
+        fail(f"{storage}: one search launched {per_search}, not 2 kernels")
+
+    # The bound counts the lanes the function needs, D rounded up to 128
+    # as the f32 layout stores it, not the int4 layout's padding to 256.
+    d_work = -(-SIFT["d"] // 128) * 128
+    stored = STORED_BYTES[storage] * n_pad * d_work + 4.0 * n_pad * (
+        2 if scale is not None else 1)
+
+    def bounds(rows, out_bytes):
+        return bound_ms(2.0 * rows * n_pad * d_work,
+                        4.0 * rows * d_work + stored + out_bytes)
+    fb = bounds(m, 8.0 * splits * m * ks)
+    pb = bounds(m, 8.0 * m * (n_pad // bs))
+    fb16 = bounds(16, 8.0 * c16[0].shape[0] * 16 * ks)
+    label = f"sift1m {storage}"
+    r = results[label]
+    fused, _, packed = names_of(storage)
+    err = results["max_abs_err"]
+
+    def counts(name):
+        return dict(launches=results["launches"].get(name, 0),
+                    plain_calls=results["plain_calls"].get(name, 0),
+                    index_agreement=results["index_agreement"][name])
+    kernels = [
+        dict(name=fused, route="cuda", source=SRC,
+             replaces=REPLACES[("partial_reduce_fused", storage)],
+             **counts(fused), max_abs_err=err[fused], ms=t["fused"],
+             plain_ms=t["fused_plain"], bound_ms=fb[0], bound_by=fb[1],
+             library_ms=None, merge_ms=t["merge"], ms_m16=t["fused_m16"],
+             merge_ms_m16=t["merge_m16"], bound_ms_m16=fb16[0],
+             bound_by_m16=fb16[1], rescore_ms=t["rescore"],
+             search_ms=t["search"], qps=m / t["search"] * 1e3,
+             recall=r["recall"], search_ms_m16=t["search_m16"]),
+        dict(name=packed, route="cuda", source=SRC,
+             replaces=REPLACES[("partial_reduce_packed", storage)],
+             **counts(packed), max_abs_err=err[packed], ms=t["packed"],
+             plain_ms=t["packed_plain"], bound_ms=pb[0], bound_by=pb[1],
+             library_ms=None),
+    ]
+    log(f"timing {storage} at M={m}, n_pad={n_pad}, d_pad={d_pad} (bound over "
+        f"{d_work} lanes), bin={bs}, "
+        f"k_scan={ks}, splits={splits} (CUDA events, median):")
+    for key, ms in t.items():
+        log(f"  {key:13s} {ms:10.3f} ms")
+    log(f"  fused scan {100 * fb[0] / t['fused']:.1f}% of its {fb[1]} bound "
+        f"({fb[0]:.3f} ms); rescore {100 * t['rescore'] / t['search']:.1f}% of "
+        f"search; search QPS {m / t['search'] * 1e3:.0f} at recall "
+        f"{r['recall']:.4f}; M=16 scan {t['fused_m16']:.3f} ms "
+        f"({100 * fb16[0] / t['fused_m16']:.1f}% of its {fb16[1]} bound "
+        f"{fb16[0]:.4f} ms)")
     return kernels
 
 
@@ -373,36 +619,56 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build.load_library()
     log(f"build: {time.perf_counter() - t0:.1f} s ({build.build_info()['command']})")
-    for line in build.build_info()["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for row in build.ptxas_table(build.build_info()["ptxas"]):
+        log(f"  ptxas: {kernel_label(row['kernel'])}: {row['registers']} registers, "
+            f"spill stores {row['spill_stores']} B, loads {row['spill_loads']} B")
 
-    names = ("partial_reduce_fused", "fused_carry_merge", "partial_reduce_packed")
+    names = sorted({n for form in FORMS for n in names_of(form)})
     acc = {"errs": dict.fromkeys(names, 0.0), "agree": dict.fromkeys(names, 0),
            "total": dict.fromkeys(names, 0)}
     phase_kernels(prk, testing, args.seed, acc)
 
-    results = {}
+    results = {"launches": {}, "plain_calls": {}}
+    data = {cfg["name"]: make_data(cfg, args.seed + i)
+            for i, cfg in enumerate((SIFT, GLOVE))}
+    # Each path: the counts set to 0 just before it, read just after.
     prk.reset_counts()
     DISPATCH_COUNTS.clear()
-    data = {SIFT["name"]: drive(SIFT, args.seed, SIFT["m"], results),
-            GLOVE["name"]: drive(GLOVE, args.seed + 1, 2_000, results)}
-    results["launches"] = dict(prk.LAUNCHES)
-    results["plain_calls"] = dict(prk.PLAIN_CALLS)
-    log(f"main path: launches {dict(prk.LAUNCHES)}, plain calls "
-        f"{dict(prk.PLAIN_CALLS)}, searches {dict(DISPATCH_COUNTS)}")
-    for name in names:
-        if prk.LAUNCHES[name] <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    if sum(prk.PLAIN_CALLS.values()):
-        fail(f"plain versions ran on the main path: {dict(prk.PLAIN_CALLS)}")
+    f32 = {"sift1m": drive(SIFT, data["sift1m"], SIFT["m"], results),
+           "glove1.2m": drive(GLOVE, data["glove1.2m"], 2_000, results)}
+    read_counts(prk, "f32", ("f32",), results)
+    tiers = {}
+    for storage in TIERS:
+        prk.reset_counts()
+        tiers[storage] = drive(SIFT, data["sift1m"], SIFT["m"], results, storage)
+        if storage == "int4":
+            tiers["glove int4"] = drive(GLOVE, data["glove1.2m"], 2_000, results,
+                                        storage)
+        read_counts(prk, storage, (storage,), results)
+    log(f"searches {dict(DISPATCH_COUNTS)}")
 
-    phase_main_shapes(prk, testing, data, acc)
+    from repro_torch.search import Index
+
+    sift_q, glove_q = data["sift1m"][1], data["glove1.2m"][1]
+    shapes = []
+    for cfg, q in ((SIFT, sift_q), (GLOVE, glove_q)):
+        fresh = Index.build(data[cfg["name"]][0], metric=cfg["metric"], k=K,
+                            recall_target=TARGET, cluster="off")
+        shapes += [(f"{cfg['name']} before updates", cfg, fresh, q),
+                   (f"{cfg['name']} after updates", cfg, f32[cfg["name"]], q)]
+    shapes += [(f"sift1m {s} after updates", SIFT, tiers[s], sift_q) for s in TIERS]
+    shapes.append(("glove1.2m int4 after updates", GLOVE, tiers["glove int4"],
+                   glove_q[:2_000]))
+    phase_main_shapes(prk, testing, shapes, acc)
+    del f32, tiers, shapes
     results["max_abs_err"] = acc["errs"]
-    results["index_agreement"] = {k: acc["agree"][k] / acc["total"][k] for k in names}
-    db, q, _ = data[SIFT["name"]]
+    results["index_agreement"] = {k: acc["agree"][k] / max(acc["total"][k], 1)
+                                  for k in names}
+    db, q = data["sift1m"][:2]
     del data
-    kernels = time_sift(prk, db, q, results)
+    kernels, per_search = time_sift(prk, db, q, results)
+    for storage in TIERS:
+        kernels += time_tier(prk, db, q, storage, results)
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,28 +1,42 @@
 """Front ends of the fused score + PartialReduce kernels.
 
 Port of ``src/repro/kernels/partial_reduce.py``.  Operand contract (the
-reference's): a packed ``(n_pad, d_pad)`` f32 database, a ``(1, n_pad)``
-f32 bias row (metric bias, tombstones and tail mask fused) and ``(m, d)``
-f32 queries with ``d <= d_pad``; only the query block is padded here.
-The port's layout (``repro_torch.search.packed``) makes ``n_pad`` a
-multiple of ``max(bin_size, BLOCK_N)`` and ``d_pad`` a multiple of 128.
+reference's): a packed ``(n_pad, d_pad)`` database, a ``(1, n_pad)`` f32
+bias row (metric bias, tombstones and tail mask fused), an optional
+``(1, n_pad)`` f32 per-row ``scale`` and ``(m, d)`` f32 queries with
+``d <= d_pad``; only the query block is padded here.  The database is
+stored in one of four forms (``FORMS``):
 
-  * :func:`partial_reduce_packed` (two-pass, B2): every bin winner,
+  * f32 or bf16 rows, unscaled;
+  * int8 codes, with ``scale``;
+  * int4 codes two per byte (``int4_packed=True``: an ``(n_pad, d_pad/2)``
+    int8 array, column 2j in byte j's low nibble, 2j+1 in its high
+    nibble), with ``scale``.
+
+Every form scores ``(q @ x̂ᵀ) * scale + bias`` over the rows widened to
+f32 (x̂), the product and the sum rounded apart, as the reference's
+``_tile_winners``.  The port's layout (``repro_torch.search.packed``)
+makes ``n_pad`` a multiple of ``max(bin_size, BLOCK_N)`` and ``d_pad`` a
+multiple of 128 (256 for int4).
+
+  * :func:`partial_reduce_packed` (two-pass, B2/B3a): every bin winner,
     ``(m, n_pad // bin_size)`` values and raw int32 global indices.
-  * :func:`partial_reduce_fused` (fused, B1): the top-``k_scan`` bin
+  * :func:`partial_reduce_fused` (fused, B1/B3b): the top-``k_scan`` bin
     winners per query, values descending (earlier rows first among
-    ties), masked winners as ``(MASK_VALUE, -1)``.
+    ties), masked winners as ``(MASK_VALUE, -1)``; any ``k_scan``.
 
 Each front end runs its kernel's plain PyTorch version for a tensor on
 the CPU, and launches the CUDA kernel (``csrc/partial_reduce.cu``) for a
 tensor on a CUDA device; any other device raises.  ``LAUNCHES`` counts
 kernel launches and ``PLAIN_CALLS`` calls of the plain versions, by
-name, so a run can show which path it took.
+name, each stored form under its own name (``partial_reduce_fused`` for
+f32 rows, ``partial_reduce_fused[int8]`` for int8 ones), so a run can
+show which path it took.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,35 +44,46 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import partial_reduce_ref
+from repro_torch.search.quant import unpack_int4_rows
 from repro_torch.search.telemetry import AtomicCounter
 
 __all__ = [
     "BLOCK_M",
     "BLOCK_N",
+    "FORMS",
     "LAUNCHES",
-    "MAX_K_SCAN",
     "PLAIN_CALLS",
+    "SMEM_K_SCAN",
     "fused_carry_merge",
     "fused_carry_merge_plain",
     "fused_scan",
+    "kernel_name",
     "partial_reduce_fused",
     "partial_reduce_fused_plain",
     "partial_reduce_packed",
     "partial_reduce_packed_plain",
     "reset_counts",
     "split_plan",
+    "storage_form",
 ]
 
 # Tiles and limits compiled into csrc/partial_reduce.cu (its BM, BN,
-# MAX_K_SCAN, MAX_SPLITS); the C entry points reject arguments that
-# disagree with them.
+# SMEM_K_SCAN, MAX_SPLITS); the C entry points reject arguments that
+# disagree with them.  A fused carry of more than SMEM_K_SCAN entries
+# lives in device memory instead of shared memory.
 BLOCK_M = 64
 BLOCK_N = 128
-MAX_K_SCAN = 128
+SMEM_K_SCAN = 128
 MAX_SPLITS = 64
 # Blocks the split plan aims for on each SM: enough waves that the last
 # one's tail stays short.
 _BLOCKS_PER_SM = 8
+
+# Stored forms of the database, in the order of the C interface's `form`.
+FORMS = ("f32", "bf16", "int8", "int4")
+_FORM_OF_DTYPE = {torch.float32: "f32", torch.bfloat16: "bf16",
+                  torch.int8: "int8"}
+_SCALED_FORMS = ("int8", "int4")
 
 _MASK = float(np.finfo(np.float32).min)  # stages.MASK_VALUE
 
@@ -72,21 +97,66 @@ def reset_counts() -> None:
     PLAIN_CALLS.clear()
 
 
+def storage_form(database: torch.Tensor, scale: Optional[torch.Tensor],
+                 int4_packed: bool = False) -> str:
+    """The stored form (one of ``FORMS``) of a database operand; raises
+    where the dtype, ``int4_packed`` and ``scale`` disagree."""
+    form = _FORM_OF_DTYPE.get(database.dtype)
+    if form is None:
+        raise ValueError(
+            f"database must be float32, bfloat16 or int8, got {database.dtype}"
+        )
+    if int4_packed:
+        if form != "int8":
+            raise ValueError(
+                f"int4_packed needs int8 nibble pairs, got {database.dtype}"
+            )
+        form = "int4"
+    if (scale is not None) != (form in _SCALED_FORMS):
+        raise ValueError(
+            f"a per-row scale goes with int8 and int4 rows and only with "
+            f"them: got {form} rows and "
+            f"{'a scale' if scale is not None else 'no scale'}"
+        )
+    return form
+
+
+def kernel_name(base: str, form: str) -> str:
+    """Counter name of a kernel for one stored form.
+
+    >>> kernel_name("partial_reduce_fused", "f32")
+    'partial_reduce_fused'
+    >>> kernel_name("partial_reduce_fused", "int4")
+    'partial_reduce_fused[int4]'
+    """
+    return base if form == "f32" else f"{base}[{form}]"
+
+
 # --- plain PyTorch versions (the CPU path and the kernels' oracle) -----------
 
 
+def _widen(database: torch.Tensor, int4_packed: bool) -> torch.Tensor:
+    """The stored rows as f32 (int4 nibble pairs unpacked first)."""
+    rows = unpack_int4_rows(database) if int4_packed else database
+    return rows.to(torch.float32)
+
+
 def partial_reduce_packed_plain(
-    q: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, *,
-    bin_size: int,
+    q: torch.Tensor, database: torch.Tensor, bias: torch.Tensor,
+    scale: Optional[torch.Tensor] = None, *, bin_size: int,
+    int4_packed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the two-pass kernel over ``d_pad``-wide queries."""
-    PLAIN_CALLS.inc("partial_reduce_packed")
-    return partial_reduce_ref(q, database, bias, bin_size=bin_size)
+    form = storage_form(database, scale, int4_packed)
+    PLAIN_CALLS.inc(kernel_name("partial_reduce_packed", form))
+    return partial_reduce_ref(q, _widen(database, int4_packed), bias, scale,
+                              bin_size=bin_size)
 
 
 def partial_reduce_fused_plain(
-    q: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, *,
-    k_scan: int, bin_size: int,
+    q: torch.Tensor, database: torch.Tensor, bias: torch.Tensor,
+    scale: Optional[torch.Tensor] = None, *, k_scan: int, bin_size: int,
+    int4_packed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the fused kernel: all bin winners, masked ones
     paired with -1, then a stable descending sort.
@@ -95,8 +165,10 @@ def partial_reduce_fused_plain(
     precede the winners; appending them instead is the same result,
     because a winner that ties them at MASK is itself (MASK, -1).
     """
-    PLAIN_CALLS.inc("partial_reduce_fused")
-    vals, idxs = partial_reduce_ref(q, database, bias, bin_size=bin_size)
+    form = storage_form(database, scale, int4_packed)
+    PLAIN_CALLS.inc(kernel_name("partial_reduce_fused", form))
+    vals, idxs = partial_reduce_ref(q, _widen(database, int4_packed), bias,
+                                    scale, bin_size=bin_size)
     idxs = torch.where(vals > _MASK * 0.5, idxs, torch.full_like(idxs, -1))
     m = q.shape[0]
     vals = torch.cat([vals, vals.new_full((m, k_scan), _MASK)], dim=1)
@@ -108,19 +180,24 @@ def partial_reduce_fused_plain(
 # --- front ends ---------------------------------------------------------------
 
 
-def _front(queries, database, bias, bin_size) -> torch.Tensor:
-    """Check the operand contract; return the queries padded to d_pad."""
+def _front(queries, database, bias, scale, bin_size, int4_packed):
+    """Check the operand contract; return the queries padded to d_pad and
+    the stored form."""
     if queries.ndim != 2 or database.ndim != 2:
         raise ValueError(
             f"queries and database must be 2-D, got {tuple(queries.shape)} "
             f"and {tuple(database.shape)}"
         )
-    n_pad, d_pad = database.shape
+    form = storage_form(database, scale, int4_packed)
+    n_pad = database.shape[0]
+    d_pad = database.shape[1] * (2 if int4_packed else 1)
     if queries.shape[1] > d_pad:
         raise ValueError(f"query dim {queries.shape[1]} exceeds packed dim {d_pad}")
-    if tuple(bias.shape) != (1, n_pad):
-        raise ValueError(f"bias must be (1, {n_pad}), got {tuple(bias.shape)}")
-    for name, t in (("queries", queries), ("database", database), ("bias", bias)):
+    rowwise = (("bias", bias),) + ((("scale", scale),) if scale is not None else ())
+    for name, t in rowwise:
+        if tuple(t.shape) != (1, n_pad):
+            raise ValueError(f"{name} must be (1, {n_pad}), got {tuple(t.shape)}")
+    for name, t in (("queries", queries),) + rowwise:
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
         if t.device != database.device:
@@ -131,17 +208,20 @@ def _front(queries, database, bias, bin_size) -> torch.Tensor:
         raise ValueError(
             f"bin_size={bin_size} must be a power of two dividing n_pad={n_pad}"
         )
-    return F.pad(queries, (0, d_pad - queries.shape[1]))
+    return F.pad(queries, (0, d_pad - queries.shape[1])), form
 
 
-def _cuda_operands(q, database, bias, bin_size):
-    """Contiguity, alignment and tiling checks of the CUDA kernels."""
+def _cuda_operands(q, database, bias, scale, bin_size):
+    """Contiguity, alignment and tiling checks of the CUDA kernels; ``q``
+    is already ``d_pad`` wide."""
     if q.device.type != "cuda":
         raise ValueError(
             f"partial_reduce kernels run on CPU or CUDA tensors, got {q.device}"
         )
     q, database, bias = (t.contiguous() for t in (q, database, bias))
-    n_pad, d_pad = database.shape
+    if scale is not None:
+        scale = scale.contiguous()
+    n_pad, d_pad = database.shape[0], q.shape[1]
     if d_pad % 16 or n_pad % max(bin_size, BLOCK_N):
         raise ValueError(
             f"CUDA tiling contract: d_pad={d_pad} must be a multiple of 16 "
@@ -152,7 +232,7 @@ def _cuda_operands(q, database, bias, bin_size):
     for t in (q, database):
         if t.data_ptr() % 16:
             raise ValueError("operands must be 16-byte aligned")
-    return q, database, bias
+    return q, database, bias, scale
 
 
 def split_plan(m: int, n_pad: int, bin_size: int, num_sms: int) -> Tuple[int, int]:
@@ -179,20 +259,28 @@ def _launch_setup(q):
     return lib, sms, torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def partial_reduce_packed(
     queries: torch.Tensor,
     database: torch.Tensor,
     bias: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
     *,
     bin_size: int,
+    int4_packed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-pass bin winners: (m, n_pad // bin_size) values + int32 indices
     (raw: masked bins keep their own first index; the caller applies
     ``stages.sentinelize_masked``)."""
-    q = _front(queries, database, bias, bin_size)
+    q, form = _front(queries, database, bias, scale, bin_size, int4_packed)
     if q.device.type == "cpu":
-        return partial_reduce_packed_plain(q, database, bias, bin_size=bin_size)
-    q, database, bias = _cuda_operands(q, database, bias, bin_size)
+        return partial_reduce_packed_plain(q, database, bias, scale,
+                                           bin_size=bin_size,
+                                           int4_packed=int4_packed)
+    q, database, bias, scale = _cuda_operands(q, database, bias, scale, bin_size)
     m, d = q.shape
     n_pad = database.shape[0]
     out_v = torch.empty((m, n_pad // bin_size), dtype=torch.float32, device=q.device)
@@ -203,12 +291,13 @@ def partial_reduce_packed(
         lib, sms, stream = _launch_setup(q)
         tps, splits = split_plan(m, n_pad, bin_size, sms)
         code = lib.pr_two_pass(
-            q.data_ptr(), database.data_ptr(), bias.data_ptr(), m, d, n_pad,
-            int(math.log2(bin_size)), tps, splits,
-            out_v.data_ptr(), out_i.data_ptr(), stream,
+            FORMS.index(form), q.data_ptr(), database.data_ptr(), _ptr(scale),
+            bias.data_ptr(), m, d, n_pad, int(math.log2(bin_size)), tps,
+            splits, out_v.data_ptr(), out_i.data_ptr(), stream,
         )
-        build.check(lib, code, "partial_reduce_packed kernel")
-        LAUNCHES.inc("partial_reduce_packed")
+        name = kernel_name("partial_reduce_packed", form)
+        build.check(lib, code, f"{name} kernel")
+        LAUNCHES.inc(name)
     return out_v, out_i
 
 
@@ -216,44 +305,45 @@ def partial_reduce_fused(
     queries: torch.Tensor,
     database: torch.Tensor,
     bias: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
     *,
     k_scan: int,
     bin_size: int,
+    int4_packed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-pass scan→select: (m, k_scan) values sorted descending and
     int32 indices; masked entries are (MASK_VALUE, -1).
 
     On CUDA this is two launches, :func:`fused_scan` then
-    :func:`fused_carry_merge`, and ``k_scan`` is at most ``MAX_K_SCAN``
-    (the carry lives in shared memory); larger values raise
-    ``ValueError``.
+    :func:`fused_carry_merge`.
     """
     if k_scan <= 0:
         raise ValueError(f"k_scan must be positive, got {k_scan}")
-    q = _front(queries, database, bias, bin_size)
+    q, _ = _front(queries, database, bias, scale, bin_size, int4_packed)
     if q.device.type == "cpu":
         return partial_reduce_fused_plain(
-            q, database, bias, k_scan=k_scan, bin_size=bin_size
+            q, database, bias, scale, k_scan=k_scan, bin_size=bin_size,
+            int4_packed=int4_packed,
         )
-    return fused_carry_merge(
-        *fused_scan(q, database, bias, k_scan=k_scan, bin_size=bin_size)
-    )
+    return fused_carry_merge(*fused_scan(
+        q, database, bias, scale, k_scan=k_scan, bin_size=bin_size,
+        int4_packed=int4_packed,
+    ))
 
 
 def fused_scan(
-    q: torch.Tensor, database: torch.Tensor, bias: torch.Tensor, *,
-    k_scan: int, bin_size: int,
+    q: torch.Tensor, database: torch.Tensor, bias: torch.Tensor,
+    scale: Optional[torch.Tensor] = None, *, k_scan: int, bin_size: int,
+    int4_packed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B1's scan kernel on CUDA operands (queries already ``d_pad`` wide):
-    each split of the row range keeps its own top-``k_scan`` carry.
-    Returns the carries, (splits, m, k_scan) values and int32 indices."""
-    if not 0 < k_scan <= MAX_K_SCAN:
-        raise ValueError(
-            f"k_scan={k_scan} outside the CUDA fused kernel's limit of "
-            f"1..{MAX_K_SCAN} (its carry lives in shared memory); use "
-            "fused_select=False"
-        )
-    q, database, bias = _cuda_operands(q, database, bias, bin_size)
+    """The fused form's scan kernel on CUDA operands (queries already
+    ``d_pad`` wide): each split of the row range keeps its own
+    top-``k_scan`` carry.  Returns the carries, (splits, m, k_scan) values
+    and int32 indices."""
+    if k_scan <= 0:
+        raise ValueError(f"k_scan must be positive, got {k_scan}")
+    form = storage_form(database, scale, int4_packed)
+    q, database, bias, scale = _cuda_operands(q, database, bias, scale, bin_size)
     m, d = q.shape
     n_pad = database.shape[0]
     with torch.cuda.device(q.device):
@@ -264,12 +354,13 @@ def fused_scan(
         if m == 0:
             return part_v, part_i
         code = lib.pr_fused_scan(
-            q.data_ptr(), database.data_ptr(), bias.data_ptr(), m, d, n_pad,
-            int(math.log2(bin_size)), k_scan, tps, splits,
-            part_v.data_ptr(), part_i.data_ptr(), stream,
+            FORMS.index(form), q.data_ptr(), database.data_ptr(), _ptr(scale),
+            bias.data_ptr(), m, d, n_pad, int(math.log2(bin_size)), k_scan,
+            tps, splits, part_v.data_ptr(), part_i.data_ptr(), stream,
         )
-        build.check(lib, code, "partial_reduce_fused kernel")
-        LAUNCHES.inc("partial_reduce_fused")
+        name = kernel_name("partial_reduce_fused", form)
+        build.check(lib, code, f"{name} kernel")
+        LAUNCHES.inc(name)
     return part_v, part_i
 
 
@@ -289,8 +380,9 @@ def fused_carry_merge_plain(
 def fused_carry_merge(
     part_v: torch.Tensor, part_i: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B1's second kernel: merge (splits, m, k_scan) sorted carries into
-    the (m, k_scan) result; among equal values the lower split wins."""
+    """The fused form's second kernel: merge (splits, m, k_scan) sorted
+    carries into the (m, k_scan) result; among equal values the lower
+    split wins.  One kernel for every stored form."""
     if part_v.ndim != 3 or part_v.shape != part_i.shape:
         raise ValueError(
             f"carries must be two (splits, m, k_scan) tensors, got "
@@ -303,10 +395,10 @@ def fused_carry_merge(
     if part_v.device.type != "cuda" or part_i.device != part_v.device:
         raise ValueError(f"carries on {part_v.device} and {part_i.device}")
     splits, m, k_scan = part_v.shape
-    if not 0 < splits <= MAX_SPLITS or not 0 < k_scan <= MAX_K_SCAN:
+    if not 0 < splits <= MAX_SPLITS or k_scan <= 0:
         raise ValueError(
-            f"{splits} splits of k_scan={k_scan} exceed the merge kernel's "
-            f"limits ({MAX_SPLITS}, {MAX_K_SCAN})"
+            f"{splits} splits of k_scan={k_scan}: the merge kernel takes "
+            f"1..{MAX_SPLITS} splits and k_scan >= 1"
         )
     part_v, part_i = part_v.contiguous(), part_i.contiguous()
     out_v = torch.empty((m, k_scan), dtype=torch.float32, device=part_v.device)

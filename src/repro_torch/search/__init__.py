@@ -10,8 +10,10 @@
 from repro_torch.search.backends import (
     DISPATCH_COUNTS,
     cuda_search_packed,
+    cuda_search_packed_quant,
     default_backend,
     dense_search,
+    dense_search_quant,
 )
 from repro_torch.search.index import Index, SearchResult
 from repro_torch.search.metrics import (
@@ -34,12 +36,27 @@ from repro_torch.search.packed import (
     scan_k_for,
     state_from_arrays,
 )
+from repro_torch.search.quant import (
+    STORAGE_TIERS,
+    QuantizedRows,
+    check_metric_storage,
+    dequantize_rows,
+    is_quantized,
+    pack_int4_rows,
+    quantize_rows,
+    scan_k,
+    storage_bytes,
+    storage_dtype,
+    unpack_int4_rows,
+    validate_restored,
+)
 from repro_torch.search.spec import BACKENDS, SearchSpec
 from repro_torch.search.stages import (
     MASK_VALUE,
     finalize_values,
     merge_topk,
     pad_queries_to,
+    rescore_candidates,
     scan_candidates,
     score_rows,
     sentinelize_masked,
@@ -53,12 +70,18 @@ __all__ = [
     "Metric",
     "PACK_EVENTS",
     "PackedState",
+    "QuantizedRows",
+    "STORAGE_TIERS",
     "SearchResult",
     "SearchSpec",
     "available_metrics",
+    "check_metric_storage",
     "cuda_search_packed",
+    "cuda_search_packed_quant",
     "default_backend",
     "dense_search",
+    "dense_search_quant",
+    "dequantize_rows",
     "exact_cosine_nns",
     "exact_l2nns",
     "exact_mips",
@@ -67,14 +90,23 @@ __all__ = [
     "fuse_bias",
     "get_metric",
     "half_norms",
+    "is_quantized",
     "l2_normalize",
     "merge_topk",
+    "pack_int4_rows",
     "pack_state",
     "pad_queries_to",
+    "quantize_rows",
     "register_metric",
+    "rescore_candidates",
     "scan_candidates",
+    "scan_k",
     "scan_k_for",
     "score_rows",
     "sentinelize_masked",
     "state_from_arrays",
+    "storage_bytes",
+    "storage_dtype",
+    "unpack_int4_rows",
+    "validate_restored",
 ]

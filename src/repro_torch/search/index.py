@@ -1,11 +1,19 @@
 """Index: the index-free front door of the search API.
 
-Port of ``src/repro/search/index.py`` (f32 tier, one device, no cluster
-pruning).  ``Index.build`` does the only precompute the algorithm needs —
-metric preparation and packing into the backend's layout
+Port of ``src/repro/search/index.py`` (every storage tier, one device,
+no cluster pruning).  ``Index.build`` does the only precompute the
+algorithm needs — metric preparation, quantization for a ``storage``
+tier other than f32, and packing into the backend's layout
 (``repro_torch.search.packed``) — and ``add``/``delete`` patch that state
 in place: only appended rows are prepared, deletes rewrite bias entries,
 and capacity grows in ``capacity_block`` steps with a bin re-plan.
+
+A quantized tier searches in two passes: the scan keeps ``k_scan``
+over-fetched candidates (``packed.scan_k_for``), an exact rescore picks
+the top-k.  ``k_scan`` is capped by the live row count, as the
+reference caps it when it builds a search program; the port binds it
+when the packed state changes (build, growth), so a search never waits
+on the device to count live rows.
 
 ``device=`` is the torch device the index lives on (the reference's
 ``device=`` names a hardware profile; the profile comes with the planner
@@ -29,7 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.binning import BinPlan, plan_bins, round_up
 from repro_torch.kernels import partial_reduce as kernels
-from repro_torch.search import backends, packed as packedlib
+from repro_torch.search import backends, packed as packedlib, quant
 from repro_torch.search.metrics import Metric, get_metric
 from repro_torch.search.spec import SearchSpec
 
@@ -91,6 +99,7 @@ class Index:
         self._num_live = num_live  # live rows; int, or a lazy device scalar
         self._capacity_block = capacity_block
         self._packed: Optional[packedlib.PackedState] = None
+        self._k_scan: Optional[int] = None  # bound with the packed state
 
     # -- construction --------------------------------------------------------
 
@@ -128,7 +137,8 @@ class Index:
                 metric=metric, k=k, recall_target=recall_target,
                 backend=backend, **spec_kwargs,
             )
-        get_metric(spec.metric)  # fail early on an unknown metric
+        # fail early on an unknown metric or a metric x storage mismatch
+        quant.check_metric_storage(get_metric(spec.metric), spec.storage)
         if plan != "model":
             raise NotImplementedError(
                 f"plan={plan!r}: only the model plan is ported (measured "
@@ -234,7 +244,22 @@ class Index:
                 self._db, self._live, self.metric, self.spec,
                 self._resolve_backend(),
             )
+            self._bind_k_scan()
         return self._packed
+
+    def _bind_k_scan(self) -> None:
+        """Fix the scan's k for the current packed state: the over-fetch
+        of a quantized tier, capped by the live rows (reading ``size``
+        syncs with the device, so this runs at build and growth only)."""
+        live = self.size if self.spec.rescore_enabled else None
+        self._k_scan = packedlib.scan_k_for(self.spec, self._packed.n, live=live)
+
+    @property
+    def k_scan(self) -> int:
+        """Candidates the scan keeps per query before the exact rescore
+        (``spec.k`` on the f32 tier)."""
+        self.pack()
+        return self._k_scan
 
     # -- search --------------------------------------------------------------
 
@@ -267,21 +292,20 @@ class Index:
         pk = self.pack()
         spec = self.spec
         backends.DISPATCH_COUNTS.inc(backend)
+        operands = (q, pk.db, pk.bias, pk.scale, pk.rescore_db, pk.rescore_bias)
+        common = dict(metric=spec.metric, k=spec.k, k_scan=self._k_scan,
+                      aggregate_to_topk=spec.aggregate_to_topk,
+                      use_bitonic=spec.use_bitonic)
         if backend == "torch":
-            return backends.dense_search(
-                q, pk.db, pk.bias,
-                metric=spec.metric, k=spec.k,
-                recall_target=spec.recall_target,
+            return backends.dense_search_quant(
+                *operands, recall_target=spec.recall_target,
                 reduction_input_size_override=spec.reduction_input_size_override,
-                aggregate_to_topk=spec.aggregate_to_topk,
-                use_bitonic=spec.use_bitonic,
+                **common,
             )
-        return backends.cuda_search_packed(
-            q, pk.db, pk.bias,
-            metric=spec.metric, k=spec.k, n=pk.n, bin_size=pk.bin_size,
-            aggregate_to_topk=spec.aggregate_to_topk,
-            use_bitonic=spec.use_bitonic,
+        return backends.cuda_search_packed_quant(
+            *operands, n=pk.n, bin_size=pk.bin_size,
             fused_select=spec.fused_select_enabled,
+            int4_packed=pk.int4_packed, **common,
         )
 
     def _search_stream(self, queries: torch.Tensor) -> SearchResult:
@@ -299,9 +323,10 @@ class Index:
     def add(self, rows) -> "Index":
         """Append rows; grows capacity in ``capacity_block`` steps.
 
-        Only the appended slice is metric-prepared; growth re-lays-out the
-        packed operands (one device copy, bins re-planned for the new
-        capacity) without re-preparing existing rows.
+        Only the appended slice is metric-prepared (and quantized);
+        growth re-lays-out the packed operands (one device copy, bins
+        re-planned for the new capacity) without re-preparing existing
+        rows, and re-binds the scan's k.
         """
         rows = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
         rows = torch.atleast_2d(rows)
@@ -312,6 +337,7 @@ class Index:
         r = rows.shape[0]
         required = self._size + r
         had_packed = self._packed is not None
+        grew = False
         if not self.metric.rowwise:
             # Coupled preparation: the incremental patches are undefined.
             self._packed = None
@@ -329,6 +355,7 @@ class Index:
                 self._packed = self._packed.relayout(
                     self._packed.backend, new_cap, self.spec
                 )
+                grew = True
         self._db[self._size : required] = rows
         self._live[self._size : required] = True
         if self._packed is not None:
@@ -337,6 +364,8 @@ class Index:
         self._num_live = self._num_live + r
         if had_packed and self._packed is None:
             self.pack()
+        elif grew:
+            self._bind_k_scan()
         return self
 
     def delete(self, ids) -> "Index":

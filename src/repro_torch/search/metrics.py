@@ -23,6 +23,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.rescoring import stable_topk
+from repro_torch.search import quant
 
 __all__ = [
     "Metric",
@@ -63,6 +64,8 @@ class Metric:
         baseline under the same value contract.
       rowwise: ``prepare_database`` is a per-row map, so ``Index.add``
         may prepare only the appended slice.
+      storage_tiers: the ``quant`` storage tiers this metric's prepared
+        rows survive (all built-ins support every tier).
     """
 
     name: str
@@ -71,16 +74,52 @@ class Metric:
     prepare_queries: Callable[[Tensor], Tensor]
     exact: Callable[[Tensor, Tensor, int], Tuple[Tensor, Tensor]]
     rowwise: bool = True
+    storage_tiers: Tuple[str, ...] = quant.STORAGE_TIERS
 
-    def prepare_update(self, rows: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
-        """Incremental preparation of an appended row slice (row-wise
-        metrics only; others need a full repack)."""
+    def _check_rowwise(self) -> None:
         if not self.rowwise:
             raise ValueError(
                 f"metric {self.name!r} is not row-wise; incremental "
                 "preparation is undefined — repack the full database"
             )
+
+    def prepare_update(self, rows: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+        """Incremental preparation of an appended row slice (row-wise
+        metrics only; others need a full repack)."""
+        self._check_rowwise()
         return self.prepare_database(rows)
+
+    # -- quantize-aware packing (the quant storage tiers) --------------------
+
+    def storage_bias(self, stored: Tensor, scale: Optional[Tensor],
+                     storage: str) -> Optional[Tensor]:
+        """Metric bias of the values a quantized tier stores: the scan
+        ranks by ``<q, x_hat> + bias`` with ``x_hat`` the dequantized row,
+        so the bias comes from ``prepare_database`` on ``x_hat``."""
+        quant.check_metric_storage(self, storage)
+        _, bias = self.prepare_database(quant.dequantize_rows(stored, scale))
+        return bias
+
+    def prepare_storage(self, rows: Tensor, storage: str) -> quant.QuantizedRows:
+        """Metric-prepare and tier-quantize ``rows``: the stored rows,
+        their scale, the bias of the stored values, and the full-precision
+        rescore tail.  For ``"f32"`` the stored and exact views alias."""
+        quant.check_metric_storage(self, storage)
+        prepped, bias = self.prepare_database(rows)
+        if not quant.is_quantized(storage):
+            return quant.QuantizedRows(prepped, None, bias, prepped, bias)
+        stored, scale = quant.quantize_rows(prepped, storage)
+        return quant.QuantizedRows(
+            stored, scale, self.storage_bias(stored, scale, storage),
+            prepped, bias,
+        )
+
+    def prepare_update_storage(self, rows: Tensor,
+                               storage: str) -> quant.QuantizedRows:
+        """Incremental :meth:`prepare_storage` of an appended row slice;
+        quantization is per row, so slice and full packs agree exactly."""
+        self._check_rowwise()
+        return self.prepare_storage(rows, storage)
 
 
 _REGISTRY: Dict[str, Metric] = {}

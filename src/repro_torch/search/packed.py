@@ -1,21 +1,28 @@
-"""PackedState: device-resident, backend-layout search operands (f32 tier).
+"""PackedState: device-resident, backend-layout search operands.
 
 Port of ``src/repro/search/packed.py``.  At build and mutation time
 (never at search time) it holds
 
-  * the metric-prepared database in the backend's layout — for
+  * the metric-prepared database in its storage tier
+    (``repro_torch.search.quant``) and the backend's layout — for
     ``"cuda"`` padded to the kernels' tiling contract: D to a multiple of
-    128, N to a multiple of ``block_n = max(bin_size, BLOCK_N)``;
-  * the fused bias row — metric bias, tombstones and tail mask in one
-    additive term;
-  * the bin plan the layout was derived from.
+    128 (256 for int4, whose rows are then packed two codes per byte), N
+    to a multiple of ``block_n = max(bin_size, BLOCK_N)``;
+  * the fused bias row — metric bias (of the stored values), tombstones
+    and tail mask in one additive term;
+  * for int8/int4, the per-row scale (0 on the padded tail);
+  * for a quantized tier with rescoring, the rescore tail: the
+    full-precision prepared rows (n, d) and their own fused bias (n,);
+  * the bin plan the layout was derived from (for a quantized tier,
+    planned for the over-fetched ``quant.scan_k``).
 
-Mutations, as in the reference: ``update_rows`` prepares only an appended
-slice, ``delete_rows`` patches only bias entries, ``relayout`` copies into
-a new capacity without re-preparing rows, and ``pack_state`` is the only
-full pack.  Unlike the reference's immutable arrays, ``update_rows`` and
-``delete_rows`` write into the tensors in place.  ``PACK_EVENTS`` counts
-each kind of work by name.
+Mutations, as in the reference: ``update_rows`` prepares (and quantizes)
+only an appended slice, ``delete_rows`` patches only bias entries (the
+rescore bias too), ``relayout`` copies into a new capacity without
+re-preparing rows, and ``pack_state`` is the only full pack.  Unlike the
+reference's immutable arrays, ``update_rows`` and ``delete_rows`` write
+into the tensors in place.  ``PACK_EVENTS`` counts each kind of work by
+name.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.binning import BinPlan, plan_bins, round_up
 from repro_torch.kernels import partial_reduce as kernels
+from repro_torch.search import quant
 from repro_torch.search.backends import default_backend
 from repro_torch.search.metrics import Metric
 from repro_torch.search.spec import SearchSpec
@@ -77,8 +85,9 @@ class PackedState:
 
     Attributes:
       backend: "torch" or "cuda" — decides the layout.
-      db: metric-prepared database; (n, d) for "torch", padded
-        (n_pad, d_pad) for "cuda".
+      db: metric-prepared stored rows; (n, d) for "torch", padded
+        (n_pad, d_pad) for "cuda" — (n_pad, d_pad / 2) int8 nibble pairs
+        for int4 there.
       bias: fused bias row; (n,) for "torch", (1, n_pad) for "cuda" with
         the tail pre-masked to ``MASK_VALUE``.
       n: logical row space (== Index.capacity).
@@ -86,6 +95,14 @@ class PackedState:
       plan: the BinPlan of the layout.
       bin_size / block_n: kernel layout constants (block_n == 0 for
         "torch").
+      storage: the ``quant`` tier ``db`` is stored in.
+      scale: per-row scale of int8/int4 — (n,), or (1, n_pad) for "cuda";
+        None for the other tiers.
+      rescore_db / rescore_bias: the rescore tail, (n, d) f32 rows and
+        (n,) fused bias (exact metric bias + tombstones), in gather layout
+        on every backend; None for f32 or with rescoring off.
+      compute_dtype: the dtype rows are cast to before preparation; an
+        appended slice repeats the same cast-then-prepare order.
     """
 
     backend: str
@@ -96,56 +113,124 @@ class PackedState:
     plan: BinPlan
     bin_size: int
     block_n: int
+    storage: str = "f32"
+    scale: Optional[torch.Tensor] = None
+    rescore_db: Optional[torch.Tensor] = None
+    rescore_bias: Optional[torch.Tensor] = None
+    compute_dtype: str = "float32"
+
+    @property
+    def int4_packed(self) -> bool:
+        """The int4 codes sit two per byte (the "cuda" layout)."""
+        return self.storage == "int4" and self.backend == "cuda"
 
     def rows(self) -> torch.Tensor:
-        """The prepared rows without layout padding: (n, d)."""
+        """The prepared stored rows without layout padding: (n, d), int4
+        as canonical codes (one per byte)."""
+        if self.int4_packed:
+            return quant.unpack_int4_rows(self.db[: self.n])[:, : self.d]
         return self.db[: self.n, : self.d]
+
+    @staticmethod
+    def _flat(row: torch.Tensor) -> torch.Tensor:
+        """A per-row array of either layout, (n,) or (1, n_pad), as 1-D."""
+        return row[0] if row.ndim == 2 else row
 
     def bias_row(self) -> torch.Tensor:
         """The fused bias without layout padding: (n,)."""
-        flat = self.bias[0] if self.bias.ndim == 2 else self.bias
-        return flat[: self.n]
+        return self._flat(self.bias)[: self.n]
 
-    def operands(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The positional operands a search consumes: ``(db, bias)``."""
-        return self.db, self.bias
+    def scale_row(self) -> Optional[torch.Tensor]:
+        """The per-row scale without layout padding: (n,) or None."""
+        return None if self.scale is None else self._flat(self.scale)[: self.n]
+
+    def operands(self) -> Tuple[Optional[torch.Tensor], ...]:
+        """The positional operands a search consumes: ``(db, bias)`` for
+        f32, ``(db, bias, scale, rescore_db, rescore_bias)`` for a
+        quantized tier (entries may be None)."""
+        if self.storage == "f32":
+            return self.db, self.bias
+        return self.db, self.bias, self.scale, self.rescore_db, self.rescore_bias
 
     def update_rows(self, start: int, rows: torch.Tensor, metric: Metric):
-        """Prepare and write an appended row slice in place, O(r·D)."""
-        prepped, metric_bias = metric.prepare_update(rows.to(self.db.dtype))
+        """Prepare (and quantize) an appended row slice and write it in
+        place, O(r·D) — the same cast-prepare-quantize order as the full
+        pack, so both give the same codes."""
+        rows = rows.to(getattr(torch, self.compute_dtype))
+        if self.storage == "f32":
+            prepped, metric_bias = metric.prepare_update(rows)
+        else:
+            qr = metric.prepare_update_storage(rows, self.storage)
+            prepped, metric_bias = qr.rows, qr.bias
         r = prepped.shape[0]
-        self.db[start : start + r] = F.pad(
-            prepped, (0, self.db.shape[1] - prepped.shape[1])
-        )
+        if self.int4_packed:
+            # canonical codes -> pad to the logical d_pad, two per byte
+            prepped = quant.pack_int4_rows(
+                F.pad(prepped, (0, 2 * self.db.shape[1] - prepped.shape[1]))
+            )
+        else:
+            prepped = F.pad(prepped, (0, self.db.shape[1] - prepped.shape[1]))
+        self.db[start : start + r] = prepped
         self.bias_row()[start : start + r] = fuse_bias(
             metric_bias, num_rows=r, device=self.db.device
         )
+        if self.storage != "f32":
+            if self.scale is not None:
+                self.scale_row()[start : start + r] = qr.scale
+            if self.rescore_db is not None:
+                self.rescore_db[start : start + r] = qr.exact_rows
+                self.rescore_bias[start : start + r] = fuse_bias(
+                    qr.exact_bias, num_rows=r, device=self.db.device
+                )
         PACK_EVENTS.inc("rows_updated")
 
     def delete_rows(self, ids: torch.Tensor):
-        """Tombstone rows: set their bias entries to ``MASK_VALUE``."""
+        """Tombstone rows: set their bias entries to ``MASK_VALUE``, in the
+        rescore bias too (the exact pass must not resurrect them)."""
         self.bias_row()[ids] = MASK_VALUE
+        if self.rescore_bias is not None:
+            self.rescore_bias[ids] = MASK_VALUE
         PACK_EVENTS.inc("bias_patched")
 
     def relayout(self, backend: str, new_n: int, spec: SearchSpec) -> "PackedState":
         """Copy into a new capacity and/or backend, reusing prepared rows.
 
-        The grown region is dead (bias ``MASK_VALUE``) until
+        The grown region is dead (bias ``MASK_VALUE``, scale 0) until
         ``update_rows`` writes it; the bin plan is re-derived for
         ``new_n``.
         """
-        rows, bias = self.rows(), self.bias_row()
+        rows, bias, scale = self.rows(), self.bias_row(), self.scale_row()
+        rescore_db, rescore_bias = self.rescore_db, self.rescore_bias
         if new_n > self.n:
             grow = new_n - self.n
             rows = F.pad(rows, (0, 0, 0, grow))
             bias = F.pad(bias, (0, grow), value=MASK_VALUE)
+            if scale is not None:
+                scale = F.pad(scale, (0, grow))
+            if rescore_db is not None:
+                rescore_db = F.pad(rescore_db, (0, 0, 0, grow))
+                rescore_bias = F.pad(rescore_bias, (0, grow), value=MASK_VALUE)
         PACK_EVENTS.inc("relayout")
-        return _layout(backend, rows, bias, new_n, self.d, spec)
+        return _layout(backend, rows, bias, new_n, self.d, spec, scale=scale,
+                       rescore_db=rescore_db, rescore_bias=rescore_bias,
+                       compute_dtype=self.compute_dtype)
 
 
-def scan_k_for(spec: SearchSpec, n: int) -> int:
-    """The k the scan's bin layout is planned for: the user's k on the f32
-    tier (the quantized over-fetch comes with the storage tiers)."""
+def scan_k_for(spec: SearchSpec, n: int, live: Optional[int] = None) -> int:
+    """The k the scan's bin layout is planned for.
+
+    A quantized tier with rescoring over-fetches (``quant.scan_k``) so the
+    exact second pass can restore the Eq. 13–14 guarantee; everything
+    else plans for the user's k.  ``live`` caps the over-fetch at the live
+    row count, floored at ``spec.k`` (the reference binds it when it
+    builds a search program; ``Index`` binds it when its packed state
+    changes).
+    """
+    if spec.rescore_enabled:
+        ks = quant.scan_k(spec.storage, spec.k, n=n)
+        if live is not None:
+            ks = max(spec.k, min(ks, max(int(live), 0)))
+        return ks
     return spec.k
 
 
@@ -156,29 +241,51 @@ def _layout(
     n: int,
     d: int,
     spec: SearchSpec,
+    *,
+    scale: Optional[torch.Tensor] = None,
+    rescore_db: Optional[torch.Tensor] = None,
+    rescore_bias: Optional[torch.Tensor] = None,
+    compute_dtype: str = "float32",
 ) -> PackedState:
-    """Lay prepared (rows, bias) out in the backend's shape (new tensors:
-    the state never aliases the caller's rows)."""
+    """Lay prepared (rows, bias, scale) out in the backend's shape (new
+    tensors: the state never aliases the caller's rows).  The rescore tail
+    keeps its gather layout on every backend."""
     plan = plan_bins(
         n, scan_k_for(spec, n), spec.recall_target,
         reduction_input_size_override=spec.reduction_input_size_override,
     )
     bin_size = plan.bin_size
+    tail = dict(storage=spec.storage,
+                rescore_db=None if rescore_db is None else rescore_db.clone(),
+                rescore_bias=None if rescore_bias is None else rescore_bias.clone(),
+                compute_dtype=compute_dtype)
     if backend == "cuda":
         block_n = max(bin_size, kernels.BLOCK_N)
         n_pad = round_up(max(n, block_n), block_n)
-        d_pad = round_up(d, 128)
-        db = F.pad(rows, (0, d_pad - d, 0, n_pad - n))
+        if spec.storage == "int4":
+            # Two codes per byte: pad the lanes to a multiple of 256 so the
+            # byte width stays a multiple of 128, then pack (a zero pad
+            # code dequantizes to 0, exact for dot products).
+            d_pad = round_up(d, 256)
+            db = quant.pack_int4_rows(F.pad(rows, (0, d_pad - d, 0, n_pad - n)))
+        else:
+            d_pad = round_up(d, 128)
+            db = F.pad(rows, (0, d_pad - d, 0, n_pad - n))
         full = F.pad(bias.to(torch.float32), (0, n_pad - n), value=MASK_VALUE)
+        if scale is not None:
+            # Padded-tail scale is 0: tail scores become 0 * dot + MASK.
+            scale = F.pad(scale, (0, n_pad - n))[None, :].contiguous()
         return PackedState(
             backend=backend, db=db, bias=full[None, :].contiguous(), n=n,
-            d=d, plan=plan, bin_size=bin_size, block_n=block_n,
+            d=d, plan=plan, bin_size=bin_size, block_n=block_n, scale=scale,
+            **tail,
         )
     if backend != "torch":
         raise ValueError(f"unknown backend {backend!r}")
     return PackedState(
         backend=backend, db=rows.clone(), bias=bias.to(torch.float32).clone(),
         n=n, d=d, plan=plan, bin_size=bin_size, block_n=0,
+        scale=None if scale is None else scale.clone(), **tail,
     )
 
 
@@ -189,12 +296,36 @@ def pack_state(
     spec: SearchSpec,
     backend: str,
 ) -> PackedState:
-    """Full pack: metric preparation over all rows, then the layout."""
+    """Full pack: metric preparation (and, for a quantized tier,
+    quantization with the bias of the stored values folded into the fused
+    bias row, and the rescore tail) over all rows, then the layout."""
     n, d = database.shape
-    db, metric_bias = metric.prepare_database(database)
-    bias = fuse_bias(metric_bias, live, num_rows=n, device=database.device)
+    compute_dtype = str(database.dtype).removeprefix("torch.")
+    if spec.storage == "f32":
+        db, metric_bias = metric.prepare_database(database)
+        bias = fuse_bias(metric_bias, live, num_rows=n, device=database.device)
+        PACK_EVENTS.inc("full_pack")
+        return _layout(backend, db, bias, n, d, spec,
+                       compute_dtype=compute_dtype)
+    qr = metric.prepare_storage(database, spec.storage)
+    bias = fuse_bias(qr.bias, live, num_rows=n, device=database.device)
+    rescore_db = rescore_bias = None
+    if spec.rescore_enabled:
+        rescore_db = qr.exact_rows.to(torch.float32)
+        rescore_bias = fuse_bias(qr.exact_bias, live, num_rows=n,
+                                 device=database.device)
     PACK_EVENTS.inc("full_pack")
-    return _layout(backend, db, bias, n, d, spec)
+    return _layout(backend, qr.rows, bias, n, d, spec, scale=qr.scale,
+                   rescore_db=rescore_db, rescore_bias=rescore_bias,
+                   compute_dtype=compute_dtype)
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy array of a snapshot as a tensor; bf16 (which numpy knows
+    only through an extension type) travels as its 16-bit pattern."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def state_from_arrays(arrays: dict, meta: dict, spec: SearchSpec,
@@ -203,16 +334,18 @@ def state_from_arrays(arrays: dict, meta: dict, spec: SearchSpec,
 
     ``arrays`` maps the snapshot's names to numpy arrays (the caller
     converts), ``meta`` is the snapshot's layout record.  The counterpart
-    of the reference's ``restore_state``: no metric preparation — the
-    saved prepared rows and fused bias are laid out for the port's
-    backend on ``device`` — and the same check that ``plan_bins`` still
-    gives the recorded bin size.  Either reference layout (xla or
-    pallas) is accepted.
+    of the reference's ``restore_state``: no metric preparation and no
+    quantization — the saved stored rows (a pallas-layout int4 database
+    unpacked to canonical codes), scale, fused bias and rescore tail are
+    laid out for the port's backend on ``device`` — with the same checks:
+    ``validate_restored``, and that ``plan_bins`` still gives the
+    recorded bin size.  Either reference layout (xla or pallas) is
+    accepted; ``spec.storage`` must be the snapshot's tier.
     """
-    if meta["storage"] != "f32":
-        raise NotImplementedError(
-            f"storage={meta['storage']!r}: quantized tiers are not ported yet "
-            "(ROADMAP queue A item 6)"
+    storage = meta["storage"]
+    if storage != spec.storage:
+        raise ValueError(
+            f"snapshot storage={storage!r} but spec.storage={spec.storage!r}"
         )
     if meta.get("cluster") is not None:
         raise NotImplementedError(
@@ -230,15 +363,35 @@ def state_from_arrays(arrays: dict, meta: dict, spec: SearchSpec,
             "binning math changed since the snapshot was written; rebuild "
             "the index"
         )
-    db = np.asarray(arrays["packed/db"])
-    bias = np.asarray(arrays["packed/bias"]).reshape(-1)
-    if db.dtype != np.float32 or db.shape[0] < n or db.shape[1] < d:
-        raise ValueError(
-            f"packed/db {db.dtype}{db.shape} does not hold {n} f32 rows of {d}"
-        )
     device = torch.device(device)
-    rows = torch.tensor(db[:n, :d], device=device)
-    bias_t = torch.tensor(bias[:n], device=device)
+    db = _tensor(np.asarray(arrays["packed/db"]), device)
+    scale = arrays.get("packed/scale")
+    quant.validate_restored(storage, db.dtype, has_scale=scale is not None)
+    if storage == "f32" and db.dtype != torch.float32:
+        raise ValueError(f"packed/db is {db.dtype}, storage='f32' stores float32")
+    if storage == "int4" and meta["backend"] == "pallas":
+        db = quant.unpack_int4_rows(db[:n])
+    if db.shape[0] < n or db.shape[1] < d:
+        raise ValueError(
+            f"packed/db {tuple(db.shape)} does not hold {n} rows of {d}"
+        )
+    rows = db[:n, :d]
+    bias = _tensor(np.asarray(arrays["packed/bias"]).reshape(-1)[:n], device)
+    if scale is not None:
+        scale = _tensor(np.asarray(scale).reshape(-1)[:n], device)
+    rescore_db = rescore_bias = None
+    if "packed/rescore_db" in arrays:
+        rescore_db = _tensor(np.asarray(arrays["packed/rescore_db"])[:n], device)
+        rescore_bias = _tensor(
+            np.asarray(arrays["packed/rescore_bias"]).reshape(-1)[:n], device
+        )
+    if (rescore_db is not None) != spec.rescore_enabled:
+        raise ValueError(
+            f"snapshot {'has' if rescore_db is not None else 'lacks'} a "
+            f"rescore tail but spec.rescore_enabled={spec.rescore_enabled}"
+        )
     backend = spec.backend if spec.backend != "auto" else default_backend(device)
     PACK_EVENTS.inc("restore")
-    return _layout(backend, rows, bias_t, n, d, spec)
+    return _layout(backend, rows, bias, n, d, spec, scale=scale,
+                   rescore_db=rescore_db, rescore_bias=rescore_bias,
+                   compute_dtype=meta.get("compute_dtype", "float32"))

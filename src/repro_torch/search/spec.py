@@ -12,7 +12,7 @@ reference's; the backends are the port's own:
   * ``"auto"``  — ``"cuda"`` for an index on a CUDA device, else
     ``"torch"``.
 
-Fields the reference has but this slice does not serve raise
+Fields the reference has but the port does not serve yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 ``cluster`` defaults to ``"off"`` here (the reference defaults to
 ``"auto"``) until the cluster slice lands.
@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+from repro_torch.search import quant
 
 __all__ = ["BACKENDS", "SearchSpec"]
 
@@ -36,11 +38,14 @@ class SearchSpec:
       k: neighbours returned per query.
       recall_target: analytic E[recall] target used to plan bins (Eq. 14).
       backend: one of ``BACKENDS`` (see the module docstring).
-      dtype: compute dtype; only None or "float32" in this slice.
-      storage: only "f32" in this slice (quantized tiers: ROADMAP queue A
-        item 6).
-      cluster: only "off" in this slice (ROADMAP queue A item 7).
-      rescore: must stay None/False with f32 storage.
+      dtype: compute dtype; only None or "float32" (the bf16 compute
+        dtype: ROADMAP queue A item 6b).
+      storage: one of ``quant.STORAGE_TIERS``; a quantized tier scans
+        its stored rows for an over-fetched candidate set and rescores
+        it exactly (``repro_torch.search.quant``).
+      cluster: only "off" for now (ROADMAP queue A item 7).
+      rescore: None (on for quantized tiers) or a bool; True needs a
+        quantized tier and ``aggregate_to_topk``.
       block_m / max_block_n: kernel tiles.  ``Index.build`` resolves them
         to the CUDA kernels' fixed tiles; other values wait for the
         planner slice (ROADMAP queue A item 5).
@@ -99,11 +104,7 @@ class SearchSpec:
             raise ValueError(
                 f"backend must be one of {BACKENDS}, got {self.backend!r}"
             )
-        if self.storage != "f32":
-            raise NotImplementedError(
-                f"storage={self.storage!r}: quantized tiers are not ported "
-                "yet (ROADMAP queue A item 6)"
-            )
+        quant.storage_bytes(self.storage)  # validate the tier name
         if self.residency != "hbm":
             raise NotImplementedError(
                 f"residency={self.residency!r}: the host-RAM tier is not "
@@ -111,8 +112,10 @@ class SearchSpec:
             )
         if self.dtype not in (None, "float32"):
             raise NotImplementedError(
-                f"dtype={self.dtype!r}: this slice computes in float32 only "
-                "(reduced-precision tiers: ROADMAP queue A item 6)"
+                f"dtype={self.dtype!r}: the port computes in float32 only; "
+                "the bf16 compute dtype is a tensor-core path of its own "
+                "(ROADMAP queue A item 6b).  Reduced-precision *storage* "
+                'is storage="bf16"|"int8"|"int4"'
             )
         if self.cluster != "off":
             raise NotImplementedError(
@@ -134,10 +137,10 @@ class SearchSpec:
                 "segment_rows: the host-RAM tier is not ported yet (ROADMAP "
                 "queue A item 10)"
             )
-        if self.rescore:
+        if self.rescore and self.storage == "f32":
             raise ValueError(
-                "rescore=True requires a quantized storage tier; "
-                'storage="f32" is already exact'
+                "rescore=True requires a quantized storage tier "
+                '("bf16", "int8" or "int4"); storage="f32" is already exact'
             )
         if self.fused_select and not self.aggregate_to_topk:
             raise ValueError(
@@ -145,10 +148,36 @@ class SearchSpec:
                 "kernel's carry is the top-k selection, so there are no raw "
                 "bin winners to return"
             )
+        if self.rescore and not self.aggregate_to_topk:
+            raise ValueError(
+                "rescore=True needs aggregate_to_topk=True: the raw bin "
+                "winners are the output then, so there is no top-k to "
+                "rescore into; use rescore=False for a raw quantized scan"
+            )
+        if self.storage != "f32":
+            # Checked here for a registered metric; Index.build re-checks.
+            from repro_torch.search.metrics import _REGISTRY
+
+            metric = _REGISTRY.get(self.metric)
+            if metric is not None:
+                quant.check_metric_storage(metric, self.storage)
         for field in ("block_m", "max_block_n", "query_block"):
             v = getattr(self, field)
             if v is not None and v <= 0:
                 raise ValueError(f"{field} must be positive, got {v}")
+
+    @property
+    def rescore_enabled(self) -> bool:
+        """Whether the quantized search runs its exact rescore.
+
+        >>> SearchSpec(storage="int8").rescore_enabled
+        True
+        >>> SearchSpec(storage="f32").rescore_enabled
+        False
+        """
+        if self.storage == "f32" or not self.aggregate_to_topk:
+            return False
+        return True if self.rescore is None else self.rescore
 
     @property
     def fused_select_enabled(self) -> bool:

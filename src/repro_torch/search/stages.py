@@ -1,6 +1,8 @@
-"""Search stages: score -> scan -> merge -> finalize.
+"""Search stages: score -> scan -> rescore -> merge -> finalize.
 
-Port of the f32 stage primitives of ``src/repro/search/stages.py``, over
+Port of the single-device stage primitives of
+``src/repro/search/stages.py`` (``score_gathered`` and
+``prune_candidates`` come with the cluster slice), over
 metric-prepared operands in the internal max convention (maximize
 ``<q', x'> + bias``, negate once at the end).  On the cuda backend the
 fused kernel (``repro_torch.kernels.partial_reduce.partial_reduce_fused``)
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.rescoring import exact_rescoring
+from repro_torch.core.rescoring import exact_rescoring, stable_topk
 from repro_torch.core.topk import approx_max_k
 
 __all__ = [
@@ -23,6 +25,7 @@ __all__ = [
     "finalize_values",
     "merge_topk",
     "pad_queries_to",
+    "rescore_candidates",
     "scan_candidates",
     "score_rows",
     "sentinelize_masked",
@@ -55,9 +58,16 @@ def pad_queries_to(q: Tensor, width: int) -> Tensor:
 
 
 def score_rows(q: Tensor, database: Tensor,
-               row_bias: Optional[Tensor] = None) -> Tensor:
-    """Biased-MIPS score tile ``q @ db.T + bias``."""
-    scores = torch.einsum("ik,jk->ij", q, database)
+               row_bias: Optional[Tensor] = None,
+               scale: Optional[Tensor] = None) -> Tensor:
+    """Biased-MIPS score tile ``q @ db.T (* scale) + bias``.
+
+    ``database`` holds the stored rows of any tier, widened to f32 for the
+    product; ``scale`` is the int8/int4 per-row scale.  The bias comes
+    after the scale (it is the bias of the stored values)."""
+    scores = torch.einsum("ik,jk->ij", q, database.to(q.dtype))
+    if scale is not None:
+        scores = scores * scale[None, :]
     if row_bias is not None:
         scores = scores + row_bias[None, :]
     return scores
@@ -81,6 +91,30 @@ def scan_candidates(
         aggregate_to_topk=aggregate_to_topk,
         use_bitonic=use_bitonic,
     )
+
+
+def rescore_candidates(q: Tensor, scan_vals: Tensor, idxs: Tensor,
+                       rescore_db: Tensor, rescore_bias: Tensor, k: int,
+                       k_scan: int, use_bitonic: bool = False
+                       ) -> Tuple[Tensor, Tensor]:
+    """Exact second pass of the quantized search (internal max convention).
+
+    Cuts the candidates to the ``k_scan`` best by scan score, gathers
+    their full-precision rows from the rescore tail, scores them exactly
+    (``<q, x> + rescore_bias``), keeps masked what the scan masked, and
+    returns the exact top-k.  An index of -1 wraps to the last row in the
+    gather, as in the reference, and the mask then discards it.  Plain
+    PyTorch: the reference computes this in XLA, outside any kernel.
+    """
+    if k_scan < scan_vals.shape[-1]:
+        scan_vals, sel = stable_topk(scan_vals, k_scan)
+        idxs = torch.gather(idxs, -1, sel)
+    gather = idxs.long()
+    rows = rescore_db[gather]                          # (m, k_scan, d)
+    exact = torch.bmm(rows, q[:, :, None])[..., 0] + rescore_bias[gather]
+    exact = torch.where(scan_vals > MASK_VALUE * 0.5, exact,
+                        torch.full_like(exact, MASK_VALUE))
+    return exact_rescoring(exact, idxs, k, mode="max", use_bitonic=use_bitonic)
 
 
 def merge_topk(

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 __all__ = [
     "ATOL", "KERNEL_CASES", "RTOL", "assert_bin_winners_close",
     "assert_topk_close", "bias_scorer", "packed_operands", "public_scorer",
+    "stored_operands",
 ]
 
 RTOL = 1e-5
@@ -77,6 +78,30 @@ def packed_operands(m: int, n: int, d: int, *, bin_size: int, dead: float = 0.0,
     db = np.zeros((n_pad, d_pad), np.float32)
     db[:n, :d] = rows
     return tuple(torch.from_numpy(a).to(device) for a in (q, db, bias))
+
+
+def stored_operands(db: torch.Tensor, form: str):
+    """The packed f32 rows of :func:`packed_operands` in a stored form
+    (``kernels.partial_reduce.FORMS``), quantized by
+    ``repro_torch.search.quant`` as the packed layout stores them.
+
+    Returns ``(stored, scale, int4_packed, widened)``: the kernel operands
+    (``scale`` (1, n_pad) or None; int4 lanes padded to a multiple of 256
+    and packed two codes per byte) and the stored values widened back to
+    f32 rows (n_pad, d_pad), scale applied, for :func:`bias_scorer`."""
+    from repro_torch.search import quant
+
+    if form == "f32":
+        return db, None, False, db
+    if form == "int4":
+        db = F.pad(db, (0, -db.shape[1] % 256))
+    stored, scale = quant.quantize_rows(db, form)
+    widened = quant.dequantize_rows(stored, scale)
+    if form == "int4":
+        stored = quant.pack_int4_rows(stored)
+    if scale is not None:
+        scale = scale[None, :].contiguous()
+    return stored, scale, form == "int4", widened
 
 
 def bias_scorer(q: torch.Tensor, db: torch.Tensor, bias: torch.Tensor):

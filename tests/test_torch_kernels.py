@@ -150,3 +150,25 @@ def test_front_end_contract():
         prk.partial_reduce_fused(q.double(), db, bias, k_scan=2, bin_size=16)
     with pytest.raises(ValueError, match="k_scan"):
         prk.partial_reduce_fused(q, db, bias, k_scan=0, bin_size=16)
+
+
+def test_ptxas_table_reads_each_kernel():
+    from repro_torch.kernels.build import ptxas_table
+
+    report = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z5mergev' for 'sm_90a'
+ptxas info    : Function properties for _Z5mergev
+    256 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers, 256 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z4scanILb1EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z4scanILb1EEvv
+    32 bytes stack frame, 28 bytes spill stores, 32 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 32 bytes cumulative stack size
+"""
+    assert ptxas_table(report) == [
+        {"kernel": "_Z5mergev", "registers": 32, "spill_stores": 0,
+         "spill_loads": 0},
+        {"kernel": "_Z4scanILb1EEvv", "registers": 64, "spill_stores": 28,
+         "spill_loads": 32},
+    ]

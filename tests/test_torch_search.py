@@ -193,7 +193,7 @@ def test_build_needs_card_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(storage="int8"), "item 6"),
+    (dict(storage="int8", cluster="auto"), "item 7"),
     (dict(residency="host"), "item 10"),
     (dict(dtype="bfloat16"), "item 6"),
     (dict(cluster="auto"), "item 7"),
