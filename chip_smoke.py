@@ -24,10 +24,16 @@ run in order and the first failure exits non-zero:
   7. launch counts, read after each path (every kernel of the path
      launched, no plain version called); then each kernel against its
      plain version at the main paths' own shapes (all 10,000 queries);
-  8. CUDA-event timings at the Sift1M shape, f32 and each tier, at
-     M=10,000 and M=16, the fused kernel at k_scan 128 (carry in shared
-     memory), 129 and 512 (in device memory), and the launches of one
-     search.
+  8. CUDA-event timings at the Sift1M shape, f32 and each tier, of both
+     scan kernels at M=10,000 and M=16 beside their bounds (tensor
+     cores, bytes, epilogue instructions; and the f32 FFMA bound of the
+     earlier kernel) and their earlier times, each tier's stored bytes
+     per row, the fused kernel at k_scan 32 (carry in shared memory), 33
+     and 512 (in device memory), and the launches of one search.
+
+The build step prints, per kernel, ptxas's registers, spills and shared
+memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
+instantiation without any fails the run.
 
 It prints the ``kernels`` JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Data is random from
@@ -47,10 +53,28 @@ import time
 
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores (every
-# tier's scan multiplies in f32, without TF32), and HBM3.
+# H100 SXM peaks (NVIDIA data sheet): bf16 dense on the tensor cores (the
+# scan's split products), f32 outside them (the earlier FFMA scan, kept as
+# a column), HBM3, and CUDA-core instructions: 132 SMs x 4 schedulers x
+# 32 lanes at the 1,980 MHz boost clock.
+PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_INSTR = 132 * 4 * 32 * 1.98e9
+# Epilogue instructions per score of the scan on the main paths (bins of
+# 16 rows and more), counted from csrc/partial_reduce.cu: 1 add of the
+# bias (and 1 multiply by the scale), 1.5 to pick the better of each
+# thread's two rows, then 3 shuffle levels of 8 (two shuffles, three
+# compares, two selects and a predicate) over half the scores.
+EPILOGUE_INSTR = {"f32": 14.5, "bf16": 14.5, "int8": 15.5, "int4": 15.5}
+# Tensor-core passes of the split product: three query parts against the
+# stored rows, six products for f32 rows (split in three as well).
+PASSES = {"f32": 6, "bf16": 3, "int8": 3, "int4": 3}
+# The scan kernels' times with the earlier FFMA main loop (Sift1M shape,
+# NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): (fused, two-pass) at
+# M=10,000, and the fused one at M=16 (two-pass not timed there then).
+FFMA_KERNEL_MS = {"f32": (86.228, 84.481, 1.963), "bf16": (82.944, 85.268, 1.784),
+           "int8": (89.454, 82.503, 2.097), "int4": (167.508, 152.351, 3.771)}
 DELTA = 1e-6  # Hoeffding false-failure budget of the recall checks
 
 SIFT = dict(name="sift1m", n=1_000_000, d=128, metric="l2", m=10_000)
@@ -58,7 +82,6 @@ GLOVE = dict(name="glove1.2m", n=1_183_514, d=100, metric="cosine", m=10_000)
 K, TARGET = 10, 0.95
 TIERS = ("bf16", "int8", "int4")
 FORMS = ("f32",) + TIERS
-STORED_BYTES = {"f32": 4, "bf16": 2, "int8": 1, "int4": 0.5}
 SRC = "src/repro_torch/kernels/csrc/partial_reduce.cu"
 REF = "src/repro/kernels/partial_reduce.py"
 # The Pallas body each (kernel, form) replaces: f32 as listed since the
@@ -107,6 +130,25 @@ def cuda_ms(fn, reps: int = 5) -> float:
 def bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def scan_bounds(form: str, m: int, n_pad: int, d: int, nbytes: float) -> dict:
+    """The scan's bound, the largest of its tensor-core passes over the
+    lanes the loop covers (d rounded up to 16), the bytes it must move
+    and its epilogue's instructions per score, each printed; and the
+    FFMA bound of the earlier kernel (f32 operations over d rounded up to
+    128, or the bytes), for comparison with the earlier FFMA kernel."""
+    d16, d128 = -(-d // 16) * 16, -(-d // 128) * 128
+    parts = {
+        "tensor_ms": 1e3 * PASSES[form] * 2.0 * m * n_pad * d16 / PEAK_BF16_FLOPS,
+        "bytes_ms": 1e3 * nbytes / PEAK_HBM_BYTES,
+        "epilogue_ms": 1e3 * EPILOGUE_INSTR[form] * m * n_pad / PEAK_INSTR,
+    }
+    top = max(parts, key=parts.get)
+    return dict(bound_ms=parts[top],
+                bound_by="bytes" if top == "bytes_ms" else "operations",
+                bound_parts=parts,
+                ffma_bound_ms=bound_ms(2.0 * m * n_pad * d128, nbytes)[0])
 
 
 def kernel_label(mangled: str) -> str:
@@ -235,8 +277,9 @@ def compare_kernels(prk, testing, label, q, db, bias, bs, ks, acc, *,
 SIFT_PLAN = {"f32": (4096, K), "bf16": (2048, 15), "int8": (2048, 20),
              "int4": (1024, 30)}
 # k_scan of the fused kernel's carry-placement timings: the largest in
-# shared memory, the smallest in device memory, and a large one.
-KSCAN_TIMED = (128, 129, 512)
+# shared memory (SMEM_K_SCAN), the smallest in device memory, and a large
+# one.
+KSCAN_TIMED = (32, 33, 512)
 
 
 def phase_kernels(prk, testing, seed, acc):
@@ -382,64 +425,121 @@ def phase_main_shapes(prk, testing, cases, acc):
                         int4_packed=pk.int4_packed)
 
 
-def time_sift(prk, db, q, results):
-    """Phase 8 (f32): CUDA-event timings at the Sift1M shape (M=10,000),
-    on a fresh index over the main path's data (before its updates)."""
-    from repro_torch.search import Index, pad_queries_to
+def time_form(prk, db, q, storage, results):
+    """Phase 8, one stored form: CUDA-event timings at the Sift1M shape on
+    a fresh index of the form over the main path's data (before its
+    updates), at M=10,000 and M=16: both scan kernels, the merge, their
+    plain versions, a quantized tier's rescore stage and the whole
+    search; for f32 also cuBLAS's f32 GEMM of the same product (a
+    yardstick the port never calls) and the fused kernel at bins of 256
+    rows for each k_scan of KSCAN_TIMED; for int4 also the fused scan of
+    an index at k=20, whose carry lives in device memory."""
+    from repro_torch.search import (Index, get_metric, pad_queries_to,
+                                    rescore_candidates)
 
     index = Index.build(db, metric=SIFT["metric"], k=K, recall_target=TARGET,
-                        cluster="off")
-    db, bias = index.pack().operands()
-    bs = index.pack().bin_size
-    m, (n_pad, d_pad) = q.shape[0], db.shape
-    qp = pad_queries_to(q, d_pad).contiguous()
-    carries = prk.fused_scan(qp, db, bias, k_scan=K, bin_size=bs)
+                        cluster="off", storage=storage)
+    pk = index.pack()
+    ops = pk.operands()
+    sdb, bias = ops[0], ops[1]
+    scale = None if storage == "f32" else ops[2]
+    bs, ks, i4 = pk.bin_size, index.k_scan, pk.int4_packed
+    m, n_pad, d = q.shape[0], sdb.shape[0], SIFT["d"]
+    d_pad = sdb.shape[1] * (2 if i4 else 1)
+    row_bytes = sdb.shape[1] * sdb.element_size()
+    qm = get_metric(SIFT["metric"]).prepare_queries(q)
+    qp = pad_queries_to(qm, d_pad).contiguous()
+    kw = dict(bin_size=bs, int4_packed=i4)
+
+    def fused(qq, k_scan=ks, **extra):
+        return prk.fused_scan(pad_queries_to(qq, d_pad).contiguous(), sdb,
+                              bias, scale, k_scan=k_scan, width=d,
+                              **{**kw, **extra})
+
+    def packed(qq):
+        return prk.partial_reduce_packed(qq, sdb, bias, scale, **kw)
+
+    def plain(fn, **extra):
+        for s in range(0, m, 512):
+            fn(qp[s : s + 512], sdb, bias, scale, **kw, **extra)
+
+    carries = fused(qm)
     splits = carries[0].shape[0]
-    flops = 2.0 * m * n_pad * d_pad
-    in_bytes = 4.0 * (m * d_pad + n_pad * d_pad + n_pad)
-    chunk = 512
-
-    def plain(fn, **kw):
-        for s in range(0, m, chunk):
-            fn(qp[s : s + chunk], db, bias, bin_size=bs, **kw)
-
-    def merge_plain():
-        prk.fused_carry_merge_plain(*carries)
-
-    def gemm():
-        torch.backends.cuda.matmul.allow_tf32 = False
-        for s in range(0, m, 1000):
-            torch.matmul(qp[s : s + 1000], db.T)
-
+    q16 = qm[:16].contiguous()
+    c16 = fused(q16)
     t = {
-        "fused": cuda_ms(lambda: prk.fused_scan(qp, db, bias, k_scan=K, bin_size=bs)),
+        "fused": cuda_ms(lambda: fused(qm)),
         "merge": cuda_ms(lambda: prk.fused_carry_merge(*carries), reps=20),
-        "packed": cuda_ms(lambda: prk.partial_reduce_packed(qp, db, bias, bin_size=bs)),
+        "packed": cuda_ms(lambda: packed(qm)),
+        "fused_m16": cuda_ms(lambda: fused(q16), reps=20),
+        "merge_m16": cuda_ms(lambda: prk.fused_carry_merge(*c16), reps=20),
+        "packed_m16": cuda_ms(lambda: packed(q16), reps=20),
         "search": cuda_ms(lambda: index.search(q)),
-        "fused_plain": cuda_ms(lambda: plain(prk.partial_reduce_fused_plain, k_scan=K), reps=3),
-        "packed_plain": cuda_ms(lambda: plain(prk.partial_reduce_packed_plain), reps=3),
-        "merge_plain": cuda_ms(merge_plain, reps=20),
-        "gemm": cuda_ms(gemm, reps=3),
+        "search_m16": cuda_ms(lambda: index.search(q[:16]), reps=20),
+        "fused_plain": cuda_ms(lambda: plain(prk.partial_reduce_fused_plain,
+                                             k_scan=ks), reps=3),
+        "packed_plain": cuda_ms(lambda: plain(prk.partial_reduce_packed_plain),
+                                reps=3),
     }
-    q16 = qp[:16].contiguous()
-    c16 = prk.fused_scan(q16, db, bias, k_scan=K, bin_size=bs)
-    t["fused_m16"] = cuda_ms(lambda: prk.fused_scan(q16, db, bias, k_scan=K,
-                                                    bin_size=bs), reps=20)
-    t["merge_m16"] = cuda_ms(lambda: prk.fused_carry_merge(*c16), reps=20)
-    # The carry in shared memory (k_scan <= 128) against the carry in
-    # device memory (above), at bins of 256 rows: 3,920 bins, enough
-    # winners to fill a carry of 512.
-    for ks in KSCAN_TIMED:
-        ck = prk.fused_scan(qp, db, bias, k_scan=ks, bin_size=256)
-        t[f"fused_k{ks}"] = cuda_ms(lambda: prk.fused_scan(
-            qp, db, bias, k_scan=ks, bin_size=256))
-        t[f"merge_k{ks}"] = cuda_ms(lambda: prk.fused_carry_merge(*ck))
-        del ck
+    if storage == "f32":
+        def gemm():
+            for s in range(0, m, 1000):
+                torch.matmul(qp[s : s + 1000], sdb.T)
+        t["merge_plain"] = cuda_ms(lambda: prk.fused_carry_merge_plain(*carries),
+                                   reps=20)
+        t["gemm"] = cuda_ms(gemm, reps=3)
+        # The carry in shared memory (k_scan <= SMEM_K_SCAN) against the
+        # carry in device memory (above), at bins of 256 rows: 3,920
+        # bins, enough winners to fill a carry of 512.
+        for k_scan in KSCAN_TIMED:
+            ck = fused(qm, k_scan=k_scan, bin_size=256)
+            t[f"fused_k{k_scan}"] = cuda_ms(
+                lambda: fused(qm, k_scan=k_scan, bin_size=256))
+            t[f"merge_k{k_scan}"] = cuda_ms(lambda: prk.fused_carry_merge(*ck))
+            del ck
+    else:
+        fv, fi = prk.fused_carry_merge(*carries)
+        rdb, rbias = ops[3], ops[4]
+        t["rescore"] = cuda_ms(lambda: rescore_candidates(qm, fv, fi, rdb, rbias,
+                                                          K, ks), reps=20)
+    if storage == "int4":
+        # An int4 index at k=20: its carry (k_scan 3k = 60) is above
+        # SMEM_K_SCAN, so it lives in device memory.
+        i20 = Index.build(db, metric=SIFT["metric"], k=20, recall_target=TARGET,
+                          cluster="off", storage=storage)
+        p20 = i20.pack()
+        o20 = p20.operands()
+        k20 = dict(k=20, k_scan=i20.k_scan, bin_size=p20.bin_size)
+
+        def fused20(qq):
+            return prk.fused_scan(pad_queries_to(qq, d_pad).contiguous(), o20[0],
+                                  o20[1], o20[2], k_scan=k20["k_scan"],
+                                  bin_size=k20["bin_size"], int4_packed=True,
+                                  width=d)
+        c20 = fused20(qm)
+        t["fused_k20"] = cuda_ms(lambda: fused20(qm))
+        t["merge_k20"] = cuda_ms(lambda: prk.fused_carry_merge(*c20), reps=20)
+        t["fused_k20_m16"] = cuda_ms(lambda: fused20(q16), reps=20)
+        del i20, p20, o20, c20
     prk.reset_counts()
     index.search(q)
     torch.cuda.synchronize()
-    per_search = sum(prk.LAUNCHES.values())
+    per_search = dict(prk.LAUNCHES)
+    if sum(per_search.values()) != 2:
+        fail(f"{storage}: one search launched {per_search}, not 2 kernels")
+
+    stored = row_bytes * n_pad + 4.0 * n_pad * (1 if scale is None else 2)
+
+    def bounds(rows, out_bytes):
+        return scan_bounds(storage, rows, n_pad, d,
+                           4.0 * rows * d + stored + out_bytes)
+    fb = bounds(m, 8.0 * splits * m * ks)
+    pb = bounds(m, 8.0 * m * (n_pad // bs))
+    fb16 = bounds(16, 8.0 * c16[0].shape[0] * 16 * ks)
+    pb16 = bounds(16, 8.0 * 16 * (n_pad // bs))
+    fname, merge, pname = names_of(storage)
     err = results["max_abs_err"]
+    was = FFMA_KERNEL_MS[storage]
 
     def counts(name):
         """Main-path launches and plain calls, and the share of indices
@@ -448,150 +548,67 @@ def time_sift(prk, db, q, results):
         return dict(launches=results["launches"].get(name, 0),
                     plain_calls=results["plain_calls"].get(name, 0),
                     index_agreement=results["index_agreement"][name])
-    fb = bound_ms(flops, in_bytes + 8.0 * splits * m * K)
-    pb = bound_ms(flops, in_bytes + 8.0 * m * (n_pad // bs))
-    mb = bound_ms(m * K * splits, 8.0 * (splits + 1) * m * K)
-    fb16 = bound_ms(2.0 * 16 * n_pad * d_pad,
-                    4.0 * (16 * d_pad + n_pad * d_pad + n_pad)
-                    + 8.0 * c16[0].shape[0] * 16 * K)
-    kernels = [
-        dict(name="partial_reduce_fused", route="cuda", source=SRC,
-             replaces=REPLACES[("partial_reduce_fused", "f32")],
-             **counts("partial_reduce_fused"),
-             max_abs_err=err["partial_reduce_fused"], ms=t["fused"],
-             plain_ms=t["fused_plain"], bound_ms=fb[0], bound_by=fb[1],
-             library_ms=None, gemm_ms=t["gemm"], ms_m16=t["fused_m16"],
-             bound_ms_m16=fb16[0], bound_by_m16=fb16[1],
-             ms_bin256_by_k_scan={ks: t[f"fused_k{ks}"] for ks in KSCAN_TIMED},
-             merge_ms_bin256_by_k_scan={ks: t[f"merge_k{ks}"]
-                                        for ks in KSCAN_TIMED}),
-        dict(name="fused_carry_merge", route="cuda", source=SRC,
-             replaces=REPLACES[("partial_reduce_fused", "f32")],
-             **counts("fused_carry_merge"),
-             max_abs_err=err["fused_carry_merge"], ms=t["merge"],
-             plain_ms=t["merge_plain"], bound_ms=mb[0], bound_by=mb[1],
-             library_ms=None, ms_m16=t["merge_m16"]),
-        dict(name="partial_reduce_packed", route="cuda", source=SRC,
-             replaces=REPLACES[("partial_reduce_packed", "f32")],
-             **counts("partial_reduce_packed"),
-             max_abs_err=err["partial_reduce_packed"], ms=t["packed"],
-             plain_ms=t["packed_plain"], bound_ms=pb[0], bound_by=pb[1],
-             library_ms=None, gemm_ms=t["gemm"]),
-    ]
-    log(f"timing f32 at M={m}, n_pad={n_pad}, d_pad={d_pad}, bin={bs}, "
-        f"splits={splits} (CUDA events, median):")
+
+    def entry(name, kind, b, b16, **extra):
+        fused_kernel = kind == "partial_reduce_fused"
+        return dict(
+            name=name, route="cuda", source=SRC,
+            replaces=REPLACES[(kind, storage)], **counts(name),
+            max_abs_err=err[name], ms=t["fused" if fused_kernel else "packed"],
+            plain_ms=t["fused_plain" if fused_kernel else "packed_plain"],
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=None,
+            bound_parts=b["bound_parts"], ffma_bound_ms=b["ffma_bound_ms"],
+            ms_m16=t["fused_m16" if fused_kernel else "packed_m16"],
+            bound_ms_m16=b16["bound_ms"], bound_by_m16=b16["bound_by"],
+            bound_parts_m16=b16["bound_parts"],
+            stored_bytes_per_row=row_bytes,
+            smem=prk.scan_smem(storage, fused_kernel, d, ks if fused_kernel else 0),
+            **extra)
+    extra = dict(splits=splits, splits_m16=c16[0].shape[0],
+                 merge_ms=t["merge"], merge_ms_m16=t["merge_m16"],
+                 search_ms=t["search"], qps=m / t["search"] * 1e3,
+                 search_ms_m16=t["search_m16"],
+                 recall=results["sift1m" if storage == "f32"
+                                 else f"sift1m {storage}"]["recall"])
+    if storage == "f32":
+        extra.update(gemm_ms=t["gemm"],
+                     ms_bin256_by_k_scan={k: t[f"fused_k{k}"] for k in KSCAN_TIMED},
+                     merge_ms_bin256_by_k_scan={k: t[f"merge_k{k}"]
+                                                for k in KSCAN_TIMED})
+    else:
+        extra.update(rescore_ms=t["rescore"])
+    if storage == "int4":
+        extra.update(k20={**k20, "ms": t["fused_k20"], "merge_ms": t["merge_k20"],
+                          "ms_m16": t["fused_k20_m16"]})
+    kernels = [entry(fname, "partial_reduce_fused", fb, fb16, **extra),
+               entry(pname, "partial_reduce_packed", pb, pb16)]
+    if storage == "f32":
+        mb = bound_ms(m * K * splits, 8.0 * (splits + 1) * m * K)
+        kernels.insert(1, dict(
+            name=merge, route="cuda", source=SRC,
+            replaces=REPLACES[("partial_reduce_fused", "f32")], **counts(merge),
+            max_abs_err=err[merge], ms=t["merge"], plain_ms=t["merge_plain"],
+            bound_ms=mb[0], bound_by=mb[1], library_ms=None,
+            ms_m16=t["merge_m16"]))
+
+    log(f"timing {storage} at M={m}, n_pad={n_pad}, d={d} (d_pad {d_pad}), "
+        f"{row_bytes} stored bytes a row, bin={bs}, k_scan={ks}, "
+        f"splits={splits} ({c16[0].shape[0]} at M=16; CUDA events, median):")
     for key, ms in t.items():
         log(f"  {key:13s} {ms:10.3f} ms")
-    log(f"  fused scan: {flops / t['fused'] / 1e9:.1f} TFLOP/s "
-        f"({100 * fb[0] / t['fused']:.1f}% of the {fb[1]} bound), "
-        f"{in_bytes / t['fused'] / 1e6:.1f} GB/s; search QPS "
-        f"{m / t['search'] * 1e3:.0f} at recall "
-        f"{results['sift1m']['recall']:.4f}; launches per search: {per_search}; "
-        f"M=16 scan {t['fused_m16']:.3f} ms ({100 * fb16[0] / t['fused_m16']:.1f}% "
-        f"of the {fb16[1]} bound)")
-    return kernels, per_search
-
-
-def time_tier(prk, db, q, storage, results):
-    """Phase 8 (a quantized tier): CUDA-event timings at the Sift1M shape
-    on a fresh index of the tier over the main path's data, at M=10,000
-    and M=16: the scan, the merge, the two-pass kernel, their plain
-    versions, the rescore stage and the whole search."""
-    from repro_torch.search import (Index, get_metric, pad_queries_to,
-                                    rescore_candidates)
-
-    index = Index.build(db, metric=SIFT["metric"], k=K, recall_target=TARGET,
-                        cluster="off", storage=storage)
-    pk = index.pack()
-    sdb, bias, scale, rdb, rbias = pk.operands()
-    bs, ks, i4 = pk.bin_size, index.k_scan, pk.int4_packed
-    m, n_pad = q.shape[0], sdb.shape[0]
-    d_pad = sdb.shape[1] * (2 if i4 else 1)
-    qm = get_metric(SIFT["metric"]).prepare_queries(q)
-    qp = pad_queries_to(qm, d_pad).contiguous()
-    kw = dict(bin_size=bs, int4_packed=i4)
-    carries = prk.fused_scan(qp, sdb, bias, scale, k_scan=ks, **kw)
-    fv, fi = prk.fused_carry_merge(*carries)
-    splits = carries[0].shape[0]
-    chunk = 512
-
-    def plain(fn, **extra):
-        for s in range(0, m, chunk):
-            fn(qp[s : s + chunk], sdb, bias, scale, **kw, **extra)
-
-    t = {
-        "fused": cuda_ms(lambda: prk.fused_scan(qp, sdb, bias, scale, k_scan=ks, **kw)),
-        "merge": cuda_ms(lambda: prk.fused_carry_merge(*carries), reps=20),
-        "packed": cuda_ms(lambda: prk.partial_reduce_packed(qp, sdb, bias, scale, **kw)),
-        "rescore": cuda_ms(lambda: rescore_candidates(qm, fv, fi, rdb, rbias, K, ks),
-                           reps=20),
-        "search": cuda_ms(lambda: index.search(q)),
-        "fused_plain": cuda_ms(lambda: plain(prk.partial_reduce_fused_plain, k_scan=ks),
-                               reps=3),
-        "packed_plain": cuda_ms(lambda: plain(prk.partial_reduce_packed_plain), reps=3),
-    }
-    q16 = qp[:16].contiguous()
-    c16 = prk.fused_scan(q16, sdb, bias, scale, k_scan=ks, **kw)
-    t["fused_m16"] = cuda_ms(lambda: prk.fused_scan(q16, sdb, bias, scale,
-                                                    k_scan=ks, **kw), reps=20)
-    t["merge_m16"] = cuda_ms(lambda: prk.fused_carry_merge(*c16), reps=20)
-    t["search_m16"] = cuda_ms(lambda: index.search(q[:16]), reps=20)
-    prk.reset_counts()
-    index.search(q)
-    torch.cuda.synchronize()
-    per_search = dict(prk.LAUNCHES)
-    if sum(per_search.values()) != 2:
-        fail(f"{storage}: one search launched {per_search}, not 2 kernels")
-
-    # The bound counts the lanes the function needs, D rounded up to 128
-    # as the f32 layout stores it, not the int4 layout's padding to 256.
-    d_work = -(-SIFT["d"] // 128) * 128
-    stored = STORED_BYTES[storage] * n_pad * d_work + 4.0 * n_pad * (
-        2 if scale is not None else 1)
-
-    def bounds(rows, out_bytes):
-        return bound_ms(2.0 * rows * n_pad * d_work,
-                        4.0 * rows * d_work + stored + out_bytes)
-    fb = bounds(m, 8.0 * splits * m * ks)
-    pb = bounds(m, 8.0 * m * (n_pad // bs))
-    fb16 = bounds(16, 8.0 * c16[0].shape[0] * 16 * ks)
-    label = f"sift1m {storage}"
-    r = results[label]
-    fused, _, packed = names_of(storage)
-    err = results["max_abs_err"]
-
-    def counts(name):
-        return dict(launches=results["launches"].get(name, 0),
-                    plain_calls=results["plain_calls"].get(name, 0),
-                    index_agreement=results["index_agreement"][name])
-    kernels = [
-        dict(name=fused, route="cuda", source=SRC,
-             replaces=REPLACES[("partial_reduce_fused", storage)],
-             **counts(fused), max_abs_err=err[fused], ms=t["fused"],
-             plain_ms=t["fused_plain"], bound_ms=fb[0], bound_by=fb[1],
-             library_ms=None, merge_ms=t["merge"], ms_m16=t["fused_m16"],
-             merge_ms_m16=t["merge_m16"], bound_ms_m16=fb16[0],
-             bound_by_m16=fb16[1], rescore_ms=t["rescore"],
-             search_ms=t["search"], qps=m / t["search"] * 1e3,
-             recall=r["recall"], search_ms_m16=t["search_m16"]),
-        dict(name=packed, route="cuda", source=SRC,
-             replaces=REPLACES[("partial_reduce_packed", storage)],
-             **counts(packed), max_abs_err=err[packed], ms=t["packed"],
-             plain_ms=t["packed_plain"], bound_ms=pb[0], bound_by=pb[1],
-             library_ms=None),
-    ]
-    log(f"timing {storage} at M={m}, n_pad={n_pad}, d_pad={d_pad} (bound over "
-        f"{d_work} lanes), bin={bs}, "
-        f"k_scan={ks}, splits={splits} (CUDA events, median):")
-    for key, ms in t.items():
-        log(f"  {key:13s} {ms:10.3f} ms")
-    log(f"  fused scan {100 * fb[0] / t['fused']:.1f}% of its {fb[1]} bound "
-        f"({fb[0]:.3f} ms); rescore {100 * t['rescore'] / t['search']:.1f}% of "
-        f"search; search QPS {m / t['search'] * 1e3:.0f} at recall "
-        f"{r['recall']:.4f}; M=16 scan {t['fused_m16']:.3f} ms "
-        f"({100 * fb16[0] / t['fused_m16']:.1f}% of its {fb16[1]} bound "
-        f"{fb16[0]:.4f} ms)")
-    return kernels
+    for label, ms, b, ffma in (("fused", t["fused"], fb, was[0]),
+                               ("two-pass", t["packed"], pb, was[1]),
+                               ("fused M=16", t["fused_m16"], fb16, was[2]),
+                               ("two-pass M=16", t["packed_m16"], pb16, None)):
+        parts = ", ".join(f"{k[:-3]} {v:.4f}" for k, v in b["bound_parts"].items())
+        log(f"  {storage} {label} scan {ms:.3f} ms (FFMA kernel, as recorded "
+            f"in PERF.md: {'not timed' if ffma is None else f'{ffma:.3f} ms'}): "
+            f"{100 * b['bound_ms'] / ms:.1f}% of its {b['bound_by']} bound "
+            f"{b['bound_ms']:.4f} ms ({parts}); FFMA bound "
+            f"{b['ffma_bound_ms']:.4f} ms")
+    log(f"  search QPS {m / t['search'] * 1e3:.0f} at recall "
+        f"{extra['recall']:.4f}; launches per search: {per_search}")
+    return kernels, row_bytes
 
 
 def main(argv=None) -> int:
@@ -618,10 +635,22 @@ def main(argv=None) -> int:
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)  # build from source
     t0 = time.perf_counter()
     build.load_library()
-    log(f"build: {time.perf_counter() - t0:.1f} s ({build.build_info()['command']})")
-    for row in build.ptxas_table(build.build_info()["ptxas"]):
-        log(f"  ptxas: {kernel_label(row['kernel'])}: {row['registers']} registers, "
-            f"spill stores {row['spill_stores']} B, loads {row['spill_loads']} B")
+    info = build.build_info()
+    log(f"build: {time.perf_counter() - t0:.1f} s ({info['command']})")
+    for row in build.report(info["library"], info["ptxas"]):
+        label = kernel_label(row["kernel"])
+        log(f"  {label}: {row['registers']} registers, stack frame "
+            f"{row['stack']} B, spill stores {row['spill_stores']} B, loads "
+            f"{row['spill_loads']} B, static smem {row['smem']} B, "
+            f"{row['hgmma']} HGMMA"
+            + "".join(f"\n    {w}" for w in row["warnings"]))
+        if label.startswith("pr_scan_kernel") and not row["hgmma"]:
+            fail(f"{label} has no tensor-core (HGMMA) instruction")
+    for form in FORMS:
+        ks = SIFT_PLAN[form][1]
+        log(f"  scan shared memory at d={SIFT['d']}, {form}: fused (k_scan "
+            f"{ks}) {prk.scan_smem(form, True, SIFT['d'], ks)}, two-pass "
+            f"{prk.scan_smem(form, False, SIFT['d'])}")
 
     names = sorted({n for form in FORMS for n in names_of(form)})
     acc = {"errs": dict.fromkeys(names, 0.0), "agree": dict.fromkeys(names, 0),
@@ -666,9 +695,15 @@ def main(argv=None) -> int:
                                   for k in names}
     db, q = data["sift1m"][:2]
     del data
-    kernels, per_search = time_sift(prk, db, q, results)
-    for storage in TIERS:
-        kernels += time_tier(prk, db, q, storage, results)
+    kernels, row_bytes = [], {}
+    for storage in FORMS:
+        ks, row_bytes[storage] = time_form(prk, db, q, storage, results)
+        kernels += ks
+    log(f"stored bytes per row at D={SIFT['d']} (beside a 4-byte bias, and "
+        f"a 4-byte scale for int8 and int4): {row_bytes}")
+    if 2 * row_bytes["int4"] != row_bytes["int8"]:
+        fail(f"int4 rows take {row_bytes['int4']} bytes, not half of int8's "
+             f"{row_bytes['int8']}")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,128 @@
+#!/usr/bin/env python
+"""Time the PyTorch port's scan kernels and carry merge on one CUDA card.
+
+    PYTHONPATH=src python scripts/bench_torch_scan.py [--forms f32,int4]
+        [--k 10] [--m 10000,16] [--splits 5,33,123] [--reps 5] [--seed 0]
+
+Times the ``repro_torch`` package that ``PYTHONPATH`` names, so two
+versions of the port (two checkouts, or a copy with an edited kernel
+source) compare by running the script once for each, in one session on
+one card, in the order A B B A.  The data are random: N=1,000,000 rows
+of D=128, l2, and for each stored form an ``Index`` at ``--k`` (its own
+bins and k_scan, as that tier searches).  For each form and batch M it
+prints one JSON line: the card and its power limit, the plan, and the
+CUDA-event medians of the fused scan, the carry merge and the two-pass
+kernel.  ``--splits`` replaces the planner's split count of the row
+range by each of the given counts in turn (the cost model of
+``kernels.partial_reduce.split_plan`` is fitted to such a sweep).
+"""
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import subprocess
+import time
+
+import torch
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of ``fn()`` over ``reps`` runs, after one
+    warm-up run."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def forced_plan(prk, splits: int):
+    """A stand-in for ``split_plan`` that cuts the row range into about
+    ``splits`` bin-aligned splits."""
+    def plan(m, n_pad, bin_size, num_sms, *_, **__):
+        tiles_per_bin = max(1, bin_size // prk.BLOCK_N)
+        groups = n_pad // prk.BLOCK_N // tiles_per_bin
+        per = -(-groups // min(splits, groups))
+        return per * tiles_per_bin, -(-groups // per)
+    return plan
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--forms", default="f32,bf16,int8,int4")
+    ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--m", default="10000,16")
+    ap.add_argument("--splits", default="", help="split counts to force")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_torch_scan: needs a CUDA device")
+    from repro_torch.kernels import build
+    from repro_torch.kernels import partial_reduce as prk
+    from repro_torch.search import Index, get_metric, pad_queries_to
+
+    t0 = time.perf_counter()
+    build.load_library()
+    print(json.dumps({"package": prk.__file__, "card": card(),
+                      "build_s": time.perf_counter() - t0}), flush=True)
+    ms = [int(x) for x in args.m.split(",")]
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    rows = torch.randn((1_000_000, 128), generator=g, device="cuda")
+    q = get_metric("l2").prepare_queries(
+        torch.randn((max(ms), 128), generator=g, device="cuda"))
+    planner = prk.split_plan
+    with_width = "width" in inspect.signature(prk.fused_scan).parameters
+    for form in args.forms.split(","):
+        index = Index.build(rows, metric="l2", k=args.k, cluster="off",
+                            storage=form)
+        pk = index.pack()
+        ops = pk.operands()
+        db, bias = ops[0], ops[1]
+        scale = None if form == "f32" else ops[2]
+        d_pad = db.shape[1] * (2 if pk.int4_packed else 1)
+        kw = dict(bin_size=pk.bin_size, int4_packed=pk.int4_packed)
+        ks = index.k_scan
+        if with_width:
+            kw_fused = dict(kw, k_scan=ks, width=q.shape[1])
+        else:
+            kw_fused = dict(kw, k_scan=ks)
+        for m in ms:
+            qm = q[:m].contiguous()
+            qp = pad_queries_to(qm, d_pad).contiguous()
+            for s in [int(x) for x in args.splits.split(",") if x] or [None]:
+                prk.split_plan = planner if s is None else forced_plan(prk, s)
+                try:
+                    carries = prk.fused_scan(qp, db, bias, scale, **kw_fused)
+                    row = dict(
+                        form=form, k=args.k, k_scan=ks, bin_size=pk.bin_size,
+                        m=m, splits=carries[0].shape[0],
+                        fused_ms=median_ms(lambda: prk.fused_scan(
+                            qp, db, bias, scale, **kw_fused), args.reps),
+                        merge_ms=median_ms(lambda: prk.fused_carry_merge(
+                            *carries), args.reps),
+                        packed_ms=median_ms(lambda: prk.partial_reduce_packed(
+                            qm, db, bias, scale, **kw), args.reps))
+                finally:
+                    prk.split_plan = planner
+                print(json.dumps(row), flush=True)
+                del carries
+        del index, pk, ops, db, bias, scale
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -17,7 +17,13 @@ Every form scores ``(q @ x̂ᵀ) * scale + bias`` over the rows widened to
 f32 (x̂), the product and the sum rounded apart, as the reference's
 ``_tile_winners``.  The port's layout (``repro_torch.search.packed``)
 makes ``n_pad`` a multiple of ``max(bin_size, BLOCK_N)`` and ``d_pad`` a
-multiple of 128 (256 for int4).
+multiple of 128 for every form (an int4 row is then ``d_pad / 2`` bytes).
+
+On CUDA the kernels multiply on the tensor cores in bf16: they split the
+queries exactly into three bf16 parts (:func:`split_queries` is the
+plain version of that split), over the lanes the function needs, ``d``
+rounded up to 16, and sum the exact products of each part with the rows
+(six for f32 rows, which they split the same way).
 
   * :func:`partial_reduce_packed` (two-pass, B2/B3a): every bin winner,
     ``(m, n_pad // bin_size)`` values and raw int32 global indices.
@@ -35,6 +41,8 @@ show which path it took.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -63,21 +71,35 @@ __all__ = [
     "partial_reduce_packed",
     "partial_reduce_packed_plain",
     "reset_counts",
+    "scan_smem",
     "split_plan",
+    "split_queries",
     "storage_form",
 ]
 
-# Tiles and limits compiled into csrc/partial_reduce.cu (its BM, BN,
+# Tiles and limits compiled into csrc/partial_reduce.cu (its BQ, BN,
 # SMEM_K_SCAN, MAX_SPLITS); the C entry points reject arguments that
-# disagree with them.  A fused carry of more than SMEM_K_SCAN entries
-# lives in device memory instead of shared memory.
-BLOCK_M = 64
+# disagree with them.  A block scans BLOCK_M queries against a split of
+# the rows, cut in BLOCK_N-row units.  A fused carry of more than
+# SMEM_K_SCAN entries lives in device memory instead of shared memory.
+BLOCK_M = 128
 BLOCK_N = 128
-SMEM_K_SCAN = 128
-MAX_SPLITS = 64
-# Blocks the split plan aims for on each SM: enough waves that the last
-# one's tail stays short.
-_BLOCKS_PER_SM = 8
+SMEM_K_SCAN = 32
+MAX_SPLITS = 256
+# The split plan's cost model, in BLOCK_N-row tiles of scan of a
+# three-pass form (about 3.5 us a tile at M=16 on an H100; an f32 tile
+# takes twice that), fitted to split-count sweeps at the Sift1M shape
+# (scripts/bench_torch_scan.py --splits; PERF.md): a block's fixed cost
+# (its queries' split into shared memory, the ring's first fill and last
+# drain; 3 to 15 tiles by form), and one step of the merge kernel's walk
+# over the splits' carry heads: about 0.07 us while the f32 carry values
+# of one merge block (_MERGE_THREADS queries, one a thread, as
+# csrc/partial_reduce.cu launches it) fit in _MERGE_L1_BYTES (the largest
+# footprint measured fast), about 0.22 us beyond.
+_BLOCK_COST_TILES = 8
+_MERGE_STEP_TILES = (0.02, 0.06)
+_MERGE_L1_BYTES = 160 * 1024
+_MERGE_THREADS = 128
 
 # Stored forms of the database, in the order of the C interface's `form`.
 FORMS = ("f32", "bf16", "int8", "int4")
@@ -177,6 +199,29 @@ def partial_reduce_fused_plain(
     return top[:, :k_scan], torch.gather(idxs, 1, pos[:, :k_scan])
 
 
+def split_queries(q: torch.Tensor) -> torch.Tensor:
+    """The exact three-way bf16 split of f32 queries, ``(3, m, d)`` bf16
+    with ``q == p[0] + p[1] + p[2]`` (each part the bf16 rounding of what
+    the earlier ones leave; every residual is exact in f32, and the last
+    fits bf16's 8 significant bits while the parts stay normal: for 0 and
+    for 2^-100 <= |q| <= 2^127, well past any query a metric prepares).
+    The CUDA kernels split their queries so in their prologue: a part
+    times a stored bf16, int8 or int4 value is exact in f32.
+
+    >>> q = torch.tensor([[1 / 3, -1e-20, 3.0e7]])
+    >>> p = split_queries(q)
+    >>> p.dtype, bool((p.double().sum(0) == q.double()).all())
+    (torch.bfloat16, True)
+    """
+    parts = []
+    rest = q.to(torch.float32)
+    for _ in range(3):
+        part = rest.to(torch.bfloat16)
+        parts.append(part)
+        rest = rest - part.to(torch.float32)
+    return torch.stack(parts)
+
+
 # --- front ends ---------------------------------------------------------------
 
 
@@ -211,46 +256,86 @@ def _front(queries, database, bias, scale, bin_size, int4_packed):
     return F.pad(queries, (0, d_pad - queries.shape[1])), form
 
 
-def _cuda_operands(q, database, bias, scale, bin_size):
+def _cuda_operands(q, database, bias, scale, bin_size, width, int4_packed):
     """Contiguity, alignment and tiling checks of the CUDA kernels; ``q``
-    is already ``d_pad`` wide."""
+    is already ``d_pad`` wide, and the function needs its first ``width``
+    lanes.  Returns the checked operands and the k-steps of 16 lanes that
+    cover ``width`` (the kernels split the queries in their prologue, as
+    :func:`split_queries` does)."""
     if q.device.type != "cuda":
         raise ValueError(
             f"partial_reduce kernels run on CPU or CUDA tensors, got {q.device}"
         )
-    q, database, bias = (t.contiguous() for t in (q, database, bias))
+    q, database, bias = q.contiguous(), database.contiguous(), bias.contiguous()
     if scale is not None:
         scale = scale.contiguous()
     n_pad, d_pad = database.shape[0], q.shape[1]
-    if d_pad % 16 or n_pad % max(bin_size, BLOCK_N):
+    if d_pad % (32 if int4_packed else 16) or n_pad % max(bin_size, BLOCK_N):
         raise ValueError(
-            f"CUDA tiling contract: d_pad={d_pad} must be a multiple of 16 "
-            f"and n_pad={n_pad} of max(bin_size={bin_size}, {BLOCK_N})"
+            f"CUDA tiling contract: d_pad={d_pad} must be a multiple of "
+            f"{32 if int4_packed else 16} and n_pad={n_pad} of "
+            f"max(bin_size={bin_size}, {BLOCK_N})"
         )
     if n_pad >= 2**31:
         raise ValueError(f"n_pad={n_pad} overflows the int32 row indices")
+    if not 0 < width <= d_pad:
+        raise ValueError(f"width={width} must be in 1..d_pad={d_pad}")
     for t in (q, database):
         if t.data_ptr() % 16:
             raise ValueError("operands must be 16-byte aligned")
-    return q, database, bias, scale
+    return q, -(-width // 16), database, bias, scale
 
 
-def split_plan(m: int, n_pad: int, bin_size: int, num_sms: int) -> Tuple[int, int]:
+@functools.lru_cache(maxsize=256)
+def split_plan(m: int, n_pad: int, bin_size: int, num_sms: int,
+               k_scan: int = 0) -> Tuple[int, int]:
     """(tiles_per_split, splits): cut the row range into bin-aligned
-    splits so that ceil(m / BLOCK_M) * splits blocks fill ``num_sms``.
+    splits for ceil(m / BLOCK_M) * splits blocks, one at a time on each of
+    ``num_sms`` SMs, whose carries of ``k_scan`` entries (0: the two-pass
+    kernel, nothing to merge) the merge kernel folds.  Of the cuts, the
+    one with the least time in BLOCK_N-row tiles of scan: waves x (the
+    tiles of one block + a block's fixed cost), plus the merge, whose
+    thread for a query walks splits x k_scan carry heads, at a step cost
+    that triples once a merge block's carries outgrow L1; fewer splits
+    on a tie.
 
-    >>> split_plan(10_000, 1_003_520, 4096, 132)
-    (1120, 7)
-    >>> split_plan(512, 1_003_520, 4096, 132)
-    (128, 62)
+    >>> split_plan(10_000, 1_003_520, 4096, 132, 10)   # Sift1M f32
+    (1568, 5)
+    >>> split_plan(16, 1_003_520, 4096, 132, 10)
+    (64, 123)
+    >>> split_plan(16, 1_000_448, 1024, 132, 30)       # Sift1M int4
+    (96, 82)
     """
     tiles_per_bin = max(1, bin_size // BLOCK_N)
     groups = n_pad // BLOCK_N // tiles_per_bin
     q_tiles = -(-m // BLOCK_M)
-    want = -(-_BLOCKS_PER_SM * num_sms // q_tiles)
-    splits = max(1, min(groups, want, MAX_SPLITS))
-    per = -(-groups // splits)
-    return per * tiles_per_bin, -(-groups // per)
+    best = None
+    for want in range(1, min(groups, MAX_SPLITS) + 1):
+        per = -(-groups // want)
+        splits = -(-groups // per)
+        waves = -(-q_tiles * splits // num_sms)
+        steps = splits * k_scan
+        in_l1 = 4 * min(m, _MERGE_THREADS) * steps <= _MERGE_L1_BYTES
+        cost = (waves * (per * tiles_per_bin + _BLOCK_COST_TILES)
+                + _MERGE_STEP_TILES[0 if in_l1 else 1] * steps)
+        if best is None or cost < best[0]:
+            best = (cost, per * tiles_per_bin, splits)
+    return best[1], best[2]
+
+
+def scan_smem(form: str, fused: bool, width: int, k_scan: int = 0) -> dict:
+    """The shared-memory plan of one scan launch on the current CUDA
+    device, for ``width`` query lanes: its dynamic ``bytes``, the depth
+    of its row-stage ring (``stages``) and whether the split queries stay
+    ``resident`` for the whole row range."""
+    lib = build.load_library()
+    stages, resident = ctypes.c_int(0), ctypes.c_int(0)
+    code = lib.pr_scan_plan(FORMS.index(form), int(fused), -(-width // 16),
+                            k_scan, ctypes.byref(stages), ctypes.byref(resident))
+    if code < 0:
+        raise ValueError(f"no scan plan for {form}, width={width}, "
+                         f"k_scan={k_scan} ({code})")
+    return dict(bytes=code, stages=stages.value, resident=bool(resident.value))
 
 
 def _launch_setup(q):
@@ -280,8 +365,9 @@ def partial_reduce_packed(
         return partial_reduce_packed_plain(q, database, bias, scale,
                                            bin_size=bin_size,
                                            int4_packed=int4_packed)
-    q, database, bias, scale = _cuda_operands(q, database, bias, scale, bin_size)
-    m, d = q.shape
+    m, d_pad = q.shape
+    q, nks, database, bias, scale = _cuda_operands(
+        q, database, bias, scale, bin_size, queries.shape[1], int4_packed)
     n_pad = database.shape[0]
     out_v = torch.empty((m, n_pad // bin_size), dtype=torch.float32, device=q.device)
     out_i = torch.empty((m, n_pad // bin_size), dtype=torch.int32, device=q.device)
@@ -292,8 +378,8 @@ def partial_reduce_packed(
         tps, splits = split_plan(m, n_pad, bin_size, sms)
         code = lib.pr_two_pass(
             FORMS.index(form), q.data_ptr(), database.data_ptr(), _ptr(scale),
-            bias.data_ptr(), m, d, n_pad, int(math.log2(bin_size)), tps,
-            splits, out_v.data_ptr(), out_i.data_ptr(), stream,
+            bias.data_ptr(), m, nks, d_pad, n_pad, int(math.log2(bin_size)),
+            tps, splits, out_v.data_ptr(), out_i.data_ptr(), stream,
         )
         name = kernel_name("partial_reduce_packed", form)
         build.check(lib, code, f"{name} kernel")
@@ -327,36 +413,38 @@ def partial_reduce_fused(
         )
     return fused_carry_merge(*fused_scan(
         q, database, bias, scale, k_scan=k_scan, bin_size=bin_size,
-        int4_packed=int4_packed,
+        int4_packed=int4_packed, width=queries.shape[1],
     ))
 
 
 def fused_scan(
     q: torch.Tensor, database: torch.Tensor, bias: torch.Tensor,
     scale: Optional[torch.Tensor] = None, *, k_scan: int, bin_size: int,
-    int4_packed: bool = False,
+    int4_packed: bool = False, width: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused form's scan kernel on CUDA operands (queries already
-    ``d_pad`` wide): each split of the row range keeps its own
+    ``d_pad`` wide, of which the first ``width`` lanes are the queries';
+    default all): each split of the row range keeps its own
     top-``k_scan`` carry.  Returns the carries, (splits, m, k_scan) values
     and int32 indices."""
     if k_scan <= 0:
         raise ValueError(f"k_scan must be positive, got {k_scan}")
     form = storage_form(database, scale, int4_packed)
-    q, database, bias, scale = _cuda_operands(q, database, bias, scale, bin_size)
-    m, d = q.shape
+    m, d_pad = q.shape
+    q, nks, database, bias, scale = _cuda_operands(
+        q, database, bias, scale, bin_size, width or d_pad, int4_packed)
     n_pad = database.shape[0]
     with torch.cuda.device(q.device):
         lib, sms, stream = _launch_setup(q)
-        tps, splits = split_plan(max(m, 1), n_pad, bin_size, sms)
+        tps, splits = split_plan(max(m, 1), n_pad, bin_size, sms, k_scan)
         part_v = torch.empty((splits, m, k_scan), dtype=torch.float32, device=q.device)
         part_i = torch.empty((splits, m, k_scan), dtype=torch.int32, device=q.device)
         if m == 0:
             return part_v, part_i
         code = lib.pr_fused_scan(
             FORMS.index(form), q.data_ptr(), database.data_ptr(), _ptr(scale),
-            bias.data_ptr(), m, d, n_pad, int(math.log2(bin_size)), k_scan,
-            tps, splits, part_v.data_ptr(), part_i.data_ptr(), stream,
+            bias.data_ptr(), m, nks, d_pad, n_pad, int(math.log2(bin_size)),
+            k_scan, tps, splits, part_v.data_ptr(), part_i.data_ptr(), stream,
         )
         name = kernel_name("partial_reduce_fused", form)
         build.check(lib, code, f"{name} kernel")

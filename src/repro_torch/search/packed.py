@@ -6,8 +6,9 @@ Port of ``src/repro/search/packed.py``.  At build and mutation time
   * the metric-prepared database in its storage tier
     (``repro_torch.search.quant``) and the backend's layout — for
     ``"cuda"`` padded to the kernels' tiling contract: D to a multiple of
-    128 (256 for int4, whose rows are then packed two codes per byte), N
-    to a multiple of ``block_n = max(bin_size, BLOCK_N)``;
+    128 for every tier (int4 rows are then packed two codes per byte, 64
+    bytes at D=128; the reference's TPU layout pads int4 to 256 lanes),
+    N to a multiple of ``block_n = max(bin_size, BLOCK_N)``;
   * the fused bias row — metric bias (of the stored values), tombstones
     and tail mask in one additive term;
   * for int8/int4, the per-row scale (0 on the padded tail);
@@ -163,13 +164,10 @@ class PackedState:
             qr = metric.prepare_update_storage(rows, self.storage)
             prepped, metric_bias = qr.rows, qr.bias
         r = prepped.shape[0]
-        if self.int4_packed:
-            # canonical codes -> pad to the logical d_pad, two per byte
-            prepped = quant.pack_int4_rows(
-                F.pad(prepped, (0, 2 * self.db.shape[1] - prepped.shape[1]))
-            )
-        else:
-            prepped = F.pad(prepped, (0, self.db.shape[1] - prepped.shape[1]))
+        d_pad = self.db.shape[1] * (2 if self.int4_packed else 1)
+        prepped = F.pad(prepped, (0, d_pad - prepped.shape[1]))
+        if self.int4_packed:  # canonical codes, two per byte
+            prepped = quant.pack_int4_rows(prepped)
         self.db[start : start + r] = prepped
         self.bias_row()[start : start + r] = fuse_bias(
             metric_bias, num_rows=r, device=self.db.device
@@ -262,15 +260,11 @@ def _layout(
     if backend == "cuda":
         block_n = max(bin_size, kernels.BLOCK_N)
         n_pad = round_up(max(n, block_n), block_n)
+        # Zero pad lanes are exact for dot products (a zero int4 code
+        # dequantizes to 0); int4 codes then go two per byte.
+        db = F.pad(rows, (0, round_up(d, 128) - d, 0, n_pad - n))
         if spec.storage == "int4":
-            # Two codes per byte: pad the lanes to a multiple of 256 so the
-            # byte width stays a multiple of 128, then pack (a zero pad
-            # code dequantizes to 0, exact for dot products).
-            d_pad = round_up(d, 256)
-            db = quant.pack_int4_rows(F.pad(rows, (0, d_pad - d, 0, n_pad - n)))
-        else:
-            d_pad = round_up(d, 128)
-            db = F.pad(rows, (0, d_pad - d, 0, n_pad - n))
+            db = quant.pack_int4_rows(db)
         full = F.pad(bias.to(torch.float32), (0, n_pad - n), value=MASK_VALUE)
         if scale is not None:
             # Padded-tail scale is 0: tail scores become 0 * dot + MASK.

@@ -86,15 +86,13 @@ def stored_operands(db: torch.Tensor, form: str):
     ``repro_torch.search.quant`` as the packed layout stores them.
 
     Returns ``(stored, scale, int4_packed, widened)``: the kernel operands
-    (``scale`` (1, n_pad) or None; int4 lanes padded to a multiple of 256
-    and packed two codes per byte) and the stored values widened back to
-    f32 rows (n_pad, d_pad), scale applied, for :func:`bias_scorer`."""
+    (``scale`` (1, n_pad) or None; int4 codes packed two per byte, d_pad
+    / 2 bytes a row) and the stored values widened back to f32 rows
+    (n_pad, d_pad), scale applied, for :func:`bias_scorer`."""
     from repro_torch.search import quant
 
     if form == "f32":
         return db, None, False, db
-    if form == "int4":
-        db = F.pad(db, (0, -db.shape[1] % 256))
     stored, scale = quant.quantize_rows(db, form)
     widened = quant.dequantize_rows(stored, scale)
     if form == "int4":

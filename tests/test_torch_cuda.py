@@ -99,10 +99,165 @@ def test_stored_forms_match_plain(cuda_device, name, form):
     assert_topk_close(pfv.cpu(), pfi.cpu(), fv.cpu(), fi.cpu(), score=score)
 
 
-@pytest.mark.parametrize("k_scan", [129, 512])
+def _integer_operands(form, bin_size, seed, d=100):
+    """Small-integer queries and rows (every dot product and bias sum is
+    exact in f32) in the port's layout, 10% tombstones, l2 bias; a query
+    count that leaves the last query block part full and one of its
+    warpgroups empty, and by default D=100 (7 k-steps of 16 in a 128-lane
+    row)."""
+    rng = np.random.default_rng(seed)
+    m, n = 150, max(3 * bin_size, 2000)
+    block_n = max(bin_size, 128)
+    n_pad = -(-n // block_n) * block_n
+    q = rng.integers(-3, 4, (m, d)).astype(np.float32)
+    rows = rng.integers(-7, 8, (n, d)).astype(np.float32)
+    db = np.zeros((n_pad, -(-d // 128) * 128), np.float32)
+    db[:n, :d] = rows
+    bias = np.full((1, n_pad), np.finfo(np.float32).min, np.float32)
+    bias[0, :n] = np.where(rng.random(n) >= 0.1,
+                           -0.5 * (rows * rows).sum(1), bias[0, :n])
+    q, db, bias = (torch.from_numpy(a).cuda() for a in (q, db, bias))
+    stored, scale, packed, _ = stored_operands(db, form)
+    return q, stored, bias, scale, packed
+
+
+@pytest.mark.parametrize("log2_bin", range(13))
+@pytest.mark.parametrize("k_scan", [10, 129])
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8", "int4"])
+def test_integer_inputs_bit_equal(cuda_device, form, k_scan, log2_bin):
+    """With integer-valued queries and rows every sum is exact, on the
+    tensor cores as in the plain version: both kernels give the plain
+    versions' values bit for bit and their indices exactly, ties
+    included, at bins of 1 to 4096 rows and with the fused carry in
+    shared (k_scan 10) and device (129) memory."""
+    bin_size = 1 << log2_bin
+    q, stored, bias, scale, packed = _integer_operands(form, bin_size, log2_bin)
+    kw = dict(bin_size=bin_size, int4_packed=packed)
+    v, i = prk.partial_reduce_packed(q, stored, bias, scale, **kw)
+    fv, fi = prk.partial_reduce_fused(q, stored, bias, scale, k_scan=k_scan, **kw)
+    qp = pad_queries_to(q, 128)
+    pv, pi = prk.partial_reduce_packed_plain(qp, stored, bias, scale, **kw)
+    pfv, pfi = prk.partial_reduce_fused_plain(qp, stored, bias, scale,
+                                              k_scan=k_scan, **kw)
+    torch.cuda.synchronize()
+    for got, want in ((v, pv), (i, pi), (fv, pfv), (fi, pfi)):
+        assert torch.equal(got, want)
+
+
+def _fixed_point(rng, shape, bits):
+    """Values of exactly ``bits`` significant bits on the grid 2^(1-bits),
+    each sign: |v| in [1, 2)."""
+    mag = rng.integers(1 << (bits - 1), 1 << bits, shape)
+    return (mag * rng.choice([-1, 1], shape) * 2.0 ** (1 - bits)).astype(np.float32)
+
+
+def _split_parts_operands(form, wide, bin_size, seed):
+    """Queries and rows with more significant bits than bf16's 8, so the
+    kernels' split parts beyond the first are not zero, and every sum of
+    the scan is still exact in f32.  ``wide`` names the operand that has
+    them:
+
+    * "queries": 19-bit queries (q = q0 + q1 + q2, q2 nonzero for about
+      half the values) against rows in {-1, 0, 1}, D=32: |q.x| < 64 on
+      the grid 2^-18, within f32's 24 bits;
+    * "rows" (f32 only): 19-bit rows against queries in {-1, 0, 1};
+    * "both" (f32 only): 10-bit queries and 9-bit rows, D=16, so q1 . x1
+      is not zero: |q.x| < 32 on the grid 2^-18.
+
+    The int8 and int4 forms get a random positive per-row scale; 10% of
+    the rows are tombstoned, the others get a random bias."""
+    rng = np.random.default_rng(seed)
+    m, n = 150, max(3 * bin_size, 2000)
+    d = 16 if wide == "both" else 32
+    n_pad = -(-n // max(bin_size, 128)) * max(bin_size, 128)
+    small = lambda shape: rng.integers(-1, 2, shape).astype(np.float32)  # noqa: E731
+    if wide == "both":
+        q = _fixed_point(rng, (m, d), 10)
+        rows = _fixed_point(rng, (n, d), 9) * 0.5
+    else:
+        q = _fixed_point(rng, (m, d), 19) if wide == "queries" else small((m, d))
+        rows = _fixed_point(rng, (n, d), 19) if wide == "rows" else small((n, d))
+    db = np.zeros((n_pad, 128), np.float32)
+    db[:n, :d] = rows
+    bias = np.full((1, n_pad), np.finfo(np.float32).min, np.float32)
+    bias[0, :n] = np.where(rng.random(n) >= 0.1,
+                           rng.standard_normal(n).astype(np.float32), bias[0, :n])
+    q, db, bias = (torch.from_numpy(a).cuda() for a in (q, db, bias))
+    scale = None
+    if form == "f32":
+        stored = db
+    elif form == "bf16":
+        stored = db.to(torch.bfloat16)
+    else:
+        from repro_torch.search import quant
+
+        stored = db.to(torch.int8)
+        if form == "int4":
+            stored = quant.pack_int4_rows(stored)
+        scale = torch.from_numpy(
+            rng.uniform(0.01, 2.0, (1, n_pad)).astype(np.float32)).cuda()
+    return q, rows, stored, bias, scale
+
+
+@pytest.mark.parametrize("bin_size", [1, 16, 1024])
+@pytest.mark.parametrize("form, wide", [
+    ("f32", "queries"), ("f32", "rows"), ("f32", "both"),
+    ("bf16", "queries"), ("int8", "queries"), ("int4", "queries"),
+])
+def test_split_parts_bit_equal(cuda_device, form, wide, bin_size):
+    """The exact bf16 split on the tensor cores, every part used: inputs
+    whose second and third split parts are not zero but whose sums are
+    exact in f32, so both kernels give the plain versions' values bit
+    for bit (a pass left out, or one of f32's six products, changes
+    them)."""
+    q, rows, stored, bias, scale = _split_parts_operands(form, wide, bin_size,
+                                                         bin_size)
+    # the parts the test is about are there
+    for name, x in (("queries", q.cpu()), ("rows", torch.from_numpy(rows))):
+        if wide in (name, "both"):
+            parts = prk.split_queries(x)
+            assert (parts[1] != 0).float().mean() > 0.2, name
+            if wide != "both":
+                assert (parts[2] != 0).float().mean() > 0.4, name
+    kw = dict(bin_size=bin_size, int4_packed=form == "int4")
+    v, i = prk.partial_reduce_packed(q, stored, bias, scale, **kw)
+    fv, fi = prk.partial_reduce_fused(q, stored, bias, scale, k_scan=10, **kw)
+    qp = pad_queries_to(q, 128)
+    pv, pi = prk.partial_reduce_packed_plain(qp, stored, bias, scale, **kw)
+    pfv, pfi = prk.partial_reduce_fused_plain(qp, stored, bias, scale,
+                                              k_scan=10, **kw)
+    torch.cuda.synchronize()
+    for got, want in ((v, pv), (i, pi), (fv, pfv), (fi, pfi)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d", [200, 256])
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8", "int4"])
+def test_wide_rows_bit_equal(cuda_device, form, d):
+    """Rows wider than one 128-lane stage: two stages a tile (one bulk
+    copy a row), the split queries reloaded at each stage where they do
+    not fit in shared memory, and at D=200 a last stage of 5 k-steps;
+    integer inputs, so bit-equal to the plain versions."""
+    q, stored, bias, scale, packed = _integer_operands(form, 64, d, d=d)
+    kw = dict(bin_size=64, int4_packed=packed)
+    v, i = prk.partial_reduce_packed(q, stored, bias, scale, **kw)
+    fv, fi = prk.partial_reduce_fused(q, stored, bias, scale, k_scan=10, **kw)
+    qp = pad_queries_to(q, stored.shape[1] * (2 if packed else 1))
+    pv, pi = prk.partial_reduce_packed_plain(qp, stored, bias, scale, **kw)
+    pfv, pfi = prk.partial_reduce_fused_plain(qp, stored, bias, scale,
+                                              k_scan=10, **kw)
+    torch.cuda.synchronize()
+    for got, want in ((v, pv), (i, pi), (fv, pfv), (fi, pfi)):
+        assert torch.equal(got, want)
+    plan = prk.scan_smem(form, True, d, 10)
+    if form in ("f32", "bf16") and d == 256:
+        assert not plan["resident"]
+
+
+@pytest.mark.parametrize("k_scan", [33, 129, 512])
 def test_fused_k_scan_limit(cuda_device, k_scan):
-    """Above 128 entries the carry lives in device memory; the kernel
-    answers as its plain version does."""
+    """Above SMEM_K_SCAN (32) entries the carry lives in device memory;
+    the kernel answers as its plain version does."""
     q, db, bias = packed_operands(m=70, n=100_000, d=64, bin_size=16,
                                   dead=0.2, l2=True, device=cuda_device)
     fv, fi = prk.partial_reduce_fused(q, db, bias, k_scan=k_scan, bin_size=16)

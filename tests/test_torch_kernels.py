@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.kernels.partial_reduce import partial_reduce_fused as ref_fused
 from repro.kernels.partial_reduce import partial_reduce_packed as ref_packed
@@ -167,8 +168,74 @@ ptxas info    : Function properties for _Z4scanILb1EEvv
 ptxas info    : Used 64 registers, used 1 barriers, 32 bytes cumulative stack size
 """
     assert ptxas_table(report) == [
-        {"kernel": "_Z5mergev", "registers": 32, "spill_stores": 0,
-         "spill_loads": 0},
-        {"kernel": "_Z4scanILb1EEvv", "registers": 64, "spill_stores": 28,
-         "spill_loads": 32},
+        {"kernel": "_Z5mergev", "registers": 32, "stack": 256,
+         "spill_stores": 0, "spill_loads": 0, "smem": 0},
+        {"kernel": "_Z4scanILb1EEvv", "registers": 64, "stack": 32,
+         "spill_stores": 28, "spill_loads": 32, "smem": 0},
     ]
+
+
+def _signed(lo, hi):
+    """f32 values of magnitude in [lo, hi], either sign, and 0."""
+    mag = st.floats(min_value=lo, max_value=hi, width=32) | st.just(0.0)
+    return st.tuples(mag, st.booleans()).map(lambda t: -t[0] if t[1] else t[0])
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.lists(_signed(2.0**-100, 2.0**127), min_size=1, max_size=48))
+def test_query_split_reconstructs_exactly(values):
+    """The CUDA kernels' bf16 split of the queries: three bf16 parts whose
+    sum is the f32 value, exactly, across f32's range."""
+    q = torch.tensor([values], dtype=torch.float32)
+    parts = prk.split_queries(q)
+    assert parts.dtype == torch.bfloat16 and parts.shape == (3, *q.shape)
+    assert torch.equal(parts.double().sum(0), q.double())
+    # the larger parts come first: each is the rounding of what is left
+    assert torch.equal(parts[0], q.to(torch.bfloat16))
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.lists(_signed(2.0**-60, 2.0**60), min_size=1, max_size=48),
+       st.integers(0, 2**32 - 1))
+def test_query_split_products_are_exact(values, seed):
+    """A part times a stored value of each quantized tier (int8 codes,
+    int4 codes, bf16 rows) is exact in f32: the tensor cores' products
+    lose nothing, only their f32 sum rounds."""
+    q = torch.tensor([values], dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    d = q.shape[1]
+    stored = [
+        torch.from_numpy(rng.integers(-127, 128, d).astype(np.float32)),
+        torch.from_numpy(rng.integers(-7, 8, d).astype(np.float32)),
+        torch.from_numpy(rng.standard_normal(d).astype(np.float32)
+                         * np.float32(10.0 ** rng.uniform(-3, 3))
+                         ).to(torch.bfloat16).float(),
+    ]
+    for part in prk.split_queries(q):
+        for x in stored:
+            assert torch.equal((part.float() * x).double(),
+                               part.double() * x.double())
+
+
+# (m, n_pad, bin_size): the Sift1M shape at the f32 and int4 bins, Glove1.2M
+# at int4's, and small tables with few bins or many splits.
+PLAN_CASES = [(10_000, 1_003_520, 4096), (16, 1_003_520, 4096),
+              (16, 1_000_448, 1024), (2000, 1_193_984, 2048),
+              (300, 200_704, 4096), (3, 65_536, 128), (1, 3072, 32)]
+
+
+@pytest.mark.parametrize("m, n_pad, bin_size", PLAN_CASES)
+@pytest.mark.parametrize("k_scan", [0, 10, 30, 512])
+def test_split_plan_covers_the_rows(m, n_pad, bin_size, k_scan):
+    """The split plan cuts the rows into bin-aligned splits, none empty,
+    within the merge kernel's limit; a carry to merge (k_scan; 0 for the
+    two-pass kernel, which merges nothing) never asks for more splits
+    than no carry, and with nothing to merge a small batch spreads over
+    the SMs."""
+    tps, splits = prk.split_plan(m, n_pad, bin_size, 132, k_scan)
+    tiles, per_bin = n_pad // prk.BLOCK_N, max(1, bin_size // prk.BLOCK_N)
+    assert tps % per_bin == 0 and 1 <= splits <= prk.MAX_SPLITS
+    assert (splits - 1) * tps < tiles <= splits * tps
+    assert splits <= prk.split_plan(m, n_pad, bin_size, 132, 0)[1]
+    if k_scan == 0 and m <= prk.BLOCK_M:
+        assert splits >= min(tiles // per_bin, 132) // 2

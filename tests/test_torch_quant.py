@@ -434,6 +434,45 @@ def test_state_from_quantized_snapshot(storage, ref_backend):
         state_from_arrays(arrays, meta, SearchSpec(metric="l2", k=6), "cpu")
 
 
+def test_int4_layout_at_128_lanes():
+    """The port's "cuda" layout pads int4 to 128 lanes like every tier:
+    64 bytes a row at D<=128, half of int8's, with the reference's codes,
+    scales and bin plan.  A reference snapshot in the pallas layout (256
+    lanes, 128 bytes a row) restores into it and searches the same."""
+    rng = np.random.default_rng(12)
+    db = rng.standard_normal((1500, 100), dtype=np.float32)
+    q = rng.standard_normal((7, 100), dtype=np.float32)
+    kw = dict(metric="l2", k=6)
+    ours = {s: Index.build(db, storage=s, backend="cuda", device="cpu", **kw)
+            for s in ("int8", "int4")}
+    i4, i8 = ours["int4"].pack(), ours["int8"].pack()
+    assert tuple(i4.db.shape) == (i8.db.shape[0], 64) and i4.int4_packed
+    assert i8.db.shape[1] == 128 and i4.db.dtype == i8.db.dtype == torch.int8
+    ref = ref_search.Index.build(jnp.asarray(db), backend="pallas",
+                                 cluster="off", storage="int4", **kw)
+    assert ref._packed.db.shape[1] == 128  # the TPU layout: 256 lanes
+    assert dataclasses.astuple(i4.plan) == dataclasses.astuple(ref.plan)
+    np.testing.assert_array_equal(i4.rows().numpy(),
+                                  np.asarray(ref._packed.rows()))
+    np.testing.assert_array_equal(i4.scale_row().numpy(),
+                                  np.asarray(ref._packed.scale_row()))
+    ref.delete(jnp.arange(0, 1500, 7))
+    arrays, meta = snapshot_state(ref._packed)
+    st = state_from_arrays({k: np.asarray(a) for k, a in arrays.items()},
+                           meta, SearchSpec(backend="cuda", storage="int4", **kw),
+                           "cpu")
+    assert tuple(st.db.shape) == (st.db.shape[0], 64) and st.int4_packed
+    np.testing.assert_array_equal(st.rows().numpy(),
+                                  np.asarray(ref._packed.rows()))
+    v, i = cuda_search_packed_quant(
+        torch.from_numpy(q), *st.operands(), metric="l2", k=6,
+        k_scan=quant.scan_k("int4", 6), n=st.n, bin_size=st.bin_size,
+        fused_select=True, int4_packed=True)
+    rv, ri = ref.search(jnp.asarray(q))
+    assert_topk_close(np.asarray(rv), np.asarray(ri), v.numpy(), i.numpy(),
+                      score=public_scorer("l2", q, db), **TOL)
+
+
 def test_spec_quantized_checks():
     assert SearchSpec(storage="int4").rescore_enabled
     assert not SearchSpec(storage="int8", rescore=False).rescore_enabled
