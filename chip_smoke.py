@@ -8,8 +8,11 @@ run in order and the first failure exits non-zero:
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   3. each kernel, in each stored form (f32, bf16, int8, int4), against
      its plain PyTorch version, at the small test shapes and at the
-     Sift1M shape (512 queries, full N, 10% tombstones); and the fused
-     kernel at k_scan 129 and 512 (its carry in device memory);
+     Sift1M shape (512 queries, full N, 10% tombstones); the fused
+     kernel at k_scan 129 and 512 (its carry in device memory); and the
+     merge kernel, bit for bit, on carries dense in ties (both zeros,
+     masked tails) over a grid of splits x k_scan x M that runs both of
+     its paths;
   4. the f32 main path at the Sift1M shape (N=1,000,000, D=128, l2, k=10,
      recall target 0.95, 10,000 queries): ``Index.build`` -> ``search``
      -> recall against an exact oracle -> ``add`` 10,000 rows ->
@@ -22,18 +25,24 @@ run in order and the first failure exits non-zero:
      queries after the updates), each also checking that the returned
      values are the exact scores of the returned ids (the rescore ran);
   7. launch counts, read after each path (every kernel of the path
-     launched, no plain version called); then each kernel against its
-     plain version at the main paths' own shapes (all 10,000 queries);
+     launched, no plain version called; 2 launches a fused search, 1 a
+     two-pass one); then each kernel against its plain version at the
+     main paths' own shapes (all 10,000 queries);
   8. CUDA-event timings at the Sift1M shape, f32 and each tier, of both
      scan kernels at M=10,000 and M=16 beside their bounds (tensor
      cores, bytes, epilogue instructions; and the f32 FFMA bound of the
      earlier kernel) and their earlier times, each tier's stored bytes
      per row, the fused kernel at k_scan 32 (carry in shared memory), 33
-     and 512 (in device memory), and the launches of one search.
+     and 512 (in device memory), and the launches of one search; and per
+     tier at M=10,000 and M=16 (and int4 at k=20) the merge at the split
+     count the plan chose, checked bit for bit, beside its byte bound, an
+     empty kernel's launch and ``torch.topk`` over the same carries (device
+     times of calls queued back to back).
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
-instantiation without any fails the run.
+instantiation without any, or a merge instantiation with a stack frame
+or a spill, fails the run.
 
 It prints the ``kernels`` JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Data is random from
@@ -127,6 +136,28 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def queued_ms(fn, reps: int = 50) -> float:
+    """Device time per call of ``fn()``: ``reps`` calls queued behind a
+    sleep kernel, so the card runs them back to back (one call between two
+    events would time the host's Python as well, which is longer than a
+    kernel of a few microseconds); the median of three such runs, after a
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # holds the stream while the host queues
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[1]
+
+
 def bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -152,7 +183,13 @@ def scan_bounds(form: str, m: int, n_pad: int, d: int, nbytes: float) -> dict:
 
 
 def kernel_label(mangled: str) -> str:
-    """``pr_scan_kernel<fused, form>`` from a mangled kernel name."""
+    """``pr_scan_kernel<fused, form>`` or ``pr_merge_kernel<lanes,
+    per_lane, staged>`` from a mangled kernel name."""
+    merge = re.search(r"pr_merge_kernelILi(\d+)ELi(\d+)ELb([01])E", mangled)
+    if merge:
+        lanes, per_lane, staged = merge.groups()
+        return (f"pr_merge_kernel<{lanes}, {per_lane}, "
+                f"{'staged' if staged == '1' else 'global'}>")
     found = re.search(r"(pr_[a-z_]*kernel)(?:ILb([01])E(?:Li(\d)E)?E)?", mangled)
     if not found:
         return mangled
@@ -259,7 +296,7 @@ def compare_kernels(prk, testing, label, q, db, bias, bs, ks, acc, *,
                                      bin_size=bs, score=score)
     testing.assert_topk_close(pfv.cpu(), pfi.cpu(), fv.cpu(), fi.cpu(),
                               score=score)
-    if not (torch.equal(mv, fv) and torch.equal(mi, fi)):
+    if not (testing.bits_equal(mv, fv) and torch.equal(mi, fi)):
         fail(f"{label}: fused_carry_merge differs from its plain version")
     for kernel, a, b, x, y in ((packed, i, pi, v, pv), (fused, fi, pfi, fv, pfv),
                                (merge, fi, mi, fv, mv)):
@@ -306,6 +343,43 @@ def phase_kernels(prk, testing, seed, acc):
         del q, db, bias
 
 
+# The merge kernel's grid on carries dense in ties (tests/test_torch_cuda.py
+# test_merge_bit_equal): group widths of 8, 16 and 32 lanes, 1 to 8 splits
+# a lane, carries staged in shared memory and read from device memory.
+MERGE_SPLITS = (1, 2, 5, 31, 32, 33, 82, 123, 256)
+MERGE_K_SCAN = (1, 10, 30, 32, 33, 129, 512)
+MERGE_M = (1, 16, 129, 1000)
+
+
+def merge_equal(prk, testing, carries, label):
+    """The merge kernel against its plain version on ``carries``, bit for
+    bit; fails the run on any difference."""
+    v, i = prk.fused_carry_merge(*carries)
+    pv, pi = prk.fused_carry_merge_plain(*carries)
+    if not (testing.bits_equal(v, pv) and torch.equal(i, pi)):
+        fail(f"{label}: fused_carry_merge differs from its plain version")
+
+
+def phase_merge_ties(prk, testing, seed):
+    """Phase 3, the merge: bit for bit on the tie-heavy grid, which must
+    run both of its paths (carries staged in shared memory, and not)."""
+    paths = set()
+    for splits in MERGE_SPLITS:
+        for k_scan in MERGE_K_SCAN:
+            paths.add(prk.merge_plan(splits, k_scan)["staged_bytes"] > 0)
+            for m in MERGE_M:
+                carries = testing.tied_carries(splits, m, k_scan,
+                                               seed=seed + splits * 1000 + k_scan,
+                                               device="cuda")
+                merge_equal(prk, testing, carries,
+                            f"tied carries splits={splits} k_scan={k_scan} m={m}")
+                del carries
+    if paths != {True, False}:
+        fail(f"the merge grid ran only staged={paths}")
+    log(f"merge vs plain on tied carries: splits {MERGE_SPLITS} x k_scan "
+        f"{MERGE_K_SCAN} x m {MERGE_M}, both paths: bit-equal")
+
+
 def make_data(cfg, seed):
     """The random database, queries, appended rows and deleted ids of one
     shape, on the card."""
@@ -316,6 +390,18 @@ def make_data(cfg, seed):
     extra = torch.randn((10_000, d), generator=g, device="cuda")
     dead = torch.randperm(n, generator=g, device="cuda")[:50_000]
     return db, q, extra, dead
+
+
+def launches_of(search, want: int, label: str):
+    """Run ``search()``; fail unless it launched ``want`` kernels."""
+    from repro_torch.kernels import partial_reduce as prk
+
+    before = sum(prk.LAUNCHES.values())
+    out = search()
+    got = sum(prk.LAUNCHES.values()) - before
+    if got != want:
+        fail(f"{label} search launched {got} kernels, not {want}")
+    return out
 
 
 def drive(cfg, data, m_after, results, storage="f32"):
@@ -357,8 +443,8 @@ def drive(cfg, data, m_after, results, storage="f32"):
         idx.delete(dead)
     plan = index.plan
     qa = q[:m_after]
-    v, i = index.search(qa)
-    tv, ti = two_pass.search(qa)
+    v, i = launches_of(lambda: index.search(qa), 2, f"{label} fused")
+    tv, ti = launches_of(lambda: two_pass.search(qa), 1, f"{label} two-pass")
     torch.cuda.synchronize()
     rows = torch.cat([db, extra])
     live = torch.ones(rows.shape[0], dtype=torch.bool, device="cuda")
@@ -425,15 +511,42 @@ def phase_main_shapes(prk, testing, cases, acc):
                         int4_packed=pk.int4_packed)
 
 
-def time_form(prk, db, q, storage, results):
+def time_merge(prk, testing, carries, label, rows, empty_ms):
+    """The merge on one plan's carries: bit for bit against its plain
+    version, then its device time beside ``torch.topk`` over the same
+    carries laid end to end (one PyTorch call that computes the same
+    values; the port never calls it), its byte bound (each carry entry
+    read once, each output written once) and an empty launch; appended
+    to ``rows`` and logged."""
+    merge_equal(prk, testing, carries, label)
+    splits, m, k_scan = carries[0].shape
+    flat = carries[0].permute(1, 0, 2).reshape(m, splits * k_scan).contiguous()
+    row = dict(label=label, m=m, splits=splits, k_scan=k_scan,
+               plan=prk.merge_plan(splits, k_scan),
+               ms=queued_ms(lambda: prk.fused_carry_merge(*carries)),
+               topk_ms=queued_ms(lambda: torch.topk(flat, k_scan, dim=1)),
+               bound_ms=1e3 * 8.0 * (splits + 1) * m * k_scan / PEAK_HBM_BYTES,
+               empty_ms=empty_ms)
+    rows.append(row)
+    log(f"  merge [{label}] M={m}: {splits} splits, k_scan {k_scan}, plan "
+        f"{row['plan']}: {row['ms']:.4f} ms, torch.topk {row['topk_ms']:.4f} "
+        f"ms, byte bound {row['bound_ms']:.5f} ms, empty launch "
+        f"{empty_ms:.4f} ms; bit-equal to its plain version")
+    return row
+
+
+def time_form(prk, testing, db, q, storage, results, empty_ms, merge_rows):
     """Phase 8, one stored form: CUDA-event timings at the Sift1M shape on
     a fresh index of the form over the main path's data (before its
     updates), at M=10,000 and M=16: both scan kernels, the merge, their
     plain versions, a quantized tier's rescore stage and the whole
-    search; for f32 also cuBLAS's f32 GEMM of the same product (a
+    search (at M=16 also as the device time of searches queued back to
+    back: a single search there takes about as long on the host as on
+    the card); for f32 also cuBLAS's f32 GEMM of the same product (a
     yardstick the port never calls) and the fused kernel at bins of 256
     rows for each k_scan of KSCAN_TIMED; for int4 also the fused scan of
-    an index at k=20, whose carry lives in device memory."""
+    an index at k=20, whose carry lives in device memory.  The merge at
+    each of these plans goes through :func:`time_merge`."""
     from repro_torch.search import (Index, get_metric, pad_queries_to,
                                     rescore_candidates)
 
@@ -467,15 +580,18 @@ def time_form(prk, db, q, storage, results):
     splits = carries[0].shape[0]
     q16 = qm[:16].contiguous()
     c16 = fused(q16)
+    merge = {m_: time_merge(prk, testing, c, storage, merge_rows, empty_ms)
+             for m_, c in ((m, carries), (16, c16))}
     t = {
         "fused": cuda_ms(lambda: fused(qm)),
-        "merge": cuda_ms(lambda: prk.fused_carry_merge(*carries), reps=20),
+        "merge": merge[m]["ms"],
         "packed": cuda_ms(lambda: packed(qm)),
         "fused_m16": cuda_ms(lambda: fused(q16), reps=20),
-        "merge_m16": cuda_ms(lambda: prk.fused_carry_merge(*c16), reps=20),
+        "merge_m16": merge[16]["ms"],
         "packed_m16": cuda_ms(lambda: packed(q16), reps=20),
         "search": cuda_ms(lambda: index.search(q)),
         "search_m16": cuda_ms(lambda: index.search(q[:16]), reps=20),
+        "search_m16_device": queued_ms(lambda: index.search(q[:16])),
         "fused_plain": cuda_ms(lambda: plain(prk.partial_reduce_fused_plain,
                                              k_scan=ks), reps=3),
         "packed_plain": cuda_ms(lambda: plain(prk.partial_reduce_packed_plain),
@@ -485,8 +601,8 @@ def time_form(prk, db, q, storage, results):
         def gemm():
             for s in range(0, m, 1000):
                 torch.matmul(qp[s : s + 1000], sdb.T)
-        t["merge_plain"] = cuda_ms(lambda: prk.fused_carry_merge_plain(*carries),
-                                   reps=20)
+        t["merge_plain"] = queued_ms(
+            lambda: prk.fused_carry_merge_plain(*carries))
         t["gemm"] = cuda_ms(gemm, reps=3)
         # The carry in shared memory (k_scan <= SMEM_K_SCAN) against the
         # carry in device memory (above), at bins of 256 rows: 3,920
@@ -495,7 +611,7 @@ def time_form(prk, db, q, storage, results):
             ck = fused(qm, k_scan=k_scan, bin_size=256)
             t[f"fused_k{k_scan}"] = cuda_ms(
                 lambda: fused(qm, k_scan=k_scan, bin_size=256))
-            t[f"merge_k{k_scan}"] = cuda_ms(lambda: prk.fused_carry_merge(*ck))
+            t[f"merge_k{k_scan}"] = queued_ms(lambda: prk.fused_carry_merge(*ck))
             del ck
     else:
         fv, fi = prk.fused_carry_merge(*carries)
@@ -518,8 +634,13 @@ def time_form(prk, db, q, storage, results):
                                   width=d)
         c20 = fused20(qm)
         t["fused_k20"] = cuda_ms(lambda: fused20(qm))
-        t["merge_k20"] = cuda_ms(lambda: prk.fused_carry_merge(*c20), reps=20)
+        t["merge_k20"] = time_merge(prk, testing, c20, "int4 k=20", merge_rows,
+                                    empty_ms)["ms"]
         t["fused_k20_m16"] = cuda_ms(lambda: fused20(q16), reps=20)
+        t["merge_k20_m16"] = time_merge(prk, testing, fused20(q16), "int4 k=20",
+                                        merge_rows, empty_ms)["ms"]
+        t["search_k20_m16"] = cuda_ms(lambda: i20.search(q[:16]), reps=20)
+        t["search_k20_m16_device"] = queued_ms(lambda: i20.search(q[:16]))
         del i20, p20, o20, c20
     prk.reset_counts()
     index.search(q)
@@ -537,7 +658,7 @@ def time_form(prk, db, q, storage, results):
     pb = bounds(m, 8.0 * m * (n_pad // bs))
     fb16 = bounds(16, 8.0 * c16[0].shape[0] * 16 * ks)
     pb16 = bounds(16, 8.0 * 16 * (n_pad // bs))
-    fname, merge, pname = names_of(storage)
+    fname, mname, pname = names_of(storage)
     err = results["max_abs_err"]
     was = FFMA_KERNEL_MS[storage]
 
@@ -568,6 +689,7 @@ def time_form(prk, db, q, storage, results):
                  merge_ms=t["merge"], merge_ms_m16=t["merge_m16"],
                  search_ms=t["search"], qps=m / t["search"] * 1e3,
                  search_ms_m16=t["search_m16"],
+                 search_ms_m16_device=t["search_m16_device"],
                  recall=results["sift1m" if storage == "f32"
                                  else f"sift1m {storage}"]["recall"])
     if storage == "f32":
@@ -579,17 +701,21 @@ def time_form(prk, db, q, storage, results):
         extra.update(rescore_ms=t["rescore"])
     if storage == "int4":
         extra.update(k20={**k20, "ms": t["fused_k20"], "merge_ms": t["merge_k20"],
-                          "ms_m16": t["fused_k20_m16"]})
+                          "ms_m16": t["fused_k20_m16"],
+                          "merge_ms_m16": t["merge_k20_m16"],
+                          "search_ms_m16": t["search_k20_m16"],
+                          "search_ms_m16_device": t["search_k20_m16_device"]})
     kernels = [entry(fname, "partial_reduce_fused", fb, fb16, **extra),
                entry(pname, "partial_reduce_packed", pb, pb16)]
     if storage == "f32":
         mb = bound_ms(m * K * splits, 8.0 * (splits + 1) * m * K)
         kernels.insert(1, dict(
-            name=merge, route="cuda", source=SRC,
-            replaces=REPLACES[("partial_reduce_fused", "f32")], **counts(merge),
-            max_abs_err=err[merge], ms=t["merge"], plain_ms=t["merge_plain"],
-            bound_ms=mb[0], bound_by=mb[1], library_ms=None,
-            ms_m16=t["merge_m16"]))
+            name=mname, route="cuda", source=SRC, replaces=f"{REF}:219",
+            **counts(mname), max_abs_err=err[mname], ms=t["merge"],
+            plain_ms=t["merge_plain"], bound_ms=mb[0], bound_by=mb[1],
+            library_ms=merge[m]["topk_ms"], ms_m16=t["merge_m16"],
+            library_ms_m16=merge[16]["topk_ms"],
+            bound_ms_m16=merge[16]["bound_ms"], empty_launch_ms=empty_ms))
 
     log(f"timing {storage} at M={m}, n_pad={n_pad}, d={d} (d_pad {d_pad}), "
         f"{row_bytes} stored bytes a row, bin={bs}, k_scan={ks}, "
@@ -646,16 +772,26 @@ def main(argv=None) -> int:
             + "".join(f"\n    {w}" for w in row["warnings"]))
         if label.startswith("pr_scan_kernel") and not row["hgmma"]:
             fail(f"{label} has no tensor-core (HGMMA) instruction")
+        if label.startswith("pr_merge_kernel") and (
+                row["stack"] or row["spill_stores"] or row["spill_loads"]):
+            fail(f"{label} has a stack frame or spills")
     for form in FORMS:
         ks = SIFT_PLAN[form][1]
         log(f"  scan shared memory at d={SIFT['d']}, {form}: fused (k_scan "
             f"{ks}) {prk.scan_smem(form, True, SIFT['d'], ks)}, two-pass "
             f"{prk.scan_smem(form, False, SIFT['d'])}")
 
+    lib = build.load_library()
+    empty_ms = queued_ms(lambda: build.check(
+        lib, lib.pr_empty(torch.cuda.current_stream().cuda_stream), "empty kernel"))
+    log(f"empty kernel launch: {empty_ms:.4f} ms (device time per call, "
+        f"queued back to back)")
+
     names = sorted({n for form in FORMS for n in names_of(form)})
     acc = {"errs": dict.fromkeys(names, 0.0), "agree": dict.fromkeys(names, 0),
            "total": dict.fromkeys(names, 0)}
     phase_kernels(prk, testing, args.seed, acc)
+    phase_merge_ties(prk, testing, args.seed)
 
     results = {"launches": {}, "plain_calls": {}}
     data = {cfg["name"]: make_data(cfg, args.seed + i)
@@ -695,10 +831,18 @@ def main(argv=None) -> int:
                                   for k in names}
     db, q = data["sift1m"][:2]
     del data
-    kernels, row_bytes = [], {}
+    kernels, row_bytes, merge_rows = [], {}, []
     for storage in FORMS:
-        ks, row_bytes[storage] = time_form(prk, db, q, storage, results)
+        ks, row_bytes[storage] = time_form(prk, testing, db, q, storage, results,
+                                           empty_ms, merge_rows)
         kernels += ks
+    slow = [r for r in merge_rows if r["ms"] > r["topk_ms"]]
+    log(f"merge slower than torch.topk on the same carries at "
+        f"{len(slow)} of {len(merge_rows)} plans: "
+        f"{[(r['label'], r['m']) for r in slow]}")
+    next(k for k in kernels if k["name"] == "fused_carry_merge")["plans"] = [
+        {key: r[key] for key in ("label", "m", "splits", "k_scan", "ms",
+                                 "topk_ms", "bound_ms")} for r in merge_rows]
     log(f"stored bytes per row at D={SIFT['d']} (beside a 4-byte bias, and "
         f"a 4-byte scale for int8 and int4): {row_bytes}")
     if 2 * row_bytes["int4"] != row_bytes["int8"]:

@@ -3,6 +3,9 @@
 
     PYTHONPATH=src python scripts/bench_torch_scan.py [--forms f32,int4]
         [--k 10] [--m 10000,16] [--splits 5,33,123] [--reps 5] [--seed 0]
+    PYTHONPATH=src python scripts/bench_torch_scan.py --merge
+        [--m 10000,16] [--splits 1,5,123] [--kscan 10,30] [--reps 5]
+    PYTHONPATH=src python scripts/bench_torch_scan.py --search [--m 16]
 
 Times the ``repro_torch`` package that ``PYTHONPATH`` names, so two
 versions of the port (two checkouts, or a copy with an edited kernel
@@ -15,6 +18,23 @@ CUDA-event medians of the fused scan, the carry merge and the two-pass
 kernel.  ``--splits`` replaces the planner's split count of the row
 range by each of the given counts in turn (the cost model of
 ``kernels.partial_reduce.split_plan`` is fitted to such a sweep).
+
+``--merge`` times the carry merge alone, for each M, split count and
+``--kscan``, on carries dense in ties (``repro_torch.testing.tied_carries``;
+its time does not depend on the values): the kernel (checked bit for bit
+against its plain version first), ``torch.topk`` over the same carries
+laid end to end (a yardstick the port never calls), an empty kernel
+launch, the merge's launch plan and its byte bound.  The merge's times,
+here and beside the scans, are device times per call of calls queued back
+to back behind a sleep kernel (a single call's events would time the
+host's Python as well).
+
+``--search`` times ``Index.search`` instead, for each form and M (the
+index's own plan): one search between two CUDA events (median of at
+least 20: what a caller waits), the card's time per search of searches
+queued back to back, and the host's time to issue one (nothing in a
+search waits for the card, so a loop of them without a synchronize
+times the host alone).
 """
 from __future__ import annotations
 
@@ -25,6 +45,8 @@ import subprocess
 import time
 
 import torch
+
+PEAK_HBM_BYTES = 3.35e12  # H100 SXM (NVIDIA data sheet)
 
 
 def median_ms(fn, reps: int) -> float:
@@ -41,6 +63,26 @@ def median_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn()``: ``reps`` calls queued behind a
+    sleep kernel, so the card runs them back to back; the median of three
+    such runs, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # holds the stream while the host queues
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[1]
 
 
 def card() -> str:
@@ -60,12 +102,77 @@ def forced_plan(prk, splits: int):
     return plan
 
 
+def bench_merge(prk, build, ms, args) -> None:
+    """The ``--merge`` sweep: one JSON line per (M, splits, k_scan)."""
+    from repro_torch.testing import bits_equal, tied_carries
+
+    lib = build.load_library()
+
+    def empty():
+        build.check(lib, lib.pr_empty(torch.cuda.current_stream().cuda_stream),
+                    "empty kernel")
+
+    reps = max(args.reps, 20)
+    empty_ms = queued_ms(empty, reps)
+    splits_list = [int(x) for x in
+                   (args.splits or "1,5,16,33,64,82,123,131,196,245").split(",")]
+    for m in ms:
+        for splits in splits_list:
+            for k_scan in [int(x) for x in args.kscan.split(",")]:
+                part_v, part_i = tied_carries(splits, m, k_scan, seed=args.seed,
+                                              device="cuda")
+                got = prk.fused_carry_merge(part_v, part_i)
+                want = prk.fused_carry_merge_plain(part_v, part_i)
+                if not (bits_equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise SystemExit(f"merge differs from its plain version at "
+                                     f"m={m}, splits={splits}, k_scan={k_scan}")
+                flat = part_v.permute(1, 0, 2).reshape(m, splits * k_scan).contiguous()
+                print(json.dumps(dict(
+                    mode="merge", m=m, splits=splits, k_scan=k_scan,
+                    plan=prk.merge_plan(splits, k_scan),
+                    merge_ms=queued_ms(lambda: prk.fused_carry_merge(
+                        part_v, part_i), reps),
+                    topk_ms=queued_ms(lambda: torch.topk(flat, k_scan, dim=1), reps),
+                    empty_ms=empty_ms,
+                    bound_ms=1e3 * 8.0 * (splits + 1) * m * k_scan / PEAK_HBM_BYTES,
+                )), flush=True)
+                del part_v, part_i, flat
+
+
+def bench_search(index, form, q, ms, args) -> None:
+    """The ``--search`` timings of one index: one JSON line per M."""
+    reps = max(args.reps, 20)
+    for m in ms:
+        qm = q[:m].contiguous()
+
+        def search():
+            return index.search(qm)
+
+        search()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            search()
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        print(json.dumps(dict(
+            mode="search", form=form, k=args.k, k_scan=index.k_scan, m=m,
+            single_ms=median_ms(search, reps), device_ms=queued_ms(search, reps),
+            host_ms=host_ms)), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--forms", default="f32,bf16,int8,int4")
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--m", default="10000,16")
     ap.add_argument("--splits", default="", help="split counts to force")
+    ap.add_argument("--merge", action="store_true",
+                    help="time the carry merge alone (see above)")
+    ap.add_argument("--kscan", default="10,15,20,30,60",
+                    help="k_scan values of the --merge sweep")
+    ap.add_argument("--search", action="store_true",
+                    help="time Index.search (see above)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -80,6 +187,9 @@ def main(argv=None) -> int:
     print(json.dumps({"package": prk.__file__, "card": card(),
                       "build_s": time.perf_counter() - t0}), flush=True)
     ms = [int(x) for x in args.m.split(",")]
+    if args.merge:
+        bench_merge(prk, build, ms, args)
+        return 0
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = torch.randn((1_000_000, 128), generator=g, device="cuda")
     q = get_metric("l2").prepare_queries(
@@ -89,6 +199,9 @@ def main(argv=None) -> int:
     for form in args.forms.split(","):
         index = Index.build(rows, metric="l2", k=args.k, cluster="off",
                             storage=form)
+        if args.search:
+            bench_search(index, form, q, ms, args)
+            continue
         pk = index.pack()
         ops = pk.operands()
         db, bias = ops[0], ops[1]
@@ -112,8 +225,8 @@ def main(argv=None) -> int:
                         m=m, splits=carries[0].shape[0],
                         fused_ms=median_ms(lambda: prk.fused_scan(
                             qp, db, bias, scale, **kw_fused), args.reps),
-                        merge_ms=median_ms(lambda: prk.fused_carry_merge(
-                            *carries), args.reps),
+                        merge_ms=queued_ms(lambda: prk.fused_carry_merge(
+                            *carries), max(args.reps, 20)),
                         packed_ms=median_ms(lambda: prk.partial_reduce_packed(
                             qm, db, bias, scale, **kw), args.reps))
                 finally:

@@ -63,6 +63,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pr_merge.restype = i
     lib.pr_scan_plan.argtypes = [i, i, i, i, p, p]
     lib.pr_scan_plan.restype = i
+    lib.pr_merge_plan.argtypes = [i, i, p, p, p]
+    lib.pr_merge_plan.restype = i
+    lib.pr_empty.argtypes = [p]
+    lib.pr_empty.restype = i
 
 
 def load_library() -> ctypes.CDLL:

@@ -3,8 +3,8 @@
 //
 // One scan kernel, pr_scan_kernel<FUSED, FORM>, templated on the selection
 // (two-pass or fused) and on the stored form of the database rows, plus
-// the carry-merge kernel pr_merge_kernel.  They replace the Pallas TPU
-// kernels of src/repro/kernels/partial_reduce.py:
+// the carry-merge kernel pr_merge_kernel<G, CPL, STAGED>.  They replace the
+// Pallas TPU kernels of src/repro/kernels/partial_reduce.py:
 //
 //   instantiation                     Pallas body it replaces
 //   pr_scan_kernel<false, F32>        _partial_reduce_kernel        :285 (B2)
@@ -13,8 +13,9 @@
 //   pr_scan_kernel<true,  F32>        _fused_kernel                 :316 (B1)
 //   pr_scan_kernel<true,  BF16>       _fused_kernel                 :316
 //   pr_scan_kernel<true,  I8 | I4>    _fused_kernel_scaled          :323 (B3b)
-//   pr_merge_kernel                   the rest of B1/B3b: the carries of the
-//                                     splits (see below) into one
+//   pr_merge_kernel<G, CPL, STAGED>   the rest of B1/B3b (_merge_topk_carry
+//                                     :219): the carries of the splits
+//                                     (see below) into one
 //
 // all of them reading their tile as _load_db_tile :154 does.  The two-pass
 // form (partial_reduce_pallas :352) writes every bin winner, (m, n_pad /
@@ -757,34 +758,202 @@ pr_scan_kernel(const float* __restrict__ q, const char* __restrict__ db,
   }
 }
 
-// One thread per query: k-way merge of the splits' sorted carries.  Among
-// equal values the lower split (earlier rows) wins, as in one long carry.
-__global__ void pr_merge_kernel(const float* __restrict__ part_v,
-                                const int* __restrict__ part_i, int m,
-                                int k_scan, int splits,
-                                float* __restrict__ out_v,
-                                int* __restrict__ out_i) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= m) return;
-  int head[MAX_SPLITS];
-  for (int s = 0; s < splits; ++s) head[s] = 0;
-  for (int j = 0; j < k_scan; ++j) {
-    int bs = -1;
-    float bv = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      if (head[s] >= k_scan) continue;
-      const float v = part_v[((size_t)s * m + row) * k_scan + head[s]];
-      if (bs < 0 || v > bv) {
-        bs = s;
-        bv = v;
+// --- the carry merge ----------------------------------------------------------
+//
+// pr_merge_kernel<G, CPL, STAGED> folds the splits' sorted carries,
+// (splits, m, k_scan), into the (m, k_scan) result: the rest of the
+// reference's one long carry (_merge_topk_carry :219), which the port cuts
+// across blocks.  The result is a stable descending sort of the carries
+// laid end to end: among equal values the lower split wins, within a
+// split the carry's order holds, and -0.0 ties +0.0.  It moves
+// splits*m*k_scan*8 bytes in and m*k_scan*8 out, a fraction of a
+// microsecond at the main paths' plans: a launch, and the latency of each
+// query's k_scan dependent steps, bound it.
+//
+// A group of G lanes (8, 16 or 32) takes a query; lane l owns the splits
+// l, l + G, ... (CPL of them at most) and keeps each one's head in
+// registers as a 64-bit key (head_key), indexed only under unrolled loops,
+// so no array reaches local memory.  Each output is the largest head of
+// the group, a shuffle butterfly of log2(G) steps; the one lane that holds
+// it writes it and advances that head.  With STAGED the group first copies
+// its query's carries into shared memory (cp.async, all in flight at
+// once), so an advance reads shared memory; without it (the carries do not
+// fit) it reads device memory.
+constexpr int MERGE_WARPS = 4;          // warps per block at most
+constexpr int MERGE_SMEM = 48 * 1024;   // staged bytes a block, as a rule
+
+// The head of split s at value v: the value's bits ordered as unsigned
+// integers (-0.0 as +0.0) above the inverted split.  Never 0, which marks
+// a slot without a head.
+__device__ __forceinline__ unsigned long long head_key(float v, int s) {
+  uint32_t b = __float_as_uint(v == 0.f ? 0.f : v);
+  b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((unsigned long long)b << 32) | (uint32_t)(MAX_SPLITS - s);
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+template <int G, int CPL, bool STAGED>
+__global__ void __launch_bounds__(32 * MERGE_WARPS)
+    pr_merge_kernel(const float* __restrict__ part_v,
+                    const int* __restrict__ part_i, int m, int k_scan,
+                    int splits, float* __restrict__ out_v,
+                    int* __restrict__ out_i) {
+  extern __shared__ __align__(16) char merge_smem[];
+  const int gl = threadIdx.x % G;     // lane in the group
+  const int group = threadIdx.x / G;  // group in the block
+  const int row = blockIdx.x * (blockDim.x / G) + group;
+  const bool active = row < m;
+  // Carry of split s at V[s * stride], I[s * stride].
+  const float* V = part_v + (size_t)row * k_scan;
+  const int* I = part_i + (size_t)row * k_scan;
+  size_t stride = (size_t)m * k_scan;
+  if constexpr (STAGED) {
+    const int n = splits * k_scan;
+    float* sv = reinterpret_cast<float*>(merge_smem) + (size_t)group * 2 * n;
+    int* si = reinterpret_cast<int*>(sv + n);
+    if (active) {
+      // Entry e = s * k_scan + p, e = gl, gl + G, ...
+      const int ds = G / k_scan, dp = G % k_scan;
+      int s = gl / k_scan, p = gl % k_scan;
+      for (int e = gl; e < n; e += G) {
+        cp_async4(sv + e, V + s * stride + p);
+        cp_async4(si + e, I + s * stride + p);
+        s += ds;
+        p += dp;
+        if (p >= k_scan) {
+          p -= k_scan;
+          ++s;
+        }
       }
     }
-    out_v[(size_t)row * k_scan + j] = bv;
-    out_i[(size_t)row * k_scan + j] =
-        part_i[((size_t)bs * m + row) * k_scan + head[bs]];
-    ++head[bs];
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncwarp();
+    V = sv;
+    I = si;
+    stride = k_scan;
+  }
+  unsigned long long key[CPL];
+  int pos[CPL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    const int s = gl + G * c;
+    pos[c] = 0;
+    key[c] = active && s < splits ? head_key(V[s * stride], s) : 0ull;
+  }
+  unsigned long long best = 0;
+  int bc = 0;
+#pragma unroll
+  for (int c = 0; c < CPL; ++c)
+    if (key[c] > best) {
+      best = key[c];
+      bc = c;
+    }
+  const size_t o = (size_t)row * k_scan;
+  for (int j = 0; j < k_scan; ++j) {
+    unsigned long long top = best;
+#pragma unroll
+    for (int d = G / 2; d > 0; d >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(0xffffffffu, top, d);
+      top = other > top ? other : top;
+    }
+    // Keys are unique (the split is in them): one lane of the group wins.
+    if (active && best == top) {
+      int p = 0;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+        if (c == bc) p = pos[c];
+      const int s = gl + G * bc;
+      const size_t at = s * stride + p;
+      out_v[o + j] = V[at];
+      out_i[o + j] = I[at];
+      const unsigned long long next =
+          p + 1 < k_scan ? head_key(V[at + 1], s) : 0ull;
+      best = 0;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        if (c == bc) {
+          key[c] = next;
+          pos[c] = p + 1;
+        }
+      }
+      int nb = 0;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+        if (key[c] > best) {
+          best = key[c];
+          nb = c;
+        }
+      bc = nb;
+    }
   }
 }
+
+// The merge's launch: G lanes a query, CPL splits a lane, `warps` warps a
+// block and, if `bytes` > 0, that many bytes of carries staged in shared
+// memory.  A block stages at most MERGE_SMEM bytes unless one warp's
+// queries need more (up to the device's limit, `budget`); past that the
+// heads are read from device memory.
+struct MergePlan {
+  int lanes, cpl, warps, bytes;
+};
+MergePlan merge_plan(int splits, int k_scan, int budget) {
+  MergePlan p;
+  p.lanes = splits <= 8 ? 8 : splits <= 16 ? 16 : 32;
+  const int need = (splits + p.lanes - 1) / p.lanes;
+  p.cpl = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : 8;
+  const long long warp_bytes = 32LL / p.lanes * splits * k_scan * 8;
+  p.warps = warp_bytes <= MERGE_SMEM
+                ? (int)(MERGE_SMEM / warp_bytes < MERGE_WARPS
+                            ? MERGE_SMEM / warp_bytes
+                            : MERGE_WARPS)
+                : 1;
+  p.bytes = warp_bytes <= budget ? (int)(p.warps * warp_bytes) : 0;
+  if (!p.bytes) p.warps = MERGE_WARPS;
+  return p;
+}
+
+template <int G, int CPL, bool STAGED>
+int launch_merge_for(const MergePlan& p, const float* part_v,
+                     const int* part_i, int m, int k_scan, int splits,
+                     float* out_v, int* out_i, cudaStream_t stream) {
+  if (p.bytes > MERGE_SMEM) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(pr_merge_kernel<G, CPL, STAGED>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int queries = p.warps * (32 / G);
+  pr_merge_kernel<G, CPL, STAGED><<<(m + queries - 1) / queries, 32 * p.warps,
+                                    p.bytes, stream>>>(part_v, part_i, m,
+                                                       k_scan, splits, out_v,
+                                                       out_i);
+  return (int)cudaGetLastError();
+}
+
+template <bool STAGED>
+int launch_merge(const MergePlan& p, const float* part_v, const int* part_i,
+                 int m, int k_scan, int splits, float* out_v, int* out_i,
+                 cudaStream_t stream) {
+#define PR_MERGE(G, CPL)                                                      \
+  launch_merge_for<G, CPL, STAGED>(p, part_v, part_i, m, k_scan, splits,     \
+                                   out_v, out_i, stream)
+  switch (p.lanes * 16 + p.cpl) {
+    case 8 * 16 + 1: return PR_MERGE(8, 1);
+    case 16 * 16 + 1: return PR_MERGE(16, 1);
+    case 32 * 16 + 1: return PR_MERGE(32, 1);
+    case 32 * 16 + 2: return PR_MERGE(32, 2);
+    case 32 * 16 + 4: return PR_MERGE(32, 4);
+    case 32 * 16 + 8: return PR_MERGE(32, 8);
+    default: return -1;
+  }
+#undef PR_MERGE
+}
+
+__global__ void pr_empty_kernel() {}
 
 int check_scan_args(int form, const void* scale, int m, int nks, int d_pad,
                     int n_pad, int log2_bin, int tiles_per_split, int splits) {
@@ -932,11 +1101,35 @@ int pr_scan_plan(int form, int fused, int nks, int k_scan, int* stages,
 // Fused merge: (splits, m, k_scan) carries -> (m, k_scan).
 int pr_merge(const float* part_v, const int* part_i, int m, int k_scan,
              int splits, float* out_v, int* out_i, void* stream) {
+  int budget = 0;
   if (m <= 0 || k_scan <= 0 || splits <= 0 || splits > MAX_SPLITS) return -1;
-  const int threads = 128;
-  pr_merge_kernel<<<(m + threads - 1) / threads, threads, 0,
-                    (cudaStream_t)stream>>>(part_v, part_i, m, k_scan, splits,
-                                            out_v, out_i);
+  if (smem_budget(&budget)) return -1;
+  const MergePlan p = merge_plan(splits, k_scan, budget);
+  cudaStream_t st = (cudaStream_t)stream;
+  return p.bytes ? launch_merge<true>(p, part_v, part_i, m, k_scan, splits,
+                                      out_v, out_i, st)
+                 : launch_merge<false>(p, part_v, part_i, m, k_scan, splits,
+                                       out_v, out_i, st);
+}
+
+// The merge's plan on the current device: its lanes a query, splits a
+// lane and warps a block, and the carries' bytes staged in shared memory
+// a block (0: read from device memory).  -1 for bad arguments.
+int pr_merge_plan(int splits, int k_scan, int* lanes, int* per_lane,
+                  int* warps) {
+  int budget = 0;
+  if (k_scan <= 0 || splits <= 0 || splits > MAX_SPLITS) return -1;
+  if (smem_budget(&budget)) return -1;
+  const MergePlan p = merge_plan(splits, k_scan, budget);
+  *lanes = p.lanes;
+  *per_lane = p.cpl;
+  *warps = p.warps;
+  return p.bytes;
+}
+
+// One launch of an empty kernel: the floor under any launch's time.
+int pr_empty(void* stream) {
+  pr_empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

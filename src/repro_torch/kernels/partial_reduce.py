@@ -66,6 +66,8 @@ __all__ = [
     "fused_carry_merge_plain",
     "fused_scan",
     "kernel_name",
+    "merge_cost",
+    "merge_plan",
     "partial_reduce_fused",
     "partial_reduce_fused_plain",
     "partial_reduce_packed",
@@ -89,17 +91,17 @@ MAX_SPLITS = 256
 # The split plan's cost model, in BLOCK_N-row tiles of scan of a
 # three-pass form (about 3.5 us a tile at M=16 on an H100; an f32 tile
 # takes twice that), fitted to split-count sweeps at the Sift1M shape
-# (scripts/bench_torch_scan.py --splits; PERF.md): a block's fixed cost
-# (its queries' split into shared memory, the ring's first fill and last
-# drain; 3 to 15 tiles by form), and one step of the merge kernel's walk
-# over the splits' carry heads: about 0.07 us while the f32 carry values
-# of one merge block (_MERGE_THREADS queries, one a thread, as
-# csrc/partial_reduce.cu launches it) fit in _MERGE_L1_BYTES (the largest
-# footprint measured fast), about 0.22 us beyond.
+# (scripts/bench_torch_scan.py --splits and --merge; PERF.md): a block's
+# fixed cost (its queries' split into shared memory, the ring's first
+# fill and last drain; 3 to 15 tiles by form), and the merge kernel's
+# time (merge_cost): each of a query's k_scan outputs is a step of the
+# group's reduction, dearer by _MERGE_SLOT_TILES for every 32 splits a
+# lane owns, and every carry entry is staged once (at M=16 the fit is
+# within 22% of the measured merge from 1 to 245 splits).
 _BLOCK_COST_TILES = 8
-_MERGE_STEP_TILES = (0.02, 0.06)
-_MERGE_L1_BYTES = 160 * 1024
-_MERGE_THREADS = 128
+_MERGE_STEP_TILES = 0.039
+_MERGE_SLOT_TILES = 0.0127
+_MERGE_ENTRY_TILES = 1.4e-6
 
 # Stored forms of the database, in the order of the C interface's `form`.
 FORMS = ("f32", "bf16", "int8", "int4")
@@ -253,7 +255,9 @@ def _front(queries, database, bias, scale, bin_size, int4_packed):
         raise ValueError(
             f"bin_size={bin_size} must be a power of two dividing n_pad={n_pad}"
         )
-    return F.pad(queries, (0, d_pad - queries.shape[1])), form
+    if queries.shape[1] < d_pad:  # F.pad copies even when it pads nothing
+        queries = F.pad(queries, (0, d_pad - queries.shape[1]))
+    return queries, form
 
 
 def _cuda_operands(q, database, bias, scale, bin_size, width, int4_packed):
@@ -286,6 +290,17 @@ def _cuda_operands(q, database, bias, scale, bin_size, width, int4_packed):
     return q, -(-width // 16), database, bias, scale
 
 
+def merge_cost(m: int, splits: int, k_scan: int) -> float:
+    """The split plan's estimate of the carry merge's time for ``m``
+    queries, in BLOCK_N-row tiles of scan; 0 without a carry
+    (``k_scan`` 0).  Non-decreasing in ``splits``, so a carry never makes
+    the plan take more splits than no carry does."""
+    if not k_scan:
+        return 0.0
+    step = _MERGE_STEP_TILES + _MERGE_SLOT_TILES * -(-splits // 32)
+    return k_scan * step + _MERGE_ENTRY_TILES * m * splits * k_scan
+
+
 @functools.lru_cache(maxsize=256)
 def split_plan(m: int, n_pad: int, bin_size: int, num_sms: int,
                k_scan: int = 0) -> Tuple[int, int]:
@@ -294,17 +309,15 @@ def split_plan(m: int, n_pad: int, bin_size: int, num_sms: int,
     ``num_sms`` SMs, whose carries of ``k_scan`` entries (0: the two-pass
     kernel, nothing to merge) the merge kernel folds.  Of the cuts, the
     one with the least time in BLOCK_N-row tiles of scan: waves x (the
-    tiles of one block + a block's fixed cost), plus the merge, whose
-    thread for a query walks splits x k_scan carry heads, at a step cost
-    that triples once a merge block's carries outgrow L1; fewer splits
-    on a tie.
+    tiles of one block + a block's fixed cost), plus :func:`merge_cost`;
+    fewer splits on a tie.
 
     >>> split_plan(10_000, 1_003_520, 4096, 132, 10)   # Sift1M f32
     (1568, 5)
     >>> split_plan(16, 1_003_520, 4096, 132, 10)
     (64, 123)
     >>> split_plan(16, 1_000_448, 1024, 132, 30)       # Sift1M int4
-    (96, 82)
+    (64, 123)
     """
     tiles_per_bin = max(1, bin_size // BLOCK_N)
     groups = n_pad // BLOCK_N // tiles_per_bin
@@ -314,10 +327,8 @@ def split_plan(m: int, n_pad: int, bin_size: int, num_sms: int,
         per = -(-groups // want)
         splits = -(-groups // per)
         waves = -(-q_tiles * splits // num_sms)
-        steps = splits * k_scan
-        in_l1 = 4 * min(m, _MERGE_THREADS) * steps <= _MERGE_L1_BYTES
         cost = (waves * (per * tiles_per_bin + _BLOCK_COST_TILES)
-                + _MERGE_STEP_TILES[0 if in_l1 else 1] * steps)
+                + merge_cost(m, splits, k_scan))
         if best is None or cost < best[0]:
             best = (cost, per * tiles_per_bin, splits)
     return best[1], best[2]
@@ -336,6 +347,22 @@ def scan_smem(form: str, fused: bool, width: int, k_scan: int = 0) -> dict:
         raise ValueError(f"no scan plan for {form}, width={width}, "
                          f"k_scan={k_scan} ({code})")
     return dict(bytes=code, stages=stages.value, resident=bool(resident.value))
+
+
+def merge_plan(splits: int, k_scan: int) -> dict:
+    """The carry merge's launch plan on the current CUDA device: the
+    ``lanes`` of a query's group, the splits each lane owns at most
+    (``per_lane``), the ``warps`` of a block, and the bytes of carries a
+    block stages in shared memory (``staged_bytes``; 0: the heads are read
+    from device memory, where the carries do not fit)."""
+    lib = build.load_library()
+    lanes, per_lane, warps = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    code = lib.pr_merge_plan(splits, k_scan, ctypes.byref(lanes),
+                             ctypes.byref(per_lane), ctypes.byref(warps))
+    if code < 0:
+        raise ValueError(f"no merge plan for {splits} splits of k_scan={k_scan}")
+    return dict(lanes=lanes.value, per_lane=per_lane.value, warps=warps.value,
+                staged_bytes=code)
 
 
 def _launch_setup(q):
@@ -469,8 +496,9 @@ def fused_carry_merge(
     part_v: torch.Tensor, part_i: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused form's second kernel: merge (splits, m, k_scan) sorted
-    carries into the (m, k_scan) result; among equal values the lower
-    split wins.  One kernel for every stored form."""
+    carries into the (m, k_scan) result; among equal values (-0.0 and
+    +0.0 too) the lower split wins, as in :func:`fused_carry_merge_plain`,
+    bit for bit.  One kernel for every stored form (:func:`merge_plan`)."""
     if part_v.ndim != 3 or part_v.shape != part_i.shape:
         raise ValueError(
             f"carries must be two (splits, m, k_scan) tensors, got "

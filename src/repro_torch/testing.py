@@ -18,6 +18,9 @@ The default tolerance, ``rtol=1e-5, atol=1e-4``, is for unit-normal data
 at D <= 128 in f32: a dot product of 128 such terms carries a rounding
 error of a few 1e-6 relative to its magnitude (~1e1), and the two sides
 round independently.
+
+It also makes the carry merge's hardest inputs (:func:`tied_carries`)
+and compares its results bit for bit (:func:`bits_equal`).
 """
 from __future__ import annotations
 
@@ -29,8 +32,8 @@ import torch.nn.functional as F
 
 __all__ = [
     "ATOL", "KERNEL_CASES", "RTOL", "assert_bin_winners_close",
-    "assert_topk_close", "bias_scorer", "packed_operands", "public_scorer",
-    "stored_operands",
+    "assert_topk_close", "bias_scorer", "bits_equal", "packed_operands",
+    "public_scorer", "stored_operands", "tied_carries",
 ]
 
 RTOL = 1e-5
@@ -78,6 +81,46 @@ def packed_operands(m: int, n: int, d: int, *, bin_size: int, dead: float = 0.0,
     db = np.zeros((n_pad, d_pad), np.float32)
     db[:n, :d] = rows
     return tuple(torch.from_numpy(a).to(device) for a in (q, db, bias))
+
+
+def tied_carries(splits: int, m: int, k_scan: int, *, seed: int = 0,
+                 device="cpu"):
+    """(splits, m, k_scan) carries as the fused scan leaves them, dense in
+    ties: each carry sorted descending (stable), its values integers in
+    [-3, 3] with zeros of both signs (``torch.sort`` ranks them equal),
+    half of the carries cut after a random number of live entries and
+    filled with (MASK_VALUE, -1), random int32 indices elsewhere.
+
+    >>> v, i = tied_carries(3, 2, 8)
+    >>> bool((v[..., :-1] >= v[..., 1:]).all()), bool(((i == -1) == (v == v.min())).all())
+    (True, True)
+    """
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (splits, m, k_scan)
+
+    def draw(lo, hi, size=shape):
+        return torch.randint(lo, hi, size, generator=g, device=device)
+
+    vals = torch.sort(draw(-3, 4).float(), dim=-1, descending=True,
+                      stable=True).values
+    vals = torch.where((vals == 0) & draw(0, 2).bool(),
+                       torch.full_like(vals, -0.0), vals)
+    live = torch.where(draw(0, 2, (splits, m, 1)).bool(),
+                       draw(0, k_scan + 1, (splits, m, 1)), k_scan)
+    masked = torch.arange(k_scan, device=device) >= live
+    vals = torch.where(masked, torch.full_like(vals, _MASK), vals)
+    idxs = torch.where(masked, -1, draw(0, 2**31 - 1).int())
+    return vals, idxs.to(torch.int32)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same shape and dtype, and the same bits (``torch.equal`` takes -0.0
+    for +0.0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
 
 
 def stored_operands(db: torch.Tensor, form: str):

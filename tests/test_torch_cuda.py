@@ -16,9 +16,11 @@ from repro_torch.testing import (
     assert_bin_winners_close,
     assert_topk_close,
     bias_scorer,
+    bits_equal,
     packed_operands,
     public_scorer,
     stored_operands,
+    tied_carries,
 )
 
 pytestmark = pytest.mark.cuda
@@ -352,3 +354,37 @@ def test_search_steady_state_on_card(cuda_device, storage):
         assert dict(prk.LAUNCHES) == {f"partial_reduce_fused{form}": 1,
                                       "fused_carry_merge": 1}
         assert torch.cuda.max_memory_allocated() - before < db_bytes // 4
+
+
+# The merge kernel's grid: group widths of 8, 16 and 32 lanes, 1 to 8
+# splits a lane; carries staged in shared memory and (k_scan 129 and 512
+# at many splits) read from device memory; query blocks part full.
+MERGE_SPLITS = [1, 2, 5, 31, 32, 33, 82, 123, 256]
+MERGE_K_SCAN = [1, 10, 30, 32, 33, 129, 512]
+
+
+@pytest.mark.parametrize("m", [1, 16, 129, 1000])
+@pytest.mark.parametrize("k_scan", MERGE_K_SCAN)
+@pytest.mark.parametrize("splits", MERGE_SPLITS)
+def test_merge_bit_equal(cuda_device, splits, k_scan, m):
+    """The merge kernel gives its plain version's values (bits: -0.0 is
+    not +0.0) and indices exactly, on carries dense in ties across and
+    within splits, with zeros of both signs and masked tails."""
+    part_v, part_i = tied_carries(splits, m, k_scan, seed=splits * 1000 + k_scan,
+                                  device=cuda_device)
+    prk.reset_counts()
+    v, i = prk.fused_carry_merge(part_v, part_i)
+    torch.cuda.synchronize()
+    assert dict(prk.LAUNCHES) == {"fused_carry_merge": 1}
+    pv, pi = prk.fused_carry_merge_plain(part_v, part_i)
+    assert bits_equal(v, pv) and torch.equal(i, pi)
+
+
+def test_merge_plan_takes_both_paths(cuda_device):
+    """The grid of test_merge_bit_equal runs both of the merge's paths,
+    and every main-path plan stages its carries in shared memory."""
+    staged = {prk.merge_plan(s, k)["staged_bytes"] > 0
+              for s in MERGE_SPLITS for k in MERGE_K_SCAN}
+    assert staged == {True, False}
+    for splits, k_scan in ((5, 10), (5, 30), (123, 10), (123, 30), (131, 60)):
+        assert prk.merge_plan(splits, k_scan)["staged_bytes"] > 0

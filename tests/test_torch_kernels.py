@@ -14,6 +14,7 @@ from hypothesis import given, settings, strategies as st
 
 from repro.kernels.partial_reduce import partial_reduce_fused as ref_fused
 from repro.kernels.partial_reduce import partial_reduce_packed as ref_packed
+from repro_torch import testing
 from repro_torch.kernels import partial_reduce as prk
 from repro_torch.search.stages import (
     MASK_VALUE,
@@ -239,3 +240,63 @@ def test_split_plan_covers_the_rows(m, n_pad, bin_size, k_scan):
     assert splits <= prk.split_plan(m, n_pad, bin_size, 132, 0)[1]
     if k_scan == 0 and m <= prk.BLOCK_M:
         assert splits >= min(tiles // per_bin, 132) // 2
+
+
+@pytest.mark.parametrize("first", [-0.0, 0.0])
+def test_plain_merge_ties_signed_zeros(first):
+    """-0.0 and +0.0 are equal to the merge (``torch.sort`` ranks them
+    so): the lower split comes first, each with the value bits it had."""
+    part_v = torch.tensor([[[first, -1.0]], [[-first, MASK_VALUE]]])
+    part_i = torch.tensor([[[7, 8]], [[3, -1]]], dtype=torch.int32)
+    v, i = prk.fused_carry_merge(part_v, part_i)
+    assert i.tolist() == [[7, 3]]
+    assert testing.bits_equal(v, torch.tensor([[first, -first]]))
+
+
+def _k_way_merge(part_v, part_i):
+    """The merge kernel's rule in plain Python: repeatedly take the largest
+    head of the splits' carries, the lowest split among equal values."""
+    splits, m, k_scan = part_v.shape
+    vals, idxs = np.zeros((m, k_scan), np.float32), np.zeros((m, k_scan), np.int32)
+    for row in range(m):
+        head = [0] * splits
+        for j in range(k_scan):
+            s = max((s for s in range(splits) if head[s] < k_scan),
+                    key=lambda s: (float(part_v[s, row, head[s]]), -s))
+            vals[row, j] = part_v[s, row, head[s]]
+            idxs[row, j] = part_i[s, row, head[s]]
+            head[s] += 1
+    return torch.from_numpy(vals), torch.from_numpy(idxs)
+
+
+@pytest.mark.parametrize("splits, m, k_scan", [(1, 3, 5), (2, 4, 1), (5, 7, 10),
+                                               (33, 2, 30), (9, 5, 33)])
+def test_plain_merge_is_a_k_way_merge(splits, m, k_scan):
+    """On sorted carries dense in ties (both zeros, masked tails), the
+    plain merge's stable sort is the k-way merge the CUDA kernel runs,
+    bit for bit."""
+    part_v, part_i = testing.tied_carries(splits, m, k_scan, seed=splits + k_scan)
+    v, i = prk.fused_carry_merge(part_v, part_i)
+    kv, ki = _k_way_merge(part_v.numpy(), part_i.numpy())
+    assert testing.bits_equal(v, kv) and torch.equal(i, ki)
+
+
+@pytest.mark.parametrize("m, n_pad, bin_size",
+                         [c for c in PLAN_CASES if c[0] <= prk.BLOCK_M])
+@pytest.mark.parametrize("k_scan", [10, 30])
+def test_split_plan_spreads_a_small_batch(m, n_pad, bin_size, k_scan):
+    """With a carry to merge, a small batch still spreads over the SMs as
+    it does with none: the merge no longer holds the split count down."""
+    _, splits = prk.split_plan(m, n_pad, bin_size, 132, k_scan)
+    groups = n_pad // prk.BLOCK_N // max(1, bin_size // prk.BLOCK_N)
+    assert splits >= min(groups, 132) // 2
+
+
+@pytest.mark.parametrize("m", [1, 16, 129, 10_000])
+@pytest.mark.parametrize("k_scan", [1, 10, 30, 60, 512])
+def test_merge_cost_non_decreasing(m, k_scan):
+    """The split plan's merge cost never falls as the splits grow, and is
+    0 without a carry."""
+    costs = [prk.merge_cost(m, s, k_scan) for s in range(1, prk.MAX_SPLITS + 1)]
+    assert all(a <= b for a, b in zip(costs, costs[1:]))
+    assert costs[0] > 0 and prk.merge_cost(m, prk.MAX_SPLITS, 0) == 0
