@@ -37,7 +37,22 @@ run in order and the first failure exits non-zero:
      tier at M=10,000 and M=16 (and int4 at k=20) the merge at the split
      count the plan chose, checked bit for bit, beside its byte bound, an
      empty kernel's launch and ``torch.topk`` over the same carries (device
-     times of calls queued back to back).
+     times of calls queued back to back);
+  9. the planner and the bitonic network: ``detect_device()`` must name
+     the ``"h100"`` profile; each Sift1M tier's model plan (and Glove1.2M
+     f32's) must have PERF.md's bins, and ``explain(measure=True)`` at
+     M=10,000 and M=16 prints the predicted bound, its wall and the
+     measured search (a prediction within 1% of phase 8's tensor bound
+     at M=10,000 and byte bound at M=16, and no search faster than 0.95
+     x its prediction); ``plan="measure"`` at the Sift1M shape (f32,
+     int4) prints each candidate's time and the winner, a second build
+     on the same cache must time nothing and give the same plan, and its
+     search passes phase 4's recall check; ``exact_rescoring`` with the
+     bitonic network on 10,000 x 60 candidates against the stable sort,
+     and an int8 search with ``use_bitonic=True`` against the default
+     one, both timed; an int4 index of 12 rows grown by 100 without
+     growth must take ``k_scan`` 30 and search as the same index on the
+     CPU.  Its searches are one more path whose launches are counted.
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
@@ -58,6 +73,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -313,6 +329,13 @@ def compare_kernels(prk, testing, label, q, db, bias, bs, ks, acc, *,
 # main path's own; k_scan = quant.scan_k).
 SIFT_PLAN = {"f32": (4096, K), "bf16": (2048, 15), "int8": (2048, 20),
              "int4": (1024, 30)}
+# Each index's plan as PERF.md section 4 lists it (k_scan, bins, rows a
+# bin, E[recall] to 4 places): the reference's plan_bins.
+PLAN_TABLE = {("sift1m", "f32"): (10, 245, 4096, 0.9639),
+              ("sift1m", "bf16"): (15, 489, 2048, 0.9717),
+              ("sift1m", "int8"): (20, 489, 2048, 0.9619),
+              ("sift1m", "int4"): (30, 977, 1024, 0.9707),
+              ("glove1.2m", "f32"): (10, 289, 4096, 0.9693)}
 # k_scan of the fused kernel's carry-placement timings: the largest in
 # shared memory (SMEM_K_SCAN), the smallest in device memory, and a large
 # one.
@@ -480,13 +503,14 @@ def drive(cfg, data, m_after, results, storage="f32"):
     return index
 
 
-def read_counts(prk, label, forms, results):
+def read_counts(prk, label, forms, results, two_pass=True):
     """The launches of the path just driven: every kernel of ``forms``
-    launched at least once, no plain version called."""
+    (without the two-pass kernel unless ``two_pass``) launched at least
+    once, no plain version called."""
     launches, plain = dict(prk.LAUNCHES), dict(prk.PLAIN_CALLS)
     log(f"[{label}] launches {launches}, plain calls {plain}")
     for form in forms:
-        for name in names_of(form):
+        for name in names_of(form)[:3 if two_pass else 2]:
             if launches.get(name, 0) <= 0:
                 fail(f"kernel {name} was not launched on the {label} path")
     if sum(plain.values()):
@@ -737,6 +761,165 @@ def time_form(prk, testing, db, q, storage, results, empty_ms, merge_rows):
     return kernels, row_bytes
 
 
+def phase_planner(prk, testing, sift, glove, bounds, results, seed):
+    """Phase 9: the planner and the bitonic network on the card (see the
+    module docstring), on the device of the ``sift`` and ``glove`` (db,
+    queries) pairs; ``bounds`` holds phase 8's bounds by tier: the
+    tensor-core bound at M=10,000 and the byte bound at M=16.  Returns
+    what it measured, for the JSON line."""
+    from repro_torch.core import exact_rescoring
+    from repro_torch.search import Index, PlanCache, detect_device
+    from repro_torch.search import plan as planlib
+
+    out = {"profile": detect_device()}
+    log(f"planner: detect_device() = {out['profile']!r}")
+    if out["profile"] != "h100":
+        fail(f"detect_device() gave {out['profile']!r} on this card, not 'h100'")
+    timed = []  # (query_block, seconds) of every time_search call
+    real_time_search = planlib.time_search
+
+    def counting(index, queries, **kw):
+        wall = real_time_search(index, queries, **kw)
+        timed.append((index.spec.query_block, wall))
+        return wall
+    planlib.time_search = counting
+
+    dev = sift[0].device
+    prk.reset_counts()
+    models, explained = {}, []
+    for cfg, (db, q), storages in ((SIFT, sift, FORMS), (GLOVE, glove, ("f32",))):
+        for storage in storages:
+            label = f"{cfg['name']} {storage}"
+            index = Index.build(db, metric=cfg["metric"], k=K,
+                                recall_target=TARGET, cluster="off",
+                                storage=storage, device=dev)
+            kp = index.kernel_plan
+            got = (kp.k_scan, kp.num_bins, kp.bin_size,
+                   round(kp.expected_recall, 4))
+            if got != PLAN_TABLE[cfg["name"], storage]:
+                fail(f"{label}: plan {got}, not PERF.md's "
+                     f"{PLAN_TABLE[cfg['name'], storage]}")
+            for m in (cfg["m"], 16):
+                rep = index.explain(m=m, measure=True)
+                pred, meas = rep["predicted"], rep["measured"]
+                row = dict(label=label, m=m, predicted_ms=1e3 * pred["wall_s"],
+                           bottleneck=pred["bottleneck"],
+                           measured_ms=1e3 * meas["wall_s"],
+                           share=meas["roofline_fraction"],
+                           splits=rep["plan"]["splits"])
+                explained.append(row)
+                log(f"  explain [{label}] M={m}: predicted {row['predicted_ms']:.4f}"
+                    f" ms ({row['bottleneck']}), measured {row['measured_ms']:.4f}"
+                    f" ms, {100 * row['share']:.1f}% of the roof; "
+                    f"{row['splits']} splits")
+                if meas["wall_s"] < 0.95 * pred["wall_s"]:
+                    fail(f"{label} M={m}: measured {meas['wall_s']} s beats "
+                         f"0.95 x the bound {pred['wall_s']} s (a wrong count)")
+                want = bounds.get((storage, m)) if cfg is SIFT else None
+                if want is not None and abs(row["predicted_ms"] / want - 1) > 0.01:
+                    fail(f"{label} M={m}: predicted {row['predicted_ms']} ms, "
+                         f"not within 1% of phase 8's bound {want} ms")
+            if cfg is SIFT:
+                models[storage] = index
+            del index
+    out["explain"] = explained
+
+    # plan="measure": the sweep, its cache, and a search with its plan
+    db, q = sift
+    live = torch.ones(db.shape[0], dtype=torch.bool, device=dev)
+    truth = exact_topk(SIFT["metric"], q, db, live, K)
+    out["measure"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = PlanCache(str(pathlib.Path(tmp) / "plans.json"))
+        for storage in ("f32", "int4"):
+            kw = dict(metric=SIFT["metric"], k=K, recall_target=TARGET,
+                      cluster="off", storage=storage, device=dev)
+            del timed[:]
+            t0 = time.perf_counter()
+            index = Index.build(db, plan="measure", plan_cache=cache, **kw)
+            sweep_s = time.perf_counter() - t0
+            cands = list(timed)
+            kp = index.kernel_plan
+            log(f"  plan=measure [sift1m {storage}] sweep {sweep_s:.2f} s, "
+                f"query_block: seconds a search {cands}; winner query_block "
+                f"{kp.query_block} ({kp.source})")
+            del timed[:]
+            again = Index.build(db, plan="measure", plan_cache=cache, **kw)
+            if timed or again.kernel_plan != kp or kp.source != "measure":
+                fail(f"sift1m {storage}: the second plan=measure build timed "
+                     f"{len(timed)} searches or planned {again.kernel_plan}")
+            del again
+            _, i = index.search(q)
+            r = recall(i, truth)
+            floor = index.plan.expected_recall - hoeffding_eps(q.shape[0])
+            log(f"  plan=measure [sift1m {storage}] cache hit, no timing; "
+                f"search M={q.shape[0]}: recall {r:.4f} (floor {floor:.4f})")
+            if not r >= floor:
+                fail(f"sift1m {storage} measured plan: recall {r} < {floor}")
+            out["measure"][storage] = dict(candidates=cands,
+                                           query_block=kp.query_block,
+                                           sweep_s=sweep_s, recall=r)
+            del index
+    planlib.time_search = real_time_search
+
+    # the bitonic network: a rescore's shape, then an int8 search
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vals = torch.randint(-3, 4, (q.shape[0], 60), generator=g, device=dev).float()
+    vals = torch.where((vals == 0) & (torch.randint(0, 2, vals.shape, generator=g,
+                                                    device=dev) == 1),
+                       torch.full_like(vals, -0.0), vals)
+    idxs = torch.randperm(vals.numel(), generator=g,
+                          device=dev).int().reshape(vals.shape)
+    bv, bi = exact_rescoring(vals, idxs, 2 * K)
+    sv, si = exact_rescoring(vals, idxs, 2 * K, use_bitonic=False)
+    value_of = torch.empty(vals.numel())  # each index's value (a scorer)
+    value_of[idxs.flatten().long().cpu()] = vals.flatten().cpu()
+    testing.assert_topk_close(
+        sv.cpu(), si.cpu(), bv.cpu(), bi.cpu(), rtol=0.0, atol=0.0,
+        score=lambda row, idx: value_of[torch.as_tensor(idx).long()].double().numpy())
+    out["bitonic"] = dict(
+        ms=cuda_ms(lambda: exact_rescoring(vals, idxs, 2 * K)),
+        stable_ms=cuda_ms(lambda: exact_rescoring(vals, idxs, 2 * K,
+                                                  use_bitonic=False)))
+    bitonic = Index.build(db, metric=SIFT["metric"], k=K, recall_target=TARGET,
+                          cluster="off", storage="int8", use_bitonic=True,
+                          device=dev)
+    v, i = bitonic.search(q)
+    dv, di = models["int8"].search(q)
+    testing.assert_topk_close(dv.cpu(), di.cpu(), v.cpu(), i.cpu(),
+                              score=testing.public_scorer(SIFT["metric"], q, db))
+    out["bitonic"].update(
+        search_ms=cuda_ms(lambda: bitonic.search(q)),
+        default_search_ms=cuda_ms(lambda: models["int8"].search(q)))
+    log(f"  bitonic exact_rescoring {tuple(vals.shape)} -> top {2 * K}: "
+        f"{out['bitonic']['ms']:.3f} ms (stable sort {out['bitonic']['stable_ms']:.3f}"
+        f" ms), equal up to the order of tied values; sift1m int8 search "
+        f"M={q.shape[0]} use_bitonic=True {out['bitonic']['search_ms']:.3f} ms, "
+        f"default {out['bitonic']['default_search_ms']:.3f} ms: same results")
+    del bitonic, models
+
+    # C1: an add without growth lifts the over-fetch cap of a small index
+    small = db[:112]
+    c1 = Index.build(small[:12], metric=SIFT["metric"], k=K, storage="int4",
+                     capacity=1024, device=dev)
+    c1.add(small[12:])
+    cv, ci = c1.search(q[:100])
+    read_counts(prk, "planner", FORMS, results, two_pass=False)
+    out["c1"] = dict(k_scan=c1.k_scan, capacity=c1.capacity)
+    if (c1.k_scan, c1.capacity) != (3 * K, 1024):
+        fail(f"C1: k_scan {c1.k_scan} after add without growth, not {3 * K}")
+    cpu = Index.build(small[:12].cpu(), metric=SIFT["metric"], k=K,
+                      storage="int4", capacity=1024, device="cpu", backend="cuda")
+    cpu.add(small[12:].cpu())
+    pv, pi = cpu.search(q[:100].cpu())
+    testing.assert_topk_close(pv, pi, cv.cpu(), ci.cpu(),
+                              score=testing.public_scorer(SIFT["metric"], q[:100],
+                                                          small))
+    log(f"  C1: int4 index of 12 rows (capacity 1024) + 100 rows: k_scan "
+        f"{c1.k_scan}, search equal to the same index on the CPU")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -848,6 +1031,19 @@ def main(argv=None) -> int:
     if 2 * row_bytes["int4"] != row_bytes["int8"]:
         fail(f"int4 rows take {row_bytes['int4']} bytes, not half of int8's "
              f"{row_bytes['int8']}")
+    fused = {k["name"]: k for k in kernels}
+    bounds = {}
+    for form in FORMS:
+        entry = fused[names_of(form)[0]]
+        bounds[form, SIFT["m"]] = entry["bound_parts"]["tensor_ms"]
+        bounds[form, 16] = entry["bound_parts_m16"]["bytes_ms"]
+    planner = phase_planner(prk, testing, (db, q),
+                            make_data(GLOVE, args.seed + 1)[:2], bounds, results,
+                            args.seed)
+    for k in kernels:
+        for key in ("launches", "plain_calls"):
+            k[key] = results[key].get(k["name"], 0)
+    log(json.dumps({"planner": planner}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

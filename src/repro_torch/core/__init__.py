@@ -9,13 +9,18 @@ from repro_torch.core.binning import (
     round_up,
 )
 from repro_torch.core.partial_reduce import partial_reduce_with_plan
-from repro_torch.core.rescoring import exact_rescoring, stable_topk
+from repro_torch.core.rescoring import (
+    bitonic_sort_pairs,
+    exact_rescoring,
+    stable_topk,
+)
 from repro_torch.core.topk import approx_max_k, approx_min_k
 
 __all__ = [
     "BinPlan",
     "approx_max_k",
     "approx_min_k",
+    "bitonic_sort_pairs",
     "bins_for_recall",
     "bins_for_recall_approx",
     "exact_rescoring",

@@ -1,5 +1,6 @@
 """Public search API of the port (``src/repro/search/``): ``Index``,
-``SearchSpec``, the metric registry, the packed state and the backends.
+``SearchSpec``, the metric registry, the packed state, the backends and
+the planner.
 
 >>> import torch
 >>> from repro_torch.search import Index
@@ -36,6 +37,15 @@ from repro_torch.search.packed import (
     scan_k_for,
     state_from_arrays,
 )
+from repro_torch.search.plan import (
+    Plan,
+    PlanCache,
+    detect_device,
+    plan_buckets,
+    plan_search,
+    time_search,
+    tune_plan,
+)
 from repro_torch.search.quant import (
     STORAGE_TIERS,
     QuantizedRows,
@@ -70,6 +80,8 @@ __all__ = [
     "Metric",
     "PACK_EVENTS",
     "PackedState",
+    "Plan",
+    "PlanCache",
     "QuantizedRows",
     "STORAGE_TIERS",
     "SearchResult",
@@ -79,6 +91,7 @@ __all__ = [
     "cuda_search_packed",
     "cuda_search_packed_quant",
     "default_backend",
+    "detect_device",
     "dense_search",
     "dense_search_quant",
     "dequantize_rows",
@@ -96,6 +109,8 @@ __all__ = [
     "pack_int4_rows",
     "pack_state",
     "pad_queries_to",
+    "plan_buckets",
+    "plan_search",
     "quantize_rows",
     "register_metric",
     "rescore_candidates",
@@ -107,6 +122,8 @@ __all__ = [
     "state_from_arrays",
     "storage_bytes",
     "storage_dtype",
+    "time_search",
+    "tune_plan",
     "unpack_int4_rows",
     "validate_restored",
 ]

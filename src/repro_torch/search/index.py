@@ -12,13 +12,19 @@ A quantized tier searches in two passes: the scan keeps ``k_scan``
 over-fetched candidates (``packed.scan_k_for``), an exact rescore picks
 the top-k.  ``k_scan`` is capped by the live row count, as the
 reference caps it when it builds a search program; the port binds it
-when the packed state changes (build, growth), so a search never waits
+when the packed state changes (build, growth, and an ``add`` while the
+bound value is below the uncapped over-fetch), so a search never waits
 on the device to count live rows.
 
 ``device=`` is the torch device the index lives on (the reference's
-``device=`` names a hardware profile; the profile comes with the planner
-slice).  The default is ``"cuda"``: without a CUDA device ``build``
-raises unless the caller asks for ``device="cpu"``.
+``device=`` names a hardware profile; here that is ``profile=``).  The
+default is ``"cuda"``: without a CUDA device ``build`` raises unless the
+caller asks for ``device="cpu"``.
+
+The kernel plan (``repro_torch.search.plan``) comes from the
+performance model (``plan="model"``), from a short timed sweep
+(``plan="measure"``) or from a ``Plan`` the caller passes;
+``kernel_plan`` holds it and ``explain()`` reports it.
 
 On a CUDA device the ``"cuda"`` backend searches any number of queries
 with a fixed number of kernel launches.  The plain paths — the
@@ -29,26 +35,18 @@ bound their (query_block, N) score tile.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.binning import BinPlan, plan_bins, round_up
-from repro_torch.kernels import partial_reduce as kernels
 from repro_torch.search import backends, packed as packedlib, quant
+from repro_torch.search import plan as planlib
 from repro_torch.search.metrics import Metric, get_metric
 from repro_torch.search.spec import SearchSpec
 
 __all__ = ["Index", "SearchResult"]
-
-# A plain path's (query_block, N) f32 score tile is kept under this many
-# bytes; the block is a power of two in [8, DEFAULT_QUERY_BLOCK] (the
-# reference planner's rule for its XLA path).
-SCORE_TILE_BUDGET = 64 * 2**20
-DEFAULT_QUERY_BLOCK = 4096
-
 
 class SearchResult(NamedTuple):
     """(values, indices), both (M, k); value conventions per the metric
@@ -56,13 +54,6 @@ class SearchResult(NamedTuple):
 
     values: torch.Tensor
     indices: torch.Tensor
-
-
-def _plan_query_block(n: int) -> int:
-    qb = SCORE_TILE_BUDGET // max(1, 4 * n)
-    if qb >= DEFAULT_QUERY_BLOCK:
-        return DEFAULT_QUERY_BLOCK
-    return 1 << max(3, int(math.floor(math.log2(max(8, qb)))))
 
 
 def _resolve_device(device) -> torch.device:
@@ -91,6 +82,7 @@ class Index:
         num_live: Union[int, torch.Tensor],
         *,
         capacity_block: int = 1024,
+        kernel_plan: planlib.Plan,
     ):
         self.spec = spec
         self._db = db
@@ -98,6 +90,7 @@ class Index:
         self._size = size          # append high-water mark (<= capacity)
         self._num_live = num_live  # live rows; int, or a lazy device scalar
         self._capacity_block = capacity_block
+        self._kernel_plan = kernel_plan
         self._packed: Optional[packedlib.PackedState] = None
         self._k_scan: Optional[int] = None  # bound with the packed state
 
@@ -115,22 +108,35 @@ class Index:
         spec: Optional[SearchSpec] = None,
         capacity: Optional[int] = None,
         capacity_block: int = 1024,
-        plan: str = "model",
+        plan: Union[str, planlib.Plan] = "model",
         device=None,
+        profile: Optional[str] = None,
+        plan_cache: Optional[planlib.PlanCache] = None,
         **spec_kwargs,
     ) -> "Index":
         """Create an index over ``database`` rows (N, D) on ``device``.
 
         ``spec`` overrides the individual (metric, k, ...) arguments when
         given.  ``capacity`` pre-allocates room for ``add`` beyond N.
-        ``plan="model"`` resolves the tile fields to the CUDA kernels'
-        fixed tiles and the bins to ``plan_bins``; ``"measure"`` and plan
-        objects come with the planner slice.
+
+        ``plan`` chooses the kernel plan for the spec fields left None:
+
+          * ``"model"`` (default): the performance model
+            (``repro_torch.search.plan.plan_search``);
+          * ``"measure"``: the model's plan refined by a short timed sweep
+            on ``device`` (``plan.tune_plan``), kept in ``plan_cache`` (or
+            the ``REPRO_TORCH_PLAN_CACHE`` file);
+          * a ``repro_torch.search.plan.Plan``: used as it is.
+
+        ``profile`` names the hardware profile the model prices the plan
+        with (``repro_torch.core.roofline.HARDWARE``; default: the one of
+        ``device``, ``plan.detect_device``).  The tiles are the CUDA
+        kernels' fixed 128 x 128 whatever the plan.
 
         >>> import torch
         >>> idx = Index.build(torch.eye(32), metric="mips", k=2, device="cpu")
-        >>> idx.spec.resolved, idx.plan.num_bins
-        (True, 32)
+        >>> idx.spec.resolved, idx.plan.num_bins, idx.kernel_plan.source
+        (True, 32, 'model')
         """
         if spec is None:
             spec = SearchSpec(
@@ -139,11 +145,6 @@ class Index:
             )
         # fail early on an unknown metric or a metric x storage mismatch
         quant.check_metric_storage(get_metric(spec.metric), spec.storage)
-        if plan != "model":
-            raise NotImplementedError(
-                f"plan={plan!r}: only the model plan is ported (measured "
-                "plans: ROADMAP queue A item 5)"
-            )
         device = _resolve_device(device)
         database = torch.as_tensor(database, dtype=torch.float32, device=device)
         if database.ndim != 2:
@@ -155,22 +156,38 @@ class Index:
         if cap > n:
             cap = round_up(cap, capacity_block)
             database = F.pad(database, (0, 0, 0, cap - n))
-        for field, fixed in (("block_m", kernels.BLOCK_M),
-                             ("max_block_n", kernels.BLOCK_N)):
-            value = getattr(spec, field)
-            if value is not None and value != fixed:
-                raise NotImplementedError(
-                    f"{field}={value}: the CUDA kernels' tiles are fixed at "
-                    f"{fixed} (tile planning: ROADMAP queue A item 5)"
-                )
-        spec = dataclasses.replace(
-            spec, block_m=kernels.BLOCK_M, max_block_n=kernels.BLOCK_N,
-            query_block=spec.query_block or _plan_query_block(cap),
-        )
+
+        # The plan covers the capacity's row space, as the packed layout
+        # (and its bin plan) does.
+        plan_backend = spec.backend
+        if plan_backend == "auto":
+            plan_backend = backends.default_backend(device)
+        if isinstance(plan, planlib.Plan):
+            plan_obj = plan
+        elif plan in ("model", "measure"):
+            plan_obj = planlib.plan_search(
+                n=cap, d=database.shape[1], k=spec.k, metric=spec.metric,
+                recall_target=spec.recall_target,
+                dtype=spec.dtype or "float32", backend=plan_backend,
+                device=planlib.detect_device(profile, device=device),
+                reduction_input_size_override=
+                    spec.reduction_input_size_override,
+                block_m=spec.block_m, max_block_n=spec.max_block_n,
+                query_block=spec.query_block,
+                storage=spec.storage, rescore=spec.rescore_enabled,
+            )
+            if plan == "measure" and plan_obj.source != "user":
+                plan_obj = planlib.tune_plan(database, plan_obj, spec=spec,
+                                             cache=plan_cache)
+        else:
+            raise ValueError(
+                f"plan must be 'model', 'measure' or a Plan, got {plan!r}"
+            )
+        spec = plan_obj.to_spec(spec)
         live = torch.zeros((cap,), dtype=torch.bool, device=device)
         live[:n] = True
         index = cls(spec, database, live, size=n, num_live=n,
-                    capacity_block=capacity_block)
+                    capacity_block=capacity_block, kernel_plan=plan_obj)
         index.pack()
         return index
 
@@ -224,6 +241,109 @@ class Index:
     def expected_recall(self) -> float:
         return self.plan.expected_recall
 
+    def _replan(self, *, n: int, m: Optional[int],
+                pin_from: planlib.Plan) -> planlib.Plan:
+        """``pin_from`` re-planned for ``n`` rows and a batch of ``m``
+        (growth, ``explain(m=...)``): its tiles, backend and profile, the
+        spec's recall accounting and tier, its provenance."""
+        spec = self.spec
+        plan = planlib.plan_search(
+            n=n, d=self.dim, k=spec.k, m=m, metric=spec.metric,
+            recall_target=spec.recall_target, dtype=spec.dtype or "float32",
+            backend=pin_from.backend, device=pin_from.device,
+            reduction_input_size_override=spec.reduction_input_size_override,
+            storage=spec.storage, rescore=spec.rescore_enabled,
+            block_m=pin_from.block_m, max_block_n=pin_from.block_n,
+            query_block=pin_from.query_block,
+        )
+        return dataclasses.replace(plan, source=pin_from.source)
+
+    @property
+    def kernel_plan(self) -> planlib.Plan:
+        """The resolved kernel plan (``repro_torch.search.plan.Plan``):
+        tiles, bin layout and the roofline prediction behind them."""
+        return self._kernel_plan
+
+    def explain(
+        self,
+        *,
+        m: Optional[int] = None,
+        measure: bool = False,
+        validate_hlo: bool = False,
+    ) -> dict:
+        """The plan behind this index, with its predicted roofline position.
+
+        Returns the resolved ``plan`` (tiles, bin layout, provenance, the
+        kernels' split count), the ``predicted`` roofline placement (Eq.
+        4–10: the binding wall and the time of a search, a bound since
+        the profiles hold peaks) and the analytic ``expected_recall``.
+        ``m`` re-evaluates the prediction for a batch of ``m`` queries
+        (default: the plan's, or one ``query_block``).
+
+        ``measure=True`` also times a batch of random queries on this
+        index (``plan.time_search``) and reports the share of the
+        predicted roof it reached.  ``validate_hlo=True`` reports
+        ``{"skipped": ...}``: the FLOP count of a compiled program is not
+        ported.
+        """
+        plan = self.kernel_plan
+        if m is not None and m != plan.m:
+            plan = self._replan(n=plan.n, m=m, pin_from=plan)
+        sbytes = quant.storage_bytes(self.spec.storage)
+        report = {
+            "plan": plan.summary(),
+            "backend": self._resolve_backend(),
+            "expected_recall": plan.expected_recall,
+            "predicted": {
+                "device": plan.device,
+                "flops": plan.flops,
+                "hbm_bytes": plan.hbm_bytes,
+                "cops": plan.cops,
+                "i_mem": plan.i_mem,
+                "i_cop": plan.i_cop,
+                "attainable_flops": plan.attainable_flops,
+                "bottleneck": plan.bottleneck,
+                "wall_s": plan.predicted_s,
+                "qps": plan.predicted_qps,
+            },
+            "storage": {
+                "tier": self.spec.storage,
+                "db_bytes_per_element": sbytes,
+                "db_resident_bytes": self.capacity * self.dim * sbytes,
+                "rescore": self.spec.rescore_enabled,
+                "k_scan": plan.k_scan or plan.k,
+                "predicted_hbm_bytes": plan.hbm_bytes,
+                "fused_select": self.spec.fused_select_enabled,
+            },
+            # no cluster pruning yet (ROADMAP queue A item 7)
+            "cluster": {"mode": self.spec.cluster, "enabled": False},
+            "expected_recall_live": self.expected_recall,
+        }
+        if self._packed is not None:
+            report["packed"] = {
+                "n": self._packed.n,
+                "db_shape": tuple(self._packed.db.shape),
+                "bin_size": self._packed.bin_size,
+                "block_n": self._packed.block_n,
+            }
+        m_eff = m or plan.m or plan.query_block
+        if measure:
+            g = torch.Generator(device=self.device).manual_seed(0)
+            queries = torch.randn((m_eff, self.dim), generator=g,
+                                  device=self.device)
+            wall = planlib.time_search(self, queries, repeats=3)
+            achieved = plan.flops / wall
+            report["measured"] = {
+                "wall_s": wall,
+                "qps": m_eff / wall,
+                "achieved_flops": achieved,
+                "roofline_fraction": achieved / plan.attainable_flops,
+            }
+        if validate_hlo:
+            report["hlo"] = {"skipped": "the compiled program's FLOP count "
+                             "is not ported (ROADMAP queue A item 13)"}
+        return report
+
     def __repr__(self) -> str:
         return (
             f"Index(metric={self.spec.metric!r}, k={self.spec.k}, "
@@ -250,7 +370,8 @@ class Index:
     def _bind_k_scan(self) -> None:
         """Fix the scan's k for the current packed state: the over-fetch
         of a quantized tier, capped by the live rows (reading ``size``
-        syncs with the device, so this runs at build and growth only)."""
+        syncs with the device, so this runs at build, growth and an add
+        that can lift the cap, never on delete or search)."""
         live = self.size if self.spec.rescore_enabled else None
         self._k_scan = packedlib.scan_k_for(self.spec, self._packed.n, live=live)
 
@@ -324,9 +445,10 @@ class Index:
         """Append rows; grows capacity in ``capacity_block`` steps.
 
         Only the appended slice is metric-prepared (and quantized);
-        growth re-lays-out the packed operands (one device copy, bins
-        re-planned for the new capacity) without re-preparing existing
-        rows, and re-binds the scan's k.
+        growth re-lays-out the packed operands (one device copy, bins and
+        kernel plan re-planned for the new capacity) without re-preparing
+        existing rows.  The scan's k is bound anew on growth and whenever
+        the bound value is below the uncapped over-fetch.
         """
         rows = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
         rows = torch.atleast_2d(rows)
@@ -356,6 +478,11 @@ class Index:
                     self._packed.backend, new_cap, self.spec
                 )
                 grew = True
+            # bins and prediction re-planned for the grown row space (as
+            # the packed relayout re-plans its bins), the same tiles
+            p = self._kernel_plan
+            self._kernel_plan = self._replan(n=new_cap, m=p.m or None,
+                                             pin_from=p)
         self._db[self._size : required] = rows
         self._live[self._size : required] = True
         if self._packed is not None:
@@ -364,7 +491,10 @@ class Index:
         self._num_live = self._num_live + r
         if had_packed and self._packed is None:
             self.pack()
-        elif grew:
+        elif grew or (self._packed is not None and self._k_scan
+                      < packedlib.scan_k_for(self.spec, self._packed.n)):
+            # Growth, or the over-fetch capped below its full value by the
+            # live rows this add raises: bind it anew.
             self._bind_k_scan()
         return self
 

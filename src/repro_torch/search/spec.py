@@ -24,9 +24,26 @@ from typing import Optional, Tuple
 
 from repro_torch.search import quant
 
-__all__ = ["BACKENDS", "SearchSpec"]
+__all__ = ["BACKENDS", "SearchSpec", "check_tiles"]
 
 BACKENDS = ("auto", "torch", "cuda")
+
+
+def check_tiles(block_m: Optional[int], max_block_n: Optional[int]) -> None:
+    """Accept unset tile fields or the CUDA kernels' fixed tiles
+    (``kernels.partial_reduce.BLOCK_M`` x ``BLOCK_N``), which are compiled
+    into ``csrc/partial_reduce.cu``; raise on any other value."""
+    # imported here: the kernels' front end imports this package
+    from repro_torch.kernels.partial_reduce import BLOCK_M, BLOCK_N
+
+    for field, value, fixed in (("block_m", block_m, BLOCK_M),
+                                ("max_block_n", max_block_n, BLOCK_N)):
+        if value is not None and value != fixed:
+            raise NotImplementedError(
+                f"{field}={value}: the CUDA kernels' tiles are fixed at "
+                f"{BLOCK_M}x{BLOCK_N} rows (csrc/partial_reduce.cu); leave "
+                f"{field} unset or pass {fixed}"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,9 +63,8 @@ class SearchSpec:
       cluster: only "off" for now (ROADMAP queue A item 7).
       rescore: None (on for quantized tiers) or a bool; True needs a
         quantized tier and ``aggregate_to_topk``.
-      block_m / max_block_n: kernel tiles.  ``Index.build`` resolves them
-        to the CUDA kernels' fixed tiles; other values wait for the
-        planner slice (ROADMAP queue A item 5).
+      block_m / max_block_n: kernel tiles: None or the CUDA kernels'
+        fixed 128 (``check_tiles``); ``Index.build`` resolves None to it.
       query_block: rows per block when a search streams queries.  Only the
         plain paths stream (to bound their (query_block, N) score tile);
         the CUDA kernels take any M in one call.
@@ -57,7 +73,9 @@ class SearchSpec:
         that use it as a baseline are ported (ROADMAP queue A item 13).
       aggregate_to_topk: rescore to the top-k (True) or return the raw
         bin winners (False).
-      use_bitonic: the bitonic rescoring network; not ported yet.
+      use_bitonic: the rescore and merge stages sort with the paper's
+        bitonic network (``core.rescoring.bitonic_sort_pairs``) instead
+        of a stable sort; off by default, as in the reference.
       fused_select: on the cuda backend, the single-pass scan→select
         kernel (None resolves to True when a selection happens); False
         runs the two-pass bin-winner kernel, then ``sentinelize_masked``
@@ -69,7 +87,7 @@ class SearchSpec:
 
     >>> SearchSpec(metric="l2", k=4).resolved
     False
-    >>> SearchSpec(k=4, block_m=64, max_block_n=128, query_block=4096).resolved
+    >>> SearchSpec(k=4, block_m=128, max_block_n=128, query_block=4096).resolved
     True
     """
 
@@ -165,6 +183,7 @@ class SearchSpec:
             v = getattr(self, field)
             if v is not None and v <= 0:
                 raise ValueError(f"{field} must be positive, got {v}")
+        check_tiles(self.block_m, self.max_block_n)
 
     @property
     def rescore_enabled(self) -> bool:

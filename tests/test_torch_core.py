@@ -15,6 +15,7 @@ from hypothesis import given, settings, strategies as st
 
 from repro.core import binning as ref_binning
 from repro.core.partial_reduce import partial_reduce_with_plan as ref_partial_reduce
+from repro.core.rescoring import bitonic_sort_pairs as ref_bitonic
 from repro.core.rescoring import exact_rescoring as ref_exact_rescoring
 from repro.core.topk import approx_max_k as ref_approx_max_k
 from repro.core.topk import approx_min_k as ref_approx_min_k
@@ -22,11 +23,13 @@ from repro_torch.core import (
     approx_max_k,
     approx_min_k,
     bins_for_recall,
+    bitonic_sort_pairs,
     exact_rescoring,
     expected_recall,
     partial_reduce_with_plan,
     plan_bins,
 )
+from repro_torch.testing import bits_equal
 
 SIZES = [1, 2, 7, 100, 1000, 2048, 4097, 65537, 1_000_000, 1_183_514]
 KS = [1, 2, 10, 64, 100]
@@ -106,7 +109,8 @@ def test_partial_reduce_with_plan_equals_reference(kind, mode, n, k, r):
 def test_exact_rescoring_equals_reference(kind, mode, k):
     vals = _scores(kind, (5, 64), seed=k)
     idxs = np.random.default_rng(k).permutation(5 * 64).reshape(5, 64).astype(np.int32)
-    ours = exact_rescoring(torch.from_numpy(vals), torch.from_numpy(idxs), k, mode=mode)
+    ours = exact_rescoring(torch.from_numpy(vals), torch.from_numpy(idxs), k,
+                           mode=mode, use_bitonic=False)
     ref = ref_exact_rescoring(
         jnp.asarray(vals), jnp.asarray(idxs), k, mode=mode, use_bitonic=False
     )
@@ -114,9 +118,32 @@ def test_exact_rescoring_equals_reference(kind, mode, k):
     np.testing.assert_array_equal(ours[1].numpy(), np.asarray(ref[1]))
     with pytest.raises(ValueError):
         exact_rescoring(torch.from_numpy(vals), torch.from_numpy(idxs), 65)
-    with pytest.raises(NotImplementedError):
-        exact_rescoring(torch.from_numpy(vals), torch.from_numpy(idxs), k,
-                        use_bitonic=True)
+    # the bitonic network, the default of both packages: bit for bit
+    ours = exact_rescoring(torch.from_numpy(vals), torch.from_numpy(idxs), k,
+                           mode=mode)
+    ref = ref_exact_rescoring(jnp.asarray(vals), jnp.asarray(idxs), k, mode=mode)
+    assert bits_equal(ours[0], torch.from_numpy(np.array(ref[0])))
+    np.testing.assert_array_equal(ours[1].numpy(), np.asarray(ref[1]))
+
+
+@pytest.mark.parametrize("descending", [True, False])
+@pytest.mark.parametrize("length", [1, 3, 64, 100, 256])
+def test_bitonic_sort_pairs_bit_equal(length, descending):
+    """The network's order, ties included: values drawn from a few
+    integers, +0.0 and -0.0, -inf and NaN; the reference unjitted (a
+    jitted network at L=256 compiles for minutes on the CPU)."""
+    rng = np.random.default_rng(length)
+    vals = rng.integers(-2, 3, size=(6, length)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.2] = -0.0
+    vals[rng.random(vals.shape) < 0.1] = -np.inf
+    vals[rng.random(vals.shape) < 0.03] = np.nan
+    idxs = rng.permutation(6 * length).reshape(6, length).astype(np.int32)
+    ours = bitonic_sort_pairs(torch.from_numpy(vals), torch.from_numpy(idxs),
+                              descending=descending)
+    ref = ref_bitonic(jnp.asarray(vals), jnp.asarray(idxs),
+                      descending=descending)
+    assert bits_equal(ours[0], torch.from_numpy(np.array(ref[0])))
+    np.testing.assert_array_equal(ours[1].numpy(), np.asarray(ref[1]))
 
 
 @pytest.mark.parametrize("kind", ["normal", "ties"])

@@ -388,3 +388,66 @@ def test_merge_plan_takes_both_paths(cuda_device):
     assert staged == {True, False}
     for splits, k_scan in ((5, 10), (5, 30), (123, 10), (123, 30), (131, 60)):
         assert prk.merge_plan(splits, k_scan)["staged_bytes"] > 0
+
+
+# --- the planner and the bitonic network on the card ------------------------
+
+
+def test_bitonic_on_card_equals_cpu(cuda_device):
+    """The bitonic network on CUDA tensors at a rescore's shape (the int4
+    k=20 over-fetch, 60 candidates): the CPU's result bit for bit, and
+    the stable sort's up to the order of tied values."""
+    from repro_torch.core import exact_rescoring
+
+    g = torch.Generator().manual_seed(5)
+    vals = torch.randint(-3, 4, (2000, 60), generator=g).float()
+    vals = torch.where((vals == 0) & (torch.rand(vals.shape, generator=g) < 0.5),
+                       torch.full_like(vals, -0.0), vals)
+    idxs = torch.randperm(2000 * 60, generator=g).int().reshape(2000, 60)
+    v, i = exact_rescoring(vals.to(cuda_device), idxs.to(cuda_device), 20)
+    cv, ci = exact_rescoring(vals, idxs, 20)
+    assert bits_equal(v.cpu(), cv) and torch.equal(i.cpu(), ci)
+    sv, si = exact_rescoring(vals, idxs, 20, use_bitonic=False)
+    value_of = torch.empty(vals.numel())  # each index's value (a scorer)
+    value_of[idxs.flatten().long()] = vals.flatten()
+    assert_topk_close(sv, si, v.cpu(), i.cpu(), rtol=0.0, atol=0.0,
+                      score=lambda row, idx: value_of[idx].double().numpy())
+
+
+def test_detect_device_names_the_card(cuda_device):
+    from repro_torch.search import detect_device
+
+    name = torch.cuda.get_device_name(cuda_device)
+    assert detect_device() == ("h100" if "H100" in name else "a100")
+    assert detect_device(device="cpu") == "cpu"
+
+
+@pytest.mark.parametrize("storage", ["f32", "int4"])
+def test_measured_plan_on_card(cuda_device, storage, tmp_path, monkeypatch):
+    """plan="measure" on the card: the sweep's plan, a cache hit on the
+    second build, the model plan's results, and a measured search no
+    faster than the model's bound."""
+    from repro_torch.search import PlanCache
+    from repro_torch.search import plan as planlib
+
+    rng = np.random.default_rng(7)
+    db = torch.from_numpy(rng.standard_normal((60_000, 96), dtype=np.float32))
+    q = torch.from_numpy(rng.standard_normal((300, 96), dtype=np.float32))
+    kw = dict(metric="l2", k=10, storage=storage, device=cuda_device)
+    cache = PlanCache(str(tmp_path / "plans.json"))
+    measured = Index.build(db, plan="measure", plan_cache=cache, **kw)
+    assert measured.kernel_plan.source == "measure" and len(cache) == 1
+    timed = []
+    real = planlib.time_search
+    monkeypatch.setattr(planlib, "time_search",
+                        lambda *a, **k: timed.append(1) or real(*a, **k))
+    again = Index.build(db, plan="measure", plan_cache=cache, **kw)
+    assert not timed and again.kernel_plan == measured.kernel_plan
+    model = Index.build(db, **kw)
+    (v, i), (mv, mi) = measured.search(q), model.search(q)
+    assert_topk_close(mv.cpu(), mi.cpu(), v.cpu(), i.cpu(),
+                      score=public_scorer("l2", q, db))
+    rep = measured.explain(m=300, measure=True)
+    assert (rep["plan"]["splits"] is not None) == (rep["predicted"]["device"]
+                                                   == "h100")
+    assert rep["measured"]["wall_s"] >= 0.95 * rep["predicted"]["wall_s"]

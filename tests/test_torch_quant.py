@@ -473,6 +473,55 @@ def test_int4_layout_at_128_lanes():
                       score=public_scorer("l2", q, db), **TOL)
 
 
+@pytest.mark.parametrize("backend", sorted(PAIRS))
+@pytest.mark.parametrize("storage", ["int8", "int4"])
+def test_add_without_growth_restores_the_over_fetch(storage, backend):
+    """An index built with fewer live rows than its over-fetch and spare
+    capacity, then grown by ``add`` without growth: ``k_scan`` is the
+    uncapped ``quant.scan_k`` again, and the search is the reference's
+    (its add made before its first search, which binds ``k_scan``)."""
+    rng = np.random.default_rng(TIERS.index(storage))
+    d = 16
+    rows = rng.standard_normal((112, d), dtype=np.float32)
+    q = rng.standard_normal((5, d), dtype=np.float32)
+    kw = dict(metric="mips", k=10, storage=storage, capacity=1024)
+    ours = Index.build(rows[:12], device="cpu", backend=backend, **kw)
+    ref = ref_search.Index.build(jnp.asarray(rows[:12]), backend="xla",
+                                 cluster="off", **kw)
+    assert ours.k_scan == 12
+    ours.add(rows[12:])
+    ref.add(jnp.asarray(rows[12:]))
+    assert ours.capacity == ref.capacity == 1024
+    assert ours.k_scan == quant.scan_k(storage, 10) == (20 if storage == "int8"
+                                                         else 30)
+    _check(ours, ref, q, "mips", rows)
+
+
+@pytest.mark.parametrize("backend", sorted(PAIRS))
+@pytest.mark.parametrize("storage", TIERS)
+def test_bitonic_search_matches_reference(storage, backend):
+    """``SearchSpec(use_bitonic=True)`` runs the bitonic network in the
+    rescore (and, two-pass, the merge): the same results as the
+    reference's bitonic search, and as the port's default search."""
+    rng = np.random.default_rng(30 + TIERS.index(storage))
+    rows = rng.standard_normal((1500, 33), dtype=np.float32)
+    q = rng.standard_normal((9, 33), dtype=np.float32)
+    kw = dict(metric="l2", k=10, storage=storage, use_bitonic=True)
+    ours, ref = _build_pair(rows, backend, **kw)
+    v, i = _check(ours, ref, q, "l2", rows)
+    default = Index.build(rows, device="cpu", backend=backend, metric="l2",
+                          k=10, storage=storage)
+    dv, di = default.search(q)
+    assert_topk_close(dv.numpy(), di.numpy(), v, i,
+                      score=public_scorer("l2", q, rows), **TOL)
+    if backend == "cuda":  # the two-pass path's merge
+        two = Index.build(rows, device="cpu", backend=backend,
+                          fused_select=False, **kw)
+        tv, ti = two.search(q)
+        assert_topk_close(v, i, tv.numpy(), ti.numpy(),
+                          score=public_scorer("l2", q, rows), **TOL)
+
+
 def test_spec_quantized_checks():
     assert SearchSpec(storage="int4").rescore_enabled
     assert not SearchSpec(storage="int8", rescore=False).rescore_enabled
