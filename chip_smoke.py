@@ -30,7 +30,8 @@ run in order and the first failure exits non-zero:
      main paths' own shapes (all 10,000 queries);
   8. CUDA-event timings at the Sift1M shape, f32 and each tier, of both
      scan kernels at M=10,000 and M=16 beside their bounds (tensor
-     cores, bytes, epilogue instructions; and the f32 FFMA bound of the
+     cores, bytes, the instructions a score the function needs; beside
+     them the kernel's own epilogue count and the f32 FFMA bound of the
      earlier kernel) and their earlier times, each tier's stored bytes
      per row, the fused kernel at k_scan 32 (carry in shared memory), 33
      and 512 (in device memory), and the launches of one search; and per
@@ -52,12 +53,40 @@ run in order and the first failure exits non-zero:
      and an int8 search with ``use_bitonic=True`` against the default
      one, both timed; an int4 index of 12 rows grown by 100 without
      growth must take ``k_scan`` 30 and search as the same index on the
-     CPU.  Its searches are one more path whose launches are counted.
+     CPU.  Its searches are one more path whose launches are counted;
+ 10. the one-pass forms (bf16 queries, ``dtype="bfloat16"``): each of the
+     six one-pass instantiations against its plain version at the small
+     test shapes and on 512 queries at the Sift1M shape, and bit for bit
+     on integer-valued inputs; then ``dtype="bfloat16"`` indexes at the
+     Sift1M shape (storage f32, int8, int4) searched at M=10,000 and
+     M=16, recall against an exact oracle in the compute dtype (the
+     bf16-cast rows, prepared as the index prepares them) at E[recall] -
+     eps, the launch counts of the path (the one-pass kernels, no plain
+     version), and the kernels' and searches' times beside the tensor,
+     score-operation and byte bounds of one pass (and the kernel's own
+     epilogue count);
+ 11. clusters on Gaussian data: the Sift1M data with ``cluster="auto"``
+     (f32): the planner enables pruning, the build's miss check must
+     drop the tables, and the search must be bit-identical to
+     ``cluster="off"``;
+ 12. clusters on a mixture corpus (the Sift1M shape drawn as
+     ``tests/test_cluster.py`` draws its corpora: 64 components, centers
+     N(0, 1) x 2.5, unit noise, queries from the same centers): the plan
+     must be C=1024, R=1224, 32 probes, a spill block of 15,632; the
+     build's seconds (k-means, the host assignment loop, the miss check)
+     and its sampled miss rate; recall at E[recall] - eps (the collision
+     x miss product) for f32 and int8, before and after an add of 10,000
+     rows and a delete of 50,000; the pruned search timed at M=10,000 and
+     M=16 beside the same corpus with ``cluster="off"``, the ``"h100"``
+     profile's prediction of each and the peak device memory.  The pruned
+     scan is plain PyTorch (the reference has no Pallas kernel there), so
+     its path must launch no kernel and call no plain version.
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
-instantiation without any, or a merge instantiation with a stack frame
-or a spill, fails the run.
+instantiation without any, a scan or merge instantiation with a stack
+frame or a spill, or a build without the six one-pass scan
+instantiations fails the run.
 
 It prints the ``kernels`` JSON line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``.  Data is random from
@@ -86,15 +115,24 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_INSTR = 132 * 4 * 32 * 1.98e9
-# Epilogue instructions per score of the scan on the main paths (bins of
-# 16 rows and more), counted from csrc/partial_reduce.cu: 1 add of the
+# CUDA-core instructions per score that the scan's function needs,
+# whatever the kernel: one add of the bias (one FFMA with the scale where
+# there is one), then one compare and two selects (value and index) to
+# keep the bin's winner.  This is the operations part of the bound.
+SCORE_INSTR = 4
+# Epilogue instructions per score of this kernel on the main paths (bins
+# of 16 rows and more), counted from csrc/partial_reduce.cu: 1 add of the
 # bias (and 1 multiply by the scale), 1.5 to pick the better of each
 # thread's two rows, then 3 shuffle levels of 8 (two shuffles, three
-# compares, two selects and a predicate) over half the scores.
+# compares, two selects and a predicate) over half the scores.  The
+# butterfly follows from the wgmma accumulator's layout, a choice of the
+# kernel, so this count is printed beside the bound, never part of it.
 EPILOGUE_INSTR = {"f32": 14.5, "bf16": 14.5, "int8": 15.5, "int4": 15.5}
 # Tensor-core passes of the split product: three query parts against the
-# stored rows, six products for f32 rows (split in three as well).
+# stored rows, six products for f32 rows (split in three as well); one
+# for bf16 queries (the one-pass forms).
 PASSES = {"f32": 6, "bf16": 3, "int8": 3, "int4": 3}
+ONE_PASS_FORMS = ("bf16", "int8", "int4")
 # The scan kernels' times with the earlier FFMA main loop (Sift1M shape,
 # NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): (fused, two-pass) at
 # M=10,000, and the fused one at M=16 (two-pass not timed there then).
@@ -179,48 +217,57 @@ def bound_ms(flops: float, nbytes: float):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def scan_bounds(form: str, m: int, n_pad: int, d: int, nbytes: float) -> dict:
+def scan_bounds(form: str, m: int, n_pad: int, d: int, nbytes: float,
+                passes=None) -> dict:
     """The scan's bound, the largest of its tensor-core passes over the
-    lanes the loop covers (d rounded up to 16), the bytes it must move
-    and its epilogue's instructions per score, each printed; and the
-    FFMA bound of the earlier kernel (f32 operations over d rounded up to
-    128, or the bytes), for comparison with the earlier FFMA kernel."""
+    lanes the loop covers (d rounded up to 16; ``passes`` default the
+    split's, 1 for bf16 queries), the bytes it must move and the
+    CUDA-core instructions per score its function needs, each printed;
+    beside it, not part of it, this kernel's own epilogue instructions
+    per score (``epilogue_ms``), and the FFMA bound of the earlier kernel
+    (f32 operations over d rounded up to 128, or the bytes)."""
     d16, d128 = -(-d // 16) * 16, -(-d // 128) * 128
+    passes = PASSES[form] if passes is None else passes
     parts = {
-        "tensor_ms": 1e3 * PASSES[form] * 2.0 * m * n_pad * d16 / PEAK_BF16_FLOPS,
+        "tensor_ms": 1e3 * passes * 2.0 * m * n_pad * d16 / PEAK_BF16_FLOPS,
         "bytes_ms": 1e3 * nbytes / PEAK_HBM_BYTES,
-        "epilogue_ms": 1e3 * EPILOGUE_INSTR[form] * m * n_pad / PEAK_INSTR,
+        "score_ops_ms": 1e3 * SCORE_INSTR * m * n_pad / PEAK_INSTR,
     }
     top = max(parts, key=parts.get)
     return dict(bound_ms=parts[top],
                 bound_by="bytes" if top == "bytes_ms" else "operations",
                 bound_parts=parts,
+                epilogue_ms=1e3 * EPILOGUE_INSTR[form] * m * n_pad / PEAK_INSTR,
                 ffma_bound_ms=bound_ms(2.0 * m * n_pad * d128, nbytes)[0])
 
 
 def kernel_label(mangled: str) -> str:
-    """``pr_scan_kernel<fused, form>`` or ``pr_merge_kernel<lanes,
-    per_lane, staged>`` from a mangled kernel name."""
+    """``pr_scan_kernel<fused, form, query parts>`` or
+    ``pr_merge_kernel<lanes, per_lane, staged>`` from a mangled kernel
+    name."""
     merge = re.search(r"pr_merge_kernelILi(\d+)ELi(\d+)ELb([01])E", mangled)
     if merge:
         lanes, per_lane, staged = merge.groups()
         return (f"pr_merge_kernel<{lanes}, {per_lane}, "
                 f"{'staged' if staged == '1' else 'global'}>")
-    found = re.search(r"(pr_[a-z_]*kernel)(?:ILb([01])E(?:Li(\d)E)?E)?", mangled)
+    found = re.search(r"(pr_[a-z_]*kernel)(?:ILb([01])E(?:Li(\d)E)?(?:Li(\d)E)?E)?",
+                      mangled)
     if not found:
         return mangled
-    name, fused, form = found.groups()
+    name, fused, form, parts = found.groups()
     args = [{"0": "two-pass", "1": "fused"}[fused]] if fused else []
     args += [FORMS[int(form)]] if form else []
+    args += [f"{parts} query part{'s' if parts != '1' else ''}"] if parts else []
     return f"{name}<{', '.join(args)}>" if args else name
 
 
-def names_of(form: str):
-    """Counter names of the kernels of one stored form."""
+def names_of(form: str, qparts: int = 3):
+    """Counter names of the kernels of one stored form (``qparts`` 1: the
+    one-pass forms, bf16 queries)."""
     from repro_torch.kernels.partial_reduce import kernel_name
 
-    return (kernel_name("partial_reduce_fused", form), "fused_carry_merge",
-            kernel_name("partial_reduce_packed", form))
+    return (kernel_name("partial_reduce_fused", form, qparts), "fused_carry_merge",
+            kernel_name("partial_reduce_packed", form, qparts))
 
 
 def exact_topk(metric, q, rows, live, k, chunk=1000):
@@ -290,7 +337,7 @@ def compare_kernels(prk, testing, label, q, db, bias, bs, ks, acc, *,
     from repro_torch.search import pad_queries_to
 
     form = prk.storage_form(db, scale, int4_packed)
-    fused, merge, packed = names_of(form)
+    fused, merge, packed = names_of(form, prk.query_parts(q, form))
     widened = widened_rows(db, scale, int4_packed)
     qp = pad_queries_to(q, widened.shape[1]).contiguous()
     score = testing.bias_scorer(q, widened, bias)
@@ -319,7 +366,7 @@ def compare_kernels(prk, testing, label, q, db, bias, bs, ks, acc, *,
         acc["agree"][kernel] += int((a == b).sum())
         acc["total"][kernel] += a.numel()
         acc["errs"][kernel] = max(acc["errs"][kernel], float((x - y).abs().max()))
-    log(f"kernels vs plain [{label}, {form}]: m={q.shape[0]} n_pad={db.shape[0]} "
+    log(f"kernels vs plain [{label}, {fused}]: m={q.shape[0]} n_pad={db.shape[0]} "
         f"bin={bs} k_scan={ks} splits={carries[0].shape[0]}: ok (max |diff| "
         f"packed {float((v - pv).abs().max()):.3g}, fused "
         f"{float((fv - pfv).abs().max()):.3g})")
@@ -503,14 +550,14 @@ def drive(cfg, data, m_after, results, storage="f32"):
     return index
 
 
-def read_counts(prk, label, forms, results, two_pass=True):
+def read_counts(prk, label, forms, results, two_pass=True, qparts=3):
     """The launches of the path just driven: every kernel of ``forms``
-    (without the two-pass kernel unless ``two_pass``) launched at least
-    once, no plain version called."""
+    (without the two-pass kernel unless ``two_pass``; the one-pass forms
+    for ``qparts`` 1) launched at least once, no plain version called."""
     launches, plain = dict(prk.LAUNCHES), dict(prk.PLAIN_CALLS)
     log(f"[{label}] launches {launches}, plain calls {plain}")
     for form in forms:
-        for name in names_of(form)[:3 if two_pass else 2]:
+        for name in names_of(form, qparts)[:3 if two_pass else 2]:
             if launches.get(name, 0) <= 0:
                 fail(f"kernel {name} was not launched on the {label} path")
     if sum(plain.values()):
@@ -702,7 +749,8 @@ def time_form(prk, testing, db, q, storage, results, empty_ms, merge_rows):
             max_abs_err=err[name], ms=t["fused" if fused_kernel else "packed"],
             plain_ms=t["fused_plain" if fused_kernel else "packed_plain"],
             bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=None,
-            bound_parts=b["bound_parts"], ffma_bound_ms=b["ffma_bound_ms"],
+            bound_parts=b["bound_parts"], epilogue_ms=b["epilogue_ms"],
+            ffma_bound_ms=b["ffma_bound_ms"],
             ms_m16=t["fused_m16" if fused_kernel else "packed_m16"],
             bound_ms_m16=b16["bound_ms"], bound_by_m16=b16["bound_by"],
             bound_parts_m16=b16["bound_parts"],
@@ -754,8 +802,8 @@ def time_form(prk, testing, db, q, storage, results, empty_ms, merge_rows):
         log(f"  {storage} {label} scan {ms:.3f} ms (FFMA kernel, as recorded "
             f"in PERF.md: {'not timed' if ffma is None else f'{ffma:.3f} ms'}): "
             f"{100 * b['bound_ms'] / ms:.1f}% of its {b['bound_by']} bound "
-            f"{b['bound_ms']:.4f} ms ({parts}); FFMA bound "
-            f"{b['ffma_bound_ms']:.4f} ms")
+            f"{b['bound_ms']:.4f} ms ({parts}); this kernel's epilogue "
+            f"{b['epilogue_ms']:.4f} ms; FFMA bound {b['ffma_bound_ms']:.4f} ms")
     log(f"  search QPS {m / t['search'] * 1e3:.0f} at recall "
         f"{extra['recall']:.4f}; launches per search: {per_search}")
     return kernels, row_bytes
@@ -920,6 +968,418 @@ def phase_planner(prk, testing, sift, glove, bounds, results, seed):
     return out
 
 
+def exact_topk_bf16(metric, q, rows, live, k, chunk=1000):
+    """Exact oracle in the bf16 compute dtype: the rows and queries cast
+    to bf16 and prepared as the index prepares them (its bf16 norms and
+    bias), scored with exact products and f32 sums."""
+    from repro_torch.search import get_metric
+
+    m_obj = get_metric(metric)
+    prepped, bias = m_obj.prepare_database(rows.to(torch.bfloat16))
+    prepped = prepped.float()
+    qq = m_obj.prepare_queries(q.to(torch.bfloat16)).float()
+    full = torch.where(live, 0.0, float("-inf"))
+    if bias is not None:
+        full = full + bias.float()
+    out = []
+    for s in range(0, qq.shape[0], chunk):
+        out.append(torch.topk(qq[s : s + chunk] @ prepped.T + full, k,
+                              dim=1).indices)
+    return torch.cat(out)
+
+
+def integer_bits_equal(prk, label, m, n, d, bin_size, k_scan, seed):
+    """Integer-valued bf16 queries and rows in each one-pass form: both
+    kernels bit-equal to their plain versions (every sum is exact)."""
+    from repro_torch.search import pad_queries_to, quant
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    block = max(bin_size, 128)
+    n_pad = -(-n // block) * block
+    d_pad = -(-d // 128) * 128
+    q = torch.randint(-3, 4, (m, d), generator=g, device="cuda").float()
+    db = torch.zeros((n_pad, d_pad), device="cuda")
+    db[:n, :d] = torch.randint(-7, 8, (n, d), generator=g, device="cuda").float()
+    bias = torch.full((1, n_pad), -3.4028234663852886e38, device="cuda")
+    live = torch.rand(n, generator=g, device="cuda") >= 0.1
+    bias[0, :n] = torch.where(live, -0.5 * (db[:n] * db[:n]).sum(1), bias[0, :n])
+    qb = q.to(torch.bfloat16)
+    qp = pad_queries_to(qb, d_pad)
+    for form in ONE_PASS_FORMS:
+        scale = None
+        if form == "bf16":
+            stored = db.to(torch.bfloat16)
+        else:
+            stored = db.to(torch.int8)
+            scale = torch.ones((1, n_pad), device="cuda")
+            if form == "int4":
+                stored = quant.pack_int4_rows(stored)
+        kw = dict(bin_size=bin_size, int4_packed=form == "int4")
+        got = (*prk.partial_reduce_packed(qb, stored, bias, scale, **kw),
+               *prk.partial_reduce_fused(qb, stored, bias, scale, k_scan=k_scan,
+                                         **kw))
+        want = (*prk.partial_reduce_packed_plain(qp, stored, bias, scale, **kw),
+                *prk.partial_reduce_fused_plain(qp, stored, bias, scale,
+                                                k_scan=k_scan, **kw))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"one-pass {form} [{label}]: not bit-equal to its plain "
+                 f"version on integer-valued inputs")
+    log(f"one-pass kernels vs plain on integer-valued inputs [{label}]: m={m} "
+        f"n={n} d={d} bin={bin_size} k_scan={k_scan}, {ONE_PASS_FORMS}: "
+        f"bit-equal")
+
+
+def phase_one_pass_kernels(prk, testing, seed, acc):
+    """Phase 10, the kernels: each one-pass instantiation against its
+    plain version at the small test shapes and on 512 bf16 queries at the
+    Sift1M shape, and bit for bit on integer-valued inputs."""
+    cases = dict(testing.KERNEL_CASES)
+    cases["sift1m_512"] = dict(m=512, n=SIFT["n"], d=SIFT["d"], bin_size=4096,
+                               k_scan=K, dead=0.1, l2=True)
+    for name, case in cases.items():
+        q, db, bias = testing.packed_operands(**case, seed=seed, device="cuda")
+        qb = q.to(torch.bfloat16)
+        for form in ONE_PASS_FORMS:
+            bs, ks = case["bin_size"], case["k_scan"]
+            if name == "sift1m_512":
+                bs, ks = SIFT_PLAN[form]
+            stored, scale, packed, _ = testing.stored_operands(db, form)
+            compare_kernels(prk, testing, f"{name} bf16 queries", qb, stored,
+                            bias, bs, ks, acc, scale=scale, int4_packed=packed)
+            del stored, scale
+        del q, qb, db, bias
+    integer_bits_equal(prk, "small", 150, 2000, 100, 16, 10, seed)
+    integer_bits_equal(prk, "sift1m", 512, SIFT["n"], SIFT["d"], 2048, 20, seed)
+    integer_bits_equal(prk, "sift1m k_scan 129", 300, SIFT["n"], SIFT["d"], 256,
+                       129, seed)
+
+
+def drive_bf16(data, storage, results):
+    """Phase 10, the path: a ``dtype="bfloat16"`` index at the Sift1M shape,
+    searched at M=10,000 and M=16, recall against the bf16 oracle, the
+    two-pass path against the fused one after an add and a delete."""
+    from repro_torch.search import Index
+    from repro_torch.testing import assert_topk_close, public_scorer
+
+    db, q, extra, dead = data
+    label = f"sift1m bf16-compute {storage}"
+    kw = dict(metric=SIFT["metric"], k=K, recall_target=TARGET, cluster="off",
+              storage=storage, dtype="bfloat16")
+    t0 = time.perf_counter()
+    index = Index.build(db, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    plan = index.plan
+    live = torch.ones(db.shape[0], dtype=torch.bool, device="cuda")
+    truth = exact_topk_bf16(SIFT["metric"], q, db, live, K)
+    v, i = index.search(q)
+    v16, i16 = index.search(q[:16])
+    torch.cuda.synchronize()
+    r1 = recall(i, truth)
+    floor = plan.expected_recall - hoeffding_eps(q.shape[0])
+    log(f"[{label}] build {build_s:.2f} s: L={plan.num_bins} bins of "
+        f"{plan.bin_size}, k_scan={index.k_scan}; search M={q.shape[0]}: recall "
+        f"{r1:.4f} against the bf16 oracle (floor {floor:.4f})")
+    if not r1 >= floor:
+        fail(f"{label}: recall {r1} < {floor}")
+    if not torch.isfinite(v).all() or tuple(v.shape) != (q.shape[0], K):
+        fail(f"{label}: non-finite or misshapen values")
+    # the same rows, scanned in another split plan (and rescored in a batch
+    # of another size): equal up to the order of f32 sums
+    assert_topk_close(v[:16].cpu(), i[:16].cpu(), v16.cpu(), i16.cpu(),
+                      score=public_scorer(SIFT["metric"], q[:16], db,
+                                          dtype="bfloat16"))
+    two_pass = Index.build(db, fused_select=False, **kw)
+    for idx in (index, two_pass):
+        idx.add(extra)
+        idx.delete(dead)
+    qa = q[:2_000]
+    v, i = launches_of(lambda: index.search(qa), 2, f"{label} fused")
+    tv, ti = launches_of(lambda: two_pass.search(qa), 1, f"{label} two-pass")
+    rows = torch.cat([db, extra])
+    live = torch.ones(rows.shape[0], dtype=torch.bool, device="cuda")
+    live[dead] = False
+    if torch.isin(i.long(), dead).any() or torch.isin(ti.long(), dead).any():
+        fail(f"{label}: a deleted id was returned")
+    r2 = recall(i, exact_topk_bf16(SIFT["metric"], qa, rows, live, K))
+    floor2 = index.plan.expected_recall - hoeffding_eps(qa.shape[0])
+    log(f"[{label}] add 10000 + delete 50000: recall {r2:.4f} (floor "
+        f"{floor2:.4f}); fused_select=False agrees with the fused path")
+    if not r2 >= floor2:
+        fail(f"{label}: recall after updates {r2} < {floor2}")
+    assert_topk_close(v.cpu(), i.cpu(), tv.cpu(), ti.cpu(),
+                      score=public_scorer(SIFT["metric"], qa, rows,
+                                          dtype="bfloat16"))
+    results[label] = dict(build_s=build_s, recall=r1, recall_after_updates=r2,
+                          expected_recall=plan.expected_recall, k_scan=index.k_scan)
+    del two_pass, index
+    return label
+
+
+def time_one_pass(prk, db, q, storage, results, empty_ms):
+    """Phase 10, the timings: on a fresh ``dtype="bfloat16"`` index of the
+    Sift1M data, both one-pass scan kernels at M=10,000 and M=16 beside
+    one pass's tensor, score-operation and byte bounds (and the kernel's
+    own epilogue count beside them), their plain versions, the
+    whole search (M=16 also queued), and, for context, ``torch.matmul`` of
+    the bf16 product alone (not the scan's function: no bias, no bin
+    top-1; the port never calls it)."""
+    from repro_torch.search import Index, get_metric, pad_queries_to
+
+    index = Index.build(db, metric=SIFT["metric"], k=K, recall_target=TARGET,
+                        cluster="off", storage=storage, dtype="bfloat16")
+    pk = index.pack()
+    ops = pk.operands()
+    sdb, bias = ops[0], ops[1]
+    scale = None if storage == "f32" else ops[2]
+    form = prk.storage_form(sdb, scale, pk.int4_packed)
+    bs, ks, i4 = pk.bin_size, index.k_scan, pk.int4_packed
+    m, n_pad, d = q.shape[0], sdb.shape[0], SIFT["d"]
+    d_pad = sdb.shape[1] * (2 if i4 else 1)
+    row_bytes = sdb.shape[1] * sdb.element_size()
+    qm = get_metric(SIFT["metric"]).prepare_queries(q.to(torch.bfloat16))
+    qp = pad_queries_to(qm, d_pad).contiguous()
+    kw = dict(bin_size=bs, int4_packed=i4)
+
+    def fused(qq):
+        return prk.fused_scan(pad_queries_to(qq, d_pad).contiguous(), sdb, bias,
+                              scale, k_scan=ks, width=d, **kw)
+
+    def packed(qq):
+        return prk.partial_reduce_packed(qq, sdb, bias, scale, **kw)
+
+    def plain(fn, **extra):
+        for s in range(0, m, 512):
+            fn(qp[s : s + 512], sdb, bias, scale, **kw, **extra)
+
+    rows16 = sdb if form == "bf16" else torch.ones(
+        (n_pad, d_pad), dtype=torch.bfloat16, device="cuda")
+
+    def gemm():
+        for s in range(0, m, 1000):
+            torch.matmul(qp[s : s + 1000], rows16.T)
+
+    carries = fused(qm)
+    splits = carries[0].shape[0]
+    q16 = qm[:16].contiguous()
+    c16 = fused(q16)
+    t = {
+        "fused": cuda_ms(lambda: fused(qm)),
+        "packed": cuda_ms(lambda: packed(qm)),
+        "fused_m16": cuda_ms(lambda: fused(q16), reps=20),
+        "packed_m16": cuda_ms(lambda: packed(q16), reps=20),
+        "merge": queued_ms(lambda: prk.fused_carry_merge(*carries)),
+        "search": cuda_ms(lambda: index.search(q)),
+        "search_m16": cuda_ms(lambda: index.search(q[:16]), reps=20),
+        "search_m16_device": queued_ms(lambda: index.search(q[:16])),
+        "fused_plain": cuda_ms(lambda: plain(prk.partial_reduce_fused_plain,
+                                             k_scan=ks), reps=3),
+        "packed_plain": cuda_ms(lambda: plain(prk.partial_reduce_packed_plain),
+                                reps=3),
+        "bf16_gemm": cuda_ms(gemm, reps=3),
+    }
+    stored = row_bytes * n_pad + 4.0 * n_pad * (1 if scale is None else 2)
+
+    def bounds(rows, out_bytes):
+        return scan_bounds(form, rows, n_pad, d,
+                           2.0 * rows * d + stored + out_bytes, passes=1)
+    fb = bounds(m, 8.0 * splits * m * ks)
+    pb = bounds(m, 8.0 * m * (n_pad // bs))
+    fb16 = bounds(16, 8.0 * c16[0].shape[0] * 16 * ks)
+    pb16 = bounds(16, 8.0 * 16 * (n_pad // bs))
+    fname, _, pname = names_of(form, 1)
+    kernels = []
+    for name, kind, key, b, b16 in (
+            (fname, "partial_reduce_fused", "fused", fb, fb16),
+            (pname, "partial_reduce_packed", "packed", pb, pb16)):
+        kernels.append(dict(
+            name=name, route="cuda", source=SRC, replaces=REPLACES[(kind, form)],
+            launches=results["launches"].get(name, 0),
+            plain_calls=results["plain_calls"].get(name, 0),
+            index_agreement=results["index_agreement"].get(name),
+            max_abs_err=results["max_abs_err"].get(name), ms=t[key],
+            plain_ms=t[f"{key}_plain"], bound_ms=b["bound_ms"],
+            bound_by=b["bound_by"], library_ms=None,
+            bound_parts=b["bound_parts"], epilogue_ms=b["epilogue_ms"],
+            ms_m16=t[f"{key}_m16"],
+            bound_ms_m16=b16["bound_ms"], bound_by_m16=b16["bound_by"],
+            bound_parts_m16=b16["bound_parts"], stored_bytes_per_row=row_bytes,
+            bf16_gemm_ms_not_the_scan=t["bf16_gemm"], index_storage=storage,
+            smem=prk.scan_smem(form, kind == "partial_reduce_fused", d,
+                               ks if kind == "partial_reduce_fused" else 0,
+                               qparts=1)))
+    kernels[0].update(splits=splits, splits_m16=c16[0].shape[0],
+                      merge_ms=t["merge"], search_ms=t["search"],
+                      qps=m / t["search"] * 1e3, search_ms_m16=t["search_m16"],
+                      search_ms_m16_device=t["search_m16_device"],
+                      recall=results[f"sift1m bf16-compute {storage}"]["recall"])
+    log(f"timing one-pass {form} (dtype=bfloat16, storage={storage}) at M={m}, "
+        f"n_pad={n_pad}, bin={bs}, k_scan={ks}, splits={splits} "
+        f"({c16[0].shape[0]} at M=16; CUDA events, median):")
+    for key, ms in t.items():
+        log(f"  {key:18s} {ms:10.3f} ms")
+    for label, ms, b in (("fused", t["fused"], fb), ("two-pass", t["packed"], pb),
+                         ("fused M=16", t["fused_m16"], fb16),
+                         ("two-pass M=16", t["packed_m16"], pb16)):
+        parts = ", ".join(f"{k[:-3]} {v:.4f}" for k, v in b["bound_parts"].items())
+        log(f"  one-pass {form} {label} scan {ms:.3f} ms: "
+            f"{100 * b['bound_ms'] / ms:.1f}% of its {b['bound_by']} bound "
+            f"{b['bound_ms']:.4f} ms ({parts}); this kernel's epilogue "
+            f"{b['epilogue_ms']:.4f} ms")
+        if ms < 0.95 * b["bound_ms"]:
+            fail(f"one-pass {form} {label}: {ms} ms beats 0.95 x its bound")
+    log(f"  search QPS {m / t['search'] * 1e3:.0f}; bf16 torch.matmul of the "
+        f"product alone (not the scan's function) {t['bf16_gemm']:.3f} ms")
+    del index
+    return kernels
+
+
+def phase_clusters_gaussian(prk, data, results):
+    """Phase 11: ``cluster="auto"`` on the Sift1M Gaussian data.  The
+    planner enables pruning; the build's miss check must drop the tables,
+    and the search must equal ``cluster="off"`` bit for bit."""
+    from repro_torch.search import Index, cluster
+
+    db, q = data[:2]
+    kw = dict(metric=SIFT["metric"], k=K, recall_target=TARGET)
+    prk.reset_counts()
+    t0 = time.perf_counter()
+    auto = Index.build(db, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cp = auto.kernel_plan.cluster
+    pk = auto.pack()
+    off = Index.build(db, cluster="off", **kw)
+    va, ia = auto.search(q)
+    vo, io = off.search(q)
+    torch.cuda.synchronize()
+    out = dict(build_s=build_s, timings=auto.pack_timings,
+               rejected_miss=pk.cluster_rejected_miss,
+               threshold=cluster.miss_check_threshold(cp.miss_budget),
+               plan=dict(num_clusters=cp.num_clusters, probes=cp.probes,
+                         scan_rows=cp.scan_rows, enabled=cp.enabled))
+    log(f"[sift1m gaussian, cluster=auto] plan {out['plan']}; build "
+        f"{build_s:.2f} s {auto.pack_timings}; cluster_rejected_miss "
+        f"{pk.cluster_rejected_miss} (threshold {out['threshold']})")
+    if not cp.enabled or pk.cluster is not None or pk.cluster_rejected_miss is None:
+        fail("gaussian data: the planner must enable pruning and the miss "
+             "check must drop the tables")
+    if not (torch.equal(va, vo) and torch.equal(ia, io)):
+        fail("gaussian data: cluster=auto after the rejection is not "
+             "bit-identical to cluster=off")
+    log("[sift1m gaussian, cluster=auto] search bit-identical to cluster=off")
+    read_counts(prk, "cluster gaussian", ("f32",), results, two_pass=False)
+    results["cluster_gaussian"] = out
+    return out
+
+
+def mixture_data(seed, n, d, m):
+    """The mixture corpus of ``tests/test_cluster.py`` at the given shape,
+    on the card: 64 components, centers N(0, 1) x 2.5, unit noise,
+    queries from the same centers; rows to add and ids to delete."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centers = torch.randn((64, d), generator=g, device="cuda") * 2.5
+
+    def draw(count):
+        pick = torch.randint(0, 64, (count,), generator=g, device="cuda")
+        return centers[pick] + torch.randn((count, d), generator=g, device="cuda")
+    db, q, extra = draw(n), draw(m), draw(10_000)
+    dead = torch.randperm(n, generator=g, device="cuda")[:50_000]
+    return db, q, extra, dead
+
+
+def phase_clusters_mixture(prk, seed, results):
+    """Phase 12 (see the module docstring).  Returns what it measured."""
+    from repro_torch.search import Index
+
+    db, q, extra, dead = mixture_data(seed, SIFT["n"], SIFT["d"], SIFT["m"])
+    metric = SIFT["metric"]
+    live = torch.ones(db.shape[0], dtype=torch.bool, device="cuda")
+    truth = exact_topk(metric, q, db, live, K)
+    rows = torch.cat([db, extra])
+    live_after = torch.ones(rows.shape[0], dtype=torch.bool, device="cuda")
+    live_after[dead] = False
+    qa = q[:2_000]
+    truth_after = exact_topk(metric, qa, rows, live_after, K)
+    out = {}
+    for storage in ("f32", "int8"):
+        label = f"mixture {storage}"
+        kw = dict(metric=metric, k=K, recall_target=TARGET, storage=storage)
+        prk.reset_counts()
+        t0 = time.perf_counter()
+        index = Index.build(db, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        cp, cs = index.kernel_plan.cluster, index.pack().cluster
+        got = (cp.num_clusters, cp.rows_per_cluster, cp.probes, cp.spill_capacity)
+        if got != (1024, 1224, 32, 15_632) or not cp.enabled:
+            fail(f"{label}: cluster plan {got}, enabled={cp.enabled}")
+        if cs is None:
+            fail(f"{label}: the miss check dropped the tables "
+                 f"({index.pack().cluster_rejected_miss})")
+        v, i = index.search(q)
+        torch.cuda.synchronize()
+        r1 = recall(i, truth)
+        floor = index.expected_recall - hoeffding_eps(q.shape[0])
+        log(f"[{label}] build {build_s:.2f} s {index.pack_timings}; plan C="
+            f"{cp.num_clusters} R={cp.rows_per_cluster} probes={cp.probes} spill="
+            f"{cp.spill_capacity} S={cp.scan_rows}, spill used "
+            f"{cs.spill_count}; search M={q.shape[0]}: recall {r1:.4f} (floor "
+            f"{floor:.4f}, E[recall] {index.expected_recall:.4f})")
+        if not r1 >= floor:
+            fail(f"{label}: recall {r1} < {floor}")
+        if not torch.isfinite(v).all():
+            fail(f"{label}: non-finite values")
+        launches, plain = dict(prk.LAUNCHES), dict(prk.PLAIN_CALLS)
+        if sum(launches.values()) or sum(plain.values()):
+            fail(f"{label}: the pruned path launched {launches} or called "
+                 f"{plain}; it has no kernel")
+        log(f"[{label}] launches {launches}, plain calls {plain} (the pruned "
+            f"scan is a gather and a bmm in plain PyTorch, as the reference's "
+            f"is XLA)")
+        timed = {}
+        off = Index.build(db, cluster="off", **kw)
+        for name, idx in (("pruned", index), ("off", off)):
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            timed[name] = dict(
+                ms=cuda_ms(lambda: idx.search(q), reps=3),
+                ms_m16=cuda_ms(lambda: idx.search(q[:16]), reps=20),
+                ms_m16_device=queued_ms(lambda: idx.search(q[:16]), reps=20),
+                predicted_ms=1e3 * idx.explain(m=q.shape[0])["predicted"]["wall_s"],
+                predicted_ms_m16=1e3 * idx.explain(m=16)["predicted"]["wall_s"],
+                peak_extra_bytes=torch.cuda.max_memory_allocated() - base_mem)
+        _, io = off.search(q)
+        timed["off"]["recall"] = recall(io, truth)
+        del off
+        index.add(extra)
+        index.delete(dead)
+        v, i = index.search(qa)
+        if torch.isin(i.long(), dead).any():
+            fail(f"{label}: a deleted id was returned")
+        r2 = recall(i, truth_after)
+        floor2 = index.expected_recall - hoeffding_eps(qa.shape[0])
+        log(f"[{label}] add 10000 + delete 50000: recall {r2:.4f} (floor "
+            f"{floor2:.4f}); spill used {index.pack().cluster.spill_count}")
+        if not r2 >= floor2:
+            fail(f"{label}: recall after updates {r2} < {floor2}")
+        for name in ("pruned", "off"):
+            tt = timed[name]
+            log(f"  [{label}] {name:6s}: M={q.shape[0]} {tt['ms']:.3f} ms "
+                f"(h100 prediction {tt['predicted_ms']:.3f}), M=16 "
+                f"{tt['ms_m16']:.3f} ms, queued {tt['ms_m16_device']:.3f} ms "
+                f"(prediction {tt['predicted_ms_m16']:.4f}); peak memory "
+                f"above the index {tt['peak_extra_bytes'] / 2**30:.2f} GiB")
+        out[storage] = dict(build_s=build_s, timings=index.pack_timings,
+                            recall=r1, recall_after_updates=r2,
+                            expected_recall=index.expected_recall,
+                            spill_count=cs.spill_count, **timed)
+        del index
+    results["cluster_mixture"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -946,6 +1406,7 @@ def main(argv=None) -> int:
     build.load_library()
     info = build.build_info()
     log(f"build: {time.perf_counter() - t0:.1f} s ({info['command']})")
+    one_pass = []
     for row in build.report(info["library"], info["ptxas"]):
         label = kernel_label(row["kernel"])
         log(f"  {label}: {row['registers']} registers, stack frame "
@@ -955,9 +1416,14 @@ def main(argv=None) -> int:
             + "".join(f"\n    {w}" for w in row["warnings"]))
         if label.startswith("pr_scan_kernel") and not row["hgmma"]:
             fail(f"{label} has no tensor-core (HGMMA) instruction")
-        if label.startswith("pr_merge_kernel") and (
+        if label.startswith(("pr_merge_kernel", "pr_scan_kernel")) and (
                 row["stack"] or row["spill_stores"] or row["spill_loads"]):
             fail(f"{label} has a stack frame or spills")
+        if "1 query part" in label:
+            one_pass.append(label)
+    if len(one_pass) != 2 * len(ONE_PASS_FORMS):
+        fail(f"the build has {len(one_pass)} one-pass scan instantiations, "
+             f"not {2 * len(ONE_PASS_FORMS)}: {one_pass}")
     for form in FORMS:
         ks = SIFT_PLAN[form][1]
         log(f"  scan shared memory at d={SIFT['d']}, {form}: fused (k_scan "
@@ -970,11 +1436,13 @@ def main(argv=None) -> int:
     log(f"empty kernel launch: {empty_ms:.4f} ms (device time per call, "
         f"queued back to back)")
 
-    names = sorted({n for form in FORMS for n in names_of(form)})
+    names = sorted({n for form in FORMS for n in names_of(form)}
+                   | {n for form in ONE_PASS_FORMS for n in names_of(form, 1)})
     acc = {"errs": dict.fromkeys(names, 0.0), "agree": dict.fromkeys(names, 0),
            "total": dict.fromkeys(names, 0)}
     phase_kernels(prk, testing, args.seed, acc)
     phase_merge_ties(prk, testing, args.seed)
+    phase_one_pass_kernels(prk, testing, args.seed, acc)
 
     results = {"launches": {}, "plain_calls": {}}
     data = {cfg["name"]: make_data(cfg, args.seed + i)
@@ -1012,7 +1480,8 @@ def main(argv=None) -> int:
     results["max_abs_err"] = acc["errs"]
     results["index_agreement"] = {k: acc["agree"][k] / max(acc["total"][k], 1)
                                   for k in names}
-    db, q = data["sift1m"][:2]
+    sift = data["sift1m"]
+    db, q = sift[:2]
     del data
     kernels, row_bytes, merge_rows = [], {}, []
     for storage in FORMS:
@@ -1040,10 +1509,23 @@ def main(argv=None) -> int:
     planner = phase_planner(prk, testing, (db, q),
                             make_data(GLOVE, args.seed + 1)[:2], bounds, results,
                             args.seed)
+
+    # phase 10: the bf16 compute dtype, each path's counts from 0
+    prk.reset_counts()
+    for storage in ("f32", "int8", "int4"):
+        drive_bf16(sift, storage, results)
+    read_counts(prk, "bf16 compute", ONE_PASS_FORMS, results, qparts=1)
+    for storage in ("f32", "int8", "int4"):
+        kernels += time_one_pass(prk, db, q, storage, results, empty_ms)
+    # phases 11 and 12: cluster pruning
+    clusters = {"gaussian": phase_clusters_gaussian(prk, sift, results)}
+    del sift, db, q
+    clusters["mixture"] = phase_clusters_mixture(prk, args.seed + 7, results)
     for k in kernels:
         for key in ("launches", "plain_calls"):
             k[key] = results[key].get(k["name"], 0)
     log(json.dumps({"planner": planner}))
+    log(json.dumps({"clusters": clusters}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

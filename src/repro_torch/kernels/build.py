@@ -55,13 +55,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pr_error_string.argtypes = [i]
     lib.pr_error_string.restype = ctypes.c_char_p
-    lib.pr_two_pass.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, p, p, p]
+    lib.pr_two_pass.argtypes = [i, i, p, p, p, p, i, i, i, i, i, i, i, p, p, p]
     lib.pr_two_pass.restype = i
-    lib.pr_fused_scan.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p]
+    lib.pr_fused_scan.argtypes = [i, i, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p]
     lib.pr_fused_scan.restype = i
     lib.pr_merge.argtypes = [p, p, i, i, i, p, p, p]
     lib.pr_merge.restype = i
-    lib.pr_scan_plan.argtypes = [i, i, i, i, p, p]
+    lib.pr_scan_plan.argtypes = [i, i, i, i, i, p, p]
     lib.pr_scan_plan.restype = i
     lib.pr_merge_plan.argtypes = [i, i, p, p, p]
     lib.pr_merge_plan.restype = i

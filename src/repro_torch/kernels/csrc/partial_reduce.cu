@@ -1,21 +1,39 @@
 // Fused score + PartialReduce kernels for Hopper (sm_90a): bf16 wgmma with
 // an exact split of the f32 operands.
 //
-// One scan kernel, pr_scan_kernel<FUSED, FORM>, templated on the selection
-// (two-pass or fused) and on the stored form of the database rows, plus
-// the carry-merge kernel pr_merge_kernel<G, CPL, STAGED>.  They replace the
-// Pallas TPU kernels of src/repro/kernels/partial_reduce.py:
+// One scan kernel, pr_scan_kernel<FUSED, FORM, QP>, templated on the
+// selection (two-pass or fused), on the stored form of the database rows
+// and on the bf16 parts of the queries (QP 3: f32 queries, split; QP 1:
+// bf16 queries, the reference's dtype="bfloat16"), plus the carry-merge
+// kernel pr_merge_kernel<G, CPL, STAGED>.  They replace the Pallas TPU
+// kernels of src/repro/kernels/partial_reduce.py:
 //
-//   instantiation                     Pallas body it replaces
-//   pr_scan_kernel<false, F32>        _partial_reduce_kernel        :285 (B2)
-//   pr_scan_kernel<false, BF16>       _partial_reduce_kernel        :285
-//   pr_scan_kernel<false, I8 | I4>    _partial_reduce_kernel_scaled :300 (B3a)
-//   pr_scan_kernel<true,  F32>        _fused_kernel                 :316 (B1)
-//   pr_scan_kernel<true,  BF16>       _fused_kernel                 :316
-//   pr_scan_kernel<true,  I8 | I4>    _fused_kernel_scaled          :323 (B3b)
-//   pr_merge_kernel<G, CPL, STAGED>   the rest of B1/B3b (_merge_topk_carry
-//                                     :219): the carries of the splits
-//                                     (see below) into one
+//   instantiation                        Pallas body it replaces
+//   pr_scan_kernel<false, F32, 3>        _partial_reduce_kernel        :285 (B2)
+//   pr_scan_kernel<false, BF16, 3>       _partial_reduce_kernel        :285
+//   pr_scan_kernel<false, I8 | I4, 3>    _partial_reduce_kernel_scaled :300 (B3a)
+//   pr_scan_kernel<true,  F32, 3>        _fused_kernel                 :316 (B1)
+//   pr_scan_kernel<true,  BF16, 3>       _fused_kernel                 :316
+//   pr_scan_kernel<true,  I8 | I4, 3>    _fused_kernel_scaled          :323 (B3b)
+//   pr_scan_kernel<false, BF16, 1>       _partial_reduce_kernel        :285,
+//                                        bf16 queries
+//   pr_scan_kernel<false, I8 | I4, 1>    _partial_reduce_kernel_scaled :300,
+//                                        bf16 queries
+//   pr_scan_kernel<true,  BF16, 1>       _fused_kernel                 :316,
+//                                        bf16 queries
+//   pr_scan_kernel<true,  I8 | I4, 1>    _fused_kernel_scaled          :323,
+//                                        bf16 queries
+//   pr_merge_kernel<G, CPL, STAGED>      the rest of B1/B3b (_merge_topk_carry
+//                                        :219): the carries of the splits
+//                                        (see below) into one
+//
+// The one-pass forms (QP 1) are the reference's bf16 compute dtype: its
+// queries and rows cast to bf16 (rows quantized from the bf16-cast values
+// for int8 and int4), then _tile_winners' bf16 x bf16 product into f32.
+// The queries are one bf16 part as they are, so the scan issues one wgmma
+// pass where the split takes three; the epilogue and the merge are the
+// same.  Every product of two bf16 values is exact in f32, so the kernel
+// differs from its plain version only in the order of the f32 sum.
 //
 // all of them reading their tile as _load_db_tile :154 does.  The two-pass
 // form (partial_reduce_pallas :352) writes every bin winner, (m, n_pad /
@@ -58,8 +76,9 @@
 // Bound on an H100 SXM: the tensor-core passes, 3 (6 for f32) of
 // 2*m*n_pad*d16 flops at 989 TFLOP/s bf16 (d16 = d rounded up to 16, the
 // lanes the loop covers), against the stored bytes at 3.35 TB/s and the
-// epilogue's CUDA-core instructions per score; chip_smoke.py prints all
-// three, and the FFMA bound of the earlier kernel beside them.
+// 4 CUDA-core instructions per score the function needs (bias, bin
+// winner); chip_smoke.py prints all three, and beside them this
+// epilogue's own count and the FFMA bound of the earlier kernel.
 // The design:
 //   * a block owns 128 queries (two consumer warpgroups of 64, the wgmma
 //     N) and a bin-aligned range of rows; its queries, split, stay in
@@ -145,11 +164,11 @@ __host__ __device__ constexpr int stage_bytes(int form) {
 struct Smem {
   int b_off, b_wg, st_off, t_off, c_off, total;
 };
-__host__ __device__ inline Smem smem_layout(int form, int b_ksteps,
+__host__ __device__ inline Smem smem_layout(int form, int qparts, int b_ksteps,
                                             int carry_k, int stages) {
   Smem s;
   s.b_off = 128;
-  s.b_wg = b_ksteps * 3 * BPART;
+  s.b_wg = b_ksteps * qparts * BPART;
   s.st_off = s.b_off + 2 * s.b_wg;
   s.t_off = s.st_off + stages * stage_bytes(form);
   s.c_off = s.t_off + 2 * WQ * TP * 8;
@@ -346,16 +365,18 @@ __device__ __forceinline__ void load_frags_f32(const char* rows, int P, int r0,
 
 // k-steps [j0, j0 + C) of one stage for one warpgroup: the fragments, the
 // stage released (`empty`, when these are its last k-steps), then, in the
-// warpgroup's turn, every pass's wgmmas into acc, issued, the turn passed
-// on, and waited for.  So the tensor cores run one warpgroup's products
+// warpgroup's turn, every pass's wgmmas into acc (QP query parts, k-step
+// j's part p at block j * QP + p), issued, the turn passed on, and waited
+// for.  So the tensor cores run one warpgroup's products
 // while the other takes its epilogue.  Nothing branches between the
 // fence and the wait: ptxas serializes the wgmmas of a kernel where a
 // branch (a k-step guard, say) sits inside that window.
-template <int FORM, int C>
+template <int FORM, int C, int QP>
 __device__ __forceinline__ void stage_math(float (&acc)[32], const char* rows,
                                            int P, int r0, int t, int j0,
                                            uint32_t bq, uint32_t empty, int wg,
                                            int turn_n) {
+  static_assert(QP == 3 || (QP == 1 && FORM != F32), "query parts");
   if constexpr (FORM == F32) {
     uint32_t a[3][C][4];
     load_frags_f32<C>(rows, P, r0, t, j0, a);
@@ -400,10 +421,10 @@ __device__ __forceinline__ void stage_math(float (&acc)[32], const char* rows,
     turn_wait(wg, turn_n);
     wgmma_fence();
 #pragma unroll
-    for (int p = 2; p >= 0; --p)  // q2 . x, q1 . x, q0 . x
+    for (int p = QP - 1; p >= 0; --p)  // q2 . x, q1 . x, q0 . x; or q . x
 #pragma unroll
       for (int j = 0; j < C; ++j)
-        wgmma_rs(acc, a[j], smem_desc(bq + ((j0 + j) * 3 + p) * BPART));
+        wgmma_rs(acc, a[j], smem_desc(bq + ((j0 + j) * QP + p) * BPART));
     wgmma_commit();
     turn_pass(wg, turn_n);
     wgmma_wait0();
@@ -415,12 +436,29 @@ __device__ __forceinline__ void stage_math(float (&acc)[32], const char* rows,
   fence_acc(acc);
 }
 
-// One warpgroup's 64 queries, k-steps [k0, k0 + nk), from q (m, ldq) f32,
-// split exactly into three bf16 parts (split3; kernels/partial_reduce.py
-// split_queries is its plain version) into B: block (j, p) of BPART bytes
-// holds part p's core matrices [k half][8-query group][8 queries][8 lanes].
-__device__ void fill_queries(char* B, const float* __restrict__ q, int m,
+// One warpgroup's 64 queries, k-steps [k0, k0 + nk), into B: block
+// (j, p) of BPART bytes holds part p's core matrices [k half][8-query
+// group][8 queries][8 lanes].  QP 3: q is (m, ldq) f32, split exactly into
+// three bf16 parts (split3; kernels/partial_reduce.py split_queries is its
+// plain version).  QP 1: q is (m, ldq) bf16, stored as it is.
+template <int QP>
+__device__ void fill_queries(char* B, const void* __restrict__ qv, int m,
                              int ldq, int q0, int k0, int nk, int ct) {
+  if constexpr (QP == 1) {
+    const uint16_t* q = static_cast<const uint16_t*>(qv);
+    for (int idx = ct; idx < nk * WQ * 4; idx += 128) {
+      const int tq = idx & 3, n = (idx >> 2) % WQ, j = (idx >> 2) / WQ;
+      uint2 v = make_uint2(0u, 0u);
+      if (q0 + n < m)
+        v = *reinterpret_cast<const uint2*>(q + (size_t)(q0 + n) * ldq +
+                                            (k0 + j) * 16 + 4 * tq);
+      char* blk = B + j * BPART + (n >> 3) * 128 + (n & 7) * 16 + 4 * tq;
+      *reinterpret_cast<uint32_t*>(blk) = v.x;             // columns 2tq, 2tq+1
+      *reinterpret_cast<uint32_t*>(blk + 8 * WQ * 2) = v.y;  // 2tq+8, 2tq+9
+    }
+    return;
+  }
+  const float* q = static_cast<const float*>(qv);
   for (int idx = ct; idx < nk * WQ * 4; idx += 128) {
     const int tq = idx & 3, n = (idx >> 2) % WQ, j = (idx >> 2) / WQ;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -450,9 +488,9 @@ __device__ __forceinline__ bool beats(float v, int i, float bv, int bi) {
 // Block (blockIdx.x, blockIdx.y) owns queries [128x, 128x + 128) and the
 // split tiles [y * tiles_per_split, ...) of BN rows each; tiles_per_split
 // is a multiple of the tiles in one bin, so no bin straddles two blocks.
-template <bool FUSED, int FORM>
+template <bool FUSED, int FORM, int QP>
 __global__ void __launch_bounds__(THREADS, 1)
-pr_scan_kernel(const float* __restrict__ q, const char* __restrict__ db,
+pr_scan_kernel(const void* __restrict__ q, const char* __restrict__ db,
                const float* __restrict__ scale, const float* __restrict__ bias,
                int m, int nks, int d_pad, int n_pad, int log2_bin,
                int tiles_per_split, int k_scan, int carry_k, int resident,
@@ -462,7 +500,8 @@ pr_scan_kernel(const float* __restrict__ q, const char* __restrict__ db,
   constexpr int SB = stage_bytes(FORM);
   constexpr int ROWS_OFF = RT * 4 * (SCALED ? 2 : 1);
   extern __shared__ __align__(128) char smem[];
-  const Smem L = smem_layout(FORM, resident ? nks : min(nks, KSTEPS), carry_k, stages);
+  const Smem L = smem_layout(FORM, QP, resident ? nks : min(nks, KSTEPS),
+                             carry_k, stages);
   const uint32_t base = smem_u32(smem);
   const uint32_t full0 = base, empty0 = base + 8 * MAX_STAGES;
 
@@ -493,7 +532,7 @@ pr_scan_kernel(const float* __restrict__ q, const char* __restrict__ db,
   const int q0 = blockIdx.x * BQ + wg * WQ;
   char* Bw = smem + L.b_off + wg * L.b_wg;
   if (warp < 8 && resident) {
-    fill_queries(Bw, q, m, d_pad, q0, 0, nks, ct);
+    fill_queries<QP>(Bw, q, m, d_pad, q0, 0, nks, ct);
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
   __syncthreads();
@@ -619,7 +658,7 @@ pr_scan_kernel(const float* __restrict__ q, const char* __restrict__ db,
       const int nk = min(KSTEPS, nks - kc * KSTEPS);
       if (!resident) {  // this stage's lanes of the queries
         wg_sync(wg);
-        fill_queries(Bw, q, m, d_pad, q0, kc * KSTEPS, nk, ct);
+        fill_queries<QP>(Bw, q, m, d_pad, q0, kc * KSTEPS, nk, ct);
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         wg_sync(wg);
       }
@@ -630,7 +669,7 @@ pr_scan_kernel(const float* __restrict__ q, const char* __restrict__ db,
           if (SCALED) sc[h] = reinterpret_cast<const float*>(st)[RT + r0 + 8 * h];
         }
       }
-      const uint32_t bq = smem_u32(Bw) + (resident ? kc * KSTEPS : 0) * 3 * BPART;
+      const uint32_t bq = smem_u32(Bw) + (resident ? kc * KSTEPS : 0) * QP * BPART;
       const char* rows = st + ROWS_OFF;
       const uint32_t empty = empty0 + 8 * s;
       // A full stage in one group (two for f32, whose split rows would
@@ -638,21 +677,23 @@ pr_scan_kernel(const float* __restrict__ q, const char* __restrict__ db,
       // multiple of 128) in groups of 4, 2 and 1 k-steps, the stage
       // released by the last.
       if (nk == KSTEPS && FORM == F32) {
-        stage_math<FORM, 4>(acc, rows, P, r0, t, 0, bq, 0u, wg, turn_n);
-        stage_math<FORM, 4>(acc, rows, P, r0, t, 4, bq, empty, wg, turn_n);
+        stage_math<FORM, 4, QP>(acc, rows, P, r0, t, 0, bq, 0u, wg, turn_n);
+        stage_math<FORM, 4, QP>(acc, rows, P, r0, t, 4, bq, empty, wg, turn_n);
       } else if (nk == KSTEPS) {
-        stage_math<FORM, KSTEPS>(acc, rows, P, r0, t, 0, bq, empty, wg, turn_n);
+        stage_math<FORM, KSTEPS, QP>(acc, rows, P, r0, t, 0, bq, empty, wg, turn_n);
       } else {
         int j0 = 0;
         if (nk & 4) {
-          stage_math<FORM, 4>(acc, rows, P, r0, t, j0, bq, nk & 3 ? 0u : empty, wg, turn_n);
+          stage_math<FORM, 4, QP>(acc, rows, P, r0, t, j0, bq, nk & 3 ? 0u : empty, wg,
+                                  turn_n);
           j0 += 4;
         }
         if (nk & 2) {
-          stage_math<FORM, 2>(acc, rows, P, r0, t, j0, bq, nk & 1 ? 0u : empty, wg, turn_n);
+          stage_math<FORM, 2, QP>(acc, rows, P, r0, t, j0, bq, nk & 1 ? 0u : empty, wg,
+                                  turn_n);
           j0 += 2;
         }
-        if (nk & 1) stage_math<FORM, 1>(acc, rows, P, r0, t, j0, bq, empty, wg, turn_n);
+        if (nk & 1) stage_math<FORM, 1, QP>(acc, rows, P, r0, t, j0, bq, empty, wg, turn_n);
       }
     }
     if (!active) continue;
@@ -955,9 +996,11 @@ int launch_merge(const MergePlan& p, const float* part_v, const int* part_i,
 
 __global__ void pr_empty_kernel() {}
 
-int check_scan_args(int form, const void* scale, int m, int nks, int d_pad,
-                    int n_pad, int log2_bin, int tiles_per_split, int splits) {
+int check_scan_args(int form, int qparts, const void* scale, int m, int nks,
+                    int d_pad, int n_pad, int log2_bin, int tiles_per_split,
+                    int splits) {
   if (form < F32 || form > I4) return -1;
+  if (qparts != 3 && (qparts != 1 || form == F32)) return -1;
   if (is_scaled(form) != (scale != nullptr)) return -1;
   if (m <= 0 || nks <= 0 || d_pad % 16 || 16 * nks > d_pad) return -1;
   if (form == I4 && d_pad % 32) return -1;  // 16-byte row chunks
@@ -977,16 +1020,17 @@ int check_scan_args(int form, const void* scale, int m, int nks, int d_pad,
 struct Plan {
   int carry_k, resident, stages, bytes;
 };
-Plan scan_plan(int form, bool fused, int nks, int k_scan, int budget) {
+Plan scan_plan(int form, int qparts, bool fused, int nks, int k_scan,
+               int budget) {
   Plan p;
   p.carry_k = fused && k_scan <= SMEM_K_SCAN ? k_scan : 0;
-  p.resident = smem_layout(form, nks, p.carry_k, 2).total <= budget;
+  p.resident = smem_layout(form, qparts, nks, p.carry_k, 2).total <= budget;
   const int b_ksteps = p.resident ? nks : (nks < KSTEPS ? nks : KSTEPS);
   p.stages = MAX_STAGES;
   while (p.stages > 2 &&
-         smem_layout(form, b_ksteps, p.carry_k, p.stages).total > budget)
+         smem_layout(form, qparts, b_ksteps, p.carry_k, p.stages).total > budget)
     --p.stages;
-  p.bytes = smem_layout(form, b_ksteps, p.carry_k, p.stages).total;
+  p.bytes = smem_layout(form, qparts, b_ksteps, p.carry_k, p.stages).total;
   return p;
 }
 
@@ -998,23 +1042,23 @@ int smem_budget(int* budget) {
   return (int)err;
 }
 
-template <bool FUSED, int FORM>
-int launch_scan(const float* q, const void* db, const float* scale,
+template <bool FUSED, int FORM, int QP>
+int launch_scan(const void* q, const void* db, const float* scale,
                 const float* bias, int m, int nks, int d_pad, int n_pad,
                 int log2_bin, int tiles_per_split, int splits, int k_scan,
                 float* out_v, int* out_i, int out_cols, cudaStream_t stream) {
   int budget = 0;
   cudaError_t err = (cudaError_t)smem_budget(&budget);
   if (err != cudaSuccess) return (int)err;
-  const Plan p = scan_plan(FORM, FUSED, nks, k_scan, budget);
+  const Plan p = scan_plan(FORM, QP, FUSED, nks, k_scan, budget);
   const int carry_k = p.carry_k, resident = p.resident, stages = p.stages;
   const int bytes = p.bytes;
   if (bytes > budget) return -1;
-  err = cudaFuncSetAttribute(pr_scan_kernel<FUSED, FORM>,
+  err = cudaFuncSetAttribute(pr_scan_kernel<FUSED, FORM, QP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((m + BQ - 1) / BQ, splits);
-  pr_scan_kernel<FUSED, FORM><<<grid, THREADS, bytes, stream>>>(
+  pr_scan_kernel<FUSED, FORM, QP><<<grid, THREADS, bytes, stream>>>(
       q, static_cast<const char*>(db), scale, bias, m, nks, d_pad, n_pad,
       log2_bin, tiles_per_split, k_scan, carry_k, resident, stages, out_v,
       out_i, out_cols);
@@ -1022,20 +1066,24 @@ int launch_scan(const float* q, const void* db, const float* scale,
 }
 
 template <bool FUSED>
-int launch_form(int form, const float* q, const void* db, const float* scale,
-                const float* bias, int m, int nks, int d_pad, int n_pad,
-                int log2_bin, int tiles_per_split, int splits, int k_scan,
-                float* out_v, int* out_i, int out_cols, void* stream) {
+int launch_form(int form, int qparts, const void* q, const void* db,
+                const float* scale, const float* bias, int m, int nks,
+                int d_pad, int n_pad, int log2_bin, int tiles_per_split,
+                int splits, int k_scan, float* out_v, int* out_i, int out_cols,
+                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define PR_LAUNCH(F)                                                          \
-  launch_scan<FUSED, F>(q, db, scale, bias, m, nks, d_pad, n_pad, log2_bin,   \
-                        tiles_per_split, splits, k_scan, out_v, out_i,        \
-                        out_cols, st)
-  switch (form) {
-    case F32: return PR_LAUNCH(F32);
-    case BF16: return PR_LAUNCH(BF16);
-    case I8: return PR_LAUNCH(I8);
-    case I4: return PR_LAUNCH(I4);
+#define PR_LAUNCH(F, QP)                                                      \
+  launch_scan<FUSED, F, QP>(q, db, scale, bias, m, nks, d_pad, n_pad,         \
+                            log2_bin, tiles_per_split, splits, k_scan, out_v, \
+                            out_i, out_cols, st)
+  switch (form * 4 + qparts) {
+    case F32 * 4 + 3: return PR_LAUNCH(F32, 3);
+    case BF16 * 4 + 3: return PR_LAUNCH(BF16, 3);
+    case I8 * 4 + 3: return PR_LAUNCH(I8, 3);
+    case I4 * 4 + 3: return PR_LAUNCH(I4, 3);
+    case BF16 * 4 + 1: return PR_LAUNCH(BF16, 1);
+    case I8 * 4 + 1: return PR_LAUNCH(I8, 1);
+    case I4 * 4 + 1: return PR_LAUNCH(I4, 1);
     default: return -1;
   }
 #undef PR_LAUNCH
@@ -1052,47 +1100,49 @@ const char* pr_error_string(int code) {
 }
 
 // Two-pass: bin winners, out (m, n_pad >> log2_bin).  `q` holds the
-// (m, d_pad) f32 queries, of which the first 16 * nks lanes (nks k-steps of
-// 16: the lanes the function needs) are scanned; `db` holds rows of the
-// stored `form`, d_pad lanes a row; `scale` is the (n_pad) per-row scale
-// of the int8 and int4 forms, null for the others.
-int pr_two_pass(int form, const float* q, const void* db, const float* scale,
-                const float* bias, int m, int nks, int d_pad, int n_pad,
-                int log2_bin, int tiles_per_split, int splits, float* out_v,
-                int* out_i, void* stream) {
-  if (check_scan_args(form, scale, m, nks, d_pad, n_pad, log2_bin,
+// (m, d_pad) queries, f32 (qparts 3) or bf16 (qparts 1, not with f32
+// rows), of which the first 16 * nks lanes (nks k-steps of 16: the lanes
+// the function needs) are scanned; `db` holds rows of the stored `form`,
+// d_pad lanes a row; `scale` is the (n_pad) per-row scale of the int8 and
+// int4 forms, null for the others.
+int pr_two_pass(int form, int qparts, const void* q, const void* db,
+                const float* scale, const float* bias, int m, int nks,
+                int d_pad, int n_pad, int log2_bin, int tiles_per_split,
+                int splits, float* out_v, int* out_i, void* stream) {
+  if (check_scan_args(form, qparts, scale, m, nks, d_pad, n_pad, log2_bin,
                       tiles_per_split, splits))
     return -1;
-  return launch_form<false>(form, q, db, scale, bias, m, nks, d_pad, n_pad,
-                            log2_bin, tiles_per_split, splits, 0, out_v, out_i,
-                            n_pad >> log2_bin, stream);
+  return launch_form<false>(form, qparts, q, db, scale, bias, m, nks, d_pad,
+                            n_pad, log2_bin, tiles_per_split, splits, 0, out_v,
+                            out_i, n_pad >> log2_bin, stream);
 }
 
 // Fused scan: split carries, part (splits, m, k_scan); any k_scan >= 1.
-int pr_fused_scan(int form, const float* q, const void* db,
+int pr_fused_scan(int form, int qparts, const void* q, const void* db,
                   const float* scale, const float* bias, int m, int nks,
                   int d_pad, int n_pad, int log2_bin, int k_scan,
                   int tiles_per_split, int splits, float* part_v, int* part_i,
                   void* stream) {
-  if (check_scan_args(form, scale, m, nks, d_pad, n_pad, log2_bin,
+  if (check_scan_args(form, qparts, scale, m, nks, d_pad, n_pad, log2_bin,
                       tiles_per_split, splits))
     return -1;
   if (k_scan <= 0) return -1;
-  return launch_form<true>(form, q, db, scale, bias, m, nks, d_pad, n_pad,
-                           log2_bin, tiles_per_split, splits, k_scan, part_v,
-                           part_i, k_scan, stream);
+  return launch_form<true>(form, qparts, q, db, scale, bias, m, nks, d_pad,
+                           n_pad, log2_bin, tiles_per_split, splits, k_scan,
+                           part_v, part_i, k_scan, stream);
 }
 
 // The shared-memory plan of one scan launch on the current device: its
 // dynamic shared bytes (-1 for bad arguments, -2 if it does not fit), and
-// in *stages and *resident the stage ring's depth and whether the split
-// queries stay resident.
-int pr_scan_plan(int form, int fused, int nks, int k_scan, int* stages,
-                 int* resident) {
+// in *stages and *resident the stage ring's depth and whether the
+// queries' parts stay resident.
+int pr_scan_plan(int form, int qparts, int fused, int nks, int k_scan,
+                 int* stages, int* resident) {
   int budget = 0;
   if (form < F32 || form > I4 || nks <= 0 || k_scan < 0) return -1;
+  if (qparts != 3 && (qparts != 1 || form == F32)) return -1;
   if (smem_budget(&budget)) return -1;
-  const Plan p = scan_plan(form, fused != 0, nks, k_scan, budget);
+  const Plan p = scan_plan(form, qparts, fused != 0, nks, k_scan, budget);
   *stages = p.stages;
   *resident = p.resident;
   return p.bytes > budget ? -2 : p.bytes;

@@ -4,7 +4,8 @@ Port of ``src/repro/kernels/partial_reduce.py``.  Operand contract (the
 reference's): a packed ``(n_pad, d_pad)`` database, a ``(1, n_pad)`` f32
 bias row (metric bias, tombstones and tail mask fused), an optional
 ``(1, n_pad)`` f32 per-row ``scale`` and ``(m, d)`` f32 queries with
-``d <= d_pad``; only the query block is padded here.  The database is
+``d <= d_pad`` (or bf16 queries, the ``dtype="bfloat16"`` compute dtype,
+against bf16, int8 or int4 rows); only the query block is padded here.  The database is
 stored in one of four forms (``FORMS``):
 
   * f32 or bf16 rows, unscaled;
@@ -19,11 +20,14 @@ f32 (x̂), the product and the sum rounded apart, as the reference's
 makes ``n_pad`` a multiple of ``max(bin_size, BLOCK_N)`` and ``d_pad`` a
 multiple of 128 for every form (an int4 row is then ``d_pad / 2`` bytes).
 
-On CUDA the kernels multiply on the tensor cores in bf16: they split the
+On CUDA the kernels multiply on the tensor cores in bf16: they split f32
 queries exactly into three bf16 parts (:func:`split_queries` is the
 plain version of that split), over the lanes the function needs, ``d``
 rounded up to 16, and sum the exact products of each part with the rows
-(six for f32 rows, which they split the same way).
+(six for f32 rows, which they split the same way).  bf16 queries are
+one part already: the one-pass form of each kernel multiplies them as
+they are (one tensor-core pass), the reference's bf16 x bf16 product
+into f32.  The plain versions widen bf16 queries to f32, which is exact.
 
   * :func:`partial_reduce_packed` (two-pass, B2/B3a): every bin winner,
     ``(m, n_pad // bin_size)`` values and raw int32 global indices.
@@ -36,8 +40,9 @@ the CPU, and launches the CUDA kernel (``csrc/partial_reduce.cu``) for a
 tensor on a CUDA device; any other device raises.  ``LAUNCHES`` counts
 kernel launches and ``PLAIN_CALLS`` calls of the plain versions, by
 name, each stored form under its own name (``partial_reduce_fused`` for
-f32 rows, ``partial_reduce_fused[int8]`` for int8 ones), so a run can
-show which path it took.
+f32 rows, ``partial_reduce_fused[int8]`` for int8 ones, and
+``partial_reduce_fused[bf16xint8]`` for the one-pass form, bf16 queries
+against int8 rows), so a run can show which path it took.
 """
 from __future__ import annotations
 
@@ -72,6 +77,7 @@ __all__ = [
     "partial_reduce_fused_plain",
     "partial_reduce_packed",
     "partial_reduce_packed_plain",
+    "query_parts",
     "reset_counts",
     "scan_smem",
     "split_plan",
@@ -145,15 +151,37 @@ def storage_form(database: torch.Tensor, scale: Optional[torch.Tensor],
     return form
 
 
-def kernel_name(base: str, form: str) -> str:
-    """Counter name of a kernel for one stored form.
+def kernel_name(base: str, form: str, qparts: int = 3) -> str:
+    """Counter name of a kernel for one stored form, and for the one-pass
+    form (``qparts`` 1: bf16 queries).
 
     >>> kernel_name("partial_reduce_fused", "f32")
     'partial_reduce_fused'
     >>> kernel_name("partial_reduce_fused", "int4")
     'partial_reduce_fused[int4]'
+    >>> kernel_name("partial_reduce_packed", "int8", qparts=1)
+    'partial_reduce_packed[bf16xint8]'
     """
+    if qparts == 1:
+        return f"{base}[bf16x{form}]"
     return base if form == "f32" else f"{base}[{form}]"
+
+
+def query_parts(queries: torch.Tensor, form: str) -> int:
+    """The bf16 parts the kernels take ``queries`` in: 3 for f32 (the exact
+    split), 1 for bf16 (the one-pass form); raises for bf16 queries
+    against f32 rows (the pack never pairs them: a bf16 compute dtype
+    stores bf16 rows) and for any other dtype."""
+    if queries.dtype == torch.float32:
+        return 3
+    if queries.dtype == torch.bfloat16:
+        if form == "f32":
+            raise ValueError(
+                "bf16 queries need bf16, int8 or int4 rows, got f32 rows "
+                "(the bf16 compute dtype stores its f32 tier as bf16)"
+            )
+        return 1
+    raise ValueError(f"queries must be float32 or bfloat16, got {queries.dtype}")
 
 
 # --- plain PyTorch versions (the CPU path and the kernels' oracle) -----------
@@ -170,11 +198,13 @@ def partial_reduce_packed_plain(
     scale: Optional[torch.Tensor] = None, *, bin_size: int,
     int4_packed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the two-pass kernel over ``d_pad``-wide queries."""
+    """Plain version of the two-pass kernel over ``d_pad``-wide queries
+    (f32, or bf16 widened to f32: every product is then exact)."""
     form = storage_form(database, scale, int4_packed)
-    PLAIN_CALLS.inc(kernel_name("partial_reduce_packed", form))
-    return partial_reduce_ref(q, _widen(database, int4_packed), bias, scale,
-                              bin_size=bin_size)
+    qparts = query_parts(q, form)
+    PLAIN_CALLS.inc(kernel_name("partial_reduce_packed", form, qparts))
+    return partial_reduce_ref(q.to(torch.float32), _widen(database, int4_packed),
+                              bias, scale, bin_size=bin_size)
 
 
 def partial_reduce_fused_plain(
@@ -190,8 +220,10 @@ def partial_reduce_fused_plain(
     because a winner that ties them at MASK is itself (MASK, -1).
     """
     form = storage_form(database, scale, int4_packed)
-    PLAIN_CALLS.inc(kernel_name("partial_reduce_fused", form))
-    vals, idxs = partial_reduce_ref(q, _widen(database, int4_packed), bias,
+    qparts = query_parts(q, form)
+    PLAIN_CALLS.inc(kernel_name("partial_reduce_fused", form, qparts))
+    vals, idxs = partial_reduce_ref(q.to(torch.float32),
+                                    _widen(database, int4_packed), bias,
                                     scale, bin_size=bin_size)
     idxs = torch.where(vals > _MASK * 0.5, idxs, torch.full_like(idxs, -1))
     m = q.shape[0]
@@ -229,7 +261,8 @@ def split_queries(q: torch.Tensor) -> torch.Tensor:
 
 def _front(queries, database, bias, scale, bin_size, int4_packed):
     """Check the operand contract; return the queries padded to d_pad and
-    the stored form."""
+    the stored form (f32 queries, or bf16 ones against bf16, int8 or
+    int4 rows: :func:`query_parts`)."""
     if queries.ndim != 2 or database.ndim != 2:
         raise ValueError(
             f"queries and database must be 2-D, got {tuple(queries.shape)} "
@@ -244,9 +277,10 @@ def _front(queries, database, bias, scale, bin_size, int4_packed):
     for name, t in rowwise:
         if tuple(t.shape) != (1, n_pad):
             raise ValueError(f"{name} must be (1, {n_pad}), got {tuple(t.shape)}")
-    for name, t in (("queries", queries),) + rowwise:
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
+    query_parts(queries, form)  # f32, or bf16 against bf16/int8/int4 rows
+    for name, t in (("queries", queries),) + rowwise:
         if t.device != database.device:
             raise ValueError(
                 f"{name} on {t.device}, database on {database.device}"
@@ -334,18 +368,21 @@ def split_plan(m: int, n_pad: int, bin_size: int, num_sms: int,
     return best[1], best[2]
 
 
-def scan_smem(form: str, fused: bool, width: int, k_scan: int = 0) -> dict:
+def scan_smem(form: str, fused: bool, width: int, k_scan: int = 0,
+              qparts: int = 3) -> dict:
     """The shared-memory plan of one scan launch on the current CUDA
-    device, for ``width`` query lanes: its dynamic ``bytes``, the depth
-    of its row-stage ring (``stages``) and whether the split queries stay
-    ``resident`` for the whole row range."""
+    device, for ``width`` query lanes in ``qparts`` bf16 parts (1: the
+    one-pass form): its dynamic ``bytes``, the depth of its row-stage
+    ring (``stages``) and whether the queries' parts stay ``resident``
+    for the whole row range."""
     lib = build.load_library()
     stages, resident = ctypes.c_int(0), ctypes.c_int(0)
-    code = lib.pr_scan_plan(FORMS.index(form), int(fused), -(-width // 16),
-                            k_scan, ctypes.byref(stages), ctypes.byref(resident))
+    code = lib.pr_scan_plan(FORMS.index(form), qparts, int(fused),
+                            -(-width // 16), k_scan, ctypes.byref(stages),
+                            ctypes.byref(resident))
     if code < 0:
         raise ValueError(f"no scan plan for {form}, width={width}, "
-                         f"k_scan={k_scan} ({code})")
+                         f"k_scan={k_scan}, qparts={qparts} ({code})")
     return dict(bytes=code, stages=stages.value, resident=bool(resident.value))
 
 
@@ -392,6 +429,7 @@ def partial_reduce_packed(
         return partial_reduce_packed_plain(q, database, bias, scale,
                                            bin_size=bin_size,
                                            int4_packed=int4_packed)
+    qparts = query_parts(q, form)
     m, d_pad = q.shape
     q, nks, database, bias, scale = _cuda_operands(
         q, database, bias, scale, bin_size, queries.shape[1], int4_packed)
@@ -404,11 +442,12 @@ def partial_reduce_packed(
         lib, sms, stream = _launch_setup(q)
         tps, splits = split_plan(m, n_pad, bin_size, sms)
         code = lib.pr_two_pass(
-            FORMS.index(form), q.data_ptr(), database.data_ptr(), _ptr(scale),
-            bias.data_ptr(), m, nks, d_pad, n_pad, int(math.log2(bin_size)),
-            tps, splits, out_v.data_ptr(), out_i.data_ptr(), stream,
+            FORMS.index(form), qparts, q.data_ptr(), database.data_ptr(),
+            _ptr(scale), bias.data_ptr(), m, nks, d_pad, n_pad,
+            int(math.log2(bin_size)), tps, splits, out_v.data_ptr(),
+            out_i.data_ptr(), stream,
         )
-        name = kernel_name("partial_reduce_packed", form)
+        name = kernel_name("partial_reduce_packed", form, qparts)
         build.check(lib, code, f"{name} kernel")
         LAUNCHES.inc(name)
     return out_v, out_i
@@ -457,6 +496,7 @@ def fused_scan(
     if k_scan <= 0:
         raise ValueError(f"k_scan must be positive, got {k_scan}")
     form = storage_form(database, scale, int4_packed)
+    qparts = query_parts(q, form)
     m, d_pad = q.shape
     q, nks, database, bias, scale = _cuda_operands(
         q, database, bias, scale, bin_size, width or d_pad, int4_packed)
@@ -469,11 +509,12 @@ def fused_scan(
         if m == 0:
             return part_v, part_i
         code = lib.pr_fused_scan(
-            FORMS.index(form), q.data_ptr(), database.data_ptr(), _ptr(scale),
-            bias.data_ptr(), m, nks, d_pad, n_pad, int(math.log2(bin_size)),
-            k_scan, tps, splits, part_v.data_ptr(), part_i.data_ptr(), stream,
+            FORMS.index(form), qparts, q.data_ptr(), database.data_ptr(),
+            _ptr(scale), bias.data_ptr(), m, nks, d_pad, n_pad,
+            int(math.log2(bin_size)), k_scan, tps, splits, part_v.data_ptr(),
+            part_i.data_ptr(), stream,
         )
-        name = kernel_name("partial_reduce_fused", form)
+        name = kernel_name("partial_reduce_fused", form, qparts)
         build.check(lib, code, f"{name} kernel")
         LAUNCHES.inc(name)
     return part_v, part_i

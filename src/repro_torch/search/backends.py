@@ -17,6 +17,13 @@ in the internal max convention and negate once for distance metrics:
     tail): the scan over the stored rows keeps ``k_scan`` over-fetched
     candidates and ``rescore_candidates`` re-scores them exactly against
     the rescore tail; without a tail the scan's own scores are returned.
+  * :func:`cluster_search` and :func:`cluster_search_quant` — the
+    cluster-pruned scan over either layout (the reference's functions of
+    the same names): the probed clusters' rows gathered and scored, the
+    bins planned for the scanned slots.  The reference runs this path
+    outside any Pallas kernel (an XLA gather and ``einsum``), and so does
+    the port (a gather and ``bmm``), in query chunks whose gathered rows
+    fit ``GATHER_BUDGET_BYTES``.
 
 ``DISPATCH_COUNTS`` counts searches issued per backend by ``Index``.
 """
@@ -28,11 +35,15 @@ import torch
 
 from repro_torch.kernels import partial_reduce as kernels
 from repro_torch.search.metrics import get_metric
+from repro_torch.search.quant import unpack_int4_rows
 from repro_torch.search.stages import (
     finalize_values,
     merge_topk,
+    pad_queries_to,
+    prune_candidates,
     rescore_candidates,
     scan_candidates,
+    score_gathered,
     score_rows,
     sentinelize_masked,
 )
@@ -40,6 +51,9 @@ from repro_torch.search.telemetry import AtomicCounter
 
 __all__ = [
     "DISPATCH_COUNTS",
+    "GATHER_BUDGET_BYTES",
+    "cluster_search",
+    "cluster_search_quant",
     "cuda_search_packed",
     "cuda_search_packed_quant",
     "default_backend",
@@ -49,6 +63,11 @@ __all__ = [
 
 # backend name -> searches issued by Index (one per query block).
 DISPATCH_COUNTS = AtomicCounter()
+
+# The pruned scan gathers (m, S, d_pad) rows widened to f32 for a chunk of
+# m queries; the chunks are cut so that this block stays under 1 GiB (at
+# the Sift1M plan, S = 54,800 slots of 128 lanes: 38 queries a chunk).
+GATHER_BUDGET_BYTES = 1 << 30
 
 
 def default_backend(device) -> str:
@@ -203,3 +222,96 @@ def cuda_search_packed_quant(
     elif aggregate_to_topk:
         vals, idxs = merge_topk(vals, idxs, k, use_bitonic=use_bitonic)
     return finalize_values(vals, m_obj.negate_output), idxs
+
+
+def cluster_search(
+    queries: torch.Tensor,
+    database: torch.Tensor,
+    row_bias: torch.Tensor,
+    centroids: torch.Tensor,
+    centroid_bias: torch.Tensor,
+    cluster_rows: torch.Tensor,
+    spill_rows: torch.Tensor,
+    *,
+    metric: str,
+    k: int,
+    probes: int,
+    target_scan: float,
+    aggregate_to_topk: bool = True,
+    use_bitonic: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cluster-pruned search over a packed f32-tier layout:
+    :func:`cluster_search_quant` without a scale or a rescore tail."""
+    return cluster_search_quant(
+        queries, database, row_bias, None, None, None, centroids,
+        centroid_bias, cluster_rows, spill_rows, metric=metric, k=k, k_scan=k,
+        probes=probes, target_scan=target_scan,
+        aggregate_to_topk=aggregate_to_topk, use_bitonic=use_bitonic,
+    )
+
+
+def cluster_search_quant(
+    queries: torch.Tensor,
+    database: torch.Tensor,
+    row_bias: torch.Tensor,
+    scale: Optional[torch.Tensor],
+    rescore_db: Optional[torch.Tensor],
+    rescore_bias: Optional[torch.Tensor],
+    centroids: torch.Tensor,
+    centroid_bias: torch.Tensor,
+    cluster_rows: torch.Tensor,
+    spill_rows: torch.Tensor,
+    *,
+    metric: str,
+    k: int,
+    k_scan: int,
+    probes: int,
+    target_scan: float,
+    aggregate_to_topk: bool = True,
+    use_bitonic: bool = False,
+    int4_packed: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cluster-pruned search over any tier and either packed layout.
+
+    Scores the centroids, gathers the top-``probes`` clusters' rows and
+    the spill block (``stages.prune_candidates``; ``int4_packed`` rows
+    are unpacked from their nibble pairs as the scan kernel does), scores
+    them widened to f32 (``stages.score_gathered``) and reduces the S
+    candidates at the planner's ``target_scan``; with a rescore tail the
+    bins are planned for ``k_scan`` and the candidates rescored exactly.
+    Returned ids are user row ids (the slot tables hold them).  Each chunk
+    of queries is independent; a chunk's gather stays within
+    ``GATHER_BUDGET_BYTES``.
+    """
+    m_obj = get_metric(metric)
+    q = m_obj.prepare_queries(queries)
+    width = database.shape[1] * (2 if int4_packed else 1)
+    slots = probes * cluster_rows.shape[1] + spill_rows.shape[0]
+    chunk = max(1, GATHER_BUDGET_BYTES // (4 * slots * width))
+    out_v, out_i = [], []
+    for s in range(0, max(q.shape[0], 1), chunk):
+        qc = q[s : s + chunk]
+        idc, valid = prune_candidates(qc, centroids, centroid_bias,
+                                      cluster_rows, spill_rows, probes)
+        rows = database[idc.long()]                    # (m, S, stored width)
+        if int4_packed:
+            rows = unpack_int4_rows(rows)
+        scores = score_gathered(pad_queries_to(qc, width),
+                                rows.to(torch.float32), row_bias, idc, valid,
+                                scale)
+        if rescore_db is not None:
+            vals, pos = scan_candidates(scores, k_scan, recall_target=target_scan,
+                                        aggregate_to_topk=False)
+            idxs = torch.gather(idc, -1, pos.long())
+            vals, idxs = rescore_candidates(qc, vals, idxs, rescore_db,
+                                            rescore_bias, k, k_scan, use_bitonic)
+        else:
+            vals, pos = scan_candidates(
+                scores, k, recall_target=target_scan,
+                aggregate_to_topk=aggregate_to_topk, use_bitonic=use_bitonic,
+            )
+            idxs = torch.gather(idc, -1, pos.long())
+        out_v.append(vals)
+        out_i.append(idxs)
+    return (finalize_values(torch.cat(out_v), m_obj.negate_output),
+            torch.cat(out_i))

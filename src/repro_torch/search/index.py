@@ -1,12 +1,16 @@
 """Index: the index-free front door of the search API.
 
-Port of ``src/repro/search/index.py`` (every storage tier, one device,
-no cluster pruning).  ``Index.build`` does the only precompute the
-algorithm needs — metric preparation, quantization for a ``storage``
-tier other than f32, and packing into the backend's layout
-(``repro_torch.search.packed``) — and ``add``/``delete`` patch that state
-in place: only appended rows are prepared, deletes rewrite bias entries,
-and capacity grows in ``capacity_block`` steps with a bin re-plan.
+Port of ``src/repro/search/index.py`` (every storage tier, both
+compute dtypes, cluster pruning, one device).  ``Index.build`` does the
+only precompute the algorithm needs — the cast to ``spec.dtype``, metric
+preparation, quantization for a ``storage`` tier other than f32, packing
+into the backend's layout (``repro_torch.search.packed``) and, where the
+planner enables it (``cluster="auto"``) and the build's miss check
+accepts them, the cluster tables — and ``add``/``delete`` patch that
+state in place: only appended rows are prepared (and slotted into the
+cluster tables), deletes rewrite bias entries, and capacity grows in
+``capacity_block`` steps with a bin re-plan.  An ``add`` that spills past
+the planner's threshold rebuilds the tables (the lazy recluster).
 
 A quantized tier searches in two passes: the scan keeps ``k_scan``
 over-fetched candidates (``packed.scan_k_for``), an exact rescore picks
@@ -93,6 +97,9 @@ class Index:
         self._kernel_plan = kernel_plan
         self._packed: Optional[packedlib.PackedState] = None
         self._k_scan: Optional[int] = None  # bound with the packed state
+        # seconds of the last full pack's cluster steps (k-means, the host
+        # assignment loop, the miss check) and the sampled miss rate
+        self.pack_timings: dict = {}
 
     # -- construction --------------------------------------------------------
 
@@ -175,6 +182,7 @@ class Index:
                 block_m=spec.block_m, max_block_n=spec.max_block_n,
                 query_block=spec.query_block,
                 storage=spec.storage, rescore=spec.rescore_enabled,
+                cluster=spec.cluster,
             )
             if plan == "measure" and plan_obj.source != "user":
                 plan_obj = planlib.tune_plan(database, plan_obj, spec=spec,
@@ -239,7 +247,47 @@ class Index:
 
     @property
     def expected_recall(self) -> float:
+        """Analytic E[recall]: the bin plan's (Eq. 13), or on a clustered
+        index the collision term over the scanned slots times the miss
+        term."""
+        _, decomp = self._cluster_recall()
+        if decomp is not None:
+            return decomp["expected_recall"]
         return self.plan.expected_recall
+
+    @property
+    def expected_recall_live(self) -> float:
+        """The collision term times the measured served-query miss
+        survival (``cluster.query_miss_rate`` counts, kept on the tables)
+        once there are samples; else ``expected_recall``."""
+        _, decomp = self._cluster_recall()
+        if decomp is None:
+            return float(self.plan.expected_recall)
+        cs = self._packed.cluster if self._packed is not None else None
+        rate = cs.served_miss_rate if cs is not None else None
+        if rate is None:
+            return float(decomp["expected_recall"])
+        return float(decomp["collision_term"] * (1.0 - rate))
+
+    def _cluster_plan_in_effect(self):
+        """The ClusterPlan the search prunes with: the packed tables' own
+        (None if there are none), or before a pack the kernel plan's
+        enabled one."""
+        if self._packed is not None:
+            cs = self._packed.cluster
+            return cs.plan if cs is not None else None
+        kp = self._kernel_plan
+        return kp.cluster if kp.cluster is not None and kp.cluster.enabled \
+            else None
+
+    def _cluster_recall(self):
+        """The ClusterPlan in effect and its recall decomposition, or
+        ``(None, None)``."""
+        cp = self._cluster_plan_in_effect()
+        if cp is None:
+            return None, None
+        k_scan = packedlib.scan_k_for(self.spec, cp.scan_rows)
+        return cp, cp.recall_decomposition(k_scan)
 
     def _replan(self, *, n: int, m: Optional[int],
                 pin_from: planlib.Plan) -> planlib.Plan:
@@ -253,6 +301,7 @@ class Index:
             backend=pin_from.backend, device=pin_from.device,
             reduction_input_size_override=spec.reduction_input_size_override,
             storage=spec.storage, rescore=spec.rescore_enabled,
+            cluster=spec.cluster,
             block_m=pin_from.block_m, max_block_n=pin_from.block_n,
             query_block=pin_from.query_block,
         )
@@ -315,10 +364,9 @@ class Index:
                 "predicted_hbm_bytes": plan.hbm_bytes,
                 "fused_select": self.spec.fused_select_enabled,
             },
-            # no cluster pruning yet (ROADMAP queue A item 7)
-            "cluster": {"mode": self.spec.cluster, "enabled": False},
-            "expected_recall_live": self.expected_recall,
         }
+        report["cluster"] = self._explain_cluster(plan, report)
+        report["expected_recall_live"] = self.expected_recall_live
         if self._packed is not None:
             report["packed"] = {
                 "n": self._packed.n,
@@ -344,6 +392,42 @@ class Index:
                              "is not ported (ROADMAP queue A item 13)"}
         return report
 
+    def _explain_cluster(self, plan: planlib.Plan, report: dict) -> dict:
+        """``explain()``'s cluster block (the reference's keys); on a
+        clustered index it also sets ``report["expected_recall"]`` to the
+        product guarantee."""
+        cp, decomp = self._cluster_recall()
+        out = {"mode": self.spec.cluster, "enabled": cp is not None}
+        if cp is None and plan.cluster is not None:
+            out["predicted_speedup"] = plan.cluster.predicted_speedup
+        rejected = (self._packed.cluster_rejected_miss
+                    if self._packed is not None else None)
+        if cp is None and rejected is not None:
+            out.update({
+                "rejected_by": "sampled_miss_check",
+                "sampled_miss": rejected,
+                "miss_budget": (plan.cluster.miss_budget
+                                if plan.cluster is not None else None),
+            })
+        if cp is not None:
+            out.update({
+                "num_clusters": cp.num_clusters,
+                "probes": cp.probes,
+                "rows_per_cluster": cp.rows_per_cluster,
+                "spill_capacity": cp.spill_capacity,
+                "scan_rows": cp.scan_rows,
+                "scanned_fraction": cp.scanned_fraction,
+                "predicted_speedup": cp.predicted_speedup,
+                "collision_term": decomp["collision_term"],
+                "miss_term": decomp["miss_term"],
+                "expected_recall": decomp["expected_recall"],
+            })
+            report["expected_recall"] = decomp["expected_recall"]
+            cs = self._packed.cluster if self._packed is not None else None
+            if cs is not None:
+                out["served_miss"] = cs.served_miss_report()
+        return out
+
     def __repr__(self) -> str:
         return (
             f"Index(metric={self.spec.metric!r}, k={self.spec.k}, "
@@ -360,9 +444,11 @@ class Index:
     def pack(self) -> packedlib.PackedState:
         """The packed operands, built once and then patched by add/delete."""
         if self._packed is None:
+            self.pack_timings = {}
             self._packed = packedlib.pack_state(
                 self._db, self._live, self.metric, self.spec,
-                self._resolve_backend(),
+                self._resolve_backend(), self.kernel_plan.cluster,
+                timings=self.pack_timings,
             )
             self._bind_k_scan()
         return self._packed
@@ -403,6 +489,8 @@ class Index:
             raise ValueError(
                 f"query dim {queries.shape[1]} != index dim {self.dim}"
             )
+        if self.spec.dtype is not None:
+            queries = queries.to(getattr(torch, self.spec.dtype))
         on_kernels = self._resolve_backend() == "cuda" and self.device.type == "cuda"
         if on_kernels or queries.shape[0] <= self.spec.query_block:
             return SearchResult(*self._search_block(queries))
@@ -417,6 +505,15 @@ class Index:
         common = dict(metric=spec.metric, k=spec.k, k_scan=self._k_scan,
                       aggregate_to_topk=spec.aggregate_to_topk,
                       use_bitonic=spec.use_bitonic)
+        if pk.cluster is not None:
+            # Both backends run the pruned gathered program, with the
+            # statics of the plan the tables were built with.
+            cplan = pk.cluster.plan
+            return backends.cluster_search_quant(
+                *operands, *pk.cluster.operands(), probes=cplan.probes,
+                target_scan=cplan.target_scan, int4_packed=pk.int4_packed,
+                **common,
+            )
         if backend == "torch":
             return backends.dense_search_quant(
                 *operands, recall_target=spec.recall_target,
@@ -496,6 +593,18 @@ class Index:
             # Growth, or the over-fetch capped below its full value by the
             # live rows this add raises: bind it anew.
             self._bind_k_scan()
+        pk = self._packed
+        if pk is not None and pk.cluster is not None \
+                and pk.cluster.needs_recluster:
+            # The lazy recluster: the spill block grew past the planner's
+            # threshold, so the tables are rebuilt for the current capacity.
+            cplan = planlib.plan_clusters(
+                n=self.capacity,
+                k_scan=packedlib.scan_k_for(self.spec, self.capacity),
+                recall_target=self.spec.recall_target,
+            )
+            if cplan.enabled:
+                packedlib.rebuild_cluster(pk, self._live, self.metric, cplan)
         return self
 
     def delete(self, ids) -> "Index":

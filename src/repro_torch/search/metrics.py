@@ -42,11 +42,28 @@ Tensor = torch.Tensor
 
 
 def half_norms(database: Tensor) -> Tensor:
-    """Precomputed ``||x||^2 / 2`` per database row (Eq. 19)."""
+    """Precomputed ``||x||^2 / 2`` per database row (Eq. 19).
+
+    bf16 rows round as XLA's CPU code rounds the reference's
+    ``0.5 * sum(square(x))``: each square to bf16, the sum in f32, the
+    sum to bf16 (bit-equal to it on the tests' data)."""
+    if database.dtype == torch.bfloat16:
+        squares = (database * database).to(torch.float32)
+        return 0.5 * torch.sum(squares, dim=-1).to(torch.bfloat16)
     return 0.5 * torch.sum(database * database, dim=-1)
 
 
 def l2_normalize(x: Tensor, eps: float = 1e-12) -> Tensor:
+    """``x / max(||x||, eps)`` per row.  bf16 rows round as XLA's CPU code
+    rounds the reference's ``jnp.linalg.norm``: the squares and their sum
+    in f32, the sum to bf16, its square root to bf16, the quotient to
+    bf16 (bit-equal to it on the tests' data)."""
+    if x.dtype == torch.bfloat16:
+        wide = x.to(torch.float32)
+        sq = torch.sum(wide * wide, dim=-1, keepdim=True).to(torch.bfloat16)
+        norm = torch.sqrt(sq.to(torch.float32)).to(torch.bfloat16)
+        return (wide / torch.clamp(norm.to(torch.float32), min=eps)).to(
+            torch.bfloat16)
     norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
     return x / torch.clamp(norm, min=eps)
 

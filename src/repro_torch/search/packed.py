@@ -17,17 +17,31 @@ Port of ``src/repro/search/packed.py``.  At build and mutation time
   * the bin plan the layout was derived from (for a quantized tier,
     planned for the over-fetched ``quant.scan_k``).
 
+Rows are cast to the spec's compute dtype (``SearchSpec.dtype``) before
+preparation: with ``"bfloat16"`` the f32 tier stores bf16 rows, and a
+quantized tier quantizes the bf16-cast rows (its rescore tail holds them
+widened to f32).
+
+A clustered index (``repro_torch.search.cluster``) adds a
+``ClusterState`` of side tables (centroids, slot tables, a spill block);
+the packed arrays keep the row order of the unclustered layout.  The
+build checks the tables' measured miss rate and, past the threshold,
+drops them (``cluster_rejected_miss``): the layout is then the
+``cluster="off"`` one.
+
 Mutations, as in the reference: ``update_rows`` prepares (and quantizes)
-only an appended slice, ``delete_rows`` patches only bias entries (the
-rescore bias too), ``relayout`` copies into a new capacity without
-re-preparing rows, and ``pack_state`` is the only full pack.  Unlike the
-reference's immutable arrays, ``update_rows`` and ``delete_rows`` write
-into the tensors in place.  ``PACK_EVENTS`` counts each kind of work by
-name.
+only an appended slice and slots it into the cluster tables,
+``delete_rows`` patches only bias entries (the rescore bias too),
+``relayout`` copies into a new capacity without re-preparing rows (and
+carries the tables), ``rebuild_cluster`` is the lazy recluster, and
+``pack_state`` is the only full pack.  Unlike the reference's immutable
+arrays, ``update_rows`` and ``delete_rows`` write into the tensors in
+place.  ``PACK_EVENTS`` counts each kind of work by name.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -36,6 +50,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.binning import BinPlan, plan_bins, round_up
 from repro_torch.kernels import partial_reduce as kernels
+from repro_torch.search import cluster as clusterlib
 from repro_torch.search import quant
 from repro_torch.search.backends import default_backend
 from repro_torch.search.metrics import Metric
@@ -48,12 +63,14 @@ __all__ = [
     "PackedState",
     "fuse_bias",
     "pack_state",
+    "rebuild_cluster",
     "scan_k_for",
     "state_from_arrays",
 ]
 
 # event name -> packing work performed ("full_pack", "relayout",
-# "rows_updated", "bias_patched", "restore").
+# "rows_updated", "bias_patched", "restore", and on clustered layouts
+# "cluster_built", "cluster_rejected", "cluster_assigned", "recluster").
 PACK_EVENTS = AtomicCounter()
 
 
@@ -104,6 +121,9 @@ class PackedState:
         on every backend; None for f32 or with rescoring off.
       compute_dtype: the dtype rows are cast to before preparation; an
         appended slice repeats the same cast-then-prepare order.
+      cluster: the pruning side tables, or None (unclustered layout).
+      cluster_rejected_miss: the measured miss rate that made the build
+        drop the tables the planner enabled, else None.
     """
 
     backend: str
@@ -119,6 +139,8 @@ class PackedState:
     rescore_db: Optional[torch.Tensor] = None
     rescore_bias: Optional[torch.Tensor] = None
     compute_dtype: str = "float32"
+    cluster: Optional[clusterlib.ClusterState] = None
+    cluster_rejected_miss: Optional[float] = None
 
     @property
     def int4_packed(self) -> bool:
@@ -145,24 +167,42 @@ class PackedState:
         """The per-row scale without layout padding: (n,) or None."""
         return None if self.scale is None else self._flat(self.scale)[: self.n]
 
+    def exact_rows_bias(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-precision prepared rows and fused bias, (n, d) / (n,): the
+        f32 tier's own rows, a quantized tier's rescore tail, or (rescore
+        off) the dequantized stored rows; what the lazy recluster and the
+        miss monitor score with."""
+        if self.storage == "f32":
+            return self.rows(), self.bias_row()
+        if self.rescore_db is not None:
+            return self.rescore_db[: self.n], self.rescore_bias[: self.n]
+        return quant.dequantize_rows(self.rows(), self.scale_row()), self.bias_row()
+
     def operands(self) -> Tuple[Optional[torch.Tensor], ...]:
         """The positional operands a search consumes: ``(db, bias)`` for
         f32, ``(db, bias, scale, rescore_db, rescore_bias)`` for a
-        quantized tier (entries may be None)."""
+        quantized tier (entries may be None), then the four side tables on
+        a clustered layout."""
         if self.storage == "f32":
-            return self.db, self.bias
-        return self.db, self.bias, self.scale, self.rescore_db, self.rescore_bias
+            base = (self.db, self.bias)
+        else:
+            base = (self.db, self.bias, self.scale, self.rescore_db,
+                    self.rescore_bias)
+        return base + (self.cluster.operands() if self.cluster else ())
 
     def update_rows(self, start: int, rows: torch.Tensor, metric: Metric):
         """Prepare (and quantize) an appended row slice and write it in
         place, O(r·D) — the same cast-prepare-quantize order as the full
-        pack, so both give the same codes."""
+        pack, so both give the same codes — and slot it into the cluster
+        tables (nearest centroid, O(r·C))."""
         rows = rows.to(getattr(torch, self.compute_dtype))
         if self.storage == "f32":
             prepped, metric_bias = metric.prepare_update(rows)
+            exact_slice = prepped
         else:
             qr = metric.prepare_update_storage(rows, self.storage)
             prepped, metric_bias = qr.rows, qr.bias
+            exact_slice = qr.exact_rows
         r = prepped.shape[0]
         d_pad = self.db.shape[1] * (2 if self.int4_packed else 1)
         prepped = F.pad(prepped, (0, d_pad - prepped.shape[1]))
@@ -180,6 +220,9 @@ class PackedState:
                 self.rescore_bias[start : start + r] = fuse_bias(
                     qr.exact_bias, num_rows=r, device=self.db.device
                 )
+        if self.cluster is not None:
+            clusterlib.assign_rows(self.cluster, exact_slice, start)
+            PACK_EVENTS.inc("cluster_assigned")
         PACK_EVENTS.inc("rows_updated")
 
     def delete_rows(self, ids: torch.Tensor):
@@ -195,7 +238,8 @@ class PackedState:
 
         The grown region is dead (bias ``MASK_VALUE``, scale 0) until
         ``update_rows`` writes it; the bin plan is re-derived for
-        ``new_n``.
+        ``new_n``.  The cluster tables hold user row ids, which a relayout
+        never renumbers: they are carried as they are.
         """
         rows, bias, scale = self.rows(), self.bias_row(), self.scale_row()
         rescore_db, rescore_bias = self.rescore_db, self.rescore_bias
@@ -209,9 +253,11 @@ class PackedState:
                 rescore_db = F.pad(rescore_db, (0, 0, 0, grow))
                 rescore_bias = F.pad(rescore_bias, (0, grow), value=MASK_VALUE)
         PACK_EVENTS.inc("relayout")
-        return _layout(backend, rows, bias, new_n, self.d, spec, scale=scale,
-                       rescore_db=rescore_db, rescore_bias=rescore_bias,
-                       compute_dtype=self.compute_dtype)
+        out = _layout(backend, rows, bias, new_n, self.d, spec, scale=scale,
+                      rescore_db=rescore_db, rescore_bias=rescore_bias,
+                      compute_dtype=self.compute_dtype)
+        out.cluster = self.cluster
+        return out
 
 
 def scan_k_for(spec: SearchSpec, n: int, live: Optional[int] = None) -> int:
@@ -289,19 +335,31 @@ def pack_state(
     metric: Metric,
     spec: SearchSpec,
     backend: str,
+    cluster_plan: Optional[clusterlib.ClusterPlan] = None,
+    *,
+    timings: Optional[dict] = None,
 ) -> PackedState:
-    """Full pack: metric preparation (and, for a quantized tier,
-    quantization with the bias of the stored values folded into the fused
-    bias row, and the rescore tail) over all rows, then the layout."""
+    """Full pack: the cast to ``spec.dtype``, metric preparation (and, for
+    a quantized tier, quantization with the bias of the stored values
+    folded into the fused bias row, and the rescore tail) over all rows,
+    then the layout.  An enabled ``cluster_plan`` builds the pruning side
+    tables over the live prepared rows (:func:`_attach_cluster`);
+    ``timings``, when given, receives the seconds of its steps."""
     n, d = database.shape
-    compute_dtype = str(database.dtype).removeprefix("torch.")
+    db = database
+    if spec.dtype is not None:
+        db = db.to(getattr(torch, spec.dtype))
+    compute_dtype = str(db.dtype).removeprefix("torch.")
     if spec.storage == "f32":
-        db, metric_bias = metric.prepare_database(database)
+        db, metric_bias = metric.prepare_database(db)
         bias = fuse_bias(metric_bias, live, num_rows=n, device=database.device)
         PACK_EVENTS.inc("full_pack")
-        return _layout(backend, db, bias, n, d, spec,
-                       compute_dtype=compute_dtype)
-    qr = metric.prepare_storage(database, spec.storage)
+        state = _layout(backend, db, bias, n, d, spec,
+                        compute_dtype=compute_dtype)
+        _attach_cluster(state, db, bias, live, metric, cluster_plan, spec.k,
+                        timings)
+        return state
+    qr = metric.prepare_storage(db, spec.storage)
     bias = fuse_bias(qr.bias, live, num_rows=n, device=database.device)
     rescore_db = rescore_bias = None
     if spec.rescore_enabled:
@@ -309,9 +367,57 @@ def pack_state(
         rescore_bias = fuse_bias(qr.exact_bias, live, num_rows=n,
                                  device=database.device)
     PACK_EVENTS.inc("full_pack")
-    return _layout(backend, qr.rows, bias, n, d, spec, scale=qr.scale,
-                   rescore_db=rescore_db, rescore_bias=rescore_bias,
-                   compute_dtype=compute_dtype)
+    state = _layout(backend, qr.rows, bias, n, d, spec, scale=qr.scale,
+                    rescore_db=rescore_db, rescore_bias=rescore_bias,
+                    compute_dtype=compute_dtype)
+    exact_fused = (rescore_bias if rescore_bias is not None
+                   else fuse_bias(qr.exact_bias, live, num_rows=n,
+                                  device=database.device))
+    _attach_cluster(state, qr.exact_rows, exact_fused, live, metric,
+                    cluster_plan, spec.k, timings)
+    return state
+
+
+def _attach_cluster(state: PackedState, exact_rows: torch.Tensor,
+                    fused_bias: torch.Tensor, live: Optional[torch.Tensor],
+                    metric: Metric,
+                    cluster_plan: Optional[clusterlib.ClusterPlan], k: int,
+                    timings: Optional[dict] = None) -> None:
+    """Build, check and attach the pruning side tables of an enabled plan.
+
+    ``exact_rows`` are the full-precision prepared rows, ``fused_bias``
+    their fused bias.  The planner's crossover prices FLOPs, not
+    geometry, so the build measures the miss rate of its tables
+    (``cluster.sampled_miss_rate``) and drops them past
+    ``cluster.miss_check_threshold``: the layout then stays the dense one,
+    the same as ``cluster="off"``.
+    """
+    if cluster_plan is None or not cluster_plan.enabled:
+        return
+    cs = clusterlib.build_tables(exact_rows, live, cluster_plan,
+                                 metric.prepare_database, timings=timings)
+    t0 = time.perf_counter()
+    miss = clusterlib.sampled_miss_rate(cs, exact_rows, fused_bias, live, k)
+    if timings is not None:
+        timings["miss_check_s"] = time.perf_counter() - t0
+        timings["sampled_miss"] = miss
+    if miss > clusterlib.miss_check_threshold(cluster_plan.miss_budget):
+        state.cluster_rejected_miss = miss
+        PACK_EVENTS.inc("cluster_rejected")
+        return
+    state.cluster = cs
+    PACK_EVENTS.inc("cluster_built")
+
+
+def rebuild_cluster(state: PackedState, live: Optional[torch.Tensor],
+                    metric: Metric,
+                    cluster_plan: clusterlib.ClusterPlan) -> None:
+    """The lazy recluster: new centroids and tables from the packed exact
+    rows, no repack and no miss check (the data passed it at build)."""
+    rows, _ = state.exact_rows_bias()
+    state.cluster = clusterlib.build_tables(rows, live, cluster_plan,
+                                            metric.prepare_database)
+    PACK_EVENTS.inc("recluster")
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -328,10 +434,12 @@ def state_from_arrays(arrays: dict, meta: dict, spec: SearchSpec,
 
     ``arrays`` maps the snapshot's names to numpy arrays (the caller
     converts), ``meta`` is the snapshot's layout record.  The counterpart
-    of the reference's ``restore_state``: no metric preparation and no
-    quantization — the saved stored rows (a pallas-layout int4 database
-    unpacked to canonical codes), scale, fused bias and rescore tail are
-    laid out for the port's backend on ``device`` — with the same checks:
+    of the reference's ``restore_state``: no metric preparation, no
+    quantization and no k-means — the saved stored rows (a pallas-layout
+    int4 database unpacked to canonical codes), scale, fused bias, rescore
+    tail and cluster tables (``cluster/*``, ``cluster.restore_tables``)
+    are laid out for the port's backend on ``device`` — with the same
+    checks:
     ``validate_restored``, and that ``plan_bins`` still gives the
     recorded bin size.  Either reference layout (xla or pallas) is
     accepted; ``spec.storage`` must be the snapshot's tier.
@@ -340,10 +448,6 @@ def state_from_arrays(arrays: dict, meta: dict, spec: SearchSpec,
     if storage != spec.storage:
         raise ValueError(
             f"snapshot storage={storage!r} but spec.storage={spec.storage!r}"
-        )
-    if meta.get("cluster") is not None:
-        raise NotImplementedError(
-            "cluster side tables are not ported yet (ROADMAP queue A item 7)"
         )
     n, d = int(meta["n"]), int(meta["d"])
     plan = plan_bins(
@@ -385,7 +489,16 @@ def state_from_arrays(arrays: dict, meta: dict, spec: SearchSpec,
             f"rescore tail but spec.rescore_enabled={spec.rescore_enabled}"
         )
     backend = spec.backend if spec.backend != "auto" else default_backend(device)
+    compute_dtype = meta.get("compute_dtype", "float32")
+    if storage == "f32" and db.dtype == torch.bfloat16:
+        # the reference records float32 for an f32 tier of bf16 rows
+        compute_dtype = "bfloat16"
+    state = _layout(backend, rows, bias, n, d, spec, scale=scale,
+                    rescore_db=rescore_db, rescore_bias=rescore_bias,
+                    compute_dtype=compute_dtype)
+    state.cluster_rejected_miss = meta.get("cluster_rejected_miss")
+    if meta.get("cluster") is not None:
+        state.cluster = clusterlib.restore_tables(arrays, meta["cluster"],
+                                                  device)
     PACK_EVENTS.inc("restore")
-    return _layout(backend, rows, bias, n, d, spec, scale=scale,
-                   rescore_db=rescore_db, rescore_bias=rescore_bias,
-                   compute_dtype=meta.get("compute_dtype", "float32"))
+    return state

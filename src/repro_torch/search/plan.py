@@ -16,10 +16,14 @@ Port of ``src/repro/search/plan.py``.  ``plan_search`` maps a workload
 
 The ``"cuda"`` backend is priced as the port's own scan runs: the
 tensor-core passes of its exact bf16 split (six for f32 rows, three for
-the bf16/int8/int4 forms) over d rounded up to 16, the stored rows with
-their bias (and scale) read once, and its epilogue's instructions per
-score.  The ``"torch"`` backend is priced as the reference prices its
-``"xla"`` path (the unfused score matrix).
+the bf16/int8/int4 forms; one for bf16 queries, ``dtype="bfloat16"``)
+over d rounded up to 16, the stored rows with their bias (and scale)
+read once, and the instructions a score its function needs (the bias,
+the bin's winner).  The ``"torch"`` backend is priced as the reference
+prices its ``"xla"`` path (the unfused score matrix).  With ``cluster="auto"`` the planner evaluates the
+cluster-pruned scan (:func:`plan_clusters`); where it is enabled, the
+gathered scan's cost (:func:`_cluster_cost`, the reference's) replaces
+the scan's on every backend and profile.
 
 ``Index.build(..., plan="measure")`` refines the model's plan with a
 short timed sweep (:func:`tune_plan`), kept in a :class:`PlanCache`;
@@ -52,10 +56,13 @@ from repro_torch.core.roofline import (
     bottleneck,
 )
 from repro_torch.kernels import partial_reduce as kernels
+from repro_torch.search import cluster as clusterlib
 from repro_torch.search import quant
 from repro_torch.search.spec import SearchSpec, check_tiles
 
 __all__ = [
+    "CLUSTER_GATHER_PENALTY",
+    "CLUSTER_SPEEDUP_BAR",
     "DEFAULT_QUERY_BLOCK",
     "MIN_SERVE_BUCKET",
     "SCORE_TILE_BUDGET",
@@ -63,6 +70,7 @@ __all__ = [
     "PlanCache",
     "detect_device",
     "plan_buckets",
+    "plan_clusters",
     "plan_search",
     "time_search",
     "tune_plan",
@@ -77,6 +85,13 @@ SCORE_TILE_BUDGET = 64 * 2**20
 # Smallest serving micro-batch of the bucket ladder (plan_buckets).
 MIN_SERVE_BUCKET = 8
 
+# Cluster pruning's cost model (the reference's): a gathered candidate row
+# is priced at this multiple of a streamed one when deciding the
+# crossover, and pruning is enabled only when the modeled row cost beats
+# the full scan by CLUSTER_SPEEDUP_BAR.
+CLUSTER_GATHER_PENALTY = 4.0
+CLUSTER_SPEEDUP_BAR = 2.0
+
 _DTYPE_BYTES = {
     "float32": 4, "bfloat16": 2, "float16": 2, "int8": 1,
     "float64": 8, "f32": 4, "bf16": 2,
@@ -84,13 +99,13 @@ _DTYPE_BYTES = {
 
 # The port's scan kernel (csrc/partial_reduce.cu), by stored form: the
 # tensor-core passes of its exact bf16 split (three query parts against
-# the stored rows; f32 rows are split in three as well, six products),
-# and its epilogue's instructions per score on bins of 16 rows and more
-# (1 add of the bias, 1 multiply by the scale where there is one, 1.5 to
-# pick the better of a thread's two rows, then 3 shuffle levels of 8 over
-# half the scores).
+# the stored rows; f32 rows are split in three as well, six products).
+# The CUDA-core instructions per score are what the scan's function needs
+# whatever the kernel: one add of the bias (one FFMA with the scale), one
+# compare and two selects to keep the bin's winner.  The kernel's own
+# epilogue takes more (its shuffle butterfly); that is not part of a bound.
 _SPLIT_PASSES = {"f32": 6, "bf16": 3, "int8": 3, "int4": 3}
-_EPILOGUE_INSTR = {"f32": 14.5, "bf16": 14.5, "int8": 15.5, "int4": 15.5}
+_SCORE_INSTR = 4
 
 # SMs of the H100 SXM (torch.cuda.get_device_properties on the card),
 # for the kernels' split count a plan on the "h100" profile reports.
@@ -149,6 +164,12 @@ class Plan:
     ``i_cop``, ``attainable_flops``, the binding ``bottleneck`` wall,
     ``predicted_s`` and ``predicted_qps``.
 
+    ``cluster``: None for ``cluster="off"``, else the
+    ``cluster.ClusterPlan`` that ``cluster="auto"`` derived (``enabled``
+    False where the crossover rejected pruning); enabled, the prediction
+    is the pruned scan's and ``expected_recall`` the collision x miss
+    product.
+
     ``source`` is ``"model"``, ``"measure"`` (refined by
     :func:`tune_plan`) or ``"user"`` (every tile field pinned).
     """
@@ -189,6 +210,7 @@ class Plan:
     storage: str = "f32"
     rescore: bool = False
     k_scan: int = 0
+    cluster: Optional[clusterlib.ClusterPlan] = None
 
     @property
     def bin_size(self) -> int:
@@ -246,20 +268,27 @@ def _cuda_rows(n: int, bin_size: int) -> int:
 
 
 def _cuda_cost(m: int, n: int, d: int, bin_size: int, k_scan: int,
-               storage: str) -> KernelCost:
+               storage: str, dtype_bytes: int = 4) -> KernelCost:
     """Cost of the port's fused CUDA scan for ``m`` queries.
 
-    FLOPs  = passes * 2 * M * n_pad * d16 (the split's tensor-core work)
-    bytes  = 4MD + n_pad * (row bytes + bias [+ scale]) + 8 M k_scan
-    COPs   = epilogue instructions per score * M * n_pad
+    FLOPs  = passes * 2 * M * n_pad * d16 (the tensor-core work: the
+             split's passes for f32 queries, one for bf16 queries)
+    bytes  = dtype_bytes MD + n_pad * (row bytes + bias [+ scale])
+             + 8 M k_scan
+    COPs   = the function's instructions per score * M * n_pad
+
+    With bf16 compute (``dtype_bytes`` 2) the f32 tier stores bf16 rows.
     """
+    form = "bf16" if storage == "f32" and dtype_bytes == 2 else storage
     n_pad = _cuda_rows(n, bin_size)
     d16 = round_up(d, 16)
-    row_bytes = round_up(d, 128) * quant.storage_bytes(storage)
-    side = 8.0 if storage in ("int8", "int4") else 4.0
-    flops = _SPLIT_PASSES[storage] * 2.0 * m * n_pad * d16
-    hbm = 4.0 * m * d + n_pad * (row_bytes + side) + 8.0 * m * k_scan
-    cops = _EPILOGUE_INSTR[storage] * m * n_pad
+    row_bytes = round_up(d, 128) * quant.storage_bytes(form)
+    side = 8.0 if form in ("int8", "int4") else 4.0
+    passes = 1 if dtype_bytes == 2 else _SPLIT_PASSES[form]
+    flops = passes * 2.0 * m * n_pad * d16
+    hbm = (dtype_bytes * m * d + n_pad * (row_bytes + side)
+           + 8.0 * m * k_scan)
+    cops = _SCORE_INSTR * m * n_pad
     return KernelCost(flops=flops, hbm_bytes=hbm, cops=cops)
 
 
@@ -284,6 +313,63 @@ def _rescore_cost(m: int, l: int, k_scan: int, d: int) -> KernelCost:
     flops = 2.0 * m * k_scan * d
     hbm = 4.0 * (m * k_scan * d + 3.0 * m * k_scan)  # rows + bias/vals/idxs
     cops = float(m) * (l + k_scan)  # the cut + the exact compare chain
+    return KernelCost(flops=flops, hbm_bytes=hbm, cops=cops)
+
+
+def plan_clusters(*, n: int, k_scan: int,
+                  recall_target: float) -> clusterlib.ClusterPlan:
+    """The cluster-pruning parameters and the enable decision (the
+    reference's): the geometry from ``cluster``'s closed forms, and
+    pruning enabled only where C centroid dots plus
+    ``CLUSTER_GATHER_PENALTY`` x S gathered rows beat the full scan's N
+    by ``CLUSTER_SPEEDUP_BAR``, the probes stay below C, and the S
+    scanned slots are fewer than N and at least 4 ``k_scan``.
+
+    >>> plan_clusters(n=8192, k_scan=10, recall_target=0.95).enabled
+    True
+    >>> plan_clusters(n=2048, k_scan=10, recall_target=0.95).enabled
+    False
+    >>> cp = plan_clusters(n=1_000_000, k_scan=10, recall_target=0.95)
+    >>> cp.num_clusters, cp.rows_per_cluster, cp.probes, cp.spill_capacity
+    (1024, 1224, 32, 15632)
+    """
+    num_clusters = clusterlib.num_clusters_for(n)
+    rows_per_cluster = clusterlib.rows_per_cluster_for(n, num_clusters)
+    probes = clusterlib.probes_for(recall_target, num_clusters)
+    spill = clusterlib.spill_capacity_for(n)
+    budget = clusterlib.miss_budget_for(recall_target)
+    # the inner scan's target, so that collision x miss meets the target
+    target_scan = recall_target / (1.0 - budget)
+    scan_rows = probes * rows_per_cluster + spill
+    speedup = n / (num_clusters + CLUSTER_GATHER_PENALTY * scan_rows)
+    enabled = (
+        speedup >= CLUSTER_SPEEDUP_BAR
+        and probes < num_clusters
+        and scan_rows < n
+        and scan_rows >= 4 * k_scan
+    )
+    return clusterlib.ClusterPlan(
+        n=n, num_clusters=num_clusters, rows_per_cluster=rows_per_cluster,
+        probes=probes, spill_capacity=spill, miss_budget=budget,
+        target_scan=target_scan, predicted_speedup=speedup, enabled=enabled,
+    )
+
+
+def _cluster_cost(m: int, d: int, l: int, cp: clusterlib.ClusterPlan,
+                  dtype_bytes: int, db_bytes: float) -> KernelCost:
+    """Cost of the pruned gathered scan (the reference's): C centroid dots
+    and S gathered rows a query, with no reuse across queries, then the
+    (m, S) score tile and its bin winners."""
+    c, s = cp.num_clusters, cp.scan_rows
+    flops = 2.0 * m * (c + s) * d
+    hbm = (
+        dtype_bytes * m * d                    # queries
+        + 4.0 * c * d + 4.0 * c               # centroid table + bias
+        + 4.0 * m * s                          # gathered candidate ids
+        + db_bytes * m * s * d                 # gathered rows, no reuse
+        + 4.0 * (2.0 * m * s + 2.0 * m * l)    # score tile + bin winners
+    )
+    cops = float(m) * (c + s)
     return KernelCost(flops=flops, hbm_bytes=hbm, cops=cops)
 
 
@@ -342,6 +428,7 @@ def plan_search(
     query_block: Optional[int] = None,
     storage: str = "f32",
     rescore: Optional[bool] = None,
+    cluster: str = "off",
 ) -> Plan:
     """Derive every kernel parameter analytically (Eq. 4–10, 13–14).
 
@@ -350,7 +437,9 @@ def plan_search(
     tiles; ``query_block`` pins the plain paths' block.  ``storage`` and
     ``rescore`` (default: on for a quantized tier) set the over-fetched
     ``k_scan`` (``quant.scan_k``) the bins are planned for and add the
-    exact rescore's cost.
+    exact rescore's cost.  ``cluster="auto"`` evaluates the pruned scan
+    (:func:`plan_clusters`); ``"off"`` (the default, as in the reference)
+    never does.
 
     >>> plan_search(n=64, d=7, k=4, device="cpu").d_pad
     128
@@ -382,6 +471,10 @@ def plan_search(
         )
     rescore_on = (storage != "f32") if rescore is None else rescore
     ks = quant.scan_k(storage, k, n=n) if rescore_on else k
+    if cluster not in ("auto", "off"):
+        raise ValueError(f'cluster must be "auto" or "off", got {cluster!r}')
+    cplan = (plan_clusters(n=n, k_scan=ks, recall_target=recall_target)
+             if cluster == "auto" else None)
 
     bins = plan_bins(
         n, ks, recall_target,
@@ -390,8 +483,13 @@ def plan_search(
     d_pad = round_up(d, 128)
     qb = query_block or _plan_query_block(n)
     m_eff = m if m else qb
-    if backend == "cuda":
-        cost = _cuda_cost(m_eff, n, d, bins.bin_size, ks, storage)
+    expected = bins.expected_recall
+    if cplan is not None and cplan.enabled:
+        # the pruned gathered program replaces the scan on every backend
+        cost = _cluster_cost(m_eff, d, bins.num_bins, cplan, dbytes, sbytes)
+        expected = cplan.recall_decomposition(ks)["expected_recall"]
+    elif backend == "cuda":
+        cost = _cuda_cost(m_eff, n, d, bins.bin_size, ks, storage, dbytes)
     else:
         cost = _dense_cost(m_eff, n, d, bins.num_bins, dbytes, sbytes)
     if rescore_on:
@@ -408,7 +506,7 @@ def plan_search(
         m=m or 0, n=n, d=d, k=k, metric=metric, dtype=dtype_name,
         recall_target=recall_target, backend=backend, device=device,
         num_bins=bins.num_bins, log2_bin_size=bins.log2_bin_size,
-        padded_n=bins.padded_n, expected_recall=bins.expected_recall,
+        padded_n=bins.padded_n, expected_recall=expected,
         d_pad=d_pad, block_m=kernels.BLOCK_M, block_n=kernels.BLOCK_N,
         query_block=qb, stream=True,
         flops=cost.flops, hbm_bytes=cost.hbm_bytes, cops=cost.cops,
@@ -417,7 +515,7 @@ def plan_search(
         predicted_s=predicted_s, predicted_qps=m_eff / predicted_s,
         source="user" if pinned else "model",
         reduction_input_size_override=reduction_input_size_override,
-        storage=storage, rescore=rescore_on, k_scan=ks,
+        storage=storage, rescore=rescore_on, k_scan=ks, cluster=cplan,
     )
 
 
@@ -467,6 +565,7 @@ def _with_measured_tiles(plan: Plan, bm: int, bn: int, qb: int) -> Plan:
         reduction_input_size_override=plan.reduction_input_size_override,
         block_m=bm, max_block_n=bn, query_block=qb,
         storage=plan.storage, rescore=plan.rescore,
+        cluster="auto" if plan.cluster is not None else "off",
     )
     return dataclasses.replace(refreshed, source="measure")
 
@@ -480,7 +579,8 @@ class PlanCache:
     """Persistent store of measured plan refinements.
 
     Keys are the card's name and the workload signature (profile,
-    backend, metric, dtype, shapes, recall target, tier, pins); values
+    backend, metric, compute dtype, shapes, recall target, tier, an
+    enabled cluster plan, pins); values
     are the winning tiles and the measured seconds.  Backed by a JSON
     file when ``path`` is given or ``REPRO_TORCH_PLAN_CACHE`` is set, in
     memory otherwise.  A corrupt or missing file reads as empty.
@@ -505,6 +605,9 @@ class PlanCache:
         )
         if plan.storage != "f32":
             base += f"/st-{plan.storage}" + ("" if plan.rescore else "-raw")
+        if plan.cluster is not None and plan.cluster.enabled:
+            # the pruned gathered program times nothing like the full scan
+            base += "/cl"
         if spec is not None and not (
             spec.block_m is None
             and spec.max_block_n is None

@@ -126,7 +126,9 @@ def quantize_rows(
     if storage in _SCALED_TIERS:
         qmax = _INT8_MAX if storage == "int8" else _INT4_MAX
         amax = rows.abs().amax(dim=-1)
-        scale = torch.clamp(amax / qmax, min=_SCALE_FLOOR)
+        # A tensor divisor: on CUDA PyTorch multiplies by the reciprocal of
+        # a Python-number divisor, an ulp off the quotient in some rows.
+        scale = torch.clamp(amax / torch.full_like(amax, qmax), min=_SCALE_FLOOR)
         q = torch.clamp(torch.round(rows / scale[:, None]), -qmax, qmax)
         return q.to(torch.int8), scale
     raise ValueError(

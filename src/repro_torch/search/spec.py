@@ -14,8 +14,10 @@ reference's; the backends are the port's own:
 
 Fields the reference has but the port does not serve yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
-``cluster`` defaults to ``"off"`` here (the reference defaults to
-``"auto"``) until the cluster slice lands.
+``dtype="bfloat16"`` casts rows and queries to bf16 before preparation
+(the CUDA scan then multiplies in one tensor-core pass), and
+``cluster`` defaults to ``"auto"`` (the planner-derived pruned scan,
+``repro_torch.search.cluster``), both as in the reference.
 """
 from __future__ import annotations
 
@@ -24,9 +26,12 @@ from typing import Optional, Tuple
 
 from repro_torch.search import quant
 
-__all__ = ["BACKENDS", "SearchSpec", "check_tiles"]
+__all__ = ["BACKENDS", "DTYPES", "SearchSpec", "check_tiles"]
 
 BACKENDS = ("auto", "torch", "cuda")
+
+# Compute dtypes the port runs (None: the database's own, float32).
+DTYPES = (None, "float32", "bfloat16")
 
 
 def check_tiles(block_m: Optional[int], max_block_n: Optional[int]) -> None:
@@ -55,12 +60,16 @@ class SearchSpec:
       k: neighbours returned per query.
       recall_target: analytic E[recall] target used to plan bins (Eq. 14).
       backend: one of ``BACKENDS`` (see the module docstring).
-      dtype: compute dtype; only None or "float32" (the bf16 compute
-        dtype: ROADMAP queue A item 6b).
+      dtype: compute dtype, one of ``DTYPES``: rows and queries are cast
+        to it before metric preparation (None: float32).  With
+        "bfloat16" the stored f32 tier holds bf16 rows, and a quantized
+        tier quantizes the bf16-cast rows.
       storage: one of ``quant.STORAGE_TIERS``; a quantized tier scans
         its stored rows for an over-fetched candidate set and rescores
         it exactly (``repro_torch.search.quant``).
-      cluster: only "off" for now (ROADMAP queue A item 7).
+      cluster: "auto" (default: the planner decides whether a
+        cluster-pruned scan pays, ``search.plan.plan_clusters``, and the
+        build checks the tables' miss rate) or "off".
       rescore: None (on for quantized tiers) or a bool; True needs a
         quantized tier and ``aggregate_to_topk``.
       block_m / max_block_n: kernel tiles: None or the CUDA kernels'
@@ -97,7 +106,7 @@ class SearchSpec:
     backend: str = "auto"
     dtype: Optional[str] = None
     storage: str = "f32"
-    cluster: str = "off"
+    cluster: str = "auto"
     rescore: Optional[bool] = None
     block_m: Optional[int] = None
     max_block_n: Optional[int] = None
@@ -128,17 +137,16 @@ class SearchSpec:
                 f"residency={self.residency!r}: the host-RAM tier is not "
                 "ported yet (ROADMAP queue A item 10)"
             )
-        if self.dtype not in (None, "float32"):
-            raise NotImplementedError(
-                f"dtype={self.dtype!r}: the port computes in float32 only; "
-                "the bf16 compute dtype is a tensor-core path of its own "
-                "(ROADMAP queue A item 6b).  Reduced-precision *storage* "
-                'is storage="bf16"|"int8"|"int4"'
+        if self.dtype not in DTYPES:
+            raise ValueError(
+                f"dtype={self.dtype!r}: the port computes in one of "
+                f"{DTYPES[1:]} (None: float32).  Reduced-precision "
+                'storage is storage="bf16"|"int8"|"int4"'
             )
-        if self.cluster != "off":
-            raise NotImplementedError(
-                f"cluster={self.cluster!r}: cluster pruning is not ported "
-                'yet (ROADMAP queue A item 7); use cluster="off"'
+        if self.cluster not in ("auto", "off"):
+            raise ValueError(
+                f'cluster must be "auto" or "off", got {self.cluster!r} — '
+                "cluster parameters are planner-derived, not user knobs"
             )
         if not self.stream:
             raise NotImplementedError(

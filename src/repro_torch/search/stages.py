@@ -1,8 +1,8 @@
 """Search stages: score -> scan -> rescore -> merge -> finalize.
 
 Port of the single-device stage primitives of
-``src/repro/search/stages.py`` (``score_gathered`` and
-``prune_candidates`` come with the cluster slice), over
+``src/repro/search/stages.py`` (with the cluster front-end's
+``prune_candidates`` and ``score_gathered``), over
 metric-prepared operands in the internal max convention (maximize
 ``<q', x'> + bias``, negate once at the end).  On the cuda backend the
 fused kernel (``repro_torch.kernels.partial_reduce.partial_reduce_fused``)
@@ -25,8 +25,10 @@ __all__ = [
     "finalize_values",
     "merge_topk",
     "pad_queries_to",
+    "prune_candidates",
     "rescore_candidates",
     "scan_candidates",
+    "score_gathered",
     "score_rows",
     "sentinelize_masked",
 ]
@@ -63,14 +65,33 @@ def score_rows(q: Tensor, database: Tensor,
     """Biased-MIPS score tile ``q @ db.T (* scale) + bias``.
 
     ``database`` holds the stored rows of any tier, widened to f32 for the
-    product; ``scale`` is the int8/int4 per-row scale.  The bias comes
-    after the scale (it is the bias of the stored values)."""
-    scores = torch.einsum("ik,jk->ij", q, database.to(q.dtype))
+    product, and bf16 queries are widened too: each product is then exact
+    and the sum is f32, as in the reference's jitted XLA program (its
+    bf16 x bf16 einsum keeps the f32 sum, XLA's excess precision) and its
+    Pallas kernels.  ``scale`` is the int8/int4 per-row scale.  The bias
+    comes after the scale (it is the bias of the stored values)."""
+    scores = torch.einsum("ik,jk->ij", q.to(torch.float32),
+                          database.to(torch.float32))
     if scale is not None:
         scores = scores * scale[None, :]
     if row_bias is not None:
         scores = scores + row_bias[None, :]
     return scores
+
+
+def score_gathered(q: Tensor, rows: Tensor, row_bias: Tensor, ids: Tensor,
+                   valid: Tensor, scale: Optional[Tensor] = None) -> Tensor:
+    """Biased-MIPS scores over per-query candidate rows: ``rows`` is the
+    (m, S, d) gather ``database[ids]`` widened to f32, ``q`` (m, d) is
+    widened too (a bf16 query times an f32 row is exact in f32, as in the
+    reference's promotion); invalid slots (empty cluster tails) score
+    ``MASK_VALUE``."""
+    gather = ids.long()
+    scores = torch.bmm(rows, q.to(rows.dtype)[:, :, None])[..., 0]
+    if scale is not None:
+        scores = scores * scale.reshape(-1)[gather]
+    scores = scores + row_bias.reshape(-1)[gather]
+    return torch.where(valid, scores, torch.full_like(scores, MASK_VALUE))
 
 
 def scan_candidates(
@@ -111,7 +132,9 @@ def rescore_candidates(q: Tensor, scan_vals: Tensor, idxs: Tensor,
         idxs = torch.gather(idxs, -1, sel)
     gather = idxs.long()
     rows = rescore_db[gather]                          # (m, k_scan, d)
-    exact = torch.bmm(rows, q[:, :, None])[..., 0] + rescore_bias[gather]
+    # a bf16 query is widened: each product is exact in f32
+    exact = (torch.bmm(rows, q.to(rows.dtype)[:, :, None])[..., 0]
+             + rescore_bias[gather])
     exact = torch.where(scan_vals > MASK_VALUE * 0.5, exact,
                         torch.full_like(exact, MASK_VALUE))
     return exact_rescoring(exact, idxs, k, mode="max", use_bitonic=use_bitonic)
@@ -132,6 +155,29 @@ def merge_topk(
         vals = torch.cat([vals, extra_vals], dim=-1)
         idxs = torch.cat([idxs, extra_idxs], dim=-1)
     return exact_rescoring(vals, idxs, k, mode="max", use_bitonic=use_bitonic)
+
+
+def prune_candidates(q: Tensor, centroids: Tensor, centroid_bias: Tensor,
+                     cluster_rows: Tensor, spill_rows: Tensor, probes: int
+                     ) -> Tuple[Tensor, Tensor]:
+    """Per-query candidate row ids from the pruning side tables.
+
+    Scores the prepared queries against the centroids (biased MIPS, the
+    lowest cluster first among ties), keeps the top-``probes`` clusters
+    and appends the spill block.  The slots INTERLEAVE the probed clusters
+    (slot j of every cluster, then slot j + 1) so that a query's winners
+    spread over the bins, as Eq. 13's collision bound assumes.  Returns
+    ``(ids, valid)``: (m, S) user row ids clamped to >= 0, and the mask of
+    real slots.
+    """
+    caff = q.to(centroids.dtype) @ centroids.T + centroid_bias[None, :]
+    _, top_c = stable_topk(caff, probes)
+    m = q.shape[0]
+    slots = cluster_rows[top_c]                        # (m, probes, R)
+    slots = slots.transpose(1, 2).reshape(m, -1)       # (m, R * probes)
+    spill = spill_rows[None, :].expand(m, spill_rows.shape[0])
+    ids = torch.cat([slots, spill], dim=1)             # (m, S)
+    return torch.clamp(ids, min=0), ids >= 0
 
 
 def finalize_values(vals: Tensor, negate_output: bool) -> Tensor:

@@ -156,11 +156,32 @@ def bias_scorer(q: torch.Tensor, db: torch.Tensor, bias: torch.Tensor):
     return score
 
 
-def public_scorer(metric: str, queries, rows):
+def public_scorer(metric: str, queries, rows, dtype: Optional[str] = None):
     """``score(row, indices)``: float64 public values (the metric's value
     contract) of raw database ``rows`` for one of the raw ``queries``
-    (numpy arrays or tensors, on any device)."""
+    (numpy arrays or tensors, on any device).  ``dtype="bfloat16"``
+    scores what an index of that compute dtype scores: rows and queries
+    cast to bf16 and prepared by the port's metric (its bf16 norms and
+    bias), then the products and sums in float64."""
     queries, rows = torch.as_tensor(queries), torch.as_tensor(rows)
+    if dtype is not None:
+        from repro_torch.search.metrics import get_metric
+
+        m_obj = get_metric(metric)
+        prepped, bias = m_obj.prepare_database(rows.to(getattr(torch, dtype)))
+        qp = m_obj.prepare_queries(queries.to(getattr(torch, dtype))).double()
+        prepped = prepped.double()
+        bias = None if bias is None else bias.double()
+        sign = -1.0 if m_obj.negate_output else 1.0
+
+        def score_dtype(row, idx):
+            sel = torch.as_tensor(np.asarray(idx), dtype=torch.long,
+                                  device=prepped.device)
+            out = prepped[sel] @ qp[row]
+            if bias is not None:
+                out = out + bias[sel]
+            return (sign * out).cpu().numpy()
+        return score_dtype
 
     def score(row, idx):
         sel = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=rows.device)

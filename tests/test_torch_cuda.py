@@ -451,3 +451,148 @@ def test_measured_plan_on_card(cuda_device, storage, tmp_path, monkeypatch):
     assert (rep["plan"]["splits"] is not None) == (rep["predicted"]["device"]
                                                    == "h100")
     assert rep["measured"]["wall_s"] >= 0.95 * rep["predicted"]["wall_s"]
+
+
+# --- the one-pass forms (bf16 queries) and the cluster-pruned path -----------
+
+
+@pytest.mark.parametrize("log2_bin", [0, 4, 7, 12])
+@pytest.mark.parametrize("k_scan", [10, 129])
+@pytest.mark.parametrize("form", ["bf16", "int8", "int4"])
+def test_one_pass_integer_inputs_bit_equal(cuda_device, form, k_scan, log2_bin):
+    """bf16 queries (the one-pass instantiations): on integer-valued
+    inputs both kernels give their plain versions' values bit for bit and
+    their indices exactly, under the one-pass counter names."""
+    bin_size = 1 << log2_bin
+    q, stored, bias, scale, packed = _integer_operands(form, bin_size, log2_bin)
+    q = q.to(torch.bfloat16)
+    kw = dict(bin_size=bin_size, int4_packed=packed)
+    prk.reset_counts()
+    v, i = prk.partial_reduce_packed(q, stored, bias, scale, **kw)
+    fv, fi = prk.partial_reduce_fused(q, stored, bias, scale, k_scan=k_scan, **kw)
+    torch.cuda.synchronize()
+    assert dict(prk.LAUNCHES) == {
+        prk.kernel_name("partial_reduce_packed", form, 1): 1,
+        prk.kernel_name("partial_reduce_fused", form, 1): 1,
+        "fused_carry_merge": 1}
+    qp = pad_queries_to(q, 128)
+    pv, pi = prk.partial_reduce_packed_plain(qp, stored, bias, scale, **kw)
+    pfv, pfi = prk.partial_reduce_fused_plain(qp, stored, bias, scale,
+                                              k_scan=k_scan, **kw)
+    for got, want in ((v, pv), (i, pi), (fv, pfv), (fi, pfi)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8", "int4"])
+def test_pack_on_card_equals_cpu(cuda_device, storage, dtype):
+    """The card's packed operands are the CPU's: stored rows, codes and
+    scales bit for bit, biases to the order of their f32 sums of d
+    squares (2 d 2^-24 of the bias), as are the rescore rows' biases."""
+    rng = np.random.default_rng(8)
+    db = rng.standard_normal((20_000, 100), dtype=np.float32)
+    kw = dict(metric="l2", k=10, storage=storage, dtype=dtype, cluster="off")
+    g = Index.build(db, **kw).pack()
+    c = Index.build(db, device="cpu", backend="cuda", **kw).pack()
+    rtol = 2 * 100 * 2.0 ** -24
+    for name in ("db", "scale", "rescore_db"):
+        a, b = getattr(g, name, None), getattr(c, name, None)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a.cpu(), b), name
+    for name in ("bias", "rescore_bias"):
+        a, b = getattr(g, name, None), getattr(c, name, None)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=rtol,
+                                       atol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16", "int8", "int4"])
+@pytest.mark.parametrize("fused", [True, False])
+def test_bf16_index_on_card_matches_cpu(cuda_device, storage, fused):
+    """``dtype="bfloat16"`` on the card runs the one-pass kernels and no
+    plain version, and searches as the same index on the CPU under the
+    near-tie rule of ``repro_torch.testing``, every query (the card packs
+    the CPU's codes and scales, ``test_pack_on_card_equals_cpu``)."""
+    rng = np.random.default_rng(8)
+    db = rng.standard_normal((20_000, 100), dtype=np.float32)
+    q = rng.standard_normal((300, 100), dtype=np.float32)
+    kw = dict(metric="l2", k=10, storage=storage, dtype="bfloat16",
+              fused_select=fused, cluster="off")
+    gpu = Index.build(db, **kw)
+    cpu = Index.build(db, device="cpu", backend="cuda", **kw)
+    for index in (gpu, cpu):
+        index.delete(np.arange(0, 20_000, 3))
+    prk.reset_counts()
+    v, i = gpu.search(q)
+    torch.cuda.synchronize()
+    base = "partial_reduce_fused" if fused else "partial_reduce_packed"
+    form = "bf16" if storage == "f32" else storage
+    assert prk.LAUNCHES[prk.kernel_name(base, form, 1)] == 1
+    assert not prk.PLAIN_CALLS
+    rv, ri = cpu.search(q)
+    assert_topk_close(rv.numpy(), ri.numpy(), v.cpu().numpy(), i.cpu().numpy(),
+                      score=public_scorer("l2", q, db, dtype="bfloat16"))
+
+
+def _mixture(seed, n, m, d=32, components=64):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(components, d)) * 2.5
+    db = centers[rng.integers(0, components, n)] + rng.normal(size=(n, d))
+    q = centers[rng.integers(0, components, m)] + rng.normal(size=(m, d))
+    return db.astype(np.float32), q.astype(np.float32)
+
+
+def test_kmeans_segment_sums_on_card_equal_cpu(cuda_device):
+    """k-means' segment sums on the card are the CPU's bit for bit (each
+    cluster's rows added in row order, no atomics), run after run."""
+    from repro_torch.search import cluster
+
+    rng = np.random.default_rng(10)
+    rows = torch.from_numpy(rng.standard_normal((200_000, 128), dtype=np.float32))
+    assign = torch.from_numpy(rng.integers(0, 1024, 200_000))
+    assign[assign == 7] = 8  # an empty segment
+    want = cluster._segment_sums(rows, assign, 1024)
+    for _ in range(2):
+        got = cluster._segment_sums(rows.to(cuda_device), assign.to(cuda_device),
+                                    1024)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8", "int4"])
+def test_clustered_index_on_card_matches_cpu(cuda_device, storage):
+    """``cluster="auto"`` on a mixture corpus builds its tables on the
+    card: the same bits in two builds, centroids allclose to the CPU
+    index's (rtol and atol 1e-5, as against the reference) and the same
+    slot tables; given the CPU index's tables, the card's pruned search
+    equals the CPU's, and deleted rows never return."""
+    from repro_torch.search import cluster
+
+    db, q = _mixture(9, 20_000, 400)
+    kw = dict(metric="l2", k=10, storage=storage)
+    gpu = Index.build(db, **kw)
+    cpu = Index.build(db, device="cpu", **kw)
+    g, c = gpu.pack().cluster, cpu.pack().cluster
+    assert g is not None and c is not None and g.plan == c.plan
+    assert gpu.pack_timings["sampled_miss"] <= cluster.miss_check_threshold(
+        g.plan.miss_budget)
+    again = Index.build(db, **kw).pack().cluster
+    for name in ("centroids", "centroid_bias", "cluster_rows", "spill_rows"):
+        assert torch.equal(getattr(g, name), getattr(again, name)), name
+    np.testing.assert_allclose(g.centroids.cpu().numpy(), c.centroids.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(g.cluster_rows.cpu().numpy(),
+                                  c.cluster_rows.numpy())
+    np.testing.assert_array_equal(g.spill_rows.cpu().numpy(), c.spill_rows.numpy())
+    np.testing.assert_array_equal(g.counts, c.counts)
+    arrays, meta = cluster.snapshot_tables(c)
+    gpu.pack().cluster = cluster.restore_tables(arrays, meta, cuda_device)
+    for index in (gpu, cpu):
+        index.delete(np.arange(0, 20_000, 3))
+    v, i = gpu.search(q)
+    rv, ri = cpu.search(q)
+    assert not set(i.cpu().numpy().ravel().tolist()) & set(range(0, 20_000, 3))
+    assert_topk_close(rv.numpy(), ri.numpy(), v.cpu().numpy(), i.cpu().numpy(),
+                      score=public_scorer("l2", q, db))

@@ -235,7 +235,8 @@ def _keys(report):
 
 def test_explain_keys_equal_reference():
     db, _ = _data(600, 20)
-    ours = Index.build(db, k=4, backend="torch", device="cpu", profile="cpu")
+    ours = Index.build(db, k=4, backend="torch", device="cpu", profile="cpu",
+                       cluster="off")
     ref = ref_search.Index.build(jnp.asarray(db), k=4, backend="xla",
                                  cluster="off", device="cpu")
     rep = ours.explain(m=32, measure=True, validate_hlo=True)
@@ -243,7 +244,7 @@ def test_explain_keys_equal_reference():
     ours_keys, ref_keys = _keys(rep), _keys(ref_rep)
     ours_keys.pop("hlo"), ref_keys.pop("hlo")
     assert ours_keys.pop("plan") == sorted(set(ref_keys.pop("plan"))
-                                           - {"cluster", "db_shards",
+                                           - {"db_shards",
                                               "ici_bytes", "ici_s",
                                               "residency", "segment_rows",
                                               "num_segments",

@@ -532,5 +532,5 @@ def test_spec_quantized_checks():
         SearchSpec(storage="int8", rescore=True, aggregate_to_topk=False)
     with pytest.raises(ValueError, match="unknown storage"):
         SearchSpec(storage="int2")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        SearchSpec(dtype="bfloat16", storage="bf16")
+    spec = SearchSpec(dtype="bfloat16", storage="bf16")  # the bf16 compute dtype
+    assert spec.dtype == "bfloat16" and spec.rescore_enabled

@@ -195,12 +195,14 @@ def test_build_needs_card_unless_cpu(monkeypatch):
 # The IDs are given so that each case keeps its test ID when what it
 # checks moves (a tile other than the kernels' 128 now names the fixed
 # tile; the planner's "measure" is ported, so the sixth case is another
-# field that is still outside the port).
+# field that is still outside the port; the bf16 compute dtype and
+# cluster="auto" are ported, so the first, third and fourth cases pair
+# them with a field that is still outside it).
 @pytest.mark.parametrize("kw,match", [
-    (dict(storage="int8", cluster="auto"), "item 7"),
+    (dict(storage="int8", cluster="auto", stream=False), "item 13"),
     (dict(residency="host"), "item 10"),
-    (dict(dtype="bfloat16"), "item 6"),
-    (dict(cluster="auto"), "item 7"),
+    (dict(dtype="bfloat16", serve_buckets=(8, 64)), "item 8"),
+    (dict(cluster="auto", residency="host"), "item 10"),
     (dict(block_m=256), "fixed at 128x128"),
     (dict(storage="int8", residency="host"), "item 10"),
     (dict(stream=False), "item 13"),
@@ -220,6 +222,7 @@ def test_imports_neither_jax_nor_repro():
         sys.modules["jax"] = None
         sys.modules["repro"] = None
         import repro_torch.kernels.partial_reduce
+        import repro_torch.search.cluster
         from repro_torch.search import Index
         import repro_torch.core, repro_torch.testing
         idx = Index.build([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0]], k=1,
