@@ -65,9 +65,11 @@ run in order and the first failure exits non-zero:
      version), and the kernels' and searches' times beside the tensor,
      score-operation and byte bounds of one pass (and the kernel's own
      epilogue count);
- 11. clusters on Gaussian data: the Sift1M data with ``cluster="auto"``
-     (f32): the planner enables pruning, the build's miss check must
-     drop the tables, and the search must be bit-identical to
+ 11. clusters on Gaussian data (C3): ``Index.build(db)`` at the Sift1M
+     shape (``cluster="auto"``, the default) timed beside
+     ``cluster="off"``: the crossover enables pruning, the ``"h100"``
+     profile must veto it (both predicted times printed), the build must
+     run no k-means, and the search must be bit-identical to
      ``cluster="off"``;
  12. clusters on a mixture corpus (the Sift1M shape drawn as
      ``tests/test_cluster.py`` draws its corpora: 64 components, centers
@@ -78,9 +80,30 @@ run in order and the first failure exits non-zero:
      x miss product) for f32 and int8, before and after an add of 10,000
      rows and a delete of 50,000; the pruned search timed at M=10,000 and
      M=16 beside the same corpus with ``cluster="off"``, the ``"h100"``
-     profile's prediction of each and the peak device memory.  The pruned
+     profile's prediction of each and the peak device memory.  The indexes
+     are built with ``profile="a100"``, which keeps the reference's
+     decision (the card's own profile vetoes the pruned scan).  The pruned
      scan is plain PyTorch (the reference has no Pallas kernel there), so
-     its path must launch no kernel and call no plain version.
+     its path must launch no kernel and call no plain version;
+ 13. serving at the Sift1M shape, for the f32 tier, int8 and f32 at bf16
+     compute: ``SearchServer(index, warmup=True)`` captures one CUDA graph
+     per bucket (the ladder, the captures and each bucket's warm-up and
+     capture seconds printed; each graph must hold the path's scan and
+     merge once and no plain version); a seeded stream of 200 requests of
+     1-64 rows, each with its own k, on a virtual clock, every ticket
+     bit-equal to a direct ``Index.search`` of its rows and every batch a
+     graph replay; at M=16 an eager call, a replay with its host round
+     trip, a served request from submit to result and the card's queued
+     time; a transient fault at ``serve.dispatch`` retried to the clean
+     result; then four threads sending 2,000 requests on the wall clock,
+     with an add of 10,000 rows (growth: recapture) and a delete of 50,000
+     under ``server.mutation()`` midway: QPS, occupancy, p50 and p99,
+     replays against batches, recaptures, and every request after the
+     mutation bit-equal to a direct search;
+ 14. snapshots: a card index (f32 and int8, with and without cluster
+     tables) saved and restored on the card, searching bit for bit the
+     same with no build work at restore, and an index written on the CPU
+     restored on the card.
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
@@ -735,8 +758,8 @@ def time_form(prk, testing, db, q, storage, results, empty_ms, merge_rows):
 
     def counts(name):
         """Main-path launches and plain calls, and the share of indices
-        equal to the plain version's in phases 3 and 7 (the rest are near
-        ties)."""
+        equal to the plain version's in the kernel comparisons (the rest
+        are near ties)."""
         return dict(launches=results["launches"].get(name, 0),
                     plain_calls=results["plain_calls"].get(name, 0),
                     index_agreement=results["index_agreement"][name])
@@ -1236,39 +1259,52 @@ def time_one_pass(prk, db, q, storage, results, empty_ms):
 
 
 def phase_clusters_gaussian(prk, data, results):
-    """Phase 11: ``cluster="auto"`` on the Sift1M Gaussian data.  The
-    planner enables pruning; the build's miss check must drop the tables,
-    and the search must equal ``cluster="off"`` bit for bit."""
-    from repro_torch.search import Index, cluster
+    """Phase 11 (C3): the default build (``cluster="auto"``) on the Sift1M
+    Gaussian data beside ``cluster="off"``.  The crossover enables pruning,
+    the ``"h100"`` profile must veto it (the pruned scan priced at least
+    as high as the dense one; both times printed), the build must run no
+    k-means (no cluster timings, no tables, no miss check) and the search
+    must equal ``cluster="off"`` bit for bit."""
+    from repro_torch.search import Index
 
     db, q = data[:2]
     kw = dict(metric=SIFT["metric"], k=K, recall_target=TARGET)
+
+    def timed(**extra):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = Index.build(db, **kw, **extra)
+        torch.cuda.synchronize()
+        return index, time.perf_counter() - t0
+
     prk.reset_counts()
-    t0 = time.perf_counter()
-    auto = Index.build(db, **kw)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    cp = auto.kernel_plan.cluster
-    pk = auto.pack()
-    off = Index.build(db, cluster="off", **kw)
+    timed(cluster="off")  # the allocator's first growth, outside the times
+    off, off_s = timed(cluster="off")
+    auto, build_s = timed()
+    cp, pk = auto.kernel_plan.cluster, auto.pack()
+    veto = auto.kernel_plan.cluster_veto
+    block = auto.explain()["cluster"]
+    out = dict(build_s=build_s, off_build_s=off_s, timings=auto.pack_timings,
+               veto=block, m=auto.kernel_plan.query_block,
+               plan=dict(num_clusters=cp.num_clusters, probes=cp.probes,
+                         scan_rows=cp.scan_rows, enabled=cp.enabled))
+    log(f"[sift1m gaussian] Index.build(db) {build_s:.3f} s, cluster=\"off\" "
+        f"{off_s:.3f} s (PR 18: 2.05 s against 0.03 s); cluster timings "
+        f"{auto.pack_timings}; h100 veto at the plan's batch "
+        f"{out['m']}: pruned {block.get('predicted_pruned_s')} s, dense "
+        f"{block.get('predicted_dense_s')} s")
+    if veto is None or cp.enabled or veto[0] < veto[1]:
+        fail(f"gaussian data: the h100 profile must veto pruning ({veto})")
+    if pk.cluster is not None or pk.cluster_rejected_miss is not None \
+            or auto.pack_timings:
+        fail("gaussian data: the default build ran k-means or the miss check")
     va, ia = auto.search(q)
     vo, io = off.search(q)
     torch.cuda.synchronize()
-    out = dict(build_s=build_s, timings=auto.pack_timings,
-               rejected_miss=pk.cluster_rejected_miss,
-               threshold=cluster.miss_check_threshold(cp.miss_budget),
-               plan=dict(num_clusters=cp.num_clusters, probes=cp.probes,
-                         scan_rows=cp.scan_rows, enabled=cp.enabled))
-    log(f"[sift1m gaussian, cluster=auto] plan {out['plan']}; build "
-        f"{build_s:.2f} s {auto.pack_timings}; cluster_rejected_miss "
-        f"{pk.cluster_rejected_miss} (threshold {out['threshold']})")
-    if not cp.enabled or pk.cluster is not None or pk.cluster_rejected_miss is None:
-        fail("gaussian data: the planner must enable pruning and the miss "
-             "check must drop the tables")
     if not (torch.equal(va, vo) and torch.equal(ia, io)):
-        fail("gaussian data: cluster=auto after the rejection is not "
-             "bit-identical to cluster=off")
-    log("[sift1m gaussian, cluster=auto] search bit-identical to cluster=off")
+        fail("gaussian data: the default build is not bit-identical to "
+             "cluster=off")
+    log("[sift1m gaussian] default search bit-identical to cluster=off")
     read_counts(prk, "cluster gaussian", ("f32",), results, two_pass=False)
     results["cluster_gaussian"] = out
     return out
@@ -1291,7 +1327,7 @@ def mixture_data(seed, n, d, m):
 
 def phase_clusters_mixture(prk, seed, results):
     """Phase 12 (see the module docstring).  Returns what it measured."""
-    from repro_torch.search import Index
+    from repro_torch.search import Index, plan_search
 
     db, q, extra, dead = mixture_data(seed, SIFT["n"], SIFT["d"], SIFT["m"])
     metric = SIFT["metric"]
@@ -1308,7 +1344,9 @@ def phase_clusters_mixture(prk, seed, results):
         kw = dict(metric=metric, k=K, recall_target=TARGET, storage=storage)
         prk.reset_counts()
         t0 = time.perf_counter()
-        index = Index.build(db, **kw)
+        # the "a100" profile keeps the reference's decision (the card's own
+        # vetoes the pruned scan), so the pruned path is measured here
+        index = Index.build(db, profile="a100", **kw)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         cp, cs = index.kernel_plan.cluster, index.pack().cluster
@@ -1340,15 +1378,23 @@ def phase_clusters_mixture(prk, seed, results):
             f"is XLA)")
         timed = {}
         off = Index.build(db, cluster="off", **kw)
-        for name, idx in (("pruned", index), ("off", off)):
+
+        def h100_ms(m, mode):
+            """The "h100" profile's price of the pruned path (kept) or of
+            the dense scan, at a batch of m."""
+            return 1e3 * plan_search(
+                n=index.capacity, d=SIFT["d"], k=K, m=m, metric=metric,
+                recall_target=TARGET, storage=storage, backend="cuda",
+                device="h100", cluster=mode, cluster_veto=False).predicted_s
+        for name, idx, mode in (("pruned", index, "auto"), ("off", off, "off")):
             torch.cuda.reset_peak_memory_stats()
             base_mem = torch.cuda.memory_allocated()
             timed[name] = dict(
                 ms=cuda_ms(lambda: idx.search(q), reps=3),
                 ms_m16=cuda_ms(lambda: idx.search(q[:16]), reps=20),
                 ms_m16_device=queued_ms(lambda: idx.search(q[:16]), reps=20),
-                predicted_ms=1e3 * idx.explain(m=q.shape[0])["predicted"]["wall_s"],
-                predicted_ms_m16=1e3 * idx.explain(m=16)["predicted"]["wall_s"],
+                predicted_ms=h100_ms(q.shape[0], mode),
+                predicted_ms_m16=h100_ms(16, mode),
                 peak_extra_bytes=torch.cuda.max_memory_allocated() - base_mem)
         _, io = off.search(q)
         timed["off"]["recall"] = recall(io, truth)
@@ -1377,6 +1423,350 @@ def phase_clusters_mixture(prk, seed, results):
                             spill_count=cs.spill_count, **timed)
         del index
     results["cluster_mixture"] = out
+    return out
+
+
+# Phase 13: the tiers served (storage, compute dtype, label)
+SERVE_TIERS = (("f32", None, "f32"), ("int8", None, "int8"),
+               ("f32", "bfloat16", "f32 at bf16 compute"))
+
+
+def served_requests(seed, count, d):
+    """A seeded stream of requests: 1-64 rows of unit-normal queries (host
+    f32), each with its own k of at most K."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((int(rng.integers(1, 65)), d), dtype=np.float32),
+             int(rng.integers(1, K + 1))) for _ in range(count)]
+
+
+def served_mismatches(index, pairs):
+    """(ticket results, queries, k) triples that differ from a direct
+    ``Index.search`` of the same rows in any bit."""
+    bad = []
+    for got, q, k in pairs:
+        direct = index.search(q)
+        if not (torch.equal(got.values, direct.values[:, :k].cpu())
+                and torch.equal(got.indices, direct.indices[:, :k].cpu())):
+            diff = float((got.values - direct.values[:, :k].cpu()).abs().max())
+            bad.append((q.shape[0], k, diff))
+    return bad
+
+
+def host_ms(fn, reps: int = 100) -> float:
+    """Median host wall time of ``fn()`` (which ends in a synchronize),
+    after three warm-up calls."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def serve_latency(index, server_cls, config_cls, q16):
+    """The four times of one M=16 search: an eager ``Index.search`` call
+    (CUDA events around one call, the host's Python included), a graph
+    replay with its host round trip (pinned copy in, replay, copy out,
+    synchronize), a served request from submit to result (a wall-clock
+    server with no coalescing window, one client), and the card's time of
+    replays queued back to back (and of eager searches)."""
+    q_dev = torch.as_tensor(q16, device="cuda")
+    graph = index.search_graph(16)
+    pinned = torch.as_tensor(q16).to(index.query_dtype).pin_memory()
+    out_v = torch.empty(graph.values.shape, dtype=graph.values.dtype,
+                        pin_memory=True)
+    out_i = torch.empty(graph.indices.shape, dtype=graph.indices.dtype,
+                        pin_memory=True)
+
+    def round_trip():
+        graph.queries.copy_(pinned, non_blocking=True)
+        index.replay_graph(graph)
+        out_v.copy_(graph.values, non_blocking=True)
+        out_i.copy_(graph.indices, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+
+    server = server_cls(index, config_cls(max_delay_s=0.0))
+    try:
+        served = host_ms(lambda: server.submit(q16).result(timeout=60))
+    finally:
+        server.close(timeout=60)
+    return dict(eager_ms=cuda_ms(lambda: index.search(q_dev), reps=51),
+                replay_round_trip_ms=host_ms(round_trip),
+                served_ms=served,
+                replay_queued_ms=queued_ms(lambda: index.replay_graph(graph)),
+                eager_queued_ms=queued_ms(lambda: index.search(q_dev)))
+
+
+def serve_wall_clock(index, data, server_cls, config_cls, label, seed):
+    """Four submitting threads send 2,000 requests of 1-64 rows (groups of
+    8 in flight each); after half of them, ``server.mutation()`` adds
+    10,000 rows (growth: every graph is recaptured) and deletes 50,000.
+    Requests submitted after the mutation must equal direct searches."""
+    import threading
+
+    import numpy as np
+
+    _, _, extra, dead = data
+    server = server_cls(index, config_cls())
+    captures0 = index.cache_info()["captures"]
+    per_thread, threads = 500, 4
+    done = [0]
+    lock = threading.Lock()
+    tickets, errors = [], []
+
+    def client(cid):
+        try:
+            reqs = served_requests(seed + 100 + cid, per_thread, SIFT["d"])
+            for s in range(0, per_thread, 8):
+                group = [(server.submit(q, k=k), q, k) for q, k in reqs[s:s + 8]]
+                for t, q, k in group:
+                    t.result(timeout=120)
+                with lock:
+                    tickets.extend(group)
+                    done[0] += len(group)
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    workers = [threading.Thread(target=client, args=(c,)) for c in range(threads)]
+    for w in workers:
+        w.start()
+    while done[0] < threads * per_thread // 2 and not errors \
+            and any(w.is_alive() for w in workers):
+        time.sleep(0.002)
+    with server.mutation():
+        index.add(extra)
+        index.delete(dead)
+    mutated_at = time.monotonic()
+    for w in workers:
+        w.join(300)
+    elapsed = time.perf_counter() - t0
+    server.close(timeout=60)
+    if errors or any(w.is_alive() for w in workers):
+        fail(f"[serve {label}] wall-clock run: {errors[:3]}")
+    after = [(t.result(), q, k) for t, q, k in tickets if t.submitted_at > mutated_at]
+    bad = served_mismatches(index, after)
+    lat = sorted(t.latency_s for t, _, _ in tickets)
+    st = server.stats()
+    info = index.cache_info()
+    out = dict(requests=len(tickets), rows=sum(q.shape[0] for _, q, _ in tickets),
+               seconds=elapsed, batches=st["batches"],
+               graph_replays=st["graph_replays"],
+               eager_batches=st["eager_batches"], occupancy=st["occupancy"],
+               p50_ms=1e3 * lat[len(lat) // 2],
+               p99_ms=1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+               recaptures=info["captures"] - captures0,
+               invalidations=info["invalidations"], checked_after=len(after))
+    out["qps"] = out["rows"] / elapsed
+    out["requests_per_s"] = out["requests"] / elapsed
+    log(f"[serve {label}] wall clock: {out['requests']} requests, "
+        f"{out['rows']} rows in {elapsed:.3f} s: {out['qps']:.0f} QPS "
+        f"({out['requests_per_s']:.0f} requests/s), p50 {out['p50_ms']:.3f} ms, "
+        f"p99 {out['p99_ms']:.3f} ms, occupancy {out['occupancy']:.3f}, "
+        f"graph_replays {out['graph_replays']} of {out['batches']} batches, "
+        f"recaptures {out['recaptures']} after the mutation (add 10000 + "
+        f"delete 50000); {len(after)} requests after it checked")
+    if bad:
+        fail(f"[serve {label}] {len(bad)} of {len(after)} requests after the "
+             f"mutation differ from direct searches: {bad[:5]}")
+    if out["graph_replays"] != out["batches"] or out["recaptures"] < 1:
+        fail(f"[serve {label}] graph replays {out['graph_replays']} of "
+             f"{out['batches']} batches, {out['recaptures']} recaptures")
+    return out
+
+
+def compare_bucket_kernels(prk, testing, index, buckets, label, seed, acc):
+    """Each kernel against its plain version at every bucket's shape: the
+    bucket's rows of seeded queries, prepared and cast as a search does,
+    over the index's packed operands (each bucket has its own split
+    plan)."""
+    import numpy as np
+
+    from repro_torch.search import get_metric
+
+    pk = index.pack()
+    ops = pk.operands()
+    scale = None if pk.storage == "f32" else ops[2]
+    rng = np.random.default_rng(seed)
+    for b in buckets:
+        q = torch.as_tensor(rng.standard_normal((b, index.dim), dtype=np.float32),
+                            device="cuda").to(index.query_dtype)
+        qm = get_metric(index.spec.metric).prepare_queries(q)
+        compare_kernels(prk, testing, f"serve {label} bucket M={b}", qm, ops[0],
+                        ops[1], pk.bin_size, index.k_scan, acc, scale=scale,
+                        int4_packed=pk.int4_packed)
+
+
+def phase_serve(prk, testing, data, results, seed, acc):
+    """Phase 13: ``SearchServer`` on the card at the Sift1M shape, one CUDA
+    graph per bucket, for the f32 tier, int8 and f32 at bf16 compute."""
+    import numpy as np
+
+    from repro_torch.search import (
+        DISPATCH_COUNTS,
+        Index,
+        SearchServer,
+        ServeConfig,
+        VirtualClock,
+    )
+    from repro_torch.search.faults import FaultInjector
+
+    db = data[0]
+    out = {}
+    for storage, dtype, label in SERVE_TIERS:
+        t_phase = time.perf_counter()
+        form, qparts = storage, 3
+        if dtype == "bfloat16":
+            form, qparts = "bf16" if storage == "f32" else storage, 1
+        prk.reset_counts()
+        DISPATCH_COUNTS.clear()
+        index = Index.build(db, metric=SIFT["metric"], k=K, recall_target=TARGET,
+                            storage=storage, dtype=dtype)
+        server = SearchServer(index, clock=VirtualClock(), warmup=True)
+        graphs = {b: index.search_graph(b) for b in server.buckets}
+        row = dict(buckets=list(server.buckets),
+                   capture_s={str(b): v for b, v in server.capture_s.items()},
+                   captures=index.cache_info()["captures"],
+                   capture_launches={str(b): g.launches for b, g in graphs.items()})
+        log(f"[serve {label}] ladder {server.buckets}, captures "
+            f"{row['captures']}, warm-up + capture s per bucket "
+            + ", ".join(f"{b}: {v:.3f}" for b, v in server.capture_s.items()))
+        want = names_of(form, qparts)[:2]
+        for b, g in graphs.items():
+            if g.plain_calls or any(g.launches.get(n, 0) != 1 for n in want):
+                fail(f"[serve {label}] the graph of bucket {b} holds "
+                     f"{g.launches} (plain {g.plain_calls}), not one of each of {want}")
+        log(f"[serve {label}] each graph holds {want} once")
+        # the path's launches: the warm-up and capture (a replay passes no
+        # front end; the direct searches below are the checks')
+        read_counts(prk, f"serve {label} (warm-up and capture)", (form,),
+                    results, two_pass=False, qparts=qparts)
+        compare_bucket_kernels(prk, testing, index, server.buckets, label,
+                               seed + 2, acc)
+        # the virtual clock: a seeded stream, every ticket a direct search
+        reqs = served_requests(seed, 200, SIFT["d"])
+        tickets = []
+        for s in range(0, len(reqs), 10):
+            tickets += [(server.submit(q, k=k), q, k) for q, k in reqs[s:s + 10]]
+            server.run_until_idle()
+        st = server.stats()
+        bad = served_mismatches(index, [(t.result(), q, k) for t, q, k in tickets])
+        log(f"[serve {label}] virtual clock: {len(reqs)} requests in "
+            f"{st['batches']} batches ({st['graph_replays']} graph replays, "
+            f"{st['eager_batches']} eager), occupancy {st['occupancy']:.3f}; "
+            f"{len(reqs) - len(bad)} of {len(reqs)} bit-equal to direct searches")
+        if bad:
+            fail(f"[serve {label}] served results differ from direct searches "
+                 f"(rows, k, max |diff|): {bad[:5]}")
+        if st["graph_replays"] != st["batches"]:
+            fail(f"[serve {label}] {st['graph_replays']} replays for "
+                 f"{st['batches']} batches")
+        row["virtual"] = dict(requests=len(reqs), batches=st["batches"],
+                              graph_replays=st["graph_replays"],
+                              occupancy=st["occupancy"])
+        q16 = np.random.default_rng(seed + 1).standard_normal(
+            (16, SIFT["d"]), dtype=np.float32)
+        row["m16"] = serve_latency(index, SearchServer, ServeConfig, q16)
+        m16 = row["m16"]
+        log(f"[serve {label}] M=16: eager call {m16['eager_ms']:.4f} ms, graph "
+            f"replay + host round trip {m16['replay_round_trip_ms']:.4f} ms, "
+            f"served request {m16['served_ms']:.4f} ms, card time queued: "
+            f"replay {m16['replay_queued_ms']:.4f} ms, eager "
+            f"{m16['eager_queued_ms']:.4f} ms")
+        # a transient fault at serve.dispatch: the retry gives the clean result
+        inj = FaultInjector(schedule=[("serve.dispatch", 1, "transient")])
+        faulty = SearchServer(index, clock=VirtualClock(), faults=inj)
+        got = faulty.submit(q16).result()
+        fs = faulty.stats()
+        if served_mismatches(index, [(got, q16, K)]) or \
+                (fs["transient_faults"], fs["dispatch_retries"]) != (1, 1):
+            fail(f"[serve {label}] the retried dispatch differs or was not "
+                 f"retried once: {fs['transient_faults']} faults, "
+                 f"{fs['dispatch_retries']} retries")
+        log(f"[serve {label}] transient fault at serve.dispatch: retried once, "
+            f"result bit-equal to a direct search")
+        row["wall"] = serve_wall_clock(index, data, SearchServer, ServeConfig,
+                                       label, seed)
+        row["dispatches"] = dict(DISPATCH_COUNTS)
+        row["seconds"] = time.perf_counter() - t_phase
+        log(f"[serve {label}] phase {row['seconds']:.1f} s")
+        out[label] = row
+        del index, server, faulty, graphs
+    results["serve"] = out
+    return out
+
+
+def phase_snapshots(prk, seed, results):
+    """Phase 14: snapshots on the card.  A card index of a mixture corpus
+    (N=100,000, D=128, l2), f32 and int8, with cluster tables (the
+    ``"a100"`` profile keeps them) and without (the default), saved and
+    restored on the card: the same tables and the same search bits, and
+    no preparation, quantization or k-means at restore; then a snapshot
+    the port wrote on the CPU restored on the card, searching as the CPU
+    index does (the kernels against the plain versions: the shared
+    tie-aware helper)."""
+    import tempfile
+
+    from repro_torch.search import PACK_EVENTS, Index
+    from repro_torch.testing import assert_topk_close
+
+    db, q, _, _ = mixture_data(seed, 100_000, SIFT["d"], 500)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for storage in ("f32", "int8"):
+            for profile, tables in ((None, False), ("a100", True)):
+                label = f"{storage} {'with' if tables else 'without'} tables"
+                index = Index.build(db, metric=SIFT["metric"], k=K,
+                                    recall_target=TARGET, storage=storage,
+                                    profile=profile)
+                if (index.pack().cluster is not None) != tables:
+                    fail(f"[snapshot {label}] tables {index.pack().cluster}")
+                v, i = index.search(q)
+                t0 = time.perf_counter()
+                path = index.save(f"{tmp}/{storage}-{tables}")
+                save_s = time.perf_counter() - t0
+                PACK_EVENTS.clear()
+                t0 = time.perf_counter()
+                back = Index.restore(path)
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+                rv, ri = back.search(q)
+                if dict(PACK_EVENTS) != {"restore": 1}:
+                    fail(f"[snapshot {label}] restore did build work: "
+                         f"{dict(PACK_EVENTS)}")
+                if tables and not all(torch.equal(getattr(back.pack().cluster, n),
+                                                  getattr(index.pack().cluster, n))
+                                      for n in ("centroids", "cluster_rows",
+                                                "spill_rows")):
+                    fail(f"[snapshot {label}] restored tables differ")
+                if not (torch.equal(v, rv) and torch.equal(i, ri)):
+                    fail(f"[snapshot {label}] restored search differs")
+                out[label] = dict(save_s=save_s, restore_s=restore_s)
+                log(f"[snapshot {label}] save {save_s:.3f} s, restore on the "
+                    f"card {restore_s:.3f} s, search bit-equal")
+                del index, back
+        cpu = Index.build(db[:20_000].cpu(), metric=SIFT["metric"], k=K,
+                          storage="int8", cluster="off", device="cpu")
+        path = cpu.save(f"{tmp}/cpu")
+        PACK_EVENTS.clear()
+        prk.reset_counts()
+        card = Index.restore(path)
+        v, i = card.search(q[:200])
+        torch.cuda.synchronize()
+        cv, ci = cpu.search(q[:200].cpu())
+        assert_topk_close(cv.numpy(), ci.numpy(), v.cpu().numpy(), i.cpu().numpy())
+        if dict(PACK_EVENTS) != {"restore": 1} or card.device.type != "cuda" \
+                or not prk.LAUNCHES:
+            fail(f"[snapshot cpu -> card] {dict(PACK_EVENTS)}, "
+                 f"{dict(prk.LAUNCHES)}")
+        log(f"[snapshot cpu -> card] an int8 index written on the CPU restored on "
+            f"the card: its kernels {dict(prk.LAUNCHES)}, search agrees with the "
+            f"CPU's")
+    results["snapshots"] = out
     return out
 
 
@@ -1521,11 +1911,20 @@ def main(argv=None) -> int:
     clusters = {"gaussian": phase_clusters_gaussian(prk, sift, results)}
     del sift, db, q
     clusters["mixture"] = phase_clusters_mixture(prk, args.seed + 7, results)
+    # phase 13: serving, one CUDA graph per bucket; phase 14: snapshots
+    serve = phase_serve(prk, testing, make_data(SIFT, args.seed), results,
+                        args.seed, acc)
+    snapshots = phase_snapshots(prk, args.seed + 9, results)
     for k in kernels:
         for key in ("launches", "plain_calls"):
             k[key] = results[key].get(k["name"], 0)
+        if k["name"] in acc["errs"]:  # phase 13's bucket shapes included
+            k["max_abs_err"] = acc["errs"][k["name"]]
+            k["index_agreement"] = (acc["agree"][k["name"]]
+                                    / max(acc["total"][k["name"]], 1))
     log(json.dumps({"planner": planner}))
     log(json.dumps({"clusters": clusters}))
+    log(json.dumps({"serve": serve, "snapshots": snapshots}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -58,7 +58,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import partial_reduce_ref
 from repro_torch.search.quant import unpack_int4_rows
-from repro_torch.search.telemetry import AtomicCounter
+from repro_torch.search import telemetry
 
 __all__ = [
     "BLOCK_M",
@@ -117,8 +117,17 @@ _SCALED_FORMS = ("int8", "int4")
 
 _MASK = float(np.finfo(np.float32).min)  # stages.MASK_VALUE
 
-LAUNCHES = AtomicCounter()
-PLAIN_CALLS = AtomicCounter()
+LAUNCHES = telemetry.AtomicCounter()
+PLAIN_CALLS = telemetry.AtomicCounter()
+telemetry.registry().register_counter_dict(
+    "repro_kernel_launches_total", LAUNCHES, "kernel",
+    "CUDA kernel launches by kernel and stored form (a graph capture "
+    "counts its kernels once; its replays do not)",
+)
+telemetry.registry().register_counter_dict(
+    "repro_kernel_plain_calls_total", PLAIN_CALLS, "kernel",
+    "calls of the kernels' plain PyTorch versions (CPU tensors)",
+)
 
 
 def reset_counts() -> None:

@@ -22,14 +22,19 @@ in the internal max convention and negate once for distance metrics:
     the same names): the probed clusters' rows gathered and scored, the
     bins planned for the scanned slots.  The reference runs this path
     outside any Pallas kernel (an XLA gather and ``einsum``), and so does
-    the port (a gather and ``bmm``), in query chunks whose gathered rows
-    fit ``GATHER_BUDGET_BYTES``.
+    the port (a gather and a dot in a fixed order, ``stages.dot_rows``),
+    in query chunks whose gathered rows fit ``GATHER_BUDGET_BYTES``.
 
-``DISPATCH_COUNTS`` counts searches issued per backend by ``Index``.
+``DISPATCH_COUNTS`` counts searches issued per backend by ``Index``, and
+the replays of a captured search (one a served batch).
+
+:class:`GraphCache` is the GPU form of the reference's ``CompileCache``:
+one ``torch.cuda.CUDAGraph`` per query-block shape of an index's search
+(:class:`SearchGraph`), replayed with one host call.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -47,11 +52,13 @@ from repro_torch.search.stages import (
     score_rows,
     sentinelize_masked,
 )
-from repro_torch.search.telemetry import AtomicCounter
+from repro_torch.search import telemetry
 
 __all__ = [
     "DISPATCH_COUNTS",
     "GATHER_BUDGET_BYTES",
+    "GraphCache",
+    "SearchGraph",
     "cluster_search",
     "cluster_search_quant",
     "cuda_search_packed",
@@ -61,8 +68,13 @@ __all__ = [
     "dense_search_quant",
 ]
 
-# backend name -> searches issued by Index (one per query block).
-DISPATCH_COUNTS = AtomicCounter()
+# backend name -> searches issued by Index (one per query block) and
+# replays of a captured search.
+DISPATCH_COUNTS = telemetry.AtomicCounter()
+telemetry.registry().register_counter_dict(
+    "repro_dispatches_total", DISPATCH_COUNTS, "backend",
+    "device dispatches per backend (one per coalesced batch)",
+)
 
 # The pruned scan gathers (m, S, d_pad) rows widened to f32 for a chunk of
 # m queries; the chunks are cut so that this block stays under 1 GiB (at
@@ -74,6 +86,105 @@ def default_backend(device) -> str:
     """Resolve backend="auto": the CUDA kernels for a CUDA device, the
     plain PyTorch path otherwise."""
     return "cuda" if torch.device(device).type == "cuda" else "torch"
+
+
+class SearchGraph:
+    """One captured search: a CUDA graph that reads the static query block
+    ``queries`` (M, D) in the compute dtype and writes the static
+    ``values`` and ``indices`` (M, k).  ``launches`` and ``plain_calls``
+    are what the kernels' counters (``kernels.partial_reduce.LAUNCHES``,
+    ``PLAIN_CALLS``) gained while it was captured: the kernels the graph
+    holds."""
+
+    def __init__(self, graph, queries: torch.Tensor, values: torch.Tensor,
+                 indices: torch.Tensor, launches: dict, plain_calls: dict):
+        self.graph = graph
+        self.queries = queries
+        self.values = values
+        self.indices = indices
+        self.launches = launches
+        self.plain_calls = plain_calls
+
+
+def capture_search(search: Callable[[torch.Tensor], Tuple[torch.Tensor, ...]],
+                   m: int, d: int, dtype: torch.dtype,
+                   device: torch.device) -> SearchGraph:
+    """Capture ``search`` on an (m, d) block of ``dtype`` rows.
+
+    One eager call first, on a side stream (it builds and loads the
+    kernels' library and sets their shared-memory attributes, which a
+    capture must not do), then the capture.  A capture that fails raises:
+    nothing falls back to eager dispatch.  ``thread_local`` capture
+    leaves other threads (submitters, a mutation) free to call CUDA."""
+    queries = torch.zeros((m, d), dtype=dtype, device=device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        search(queries)
+    torch.cuda.current_stream(device).wait_stream(side)
+    before = (dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        values, indices = search(queries)
+
+    def gained(counter, old):
+        return {k: v - old.get(k, 0) for k, v in counter.items()
+                if v != old.get(k, 0)}
+    return SearchGraph(graph, queries, values, indices,
+                       gained(kernels.LAUNCHES, before[0]),
+                       gained(kernels.PLAIN_CALLS, before[1]))
+
+
+class GraphCache:
+    """Captured searches of one index, keyed by the block's shape and the
+    operands the graphs read (the GPU form of the reference's
+    ``CompileCache``).
+
+    ``get(signature, m, dtype, capture)`` returns the graph of an (m, D)
+    block of ``dtype`` queries, capturing it with ``capture()`` on a miss.
+    ``signature`` holds the ``data_ptr()`` of every operand a graph reads
+    and the statics baked into it (``k_scan``, ``n``, ``bin_size``): a
+    mutation that reallocates or rebinds any of them gives a new
+    signature, which drops every graph of the old one (after a device
+    synchronize: a replay in flight may still read them), so the next
+    batch recaptures.  A patch made in place keeps the graphs.
+    ``info()`` has the reference's ``hits``/``misses``/``entries`` and the
+    ``captures``, ``replays`` and ``invalidations`` of the graphs.
+    """
+
+    def __init__(self):
+        self._graphs: Dict[tuple, SearchGraph] = {}
+        self._signature: Optional[tuple] = None
+        self.hits = self.misses = self.captures = 0
+        self.replays = self.invalidations = 0
+
+    def get(self, signature: tuple, m: int, dtype: torch.dtype,
+            capture: Callable[[], SearchGraph]) -> SearchGraph:
+        if signature != self._signature:
+            if self._graphs:
+                torch.cuda.synchronize()
+                self._graphs.clear()
+                self.invalidations += 1
+            self._signature = signature
+        key = (m, dtype)
+        entry = self._graphs.get(key)
+        if entry is None:
+            self.misses += 1
+            entry = self._graphs[key] = capture()
+            self.captures += 1
+        else:
+            self.hits += 1
+        return entry
+
+    def replay(self, entry: SearchGraph) -> None:
+        """Launch ``entry``'s captured work on the current stream."""
+        entry.graph.replay()
+        self.replays += 1
+
+    def info(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "entries": len(self._graphs), "captures": self.captures,
+                "replays": self.replays, "invalidations": self.invalidations}
 
 
 def dense_search(

@@ -28,29 +28,48 @@ caller asks for ``device="cpu"``.
 The kernel plan (``repro_torch.search.plan``) comes from the
 performance model (``plan="model"``), from a short timed sweep
 (``plan="measure"``) or from a ``Plan`` the caller passes;
-``kernel_plan`` holds it and ``explain()`` reports it.
+``kernel_plan`` holds it and ``explain()`` reports it.  Where the
+``"h100"`` profile vetoes the cluster plan, the build runs no k-means,
+and every later re-plan (growth, ``explain(m=...)``, a server's
+prediction per bucket) keeps that decision.
 
 On a CUDA device the ``"cuda"`` backend searches any number of queries
 with a fixed number of kernel launches.  The plain paths — the
 ``"torch"`` backend anywhere, and the ``"cuda"`` backend's plain kernel
 versions on the CPU — stream queries in ``spec.query_block`` blocks to
-bound their (query_block, N) score tile.
+bound their (query_block, N) score tile.  On a CUDA device
+``search_graph(m)`` captures one search of an (m, D) block as a CUDA
+graph (``backends.GraphCache``); ``SearchServer`` replays those, and
+``search`` itself stays eager.
+
+``save``/``restore`` write and read crash-safe snapshots in the
+reference's format (``repro_torch.checkpoint``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.binning import BinPlan, plan_bins, round_up
-from repro_torch.search import backends, packed as packedlib, quant
+from repro_torch.search import backends, faults, packed as packedlib, quant
 from repro_torch.search import plan as planlib
+from repro_torch.search import telemetry
 from repro_torch.search.metrics import Metric, get_metric
 from repro_torch.search.spec import SearchSpec
 
-__all__ = ["Index", "SearchResult"]
+__all__ = ["Index", "SNAPSHOT_FORMAT", "SNAPSHOT_VERSION", "SearchResult"]
+
+# The reference's snapshot stamp: either package restores the other's.
+SNAPSHOT_FORMAT = "repro.search.index"
+SNAPSHOT_VERSION = 1
+
+# Backend names in a snapshot's spec: the reference's, both ways.
+_REFERENCE_BACKEND = {"auto": "auto", "torch": "xla", "cuda": "pallas"}
+_PORT_BACKEND = {"auto": "auto", "xla": "torch", "pallas": "cuda"}
 
 class SearchResult(NamedTuple):
     """(values, indices), both (M, k); value conventions per the metric
@@ -58,6 +77,17 @@ class SearchResult(NamedTuple):
 
     values: torch.Tensor
     indices: torch.Tensor
+
+
+def _cluster_pin(plan: planlib.Plan) -> Optional[bool]:
+    """An index's cluster decision read off its kernel plan: True where
+    the ``"h100"`` model vetoed the crossover's plan, False where the plan
+    stands, None where no plan was enabled to price."""
+    if plan.cluster_veto is not None:
+        return True
+    if plan.cluster is not None and plan.cluster.enabled:
+        return False
+    return None
 
 
 def _resolve_device(device) -> torch.device:
@@ -97,6 +127,11 @@ class Index:
         self._kernel_plan = kernel_plan
         self._packed: Optional[packedlib.PackedState] = None
         self._k_scan: Optional[int] = None  # bound with the packed state
+        # The build's cluster decision, kept by every re-plan (the veto
+        # depends on the batch, the tables do not): True vetoed, False
+        # kept, None never priced (cluster="off", below the crossover).
+        self._cluster_vetoed = _cluster_pin(kernel_plan)
+        self._graphs = backends.GraphCache()
         # seconds of the last full pack's cluster steps (k-means, the host
         # assignment loop, the miss check) and the sampled miss rate
         self.pack_timings: dict = {}
@@ -301,7 +336,7 @@ class Index:
             backend=pin_from.backend, device=pin_from.device,
             reduction_input_size_override=spec.reduction_input_size_override,
             storage=spec.storage, rescore=spec.rescore_enabled,
-            cluster=spec.cluster,
+            cluster=spec.cluster, cluster_veto=self._cluster_vetoed,
             block_m=pin_from.block_m, max_block_n=pin_from.block_n,
             query_block=pin_from.query_block,
         )
@@ -400,6 +435,14 @@ class Index:
         out = {"mode": self.spec.cluster, "enabled": cp is not None}
         if cp is None and plan.cluster is not None:
             out["predicted_speedup"] = plan.cluster.predicted_speedup
+        if cp is None and plan.cluster_veto is not None:
+            # the card's model prices the pruned scan at least as high as
+            # the dense one at this batch
+            out.update({
+                "vetoed_by": "h100_cost_model",
+                "predicted_pruned_s": plan.cluster_veto[0],
+                "predicted_dense_s": plan.cluster_veto[1],
+            })
         rejected = (self._packed.cluster_rejected_miss
                     if self._packed is not None else None)
         if cp is None and rejected is not None:
@@ -497,10 +540,16 @@ class Index:
         return self._search_stream(queries)
 
     def _search_block(self, q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One dispatch: :meth:`_search_ops`, counted in
+        ``DISPATCH_COUNTS``."""
+        backends.DISPATCH_COUNTS.inc(self._resolve_backend())
+        return self._search_ops(q)
+
+    def _search_ops(self, q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The search of one query block (what a search graph captures)."""
         backend = self._resolve_backend()
         pk = self.pack()
         spec = self.spec
-        backends.DISPATCH_COUNTS.inc(backend)
         operands = (q, pk.db, pk.bias, pk.scale, pk.rescore_db, pk.rescore_bias)
         common = dict(metric=spec.metric, k=spec.k, k_scan=self._k_scan,
                       aggregate_to_topk=spec.aggregate_to_topk,
@@ -526,6 +575,69 @@ class Index:
             int4_packed=pk.int4_packed, **common,
         )
 
+    @property
+    def query_dtype(self) -> torch.dtype:
+        """The dtype a search computes its queries in (``spec.dtype``)."""
+        return getattr(torch, self.spec.dtype or "float32")
+
+    def search_graph(self, m: int) -> backends.SearchGraph:
+        """The CUDA graph of one search of an (m, D) block of
+        ``query_dtype`` rows, captured at its first use
+        (``backends.capture_search``): copy queries into its ``queries``,
+        replay it with ``replay_graph``, read ``values``/``indices``.  A
+        mutation that reallocates an operand the graph reads (growth, a
+        re-bound ``k_scan``, a recluster, a full re-pack) makes the next
+        call recapture; a patch in place (an add without growth, a
+        delete) keeps it.  Only on a CUDA device."""
+        if self.device.type != "cuda":
+            raise RuntimeError(
+                f"search graphs are CUDA graphs; this index is on {self.device}")
+        pk = self.pack()
+        signature = (self._k_scan, pk.n, pk.bin_size) + tuple(
+            (t.data_ptr(), tuple(t.shape)) for t in pk.operands()
+            if t is not None)
+        dtype = self.query_dtype
+        return self._graphs.get(
+            signature, m, dtype,
+            lambda: backends.capture_search(self._search_ops, m, self.dim,
+                                            dtype, self.device))
+
+    def replay_graph(self, graph: backends.SearchGraph) -> None:
+        """Replay a graph of :meth:`search_graph` on the current stream:
+        one dispatch (``DISPATCH_COUNTS``) and one ``replays`` in
+        ``cache_info()``."""
+        backends.DISPATCH_COUNTS.inc(self._resolve_backend())
+        self._graphs.replay(graph)
+
+    def cache_info(self) -> dict:
+        """The search graphs' counters (``backends.GraphCache.info``): the
+        reference's ``hits``/``misses``/``entries``, and ``captures``,
+        ``replays`` and ``invalidations``; zero entries on the CPU."""
+        return self._graphs.info()
+
+    def telemetry(self) -> dict:
+        """One JSON-serializable telemetry snapshot, index gauges included.
+
+        Refreshes this index's gauges in the process-global registry
+        (size, capacity, ``expected_recall`` and ``expected_recall_live``,
+        labeled by backend, storage and cluster), then returns
+        ``telemetry.export_json()``."""
+        reg = telemetry.registry()
+        labels = {
+            "backend": self._resolve_backend(),
+            "storage": self.spec.storage,
+            "cluster": (
+                "on" if self._cluster_plan_in_effect() is not None else "off"
+            ),
+        }
+        reg.set_gauge("repro_index_size", self.size, **labels)
+        reg.set_gauge("repro_index_capacity", self.capacity, **labels)
+        reg.set_gauge("repro_index_expected_recall", self.expected_recall,
+                      **labels)
+        reg.set_gauge("repro_index_expected_recall_live",
+                      self.expected_recall_live, **labels)
+        return telemetry.export_json()
+
     def _search_stream(self, queries: torch.Tensor) -> SearchResult:
         """The plain paths' executor: one ``_search_block`` per
         ``query_block`` rows (each result row depends on its query only)."""
@@ -547,6 +659,7 @@ class Index:
         existing rows.  The scan's k is bound anew on growth and whenever
         the bound value is below the uncapped over-fetch.
         """
+        faults.fire("index.add")  # before any state changes: all or nothing
         rows = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
         rows = torch.atleast_2d(rows)
         if rows.ndim != 2 or rows.shape[1] != self.dim:
@@ -580,6 +693,8 @@ class Index:
             p = self._kernel_plan
             self._kernel_plan = self._replan(n=new_cap, m=p.m or None,
                                              pin_from=p)
+            # an index that grew past the crossover is priced now
+            self._cluster_vetoed = _cluster_pin(self._kernel_plan)
         self._db[self._size : required] = rows
         self._live[self._size : required] = True
         if self._packed is not None:
@@ -597,7 +712,8 @@ class Index:
         if pk is not None and pk.cluster is not None \
                 and pk.cluster.needs_recluster:
             # The lazy recluster: the spill block grew past the planner's
-            # threshold, so the tables are rebuilt for the current capacity.
+            # threshold, so the tables are rebuilt for the current capacity
+            # (a vetoed index has no tables to rebuild).
             cplan = planlib.plan_clusters(
                 n=self.capacity,
                 k_scan=packedlib.scan_k_for(self.spec, self.capacity),
@@ -611,6 +727,7 @@ class Index:
         """Tombstone rows by index (their ids never appear in later
         results).  Repeated ids count once; ids outside the capacity
         raise."""
+        faults.fire("index.delete")  # before any patch: all or nothing
         ids = torch.as_tensor(ids, dtype=torch.int64, device=self.device).reshape(-1)
         if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= self.capacity):
             raise IndexError(
@@ -624,3 +741,107 @@ class Index:
         if self._packed is not None:
             self._packed.delete_rows(ids)
         return self
+
+    # -- crash-safe snapshots ------------------------------------------------
+
+    def save(self, path: str) -> str:
+        """Write a crash-safe snapshot directory; returns the committed path.
+
+        The raw database and live mask and the packed state — stored rows,
+        fused bias, scale, rescore tail, cluster tables — through
+        ``repro_torch.checkpoint.save_snapshot`` (tmp dir, fsync, atomic
+        rename), in the reference's format: its ``META.json`` stamp and
+        array names, its backend names in the spec, and its layout
+        (``packed.snapshot_state``), so ``repro.search.Index.restore``
+        reads it wherever the layouts agree.  :meth:`restore` re-runs no
+        preparation, quantization or k-means.
+        """
+        from repro_torch.checkpoint.checkpoint import save_snapshot
+
+        faults.fire("index.save")
+        telemetry.registry().inc("repro_snapshot_saves_total")
+        pk = self.pack()
+        arrays, pk_meta = packedlib.snapshot_state(pk)
+        arrays["db"] = self._db
+        arrays["live"] = self._live
+        spec = self.spec.to_json_dict()
+        spec["backend"] = _REFERENCE_BACKEND[spec["backend"]]
+        meta = {
+            "format": SNAPSHOT_FORMAT,
+            "version": SNAPSHOT_VERSION,
+            "spec": spec,
+            "size": self._size,
+            "num_live": self.size,
+            "capacity_block": self._capacity_block,
+            "packed": pk_meta,
+        }
+        return save_snapshot(path, arrays, meta)
+
+    @classmethod
+    def restore(cls, path: str, *, device=None) -> "Index":
+        """Load a snapshot written by :meth:`save` or by the reference's
+        ``Index.save`` onto ``device`` (default ``"cuda"``, as ``build``).
+
+        No preparation, quantization or k-means runs: the stored arrays
+        are laid out for the port's backend (``packed.state_from_arrays``;
+        a pallas-layout int4 database is unpacked and re-laid out).  The
+        spec's tiles become the port's fixed 128 x 128, and the kernel
+        plan is the model's for the device's profile, its cluster decision
+        pinned to the restored tables.
+
+        >>> import os, tempfile, torch
+        >>> idx = Index.build(torch.eye(32), metric="mips", k=2, device="cpu")
+        >>> with tempfile.TemporaryDirectory() as d:
+        ...     _ = idx.save(os.path.join(d, "snap"))
+        ...     r = Index.restore(os.path.join(d, "snap"), device="cpu")
+        >>> r.size == idx.size
+        True
+        """
+        from repro_torch.checkpoint.checkpoint import load_snapshot
+
+        meta, arrays = load_snapshot(path)
+        if meta.get("format") != SNAPSHOT_FORMAT:
+            raise ValueError(
+                f"{path} is not an index snapshot "
+                f"(format={meta.get('format')!r})"
+            )
+        if int(meta.get("version", 0)) > SNAPSHOT_VERSION:
+            raise ValueError(
+                f"snapshot version {meta['version']} is newer than this "
+                f"code's {SNAPSHOT_VERSION} — upgrade to restore it"
+            )
+        fields = dict(meta["spec"])
+        if fields["backend"] not in _PORT_BACKEND:
+            raise NotImplementedError(
+                f"backend={fields['backend']!r}: sharded indexes are not "
+                "ported yet (ROADMAP queue A item 11)"
+            )
+        fields["backend"] = _PORT_BACKEND[fields["backend"]]
+        fields["block_m"] = fields["max_block_n"] = None  # the fixed tiles
+        spec = SearchSpec.from_json_dict(fields)
+        device = _resolve_device(device)
+        pk = packedlib.state_from_arrays(arrays, meta["packed"], spec, device)
+        db = packedlib._tensor(arrays["db"], device).to(torch.float32)
+        live = packedlib._tensor(np.asarray(arrays["live"], bool), device)
+        plan_backend = (backends.default_backend(device)
+                        if spec.backend == "auto" else spec.backend)
+        kernel_plan = planlib.plan_search(
+            n=db.shape[0], d=db.shape[1], k=spec.k, metric=spec.metric,
+            recall_target=spec.recall_target, dtype=spec.dtype or "float32",
+            backend=plan_backend,
+            device=planlib.detect_device(None, device=device),
+            reduction_input_size_override=spec.reduction_input_size_override,
+            query_block=spec.query_block, storage=spec.storage,
+            rescore=spec.rescore_enabled, cluster=spec.cluster,
+            cluster_veto=False if pk.cluster is not None else None,
+        )
+        index = cls(
+            kernel_plan.to_spec(spec), db, live, size=int(meta["size"]),
+            num_live=int(meta["num_live"]),
+            capacity_block=int(meta["capacity_block"]),
+            kernel_plan=kernel_plan,
+        )
+        index._packed = pk
+        index._bind_k_scan()
+        telemetry.registry().inc("repro_snapshot_restores_total")
+        return index

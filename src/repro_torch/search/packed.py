@@ -56,7 +56,7 @@ from repro_torch.search.backends import default_backend
 from repro_torch.search.metrics import Metric
 from repro_torch.search.spec import SearchSpec
 from repro_torch.search.stages import MASK_VALUE
-from repro_torch.search.telemetry import AtomicCounter
+from repro_torch.search import telemetry
 
 __all__ = [
     "PACK_EVENTS",
@@ -65,13 +65,18 @@ __all__ = [
     "pack_state",
     "rebuild_cluster",
     "scan_k_for",
+    "snapshot_state",
     "state_from_arrays",
 ]
 
 # event name -> packing work performed ("full_pack", "relayout",
 # "rows_updated", "bias_patched", "restore", and on clustered layouts
 # "cluster_built", "cluster_rejected", "cluster_assigned", "recluster").
-PACK_EVENTS = AtomicCounter()
+PACK_EVENTS = telemetry.AtomicCounter()
+telemetry.registry().register_counter_dict(
+    "repro_pack_events_total", PACK_EVENTS, "event",
+    "packing/cluster/restore work performed (repro_torch.search.packed)",
+)
 
 
 def fuse_bias(
@@ -420,9 +425,55 @@ def rebuild_cluster(state: PackedState, live: Optional[torch.Tensor],
     PACK_EVENTS.inc("recluster")
 
 
-def _tensor(a: np.ndarray, device) -> torch.Tensor:
-    """A numpy array of a snapshot as a tensor; bf16 (which numpy knows
-    only through an extension type) travels as its 16-bit pattern."""
+# The reference's names of the two layouts: "xla" is the port's "torch"
+# layout (rows, bias and scale unpadded), "pallas" the padded kernel layout.
+REFERENCE_LAYOUT = {"torch": "xla", "cuda": "pallas"}
+
+
+def snapshot_state(state: PackedState) -> Tuple[dict, dict]:
+    """``(arrays, meta)`` of a PackedState for a snapshot, under the
+    reference's names (``snapshot_state`` of ``src/repro/search/packed.py``)
+    and in the layout the reference names there, so that either package
+    restores it: the ``"torch"`` layout is the reference's ``"xla"`` one,
+    and the ``"cuda"`` layout its ``"pallas"`` one, int4 re-padded to the
+    reference's 256 lanes (the port's own is 128).  The bin plan is not
+    stored: a restore re-plans it and checks the recorded ``bin_size``."""
+    db = state.db
+    if state.int4_packed:
+        codes = quant.unpack_int4_rows(db)
+        db = quant.pack_int4_rows(
+            F.pad(codes, (0, round_up(state.d, 256) - codes.shape[1])))
+    arrays = {"packed/db": db, "packed/bias": state.bias}
+    if state.scale is not None:
+        arrays["packed/scale"] = state.scale
+    if state.rescore_db is not None:
+        arrays["packed/rescore_db"] = state.rescore_db
+        arrays["packed/rescore_bias"] = state.rescore_bias
+    meta = {
+        "backend": REFERENCE_LAYOUT[state.backend],
+        "n": state.n,
+        "d": state.d,
+        "bin_size": state.bin_size,
+        "block_n": state.block_n,
+        "storage": state.storage,
+        "compute_dtype": state.compute_dtype,
+        "cluster_rejected_miss": state.cluster_rejected_miss,
+        "cluster": None,
+    }
+    if state.cluster is not None:
+        cl_arrays, cl_meta = clusterlib.snapshot_tables(state.cluster)
+        arrays.update(cl_arrays)
+        meta["cluster"] = cl_meta
+    return arrays, meta
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """An array of a snapshot (a tensor, or a numpy array; a numpy bf16 of
+    the reference's extension type travels as its 16-bit pattern) as a
+    tensor on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -430,10 +481,11 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 
 def state_from_arrays(arrays: dict, meta: dict, spec: SearchSpec,
                       device) -> PackedState:
-    """A PackedState from the reference's ``snapshot_state`` output.
+    """A PackedState from ``snapshot_state`` output (the reference's or
+    the port's).
 
-    ``arrays`` maps the snapshot's names to numpy arrays (the caller
-    converts), ``meta`` is the snapshot's layout record.  The counterpart
+    ``arrays`` maps the snapshot's names to numpy arrays or tensors,
+    ``meta`` is the snapshot's layout record.  The counterpart
     of the reference's ``restore_state``: no metric preparation, no
     quantization and no k-means — the saved stored rows (a pallas-layout
     int4 database unpacked to canonical codes), scale, fused bias, rescore
@@ -462,11 +514,13 @@ def state_from_arrays(arrays: dict, meta: dict, spec: SearchSpec,
             "the index"
         )
     device = torch.device(device)
-    db = _tensor(np.asarray(arrays["packed/db"]), device)
+    db = _tensor(arrays["packed/db"], device)
     scale = arrays.get("packed/scale")
     quant.validate_restored(storage, db.dtype, has_scale=scale is not None)
-    if storage == "f32" and db.dtype != torch.float32:
-        raise ValueError(f"packed/db is {db.dtype}, storage='f32' stores float32")
+    want = getattr(torch, spec.dtype or "float32")
+    if storage == "f32" and db.dtype != want:
+        raise ValueError(f"packed/db is {db.dtype}, storage='f32' stores "
+                         f"{want} rows for dtype={spec.dtype!r}")
     if storage == "int4" and meta["backend"] == "pallas":
         db = quant.unpack_int4_rows(db[:n])
     if db.shape[0] < n or db.shape[1] < d:
@@ -474,15 +528,13 @@ def state_from_arrays(arrays: dict, meta: dict, spec: SearchSpec,
             f"packed/db {tuple(db.shape)} does not hold {n} rows of {d}"
         )
     rows = db[:n, :d]
-    bias = _tensor(np.asarray(arrays["packed/bias"]).reshape(-1)[:n], device)
+    bias = _tensor(arrays["packed/bias"], device).reshape(-1)[:n]
     if scale is not None:
-        scale = _tensor(np.asarray(scale).reshape(-1)[:n], device)
+        scale = _tensor(scale, device).reshape(-1)[:n]
     rescore_db = rescore_bias = None
     if "packed/rescore_db" in arrays:
-        rescore_db = _tensor(np.asarray(arrays["packed/rescore_db"])[:n], device)
-        rescore_bias = _tensor(
-            np.asarray(arrays["packed/rescore_bias"]).reshape(-1)[:n], device
-        )
+        rescore_db = _tensor(arrays["packed/rescore_db"], device)[:n]
+        rescore_bias = _tensor(arrays["packed/rescore_bias"], device).reshape(-1)[:n]
     if (rescore_db is not None) != spec.rescore_enabled:
         raise ValueError(
             f"snapshot {'has' if rescore_db is not None else 'lacks'} a "

@@ -92,6 +92,15 @@ MIN_SERVE_BUCKET = 8
 CLUSTER_GATHER_PENALTY = 4.0
 CLUSTER_SPEEDUP_BAR = 2.0
 
+# The port's pruned scan (backends.cluster_search_quant) writes each
+# query's gathered rows as an (m, S, width) f32 block (4 bytes an element),
+# then scores it in a fixed order (stages.dot_rows): the products read it
+# and write a block (8), the halving adds read twice and write once what
+# they sum (12).  24 bytes a gathered element beyond the stored read that
+# the reference's cost counts (its XLA program fuses the gather into the
+# dot).
+_GATHER_COPY_BYTES = 24.0
+
 _DTYPE_BYTES = {
     "float32": 4, "bfloat16": 2, "float16": 2, "int8": 1,
     "float64": 8, "f32": 4, "bf16": 2,
@@ -166,9 +175,12 @@ class Plan:
 
     ``cluster``: None for ``cluster="off"``, else the
     ``cluster.ClusterPlan`` that ``cluster="auto"`` derived (``enabled``
-    False where the crossover rejected pruning); enabled, the prediction
-    is the pruned scan's and ``expected_recall`` the collision x miss
-    product.
+    False where the crossover rejected pruning, or where the ``"h100"``
+    profile vetoed it); enabled, the prediction is the pruned scan's and
+    ``expected_recall`` the collision x miss product.
+    ``cluster_veto``: ``(pruned_s, dense_s)``, the two predicted times,
+    where the ``"h100"`` profile dropped a plan the crossover enabled;
+    else None.
 
     ``source`` is ``"model"``, ``"measure"`` (refined by
     :func:`tune_plan`) or ``"user"`` (every tile field pinned).
@@ -211,6 +223,7 @@ class Plan:
     rescore: bool = False
     k_scan: int = 0
     cluster: Optional[clusterlib.ClusterPlan] = None
+    cluster_veto: Optional[Tuple[float, float]] = None
 
     @property
     def bin_size(self) -> int:
@@ -237,9 +250,10 @@ class Plan:
                                   self.bin_size, _H100_SMS, self.k_scan)[1]
 
     def to_spec(self, base: Optional[SearchSpec] = None) -> SearchSpec:
-        """A concrete ``SearchSpec`` from this plan; tile fields the
-        ``base`` spec already pins win over the plan.  (The reference also
-        fills ``serve_buckets``, which waits for the serving slice.)"""
+        """A concrete ``SearchSpec`` from this plan; fields the ``base``
+        spec already pins win over the plan, and ``serve_buckets``
+        defaults to the ladder of the ``query_block``
+        (:func:`plan_buckets`), as in the reference."""
         base = base or SearchSpec(
             metric=self.metric, k=self.k, recall_target=self.recall_target,
             backend=self.backend, storage=self.storage, rescore=self.rescore,
@@ -249,12 +263,16 @@ class Plan:
             block_m=base.block_m or self.block_m,
             max_block_n=base.max_block_n or self.block_n,
             query_block=base.query_block or self.query_block,
+            serve_buckets=base.serve_buckets
+            or plan_buckets(base.query_block or self.query_block),
         )
 
     def summary(self) -> dict:
         """Flat dict view (what ``Index.explain()`` embeds), with the
-        ``bin_size`` and the kernels' ``splits``."""
+        ``bin_size`` and the kernels' ``splits``; the reference's keys
+        (``cluster_veto`` is reported in ``explain()``'s cluster block)."""
         out = dataclasses.asdict(self)
+        del out["cluster_veto"]
         out["bin_size"] = self.bin_size
         out["splits"] = self.splits
         return out
@@ -373,6 +391,32 @@ def _cluster_cost(m: int, d: int, l: int, cp: clusterlib.ClusterPlan,
     return KernelCost(flops=flops, hbm_bytes=hbm, cops=cops)
 
 
+def _card_cluster_cost(m: int, d: int, l: int, cp: clusterlib.ClusterPlan,
+                       dtype_bytes: int, db_bytes: float,
+                       width: int) -> KernelCost:
+    """The pruned scan as the port runs it on the card: the reference's
+    cost (:func:`_cluster_cost`) plus the traffic of the gathered rows' f32
+    blocks of ``width`` lanes (``_GATHER_COPY_BYTES``)."""
+    cost = _cluster_cost(m, d, l, cp, dtype_bytes, db_bytes)
+    copy = _GATHER_COPY_BYTES * m * cp.scan_rows * width
+    return KernelCost(flops=cost.flops, hbm_bytes=cost.hbm_bytes + copy,
+                      cops=cost.cops)
+
+
+def _cluster_veto(pruned: KernelCost, dense: KernelCost, hw,
+                  pin: Optional[bool]) -> Optional[Tuple[float, float]]:
+    """The ``"h100"`` profile's decision on a cluster plan the crossover
+    enabled: ``(pruned_s, dense_s)``, the two predicted times, where the
+    plan is dropped; None where it stands.  ``pin`` is an index's decision
+    at build time, kept whatever the batch (True: dropped, False: kept);
+    None decides here: dropped where the pruned scan is priced at least
+    as high as the dense scan."""
+    pruned_s = pruned.flops / attainable_flops(pruned, hw)
+    dense_s = dense.flops / attainable_flops(dense, hw)
+    drop = pruned_s >= dense_s if pin is None else pin
+    return (pruned_s, dense_s) if drop else None
+
+
 def plan_buckets(
     max_batch: int, *, min_bucket: int = MIN_SERVE_BUCKET
 ) -> Tuple[int, ...]:
@@ -429,6 +473,7 @@ def plan_search(
     storage: str = "f32",
     rescore: Optional[bool] = None,
     cluster: str = "off",
+    cluster_veto: Optional[bool] = None,
 ) -> Plan:
     """Derive every kernel parameter analytically (Eq. 4–10, 13–14).
 
@@ -439,7 +484,15 @@ def plan_search(
     ``k_scan`` (``quant.scan_k``) the bins are planned for and add the
     exact rescore's cost.  ``cluster="auto"`` evaluates the pruned scan
     (:func:`plan_clusters`); ``"off"`` (the default, as in the reference)
-    never does.
+    never does.  On the ``"h100"`` profile a plan the crossover enables
+    is dropped where the card's price of the pruned scan is at least the
+    dense scan's at this batch (``Plan.cluster_veto`` holds both times);
+    ``cluster_veto`` pins that decision (an index's, made at build).
+
+    >>> v = plan_search(n=1_000_000, d=128, k=10, metric="l2",
+    ...                 backend="cuda", device="h100", cluster="auto")
+    >>> v.cluster.enabled, v.m, v.query_block, v.cluster_veto is not None
+    (False, 0, 16, True)
 
     >>> plan_search(n=64, d=7, k=4, device="cpu").d_pad
     128
@@ -484,21 +537,36 @@ def plan_search(
     qb = query_block or _plan_query_block(n)
     m_eff = m if m else qb
     expected = bins.expected_recall
-    if cplan is not None and cplan.enabled:
-        # the pruned gathered program replaces the scan on every backend
-        cost = _cluster_cost(m_eff, d, bins.num_bins, cplan, dbytes, sbytes)
-        expected = cplan.recall_decomposition(ks)["expected_recall"]
-    elif backend == "cuda":
+    extra = (_rescore_cost(m_eff, bins.num_bins, ks, d) if rescore_on
+             else KernelCost(flops=0.0, hbm_bytes=0.0, cops=0.0))
+
+    def with_rescore(c: KernelCost) -> KernelCost:
+        return KernelCost(flops=c.flops + extra.flops,
+                          hbm_bytes=c.hbm_bytes + extra.hbm_bytes,
+                          cops=c.cops + extra.cops)
+
+    if backend == "cuda":
         cost = _cuda_cost(m_eff, n, d, bins.bin_size, ks, storage, dbytes)
     else:
         cost = _dense_cost(m_eff, n, d, bins.num_bins, dbytes, sbytes)
-    if rescore_on:
-        extra = _rescore_cost(m_eff, bins.num_bins, ks, d)
-        cost = KernelCost(
-            flops=cost.flops + extra.flops,
-            hbm_bytes=cost.hbm_bytes + extra.hbm_bytes,
-            cops=cost.cops + extra.cops,
-        )
+    veto = None
+    if cplan is not None and cplan.enabled:
+        # the pruned gathered program replaces the scan on every backend
+        if device == "h100":
+            pruned = _card_cluster_cost(
+                m_eff, d, bins.num_bins, cplan, dbytes, sbytes,
+                d_pad if backend == "cuda" else d)
+            veto = _cluster_veto(with_rescore(pruned), with_rescore(cost), hw,
+                                 cluster_veto)
+        else:
+            pruned = _cluster_cost(m_eff, d, bins.num_bins, cplan, dbytes,
+                                   sbytes)
+        if veto is None:
+            cost = pruned
+            expected = cplan.recall_decomposition(ks)["expected_recall"]
+        else:
+            cplan = dataclasses.replace(cplan, enabled=False)
+    cost = with_rescore(cost)
     att = attainable_flops(cost, hw)
     predicted_s = cost.flops / att
     pinned = all(v is not None for v in (block_m, max_block_n, query_block))
@@ -516,6 +584,7 @@ def plan_search(
         source="user" if pinned else "model",
         reduction_input_size_override=reduction_input_size_override,
         storage=storage, rescore=rescore_on, k_scan=ks, cluster=cplan,
+        cluster_veto=veto,
     )
 
 
@@ -566,6 +635,7 @@ def _with_measured_tiles(plan: Plan, bm: int, bn: int, qb: int) -> Plan:
         block_m=bm, max_block_n=bn, query_block=qb,
         storage=plan.storage, rescore=plan.rescore,
         cluster="auto" if plan.cluster is not None else "off",
+        cluster_veto=plan.cluster_veto is not None,
     )
     return dataclasses.replace(refreshed, source="measure")
 

@@ -90,7 +90,10 @@ class SearchSpec:
         runs the two-pass bin-winner kernel, then ``sentinelize_masked``
         and ``merge_topk``.
       reduction_input_size_override: recall-accounting N (-1: own N).
-      serve_buckets: only None (serving: ROADMAP queue A item 8).
+      serve_buckets: the serving micro-batch ladder (ascending positive
+        sizes), or None; ``Index.build`` fills it from the planner
+        (``plan.plan_buckets`` of the ``query_block``), and a
+        ``SearchServer`` without its own ladder uses it.
       residency: only "hbm" (host tier: ROADMAP queue A item 10).
       segment_rows: only None (host tier: ROADMAP queue A item 10).
 
@@ -154,10 +157,17 @@ class SearchSpec:
                 "yet (ROADMAP queue A item 13); the port has one executor"
             )
         if self.serve_buckets is not None:
-            raise NotImplementedError(
-                "serve_buckets: serving is not ported yet (ROADMAP queue A "
-                "item 8)"
-            )
+            buckets = tuple(int(b) for b in self.serve_buckets)
+            if not buckets or any(b <= 0 for b in buckets):
+                raise ValueError(
+                    f"serve_buckets must be positive, got {self.serve_buckets}"
+                )
+            if list(buckets) != sorted(set(buckets)):
+                raise ValueError(
+                    "serve_buckets must be strictly ascending, got "
+                    f"{self.serve_buckets}"
+                )
+            object.__setattr__(self, "serve_buckets", buckets)
         if self.segment_rows is not None:
             raise NotImplementedError(
                 "segment_rows: the host-RAM tier is not ported yet (ROADMAP "
@@ -227,3 +237,32 @@ class SearchSpec:
             or self.max_block_n is None
             or self.query_block is None
         )
+
+    # -- snapshot (de)serialization ------------------------------------------
+
+    def to_json_dict(self) -> dict:
+        """JSON-safe field dict (``Index.save`` stamps it into snapshots).
+
+        >>> SearchSpec.from_json_dict(SearchSpec(k=4).to_json_dict()).k
+        4
+        """
+        d = dataclasses.asdict(self)
+        if d["serve_buckets"] is not None:
+            d["serve_buckets"] = list(d["serve_buckets"])
+        return d
+
+    @classmethod
+    def from_json_dict(cls, d: dict) -> "SearchSpec":
+        """Inverse of :meth:`to_json_dict`; a field this version does not
+        know (a snapshot of a newer version) raises."""
+        d = dict(d)
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(d) - known)
+        if unknown:
+            raise ValueError(
+                f"snapshot spec carries unknown fields {unknown} — written "
+                "by a newer version? Rebuild the index or upgrade."
+            )
+        if d.get("serve_buckets") is not None:
+            d["serve_buckets"] = tuple(d["serve_buckets"])
+        return cls(**d)

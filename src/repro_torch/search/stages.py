@@ -79,6 +79,25 @@ def score_rows(q: Tensor, database: Tensor,
     return scores
 
 
+def dot_rows(rows: Tensor, q: Tensor) -> Tensor:
+    """``rows`` (m, c, d) against ``q`` (m, d): the (m, c) dot products in
+    f32, summed in one fixed order whatever m — the products, then adds of
+    halves (lane j plus lane j + w/2) over d padded with zero lanes to a
+    power of two.  A matmul picks its reduction by shape (cuBLAS takes
+    another path for one query than for a batch, and so does the CPU's
+    BLAS), so a query's scores would depend on how many queries share its
+    call; a served query, padded into a bucket, must score as the same
+    query searched alone."""
+    x = rows * q.to(rows.dtype)[:, None, :]
+    width = 1 << (x.shape[-1] - 1).bit_length()
+    if width != x.shape[-1]:
+        x = F.pad(x, (0, width - x.shape[-1]))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
 def score_gathered(q: Tensor, rows: Tensor, row_bias: Tensor, ids: Tensor,
                    valid: Tensor, scale: Optional[Tensor] = None) -> Tensor:
     """Biased-MIPS scores over per-query candidate rows: ``rows`` is the
@@ -87,7 +106,7 @@ def score_gathered(q: Tensor, rows: Tensor, row_bias: Tensor, ids: Tensor,
     reference's promotion); invalid slots (empty cluster tails) score
     ``MASK_VALUE``."""
     gather = ids.long()
-    scores = torch.bmm(rows, q.to(rows.dtype)[:, :, None])[..., 0]
+    scores = dot_rows(rows, q)
     if scale is not None:
         scores = scores * scale.reshape(-1)[gather]
     scores = scores + row_bias.reshape(-1)[gather]
@@ -133,8 +152,7 @@ def rescore_candidates(q: Tensor, scan_vals: Tensor, idxs: Tensor,
     gather = idxs.long()
     rows = rescore_db[gather]                          # (m, k_scan, d)
     # a bf16 query is widened: each product is exact in f32
-    exact = (torch.bmm(rows, q.to(rows.dtype)[:, :, None])[..., 0]
-             + rescore_bias[gather])
+    exact = dot_rows(rows, q) + rescore_bias[gather]
     exact = torch.where(scan_vals > MASK_VALUE * 0.5, exact,
                         torch.full_like(exact, MASK_VALUE))
     return exact_rescoring(exact, idxs, k, mode="max", use_bitonic=use_bitonic)

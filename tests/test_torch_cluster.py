@@ -110,11 +110,23 @@ def test_plan_search_cluster_equals_reference(n, storage, m):
     assert off.cluster is None
     cache = planlib.PlanCache()
     assert (cache.key(ours).endswith("/cl")) == ours.cluster.enabled
-    # the card's profile prices the same gathered program
+    # the card's profile evaluates the same cluster plan, and drops it
+    # where it prices the pruned scan at least as high as the dense one
     h100 = planlib.plan_search(backend="cuda", **dict(kw, device="h100"))
-    assert h100.cluster == ours.cluster
-    if ours.cluster.enabled:
-        assert h100.flops == ours.flops
+    assert dataclasses.replace(h100.cluster, enabled=ours.cluster.enabled) \
+        == ours.cluster
+    if h100.cluster_veto is not None:
+        pruned_s, dense_s = h100.cluster_veto
+        assert ours.cluster.enabled and not h100.cluster.enabled
+        assert pruned_s >= dense_s
+        dense = planlib.plan_search(backend="cuda",
+                                    **dict(kw, device="h100", cluster="off"))
+        assert (h100.flops, h100.predicted_s) == (dense.flops, dense.predicted_s)
+        assert dense_s == dense.predicted_s
+    else:
+        assert h100.cluster.enabled == ours.cluster.enabled
+        if ours.cluster.enabled:
+            assert h100.flops == ours.flops
 
 
 # --- k-means, the tables, the miss check --------------------------------------

@@ -564,21 +564,23 @@ def test_kmeans_segment_sums_on_card_equal_cpu(cuda_device):
 @pytest.mark.parametrize("storage", ["f32", "int8", "int4"])
 def test_clustered_index_on_card_matches_cpu(cuda_device, storage):
     """``cluster="auto"`` on a mixture corpus builds its tables on the
-    card: the same bits in two builds, centroids allclose to the CPU
-    index's (rtol and atol 1e-5, as against the reference) and the same
-    slot tables; given the CPU index's tables, the card's pruned search
-    equals the CPU's, and deleted rows never return."""
+    card (under the ``"a100"`` profile, which keeps the reference's
+    decision; the card's own profile vetoes the pruned scan): the same
+    bits in two builds, centroids allclose to the CPU index's (rtol and
+    atol 1e-5, as against the reference) and the same slot tables; given
+    the CPU index's tables, the card's pruned search equals the CPU's, and
+    deleted rows never return."""
     from repro_torch.search import cluster
 
     db, q = _mixture(9, 20_000, 400)
     kw = dict(metric="l2", k=10, storage=storage)
-    gpu = Index.build(db, **kw)
+    gpu = Index.build(db, profile="a100", **kw)
     cpu = Index.build(db, device="cpu", **kw)
     g, c = gpu.pack().cluster, cpu.pack().cluster
     assert g is not None and c is not None and g.plan == c.plan
     assert gpu.pack_timings["sampled_miss"] <= cluster.miss_check_threshold(
         g.plan.miss_budget)
-    again = Index.build(db, **kw).pack().cluster
+    again = Index.build(db, profile="a100", **kw).pack().cluster
     for name in ("centroids", "centroid_bias", "cluster_rows", "spill_rows"):
         assert torch.equal(getattr(g, name), getattr(again, name)), name
     np.testing.assert_allclose(g.centroids.cpu().numpy(), c.centroids.numpy(),
@@ -596,3 +598,197 @@ def test_clustered_index_on_card_matches_cpu(cuda_device, storage):
     assert not set(i.cpu().numpy().ravel().tolist()) & set(range(0, 20_000, 3))
     assert_topk_close(rv.numpy(), ri.numpy(), v.cpu().numpy(), i.cpu().numpy(),
                       score=public_scorer("l2", q, db))
+
+
+# --- C3: the default build on the card runs no k-means ------------------------
+
+
+def test_default_build_skips_kmeans_at_the_sift1m_shape(cuda_device):
+    """Gaussian data at the Sift1M shape (N=1,000,000, D=128, l2, k=10):
+    the ``"h100"`` profile vetoes the cluster plan, so the default build
+    runs no k-means, takes about as long as ``cluster="off"`` (it took
+    2.05 s against 0.03 s before the veto) and searches bit-identically."""
+    import time
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    db = torch.randn((1_000_000, 128), generator=g, device=cuda_device)
+    q = torch.randn((100, 128), generator=g, device=cuda_device)
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = Index.build(db, metric="l2", k=10, **kw)
+        torch.cuda.synchronize()
+        return index, time.perf_counter() - t0
+
+    timed(cluster="off")  # the allocator's first growth
+    off, t_off = timed(cluster="off")
+    auto, t_auto = timed()
+    veto = auto.kernel_plan.cluster_veto
+    assert veto is not None and veto[0] >= veto[1]
+    assert auto.pack().cluster is None and auto.pack().cluster_rejected_miss is None
+    assert auto.pack_timings == {}
+    assert t_auto < t_off + 0.5, (t_auto, t_off)
+    (va, ia), (vo, io) = auto.search(q), off.search(q)
+    assert torch.equal(va, vo) and torch.equal(ia, io)
+
+
+# --- serving: one CUDA graph per bucket ---------------------------------------
+
+# every tier, and the f32 tier at the bf16 compute dtype
+SERVE_CASES = [("f32", None), ("bf16", None), ("int8", None), ("int4", None),
+               ("f32", "bfloat16")]
+
+
+def _serve_index(storage, dtype, n=60_000, room=0):
+    rng = np.random.default_rng(11)
+    db = rng.standard_normal((n, 64), dtype=np.float32)
+    return Index.build(db, metric="l2", k=10, storage=storage, dtype=dtype,
+                       capacity=n + room, capacity_block=1024)
+
+
+def _requests(seed, count, d=64):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((int(rng.integers(1, 65)), d), dtype=np.float32),
+             int(rng.integers(1, 11))) for _ in range(count)]
+
+
+def _bits_equal_direct(index, q, k, got):
+    direct = index.search(q)
+    assert torch.equal(got.values, direct.values[:, :k].cpu())
+    assert torch.equal(got.indices, direct.indices[:, :k].cpu())
+
+
+@pytest.mark.parametrize("storage,dtype", SERVE_CASES)
+def test_graph_replay_bit_equal_to_eager(cuda_device, storage, dtype):
+    """A replayed search graph gives the eager search's bits; a replay
+    passes no kernel front end (the kernels' counters stay still), and the
+    capture counted the path's kernels and no plain version."""
+    index = _serve_index(storage, dtype)
+    for m in (1, 16, 128):
+        q = torch.randn((m, 64), device=cuda_device)
+        eager = index.search(q)
+        graph = index.search_graph(m)
+        assert graph.launches and not graph.plain_calls
+        graph.queries.copy_(q.to(index.query_dtype))
+        prk.reset_counts()
+        index.replay_graph(graph)
+        torch.cuda.synchronize()
+        assert not prk.LAUNCHES and not prk.PLAIN_CALLS
+        assert torch.equal(graph.values, eager.values)
+        assert torch.equal(graph.indices, eager.indices)
+    info = index.cache_info()
+    assert (info["captures"], info["replays"], info["entries"]) == (3, 3, 3)
+
+
+@pytest.mark.parametrize("storage,dtype", SERVE_CASES)
+def test_served_requests_bit_equal_to_direct(cuda_device, storage, dtype):
+    """A seeded stream of 1-64-row requests, each with its own k, on a
+    virtual clock: every ticket is a direct search of its rows, bit for
+    bit, and every batch is one graph replay."""
+    from repro_torch.search import SearchServer, ServeConfig, VirtualClock
+
+    index = _serve_index(storage, dtype)
+    server = SearchServer(index, ServeConfig(max_batch=128),
+                          clock=VirtualClock(), warmup=True)
+    assert server.buckets == (8, 16, 32, 64, 128)
+    reqs = _requests(1, 40)
+    tickets = [server.submit(q, k=k) for q, k in reqs]
+    server.run_until_idle()
+    for (q, k), t in zip(reqs, tickets):
+        _bits_equal_direct(index, q, k, t.result())
+    s = server.stats()
+    assert s["graph_replays"] == s["batches"] and s["eager_batches"] == 0
+    assert s["cache"]["captures"] == len(server.buckets)
+
+
+@pytest.mark.parametrize("storage,dtype", SERVE_CASES)
+def test_same_bucket_batches_in_flight(cuda_device, storage, dtype):
+    """Two batches of one bucket enqueued before either runs (the server's
+    stream held by a sleep): the second replay overwrites the graph's
+    outputs only after the first batch's copy out, so both are right."""
+    from repro_torch.search import SearchServer, ServeConfig, VirtualClock
+
+    index = _serve_index(storage, dtype)
+    server = SearchServer(index, ServeConfig(max_batch=32, buckets=(32,)),
+                          clock=VirtualClock(), warmup=True)
+    (qa, _), (qb, _) = _requests(2, 2)
+    qa, qb = qa[:20], qb[:24]
+    with torch.cuda.stream(server._stream):
+        torch.cuda._sleep(50_000_000)
+    ta = server.submit(qa)
+    assert server.step()          # A enqueued behind the sleep
+    tb = server.submit(qb)
+    assert server.step()          # B enqueued; then A is waited on
+    assert not server.step()
+    _bits_equal_direct(index, qa, 10, ta.result())
+    _bits_equal_direct(index, qb, 10, tb.result())
+    assert server.stats()["graph_replays"] == 2
+
+
+@pytest.mark.parametrize("storage,dtype", SERVE_CASES)
+def test_replay_after_mutations_equals_direct(cuda_device, storage, dtype):
+    """Through ``server.mutation()``: a delete and an add in place keep the
+    graphs (no recapture) and the replays see them; an add that grows the
+    index recaptures; every served result is a direct search's bits."""
+    from repro_torch.search import SearchServer, ServeConfig, VirtualClock
+
+    index = _serve_index(storage, dtype, room=2048)
+    server = SearchServer(index, ServeConfig(max_batch=64),
+                          clock=VirtualClock(), warmup=True)
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((48, 64), dtype=np.float32)
+
+    def serve_and_check():
+        t = server.submit(q)
+        server.run_until_idle()
+        _bits_equal_direct(index, q, 10, t.result())
+        return t.result().indices
+
+    first = serve_and_check()
+    captures = index.cache_info()["captures"]
+    with server.mutation():
+        index.delete(first[:, 0].long())
+    after_delete = serve_and_check()
+    assert not set(after_delete.ravel().tolist()) & set(first[:, 0].tolist())
+    with server.mutation():
+        index.add(q + 0.01)  # near copies of the queries, in place
+    after_add = serve_and_check()
+    assert (after_add[:, 0] >= 60_000).all()
+    assert index.cache_info()["captures"] == captures
+    with server.mutation():
+        index.add(rng.standard_normal((4096, 64), dtype=np.float32))  # grows
+    serve_and_check()
+    info = index.cache_info()
+    assert info["invalidations"] == 1 and info["captures"] == captures + 1
+
+
+def test_clustered_index_is_served_through_graphs(cuda_device):
+    """A clustered index (mixture corpus, the ``"a100"`` profile keeps its
+    tables) is captured like any other: its pruned path holds no host
+    sync, and every served ticket is a direct search's bits."""
+    from repro_torch.search import SearchServer, ServeConfig, VirtualClock
+
+    db, _ = _mixture(12, 20_000, 1)
+    index = Index.build(db, metric="l2", k=10, profile="a100")
+    assert index.pack().cluster is not None
+    server = SearchServer(index, ServeConfig(max_batch=64, buckets=(16, 64)),
+                          clock=VirtualClock(), warmup=True)
+    reqs = [(q[:, :32], k) for q, k in _requests(3, 12)]
+    tickets = [server.submit(q, k=k) for q, k in reqs]
+    server.run_until_idle()
+    for (q, k), t in zip(reqs, tickets):
+        _bits_equal_direct(index, q, k, t.result())
+    s = server.stats()
+    assert s["graph_replays"] == s["batches"] and s["cache"]["captures"] == 2
+
+
+def test_failed_capture_raises(cuda_device):
+    """A capture that fails raises; nothing falls back to eager work."""
+    from repro_torch.search import backends
+
+    def syncs(q):
+        return q * float(q.sum()), q  # a host sync: not capturable
+
+    with pytest.raises(RuntimeError):
+        backends.capture_search(syncs, 8, 4, torch.float32, cuda_device)

@@ -335,3 +335,103 @@ def test_measured_plan_searches_as_the_model_plan(backend, tmp_path, monkeypatch
     pinned = Index.build(db, plan="measure", plan_cache=cache, block_m=128,
                          max_block_n=128, query_block=8, **kw)
     assert pinned.kernel_plan.source == "user" and len(calls) == 3
+
+
+# --- C3: the "h100" profile's veto of a cluster plan that loses on the card ---
+
+
+@pytest.mark.parametrize("storage", TIERS)
+def test_h100_vetoes_pruning_at_the_sift1m_shape(storage):
+    """The crossover enables pruning at the Sift1M shape, and on every
+    profile the reference has the plan is the reference's field for field;
+    the card's profile drops it (both predicted times kept, the pruned
+    scan priced above the dense one) and predicts the dense scan."""
+    n, d = SHAPES["sift1m"]
+    kw = dict(n=n, d=d, k=10, metric="l2", recall_target=0.95,
+              storage=storage, cluster="auto")
+    for device in COPIED:
+        ours = plan_search(backend="torch", device=device, **kw)
+        ref = ref_plan.plan_search(backend="xla", device=device, **kw)
+        assert ours.cluster.enabled and ours.cluster_veto is None
+        assert dataclasses.asdict(ours.cluster) == dataclasses.asdict(ref.cluster)
+        for field in ("flops", "hbm_bytes", "cops", "predicted_s",
+                      "expected_recall", "k_scan", "num_bins"):
+            assert getattr(ours, field) == getattr(ref, field), (device, field)
+    card = plan_search(backend="cuda", device="h100", **kw)
+    dense = plan_search(backend="cuda", device="h100", **dict(kw, cluster="off"))
+    assert not card.cluster.enabled
+    pruned_s, dense_s = card.cluster_veto
+    assert pruned_s >= dense_s == dense.predicted_s == card.predicted_s
+    assert card.expected_recall == dense.expected_recall
+    assert "cluster_veto" not in card.summary()  # the reference's plan keys
+    # the veto prices the pruned scan as the port runs it: with the
+    # materialized gather it loses at every batch the build plans for
+    for m in (16, 10_000):
+        assert plan_search(backend="cuda", device="h100", m=m,
+                           **kw).cluster_veto is not None
+
+
+def test_veto_is_pinned_at_build():
+    """A vetoed build runs no k-means and keeps the veto in every re-plan
+    (``explain(m=...)``, growth), even at a batch where the model alone
+    would prune; ``explain()`` reports both predicted times.  The
+    ``"a100"`` profile keeps the reference's decision on the same data."""
+    rng = np.random.default_rng(3)
+    centers = rng.standard_normal((16, 16)).astype(np.float32) * 2.5
+    db = centers[rng.integers(0, 16, 12_000)] + rng.standard_normal(
+        (12_000, 16), dtype=np.float32)
+    from repro_torch.search import PACK_EVENTS
+
+    PACK_EVENTS.clear()
+    ix = Index.build(db, metric="l2", k=10, backend="cuda", device="cpu",
+                     profile="h100", capacity_block=4096)
+    assert ix.kernel_plan.cluster_veto is not None
+    assert ix.pack().cluster is None and ix.pack().cluster_rejected_miss is None
+    assert ix.pack_timings == {}
+    assert "cluster_built" not in PACK_EVENTS and "cluster_rejected" not in PACK_EVENTS
+    block = ix.explain()["cluster"]
+    assert not block["enabled"] and block["vetoed_by"] == "h100_cost_model"
+    assert block["predicted_pruned_s"] >= block["predicted_dense_s"] > 0
+    # at one query the model alone would prune; the pin keeps the build's
+    assert plan_search(n=ix.capacity, d=16, k=10, m=1, metric="l2",
+                       backend="cuda", device="h100", cluster="auto").cluster.enabled
+    one = ix.explain(m=1)["cluster"]
+    assert not one["enabled"] and "vetoed_by" in one
+    ix.add(db[:5000])  # growth re-plans with the pin
+    assert ix.capacity > 12_000 and ix.kernel_plan.cluster_veto is not None
+    assert ix.pack().cluster is None
+    a100 = Index.build(db, metric="l2", k=10, backend="cuda", device="cpu",
+                       profile="a100")
+    assert a100.kernel_plan.cluster_veto is None
+    assert a100.pack().cluster is not None
+    assert a100.explain(m=1)["cluster"]["enabled"]
+
+
+def test_veto_is_priced_when_an_index_grows_past_the_crossover():
+    """An index built below the crossover has no cluster decision to pin;
+    the re-plan of the growth that carries it past the crossover prices
+    the plan on the ``"h100"`` model, which vetoes it, and that decision
+    is pinned from then on: no k-means, the dense scan's prediction, and
+    ``explain(m=1)`` keeps the veto where the model alone would prune."""
+    rng = np.random.default_rng(4)
+    db = rng.standard_normal((12_000, 16), dtype=np.float32)
+    from repro_torch.search import PACK_EVENTS
+
+    ix = Index.build(db[:4000], metric="l2", k=10, backend="cuda",
+                     device="cpu", profile="h100", capacity_block=4096)
+    assert not ix.kernel_plan.cluster.enabled
+    assert ix.kernel_plan.cluster_veto is None
+    ix.pack()
+    PACK_EVENTS.clear()
+    ix.add(db[4000:])  # growth to 12,288 rows, past the crossover
+    assert ix.capacity > 8192
+    assert ix.kernel_plan.cluster_veto is not None
+    assert not ix.kernel_plan.cluster.enabled
+    dense = plan_search(n=ix.capacity, d=16, k=10, metric="l2",
+                        backend="cuda", device="h100", cluster="off",
+                        query_block=ix.kernel_plan.query_block)
+    assert ix.kernel_plan.predicted_s == dense.predicted_s
+    assert ix.pack().cluster is None
+    assert "cluster_built" not in PACK_EVENTS and "cluster_rejected" not in PACK_EVENTS
+    one = ix.explain(m=1)["cluster"]
+    assert not one["enabled"] and one["vetoed_by"] == "h100_cost_model"

@@ -195,18 +195,20 @@ def test_build_needs_card_unless_cpu(monkeypatch):
 # The IDs are given so that each case keeps its test ID when what it
 # checks moves (a tile other than the kernels' 128 now names the fixed
 # tile; the planner's "measure" is ported, so the sixth case is another
-# field that is still outside the port; the bf16 compute dtype and
-# cluster="auto" are ported, so the first, third and fourth cases pair
-# them with a field that is still outside it).
+# field that is still outside the port; the bf16 compute dtype,
+# cluster="auto" and serve_buckets are ported, so the first, third,
+# fourth and eighth cases pair them with a field that is still outside
+# it).
 @pytest.mark.parametrize("kw,match", [
     (dict(storage="int8", cluster="auto", stream=False), "item 13"),
     (dict(residency="host"), "item 10"),
-    (dict(dtype="bfloat16", serve_buckets=(8, 64)), "item 8"),
+    (dict(dtype="bfloat16", serve_buckets=(8, 64), segment_rows=4096),
+     "item 10"),
     (dict(cluster="auto", residency="host"), "item 10"),
     (dict(block_m=256), "fixed at 128x128"),
     (dict(storage="int8", residency="host"), "item 10"),
     (dict(stream=False), "item 13"),
-    (dict(serve_buckets=(8, 64)), "item 8"),
+    (dict(serve_buckets=(8, 64), stream=False), "item 13"),
     (dict(segment_rows=4096), "item 10"),
 ], ids=["kw0-item 7", "kw1-item 10", "kw2-item 6", "kw3-item 7",
         "kw4-item 5", "kw5-item 5", "kw6-item 13", "kw7-item 8",
