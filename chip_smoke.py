@@ -103,7 +103,19 @@ run in order and the first failure exits non-zero:
  14. snapshots: a card index (f32 and int8, with and without cluster
      tables) saved and restored on the card, searching bit for bit the
      same with no build work at restore, and an index written on the CPU
-     restored on the card.
+     restored on the card;
+ 15. the host-RAM cold tier at the Sift1M shape (``residency="host"``):
+     the f32 index of 131,072-row segments (eight waves of whole bins)
+     bit-equal to the HBM index at M=10,000 and M=16, before and after
+     add 10,000 / delete 50,000; f32, int8 and int4 under the budget that
+     ``plan_segments`` turns into nine waves: recall at the wave plan's
+     E[recall] - eps before and after the same updates, two launches and
+     one ``"host"`` dispatch a wave and no plain version, the device
+     memory a search adds (its two slots within the budget, and no more
+     query-sized work than the HBM index's search), each kernel against
+     its plain version at a wave's shape; the pinned link's rate, each
+     wave's copy and scan (CUDA events) and the search beside
+     max(copies, scans) at M=10,000 and M=16.
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
@@ -1770,6 +1782,243 @@ def phase_snapshots(prk, seed, results):
     return out
 
 
+# Phase 15: the host tier's segment rows a wave under the budget-planned
+# runs: 30 bins of 4096 rows (60 of 2048, 120 of 1024), so every tier's
+# wave holds whole bins and its two slots fit the budget exactly; nine
+# waves at the Sift1M shape.
+HOST_SEGMENT_ROWS = 122_880
+# ... and of the bit-equality run: 32 bins of 4096 rows, eight waves.
+HOST_ALIGNED_ROWS = 131_072
+
+
+def link_rate(nbytes: int = 256 << 20) -> float:
+    """Bytes a second of a pinned host-to-device copy of ``nbytes`` (the
+    median of five CUDA-event timings)."""
+    src = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True))
+    return nbytes / (ms / 1e3)
+
+
+def host_peak(search) -> int:
+    """Device bytes at the peak of ``search()`` above what was allocated
+    before it (the allocator's cache emptied first, so that no request is
+    served by a larger cached block, which the allocated bytes would
+    count whole)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    search()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def wave_times(index, q):
+    """One search of ``q`` with each wave's CUDA events: the copies' and
+    the scans' milliseconds."""
+    searcher = index.host_searcher()
+    searcher.record_timing = True
+    index.search(q)
+    torch.cuda.synchronize()
+    searcher.record_timing = False
+    copies = [c0.elapsed_time(c1) for c0, c1, _, _ in searcher.wave_events]
+    scans = [s0.elapsed_time(s1) for _, _, s0, s1 in searcher.wave_events]
+    return copies, scans
+
+
+def compare_wave_kernels(prk, testing, index, q, label, acc):
+    """Each kernel against its plain version on a host index's slot (a
+    wave's operands, as the last search staged them), at both batches the
+    phase searches, M=16 and M=10,000: each has its own split plan."""
+    from repro_torch.search import get_metric
+
+    searcher = index.host_searcher()
+    slot = searcher.slots[0]
+    for m in (16, SIFT["m"]):
+        qm = get_metric(index.spec.metric).prepare_queries(q[:m])
+        compare_kernels(prk, testing, f"{label} wave M={m}", qm, slot["db"],
+                        slot["bias"], searcher.bin_size, searcher.wave_k_scan,
+                        acc, scale=slot["scale"],
+                        int4_packed=index.pack().int4_packed)
+
+
+def phase_host_tier(prk, testing, data, results, acc):
+    """Phase 15: the host-RAM cold tier at the Sift1M shape.
+
+    The f32 index of 131,072-row segments (eight waves, capacity
+    1,048,576, whole 4,096-row bins) searches bit for bit as the HBM
+    index at M=10,000 and M=16, before and after an add of 10,000 rows
+    and a delete of 50,000.  Then f32, int8 and int4 built with the
+    budget that ``plan_segments`` turns into 122,880-row segments (nine
+    waves): recall at the wave plan's E[recall] - eps against the exact
+    oracle, before and after the same updates; two launches a wave and no
+    plain version; one ``"host"`` dispatch a wave; the device memory a
+    search adds is its two slots (allocated at the first search and kept;
+    their bytes within the budget) and no more query-sized work than the
+    HBM index's search of the same queries plus the carry merges of the
+    waves (64 bytes a carry entry); each kernel against its plain version
+    on a wave's operands at M=16 and M=10,000, for the aligned index and
+    every tier (phase 7's tolerances).  Timings: the pinned link's
+    rate, each wave's copy and scan, and the search beside
+    max(copies, scans) at M=10,000 and M=16."""
+    from repro_torch.search import DISPATCH_COUNTS, Index
+
+    t_phase = time.perf_counter()
+    db, q, extra, dead = data
+    n, d, metric = SIFT["n"], SIFT["d"], SIFT["metric"]
+    kw = dict(metric=metric, k=K, recall_target=TARGET, cluster="off")
+    rows = torch.cat([db, extra])
+    live = torch.ones(rows.shape[0], dtype=torch.bool, device="cuda")
+    live[n:] = False
+    truth = exact_topk(metric, q, rows, live, K)
+    live[n:] = True
+    live[dead] = False
+    truth_after = exact_topk(metric, q, rows, live, K)
+    rate = link_rate()
+    out = {"link_gb_s": rate / 1e9}
+    log(f"[host] pinned host-to-device copy of 256 MiB: {rate / 1e9:.2f} GB/s")
+
+    # bit-equality with the HBM index at segments of whole bins
+    hbm = Index.build(db, **kw)
+    host = Index.build(db, residency="host", segment_rows=HOST_ALIGNED_ROWS,
+                       **kw)
+    waves = host.capacity // HOST_ALIGNED_ROWS
+    if (waves, host.capacity) != (8, 1_048_576) or host.device.type != "cuda" \
+            or not host.pack().db.is_pinned():
+        fail(f"[host aligned] {waves} waves, capacity {host.capacity}")
+    if HOST_ALIGNED_ROWS % host.host_searcher().bin_size:
+        fail(f"[host aligned] wave bins of {host.host_searcher().bin_size}")
+    for when in ("before", "after"):
+        if when == "after":
+            for idx in (hbm, host):
+                idx.add(extra)
+                idx.delete(dead)
+        for m in (SIFT["m"], 16):
+            a, b = host.search(q[:m]), hbm.search(q[:m])
+            if not (torch.equal(a.values, b.values)
+                    and torch.equal(a.indices, b.indices)):
+                fail(f"[host aligned] M={m} {when} the updates: not the HBM "
+                     "index's bits")
+    log(f"[host aligned] {waves} waves of {HOST_ALIGNED_ROWS} rows: bit-equal "
+        f"to the HBM index at M={SIFT['m']} and M=16, before and after "
+        f"add 10000 + delete 50000")
+    compare_wave_kernels(prk, testing, host, q, "sift1m f32 host aligned", acc)
+    del host, hbm
+
+    for storage in ("f32", "int8", "int4"):
+        label = f"sift1m {storage} host"
+        hbm = Index.build(db, storage=storage, **kw)
+        hbm_added = {m: host_peak(lambda: hbm.search(q[:m]))
+                     for m in (16, SIFT["m"])}
+        del hbm
+        # the budget plan_segments turns into HOST_SEGMENT_ROWS rows a wave
+        per_row = d * (0.5 if storage == "int4" else
+                       {"f32": 4, "int8": 1}[storage]) + 8
+        if storage != "f32":
+            per_row += 4 * d + 4
+        budget = 2 * per_row * HOST_SEGMENT_ROWS
+        t0 = time.perf_counter()
+        index = Index.build(db, storage=storage, residency="host",
+                            hbm_budget_bytes=budget, **kw)
+        build_s = time.perf_counter() - t0
+        res = index.explain()["residency"]
+        waves = res["num_segments"]
+        if res["segment_rows"] != HOST_SEGMENT_ROWS or waves < 8:
+            fail(f"[{label}] budget {budget}: {res['segment_rows']} rows a "
+                 f"wave, {waves} waves")
+        row = dict(budget_bytes=budget, waves=waves, build_s=build_s,
+                   segment_rows=HOST_SEGMENT_ROWS, capacity=index.capacity)
+        # the two slots, made at the first search and kept
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        searcher = index.host_searcher()
+        slot_alloc = torch.cuda.memory_allocated() - before
+        slot_bytes = sum(t.numel() * t.element_size() for s in searcher.slots
+                         for t in s.values() if t is not None)
+        # the path: counts from 0 just before, read just after
+        prk.reset_counts()
+        DISPATCH_COUNTS.clear()
+        added = {16: host_peak(lambda: index.search(q[:16]))}
+        out_m = {}
+        added[SIFT["m"]] = host_peak(
+            lambda: out_m.update(r=index.search(q)))
+        v, i = out_m.pop("r")
+        wave_floor = searcher.wave_plan.expected_recall
+        r1 = recall(i, truth)
+        for m, got in added.items():
+            allowed = hbm_added[m] + 64 * m * K
+            log(f"[{label}] M={m}: the search adds {(slot_alloc + got) / 2**20:.1f}"
+                f" MiB of device memory: slots {slot_alloc / 2**20:.1f} MiB "
+                f"({slot_bytes} bytes; budget {budget}) and "
+                f"{got / 2**20:.2f} MiB of query-sized work (the HBM index's "
+                f"search {hbm_added[m] / 2**20:.2f} MiB, carry merges "
+                f"{64 * m * K / 2**20:.2f} MiB)")
+            if slot_bytes > budget or got > allowed:
+                fail(f"[{label}] M={m}: slots {slot_bytes} bytes (budget "
+                     f"{budget}), {got} bytes beside them (allowed {allowed})")
+            row[f"added_bytes_m{m}"] = slot_alloc + got
+            row[f"query_bytes_m{m}"] = got
+            row[f"hbm_added_bytes_m{m}"] = hbm_added[m]
+        row.update(slot_bytes=slot_bytes, slot_alloc_bytes=slot_alloc)
+        index.add(extra)
+        index.delete(dead)
+        va, ia = index.search(q)
+        torch.cuda.synchronize()
+        launches, plain = dict(prk.LAUNCHES), dict(prk.PLAIN_CALLS)
+        dispatches = dict(DISPATCH_COUNTS)
+        fused, merge = names_of(storage)[:2]
+        searches = 3
+        if launches != {fused: searches * waves, merge: searches * waves} \
+                or plain or dispatches != {"host": searches * waves}:
+            fail(f"[{label}] launches {launches}, plain {plain}, dispatches "
+                 f"{dispatches} for {searches} searches of {waves} waves")
+        read_counts(prk, label, (storage,), results, two_pass=False)
+        wave_floor_after = index.host_searcher().wave_plan.expected_recall
+        r2 = recall(ia, truth_after)
+        eps = hoeffding_eps(q.shape[0])
+        log(f"[{label}] build {build_s:.2f} s, {waves} waves of "
+            f"{HOST_SEGMENT_ROWS} rows (wave bins of {searcher.bin_size}, "
+            f"k_scan {searcher.wave_k_scan}): recall {r1:.4f} (floor "
+            f"{wave_floor - eps:.4f}), after add 10000 + delete 50000 "
+            f"{r2:.4f} (floor {wave_floor_after - eps:.4f}); launches "
+            f"{launches}, dispatches {dispatches}")
+        if not (r1 >= wave_floor - eps and r2 >= wave_floor_after - eps):
+            fail(f"[{label}] recall {r1} / {r2}")
+        if not torch.isfinite(va).all() or torch.isin(ia.long(), dead).any():
+            fail(f"[{label}] non-finite values or a deleted id")
+        row.update(recall=r1, recall_after_updates=r2,
+                   expected_recall=wave_floor, launches=launches)
+        # timings: each wave's copy and scan, and the search
+        for m in (SIFT["m"], 16):
+            copies, scans = wave_times(index, q[:m])
+            search_ms = cuda_ms(lambda: index.search(q[:m]))
+            wave_bytes = searcher.wave_bytes
+            row[f"m{m}"] = dict(
+                search_ms=search_ms, copies_ms=copies, scans_ms=scans,
+                sum_copies_ms=sum(copies), sum_scans_ms=sum(scans),
+                wave_bytes=wave_bytes,
+                copy_gb_s=wave_bytes / (sorted(copies)[len(copies) // 2] / 1e3)
+                / 1e9)
+            log(f"[{label}] M={m}: search {search_ms:.3f} ms beside "
+                f"max(copies {sum(copies):.3f}, scans {sum(scans):.3f}) = "
+                f"{max(sum(copies), sum(scans)):.3f} ms (serial "
+                f"{sum(copies) + sum(scans):.3f}); a wave's copy "
+                f"{sorted(copies)[len(copies) // 2]:.3f} ms "
+                f"({wave_bytes / 2**20:.1f} MiB, "
+                f"{row[f'm{m}']['copy_gb_s']:.2f} GB/s), scan "
+                f"{sorted(scans)[len(scans) // 2]:.3f} ms")
+        # each kernel against its plain version at the path's wave shapes
+        compare_wave_kernels(prk, testing, index, q, label, acc)
+        out[storage] = row
+        del index, searcher
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[host] phase 15: {out['seconds']:.1f} s")
+    results["host_tier"] = out
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1915,6 +2164,9 @@ def main(argv=None) -> int:
     serve = phase_serve(prk, testing, make_data(SIFT, args.seed), results,
                         args.seed, acc)
     snapshots = phase_snapshots(prk, args.seed + 9, results)
+    # phase 15: the host-RAM cold tier
+    host_tier = phase_host_tier(prk, testing, make_data(SIFT, args.seed),
+                                results, acc)
     for k in kernels:
         for key in ("launches", "plain_calls"):
             k[key] = results[key].get(k["name"], 0)
@@ -1925,6 +2177,7 @@ def main(argv=None) -> int:
     log(json.dumps({"planner": planner}))
     log(json.dumps({"clusters": clusters}))
     log(json.dumps({"serve": serve, "snapshots": snapshots}))
+    log(json.dumps({"host_tier": host_tier}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,10 @@ from repro_torch.core.binning import (
     plan_bins,
     round_up,
 )
-from repro_torch.core.partial_reduce import partial_reduce_with_plan
+from repro_torch.core.partial_reduce import (
+    partial_reduce,
+    partial_reduce_with_plan,
+)
 from repro_torch.core.rescoring import (
     bitonic_sort_pairs,
     exact_rescoring,
@@ -25,6 +28,7 @@ __all__ = [
     "bins_for_recall_approx",
     "exact_rescoring",
     "expected_recall",
+    "partial_reduce",
     "partial_reduce_with_plan",
     "plan_bins",
     "round_up",

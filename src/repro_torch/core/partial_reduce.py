@@ -12,9 +12,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.binning import BinPlan
+from repro_torch.core.binning import BinPlan, plan_bins
 
-__all__ = ["partial_reduce_with_plan", "NEG_INF"]
+__all__ = ["partial_reduce", "partial_reduce_with_plan", "NEG_INF"]
 
 NEG_INF = float("-inf")
 
@@ -47,3 +47,27 @@ def partial_reduce_with_plan(
     idx = offsets + args.to(torch.int32)
     return vals, torch.clamp(idx, max=plan.n - 1)
 
+
+
+def partial_reduce(
+    scores: torch.Tensor,
+    k: int,
+    recall_target: float = 0.95,
+    *,
+    mode: str = "max",
+    reduction_input_size_override: int = -1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plan the bins for (N, k, recall_target), then reduce
+    (:func:`partial_reduce_with_plan`).
+
+    >>> v, i = partial_reduce(torch.arange(8.0)[None], 1, 0.5)
+    >>> tuple(v.shape), int(i[0, -1])
+    ((1, 1), 7)
+    """
+    plan = plan_bins(
+        scores.shape[-1],
+        k,
+        recall_target,
+        reduction_input_size_override=reduction_input_size_override,
+    )
+    return partial_reduce_with_plan(scores, plan, mode=mode)

@@ -66,6 +66,8 @@ __all__ = [
     "default_backend",
     "dense_search",
     "dense_search_quant",
+    "reset_dispatch_counts",
+    "reset_trace_counts",
 ]
 
 # backend name -> searches issued by Index (one per query block) and
@@ -80,6 +82,19 @@ telemetry.registry().register_counter_dict(
 # m queries; the chunks are cut so that this block stays under 1 GiB (at
 # the Sift1M plan, S = 54,800 slots of 128 lanes: 38 queries a chunk).
 GATHER_BUDGET_BYTES = 1 << 30
+
+
+def reset_dispatch_counts() -> None:
+    """Zero ``DISPATCH_COUNTS`` (the reference's deprecated alias; prefer
+    ``telemetry.reset_all()``)."""
+    DISPATCH_COUNTS.clear()
+
+
+def reset_trace_counts() -> None:
+    """Zero the kernels' ``LAUNCHES`` and ``PLAIN_CALLS``: the port's
+    record of what a search ran, where the reference counts program traces
+    (its deprecated alias; prefer ``telemetry.reset_all()``)."""
+    kernels.reset_counts()
 
 
 def default_backend(device) -> str:

@@ -44,10 +44,19 @@ graph (``backends.GraphCache``); ``SearchServer`` replays those, and
 
 ``save``/``restore`` write and read crash-safe snapshots in the
 reference's format (``repro_torch.checkpoint``).
+
+``residency="host"`` builds the cold tier (``repro_torch.search.hosttier``):
+the raw rows, the live mask and the packed state stay in host memory
+(the packed operands pinned where the index's device is a card), rows
+are prepared on the device a segment at a time, and every search streams
+the packed rows through the device in fixed-size segment waves, the
+whole batch at once.  Capacity is padded to whole segments, at build and
+on growth.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -56,6 +65,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.binning import BinPlan, plan_bins, round_up
 from repro_torch.search import backends, faults, packed as packedlib, quant
+from repro_torch.search import hosttier as hosttierlib
 from repro_torch.search import plan as planlib
 from repro_torch.search import telemetry
 from repro_torch.search.metrics import Metric, get_metric
@@ -90,6 +100,12 @@ def _cluster_pin(plan: planlib.Plan) -> Optional[bool]:
     return None
 
 
+def _home_device(spec: SearchSpec, device: torch.device) -> torch.device:
+    """Where an index's state lives: host memory for the cold tier, else
+    the device its searches run on."""
+    return torch.device("cpu") if spec.residency == "host" else device
+
+
 def _resolve_device(device) -> torch.device:
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -117,8 +133,11 @@ class Index:
         *,
         capacity_block: int = 1024,
         kernel_plan: planlib.Plan,
+        device=None,
     ):
         self.spec = spec
+        # the device searches run on; a host index keeps its state on the CPU
+        self._device = db.device if device is None else torch.device(device)
         self._db = db
         self._live = live
         self._size = size          # append high-water mark (<= capacity)
@@ -132,6 +151,7 @@ class Index:
         # kept, None never priced (cluster="off", below the crossover).
         self._cluster_vetoed = _cluster_pin(kernel_plan)
         self._graphs = backends.GraphCache()
+        self._host: Optional[hosttierlib.HostTierSearcher] = None
         # seconds of the last full pack's cluster steps (k-means, the host
         # assignment loop, the miss check) and the sampled miss rate
         self.pack_timings: dict = {}
@@ -154,6 +174,7 @@ class Index:
         device=None,
         profile: Optional[str] = None,
         plan_cache: Optional[planlib.PlanCache] = None,
+        hbm_budget_bytes: Optional[float] = None,
         **spec_kwargs,
     ) -> "Index":
         """Create an index over ``database`` rows (N, D) on ``device``.
@@ -175,6 +196,11 @@ class Index:
         ``device``, ``plan.detect_device``).  The tiles are the CUDA
         kernels' fixed 128 x 128 whatever the plan.
 
+        ``residency="host"`` (a spec field) builds the cold tier: the
+        planner sizes the segment waves against ``hbm_budget_bytes``
+        (default: the profile's device memory) unless ``segment_rows``
+        pins them, and capacity is padded to whole segments.
+
         >>> import torch
         >>> idx = Index.build(torch.eye(32), metric="mips", k=2, device="cpu")
         >>> idx.spec.resolved, idx.plan.num_bins, idx.kernel_plan.source
@@ -188,7 +214,8 @@ class Index:
         # fail early on an unknown metric or a metric x storage mismatch
         quant.check_metric_storage(get_metric(spec.metric), spec.storage)
         device = _resolve_device(device)
-        database = torch.as_tensor(database, dtype=torch.float32, device=device)
+        home = _home_device(spec, device)
+        database = torch.as_tensor(database, dtype=torch.float32, device=home)
         if database.ndim != 2:
             raise ValueError(
                 f"database must be (N, D), got {tuple(database.shape)}"
@@ -217,20 +244,29 @@ class Index:
                 block_m=spec.block_m, max_block_n=spec.max_block_n,
                 query_block=spec.query_block,
                 storage=spec.storage, rescore=spec.rescore_enabled,
-                cluster=spec.cluster,
+                cluster=spec.cluster, residency=spec.residency,
+                segment_rows=spec.segment_rows,
+                hbm_budget_bytes=hbm_budget_bytes,
             )
             if plan == "measure" and plan_obj.source != "user":
                 plan_obj = planlib.tune_plan(database, plan_obj, spec=spec,
-                                             cache=plan_cache)
+                                             cache=plan_cache, device=device)
         else:
             raise ValueError(
                 f"plan must be 'model', 'measure' or a Plan, got {plan!r}"
             )
         spec = plan_obj.to_spec(spec)
-        live = torch.zeros((cap,), dtype=torch.bool, device=device)
+        if spec.residency == "host" and spec.segment_rows:
+            # every wave has the same shape: pad capacity (with masked
+            # rows) to a whole number of segments
+            seg_cap = round_up(cap, spec.segment_rows)
+            database = F.pad(database, (0, 0, 0, seg_cap - cap))
+            cap = seg_cap
+        live = torch.zeros((cap,), dtype=torch.bool, device=home)
         live[:n] = True
         index = cls(spec, database, live, size=n, num_live=n,
-                    capacity_block=capacity_block, kernel_plan=plan_obj)
+                    capacity_block=capacity_block, kernel_plan=plan_obj,
+                    device=device)
         index.pack()
         return index
 
@@ -242,7 +278,9 @@ class Index:
 
     @property
     def device(self) -> torch.device:
-        return self._db.device
+        """The device searches run on (a host index's state is on the
+        CPU)."""
+        return self._device
 
     @property
     def capacity(self) -> int:
@@ -338,7 +376,9 @@ class Index:
             storage=spec.storage, rescore=spec.rescore_enabled,
             cluster=spec.cluster, cluster_veto=self._cluster_vetoed,
             block_m=pin_from.block_m, max_block_n=pin_from.block_n,
-            query_block=pin_from.query_block,
+            query_block=pin_from.query_block, residency=spec.residency,
+            segment_rows=spec.segment_rows,
+            hbm_budget_bytes=pin_from.hbm_budget_bytes or None,
         )
         return dataclasses.replace(plan, source=pin_from.source)
 
@@ -400,6 +440,21 @@ class Index:
                 "fused_select": self.spec.fused_select_enabled,
             },
         }
+        if self.spec.residency == "host":
+            seg = self.spec.segment_rows or plan.segment_rows
+            waves = self.capacity // seg if seg else 0
+            # the schedule a search runs: fixed-size waves, one copy ahead
+            report["residency"] = {
+                "tier": "host",
+                "segment_rows": seg,
+                "num_segments": waves,
+                "segment_hbm_bytes": seg * self.dim * sbytes,
+                "hbm_budget_bytes": plan.hbm_budget_bytes,
+                "schedule": [
+                    {"wave": i, "rows": [i * seg, (i + 1) * seg]}
+                    for i in range(waves)
+                ],
+            }
         report["cluster"] = self._explain_cluster(plan, report)
         report["expected_recall_live"] = self.expected_recall_live
         if self._packed is not None:
@@ -435,14 +490,17 @@ class Index:
         out = {"mode": self.spec.cluster, "enabled": cp is not None}
         if cp is None and plan.cluster is not None:
             out["predicted_speedup"] = plan.cluster.predicted_speedup
-        if cp is None and plan.cluster_veto is not None:
-            # the card's model prices the pruned scan at least as high as
-            # the dense one at this batch
-            out.update({
-                "vetoed_by": "h100_cost_model",
-                "predicted_pruned_s": plan.cluster_veto[0],
-                "predicted_dense_s": plan.cluster_veto[1],
-            })
+        price = plan.cluster_price
+        if price is not None and (cp is not None
+                                  or plan.cluster_veto is not None):
+            # the card's price of the pruned scan against the dense one:
+            # of a dropped plan (priced at least as high at this batch), or
+            # of kept tables (a restored snapshot's), so that a caller can
+            # see a loss and rebuild with cluster="off"
+            if cp is None:
+                out["vetoed_by"] = "h100_cost_model"
+            out.update({"predicted_pruned_s": price[0],
+                        "predicted_dense_s": price[1]})
         rejected = (self._packed.cluster_rejected_miss
                     if self._packed is not None else None)
         if cp is None and rejected is not None:
@@ -452,6 +510,17 @@ class Index:
                 "miss_budget": (plan.cluster.miss_budget
                                 if plan.cluster is not None else None),
             })
+        price = plan.cluster_price
+        if price is not None and (cp is not None
+                                  or plan.cluster_veto is not None):
+            # the card's price of the pruned scan against the dense one:
+            # of a dropped plan (priced at least as high at this batch), or
+            # of kept tables (a restored snapshot's), so that a caller can
+            # see a loss and rebuild with cluster="off"
+            if cp is None:
+                out["vetoed_by"] = "h100_cost_model"
+            out.update({"predicted_pruned_s": price[0],
+                        "predicted_dense_s": price[1]})
         if cp is not None:
             out.update({
                 "num_clusters": cp.num_clusters,
@@ -484,17 +553,59 @@ class Index:
         b = self.spec.backend
         return backends.default_backend(self.device) if b == "auto" else b
 
+    @property
+    def _home(self) -> torch.device:
+        """Where the raw rows, the live mask and the packed state live."""
+        return _home_device(self.spec, self._device)
+
+    def _segment_rows(self) -> int:
+        return self.spec.segment_rows or self.kernel_plan.segment_rows
+
     def pack(self) -> packedlib.PackedState:
         """The packed operands, built once and then patched by add/delete."""
         if self._packed is None:
             self.pack_timings = {}
-            self._packed = packedlib.pack_state(
-                self._db, self._live, self.metric, self.spec,
-                self._resolve_backend(), self.kernel_plan.cluster,
-                timings=self.pack_timings,
-            )
+            if self.spec.residency == "host":
+                self._packed = packedlib.pack_host_state(
+                    self._db, self._live, self.metric, self.spec,
+                    self._resolve_backend(), device=self.device,
+                    chunk_rows=self._segment_rows(),
+                )
+                self._place_packed()
+            else:
+                self._packed = packedlib.pack_state(
+                    self._db, self._live, self.metric, self.spec,
+                    self._resolve_backend(), self.kernel_plan.cluster,
+                    timings=self.pack_timings,
+                )
             self._bind_k_scan()
         return self._packed
+
+    def _place_packed(self) -> None:
+        """A host index's packed operands go to pinned host memory where
+        its searches run on a card (the reference's ``_place_packed``)."""
+        if self.spec.residency == "host" and self.device.type == "cuda":
+            packedlib.pin_state(self._packed)
+
+    def host_searcher(self) -> hosttierlib.HostTierSearcher:
+        """A host index's wave searcher (its two device slots), built at the
+        first search and again only when the packed layout or the scan's
+        k changes."""
+        pk = self.pack()
+        if self._host is None or not self._host.matches(pk, self._k_scan):
+            self._host = None  # the old slots go before the new ones come
+            self._host = hosttierlib.HostTierSearcher(
+                self.spec, pk, backend=self._resolve_backend(),
+                device=self.device, segment_rows=self._segment_rows(),
+                k_scan=self._k_scan, query_block=self.spec.query_block,
+            )
+        return self._host
+
+    def _wait_host_copies(self) -> None:
+        """Before host operands are patched: the last search's copies of
+        them must have been read."""
+        if self._host is not None:
+            self._host.wait_copies()
 
     def _bind_k_scan(self) -> None:
         """Fix the scan's k for the current packed state: the over-fetch
@@ -534,6 +645,9 @@ class Index:
             )
         if self.spec.dtype is not None:
             queries = queries.to(getattr(torch, self.spec.dtype))
+        if self.spec.residency == "host":
+            # the waves stream the database once for the whole batch
+            return SearchResult(*self._search_block(queries))
         on_kernels = self._resolve_backend() == "cuda" and self.device.type == "cuda"
         if on_kernels or queries.shape[0] <= self.spec.query_block:
             return SearchResult(*self._search_block(queries))
@@ -541,7 +655,10 @@ class Index:
 
     def _search_block(self, q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """One dispatch: :meth:`_search_ops`, counted in
-        ``DISPATCH_COUNTS``."""
+        ``DISPATCH_COUNTS``; a host index's waves (one dispatch each,
+        counted as ``"host"``)."""
+        if self.spec.residency == "host":
+            return self.host_searcher()(q, self.pack())
         backends.DISPATCH_COUNTS.inc(self._resolve_backend())
         return self._search_ops(q)
 
@@ -592,6 +709,10 @@ class Index:
         if self.device.type != "cuda":
             raise RuntimeError(
                 f"search graphs are CUDA graphs; this index is on {self.device}")
+        if self.spec.residency == "host":
+            raise RuntimeError(
+                "a host-resident index is searched eagerly: each search "
+                "streams the database through its waves")
         pk = self.pack()
         signature = (self._k_scan, pk.n, pk.bin_size) + tuple(
             (t.data_ptr(), tuple(t.shape)) for t in pk.operands()
@@ -660,6 +781,7 @@ class Index:
         the bound value is below the uncapped over-fetch.
         """
         faults.fire("index.add")  # before any state changes: all or nothing
+        self._wait_host_copies()
         rows = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
         rows = torch.atleast_2d(rows)
         if rows.ndim != 2 or rows.shape[1] != self.dim:
@@ -676,17 +798,22 @@ class Index:
         if required > self.capacity:
             # Linear growth, not doubling: spare capacity is masked but
             # still scored on every search.
-            new_cap = round_up(required, self._capacity_block)
+            block = self._capacity_block
+            if self.spec.residency == "host" and self.spec.segment_rows:
+                # capacity stays a whole number of segment waves
+                block = math.lcm(block, self.spec.segment_rows)
+            new_cap = round_up(required, block)
             grow = new_cap - self.capacity
             self._db = F.pad(self._db, (0, 0, 0, grow))
             self._live = torch.cat([
                 self._live,
-                torch.zeros((grow,), dtype=torch.bool, device=self.device),
+                torch.zeros((grow,), dtype=torch.bool, device=self._home),
             ])
             if self._packed is not None:
                 self._packed = self._packed.relayout(
                     self._packed.backend, new_cap, self.spec
                 )
+                self._place_packed()
                 grew = True
             # bins and prediction re-planned for the grown row space (as
             # the packed relayout re-plans its bins), the same tiles
@@ -695,7 +822,7 @@ class Index:
                                              pin_from=p)
             # an index that grew past the crossover is priced now
             self._cluster_vetoed = _cluster_pin(self._kernel_plan)
-        self._db[self._size : required] = rows
+        self._db[self._size : required] = rows.to(self._home)
         self._live[self._size : required] = True
         if self._packed is not None:
             self._packed.update_rows(self._size, rows, self.metric)
@@ -728,7 +855,8 @@ class Index:
         results).  Repeated ids count once; ids outside the capacity
         raise."""
         faults.fire("index.delete")  # before any patch: all or nothing
-        ids = torch.as_tensor(ids, dtype=torch.int64, device=self.device).reshape(-1)
+        self._wait_host_copies()
+        ids = torch.as_tensor(ids, dtype=torch.int64, device=self._home).reshape(-1)
         if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= self.capacity):
             raise IndexError(
                 f"delete ids must lie in [0, {self.capacity}), got "
@@ -786,8 +914,12 @@ class Index:
         are laid out for the port's backend (``packed.state_from_arrays``;
         a pallas-layout int4 database is unpacked and re-laid out).  The
         spec's tiles become the port's fixed 128 x 128, and the kernel
-        plan is the model's for the device's profile, its cluster decision
-        pinned to the restored tables.
+        plan is the model's for the device's profile, its cluster
+        decision pinned to the restored tables: they are kept
+        (results bit-identical to the saved replica), and on the
+        ``"h100"`` profile ``explain()["cluster"]`` reports their price
+        beside the dense scan's.  A host spec's state is re-pinned in host
+        memory.
 
         >>> import os, tempfile, torch
         >>> idx = Index.build(torch.eye(32), metric="mips", k=2, device="cpu")
@@ -820,11 +952,16 @@ class Index:
         fields["block_m"] = fields["max_block_n"] = None  # the fixed tiles
         spec = SearchSpec.from_json_dict(fields)
         device = _resolve_device(device)
-        pk = packedlib.state_from_arrays(arrays, meta["packed"], spec, device)
-        db = packedlib._tensor(arrays["db"], device).to(torch.float32)
-        live = packedlib._tensor(np.asarray(arrays["live"], bool), device)
+        home = _home_device(spec, device)
         plan_backend = (backends.default_backend(device)
                         if spec.backend == "auto" else spec.backend)
+        # laid out for the backend the searches run (a host state lives on
+        # the CPU, its layout is the device's)
+        pk = packedlib.state_from_arrays(
+            arrays, meta["packed"], dataclasses.replace(spec, backend=plan_backend),
+            home)
+        db = packedlib._tensor(arrays["db"], home).to(torch.float32)
+        live = packedlib._tensor(np.asarray(arrays["live"], bool), home)
         kernel_plan = planlib.plan_search(
             n=db.shape[0], d=db.shape[1], k=spec.k, metric=spec.metric,
             recall_target=spec.recall_target, dtype=spec.dtype or "float32",
@@ -834,14 +971,16 @@ class Index:
             query_block=spec.query_block, storage=spec.storage,
             rescore=spec.rescore_enabled, cluster=spec.cluster,
             cluster_veto=False if pk.cluster is not None else None,
+            residency=spec.residency, segment_rows=spec.segment_rows,
         )
         index = cls(
             kernel_plan.to_spec(spec), db, live, size=int(meta["size"]),
             num_live=int(meta["num_live"]),
             capacity_block=int(meta["capacity_block"]),
-            kernel_plan=kernel_plan,
+            kernel_plan=kernel_plan, device=device,
         )
         index._packed = pk
+        index._place_packed()  # a host spec re-pins to host memory
         index._bind_k_scan()
         telemetry.registry().inc("repro_snapshot_restores_total")
         return index

@@ -34,7 +34,9 @@ only an appended slice and slots it into the cluster tables,
 ``delete_rows`` patches only bias entries (the rescore bias too),
 ``relayout`` copies into a new capacity without re-preparing rows (and
 carries the tables), ``rebuild_cluster`` is the lazy recluster, and
-``pack_state`` is the only full pack.  Unlike the reference's immutable
+``pack_state`` is the only full pack (``pack_host_state`` its form for a
+host-resident index: the rows prepared on the compute device a chunk at
+a time, the state kept in host memory, pinned by ``pin_state``).  Unlike the reference's immutable
 arrays, ``update_rows`` and ``delete_rows`` write into the tensors in
 place.  ``PACK_EVENTS`` counts each kind of work by name.
 """
@@ -62,8 +64,12 @@ __all__ = [
     "PACK_EVENTS",
     "PackedState",
     "fuse_bias",
+    "pack_host_state",
     "pack_state",
+    "pin_state",
     "rebuild_cluster",
+    "reset_pack_events",
+    "restore_state",
     "scan_k_for",
     "snapshot_state",
     "state_from_arrays",
@@ -77,6 +83,12 @@ telemetry.registry().register_counter_dict(
     "repro_pack_events_total", PACK_EVENTS, "event",
     "packing/cluster/restore work performed (repro_torch.search.packed)",
 )
+
+
+def reset_pack_events() -> None:
+    """Zero ``PACK_EVENTS`` (the reference's deprecated alias; prefer
+    ``telemetry.reset_all()``)."""
+    PACK_EVENTS.clear()
 
 
 def fuse_bias(
@@ -213,18 +225,20 @@ class PackedState:
         prepped = F.pad(prepped, (0, d_pad - prepped.shape[1]))
         if self.int4_packed:  # canonical codes, two per byte
             prepped = quant.pack_int4_rows(prepped)
-        self.db[start : start + r] = prepped
+        # a host-resident state takes rows prepared on the compute device
+        home = self.db.device
+        self.db[start : start + r] = prepped.to(home)
         self.bias_row()[start : start + r] = fuse_bias(
-            metric_bias, num_rows=r, device=self.db.device
-        )
+            metric_bias, num_rows=r, device=rows.device
+        ).to(home)
         if self.storage != "f32":
             if self.scale is not None:
-                self.scale_row()[start : start + r] = qr.scale
+                self.scale_row()[start : start + r] = qr.scale.to(home)
             if self.rescore_db is not None:
-                self.rescore_db[start : start + r] = qr.exact_rows
+                self.rescore_db[start : start + r] = qr.exact_rows.to(home)
                 self.rescore_bias[start : start + r] = fuse_bias(
-                    qr.exact_bias, num_rows=r, device=self.db.device
-                )
+                    qr.exact_bias, num_rows=r, device=rows.device
+                ).to(home)
         if self.cluster is not None:
             clusterlib.assign_rows(self.cluster, exact_slice, start)
             PACK_EVENTS.inc("cluster_assigned")
@@ -334,6 +348,45 @@ def _layout(
     )
 
 
+def _prepare(database: torch.Tensor, live: Optional[torch.Tensor],
+             metric: Metric, spec: SearchSpec) -> dict:
+    """The cast to ``spec.dtype``, metric preparation and (for a quantized
+    tier) quantization of ``database`` rows: the stored ``rows``, their
+    fused ``bias``, ``scale``, the rescore tail (``rescore_db``,
+    ``rescore_bias``; with rescoring on), the full-precision
+    ``exact_rows`` and their fused ``exact_bias``, and the
+    ``compute_dtype``."""
+    n = database.shape[0]
+    db = database
+    if spec.dtype is not None:
+        db = db.to(getattr(torch, spec.dtype))
+    out = dict(compute_dtype=str(db.dtype).removeprefix("torch."),
+               scale=None, rescore_db=None, rescore_bias=None)
+    if spec.storage == "f32":
+        rows, metric_bias = metric.prepare_database(db)
+        bias = fuse_bias(metric_bias, live, num_rows=n, device=database.device)
+        out.update(rows=rows, bias=bias, exact_rows=rows, exact_bias=bias)
+        return out
+    qr = metric.prepare_storage(db, spec.storage)
+    bias = fuse_bias(qr.bias, live, num_rows=n, device=database.device)
+    exact_bias = fuse_bias(qr.exact_bias, live, num_rows=n,
+                           device=database.device)
+    out.update(rows=qr.rows, bias=bias, scale=qr.scale,
+               exact_rows=qr.exact_rows, exact_bias=exact_bias)
+    if spec.rescore_enabled:
+        out.update(rescore_db=qr.exact_rows.to(torch.float32),
+                   rescore_bias=exact_bias)
+    return out
+
+
+def _layout_prepared(backend: str, prep: dict, n: int, d: int,
+                     spec: SearchSpec) -> PackedState:
+    return _layout(backend, prep["rows"], prep["bias"], n, d, spec,
+                   scale=prep["scale"], rescore_db=prep["rescore_db"],
+                   rescore_bias=prep["rescore_bias"],
+                   compute_dtype=prep["compute_dtype"])
+
+
 def pack_state(
     database: torch.Tensor,
     live: Optional[torch.Tensor],
@@ -351,35 +404,56 @@ def pack_state(
     tables over the live prepared rows (:func:`_attach_cluster`);
     ``timings``, when given, receives the seconds of its steps."""
     n, d = database.shape
-    db = database
-    if spec.dtype is not None:
-        db = db.to(getattr(torch, spec.dtype))
-    compute_dtype = str(db.dtype).removeprefix("torch.")
-    if spec.storage == "f32":
-        db, metric_bias = metric.prepare_database(db)
-        bias = fuse_bias(metric_bias, live, num_rows=n, device=database.device)
-        PACK_EVENTS.inc("full_pack")
-        state = _layout(backend, db, bias, n, d, spec,
-                        compute_dtype=compute_dtype)
-        _attach_cluster(state, db, bias, live, metric, cluster_plan, spec.k,
-                        timings)
-        return state
-    qr = metric.prepare_storage(db, spec.storage)
-    bias = fuse_bias(qr.bias, live, num_rows=n, device=database.device)
-    rescore_db = rescore_bias = None
-    if spec.rescore_enabled:
-        rescore_db = qr.exact_rows.to(torch.float32)
-        rescore_bias = fuse_bias(qr.exact_bias, live, num_rows=n,
-                                 device=database.device)
+    prep = _prepare(database, live, metric, spec)
     PACK_EVENTS.inc("full_pack")
-    state = _layout(backend, qr.rows, bias, n, d, spec, scale=qr.scale,
-                    rescore_db=rescore_db, rescore_bias=rescore_bias,
-                    compute_dtype=compute_dtype)
-    exact_fused = (rescore_bias if rescore_bias is not None
-                   else fuse_bias(qr.exact_bias, live, num_rows=n,
-                                  device=database.device))
-    _attach_cluster(state, qr.exact_rows, exact_fused, live, metric,
-                    cluster_plan, spec.k, timings)
+    state = _layout_prepared(backend, prep, n, d, spec)
+    _attach_cluster(state, prep["exact_rows"], prep["exact_bias"], live,
+                    metric, cluster_plan, spec.k, timings)
+    return state
+
+
+def pack_host_state(
+    database: torch.Tensor,
+    live: torch.Tensor,
+    metric: Metric,
+    spec: SearchSpec,
+    backend: str,
+    *,
+    device,
+    chunk_rows: int,
+) -> PackedState:
+    """Full pack of a host-resident index (``residency="host"``).
+
+    ``database`` and ``live`` sit in host memory; their rows go to
+    ``device`` ``chunk_rows`` at a time for :func:`pack_state`'s cast,
+    preparation and quantization (row by row, so they equal a pack on
+    that device), and come back to the host, where they are laid out in
+    ``backend``'s layout.  No more than one chunk is ever on the device;
+    a metric whose preparation couples rows takes one chunk.  No cluster
+    tables: a host index never prunes."""
+    n, d = database.shape
+    chunk = chunk_rows if metric.rowwise else n
+    parts = []
+    for lo in range(0, n, chunk):
+        prep = _prepare(database[lo : lo + chunk].to(device),
+                        live[lo : lo + chunk].to(device), metric, spec)
+        parts.append({key: v.cpu() if isinstance(v, torch.Tensor) else v
+                      for key, v in prep.items()})
+    prep = {key: (torch.cat([p[key] for p in parts])
+                  if isinstance(parts[0][key], torch.Tensor)
+                  else parts[0][key]) for key in parts[0]}
+    PACK_EVENTS.inc("full_pack")
+    return _layout_prepared(backend, prep, n, d, spec)
+
+
+def pin_state(state: PackedState) -> PackedState:
+    """Move a host state's operands into pinned (page-locked) host memory,
+    the source a non-blocking copy to the card needs; raises where the
+    build has no CUDA runtime to pin with."""
+    for name in ("db", "bias", "scale", "rescore_db", "rescore_bias"):
+        t = getattr(state, name)
+        if t is not None and not t.is_pinned():
+            setattr(state, name, t.cpu().pin_memory())
     return state
 
 
@@ -477,6 +551,14 @@ def _tensor(a, device) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def restore_state(arrays: dict, meta: dict, spec: SearchSpec,
+                  device=None) -> PackedState:
+    """The reference's name: :func:`state_from_arrays` on ``device``
+    (default ``"cuda"``, as ``Index.build``)."""
+    return state_from_arrays(arrays, meta, spec,
+                             "cuda" if device is None else device)
 
 
 def state_from_arrays(arrays: dict, meta: dict, spec: SearchSpec,

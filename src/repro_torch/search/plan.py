@@ -68,10 +68,12 @@ __all__ = [
     "SCORE_TILE_BUDGET",
     "Plan",
     "PlanCache",
+    "SEGMENT_ALIGN",
     "detect_device",
     "plan_buckets",
     "plan_clusters",
     "plan_search",
+    "plan_segments",
     "time_search",
     "tune_plan",
 ]
@@ -84,6 +86,10 @@ SCORE_TILE_BUDGET = 64 * 2**20
 
 # Smallest serving micro-batch of the bucket ladder (plan_buckets).
 MIN_SERVE_BUCKET = 8
+
+# Host-tier segment rows round up to this multiple, so that capacity
+# growth (Index.add) lands on whole waves (the reference's).
+SEGMENT_ALIGN = 1024
 
 # Cluster pruning's cost model (the reference's): a gathered candidate row
 # is priced at this multiple of a streamed one when deciding the
@@ -178,9 +184,16 @@ class Plan:
     False where the crossover rejected pruning, or where the ``"h100"``
     profile vetoed it); enabled, the prediction is the pruned scan's and
     ``expected_recall`` the collision x miss product.
-    ``cluster_veto``: ``(pruned_s, dense_s)``, the two predicted times,
-    where the ``"h100"`` profile dropped a plan the crossover enabled;
+    ``cluster_price``: ``(pruned_s, dense_s)``, the two predicted times,
+    wherever the ``"h100"`` profile priced a plan the crossover enabled,
+    dropped or kept (a restored index keeps its tables and reports their
+    price); ``cluster_veto`` is that price where the plan was dropped,
     else None.
+
+    Host tier (``residency="host"``, the reference's fields): the
+    segment-wave schedule — ``segment_rows`` a wave, ``num_segments``
+    waves a search, two segments on the device at once inside
+    ``hbm_budget_bytes``; all 0 for ``"hbm"``.
 
     ``source`` is ``"model"``, ``"measure"`` (refined by
     :func:`tune_plan`) or ``"user"`` (every tile field pinned).
@@ -223,11 +236,23 @@ class Plan:
     rescore: bool = False
     k_scan: int = 0
     cluster: Optional[clusterlib.ClusterPlan] = None
-    cluster_veto: Optional[Tuple[float, float]] = None
+    cluster_price: Optional[Tuple[float, float]] = None
+    residency: str = "hbm"
+    segment_rows: int = 0
+    num_segments: int = 0
+    hbm_budget_bytes: float = 0.0
 
     @property
     def bin_size(self) -> int:
         return 1 << self.log2_bin_size
+
+    @property
+    def cluster_veto(self) -> Optional[Tuple[float, float]]:
+        """``cluster_price`` where the ``"h100"`` profile dropped the plan
+        the crossover enabled, else None."""
+        if self.cluster_price is None or self.cluster.enabled:
+            return None
+        return self.cluster_price
 
     @property
     def bin_plan(self) -> BinPlan:
@@ -257,6 +282,7 @@ class Plan:
         base = base or SearchSpec(
             metric=self.metric, k=self.k, recall_target=self.recall_target,
             backend=self.backend, storage=self.storage, rescore=self.rescore,
+            residency=self.residency,
         )
         return dataclasses.replace(
             base,
@@ -265,14 +291,16 @@ class Plan:
             query_block=base.query_block or self.query_block,
             serve_buckets=base.serve_buckets
             or plan_buckets(base.query_block or self.query_block),
+            segment_rows=base.segment_rows or (self.segment_rows or None),
         )
 
     def summary(self) -> dict:
         """Flat dict view (what ``Index.explain()`` embeds), with the
         ``bin_size`` and the kernels' ``splits``; the reference's keys
-        (``cluster_veto`` is reported in ``explain()``'s cluster block)."""
+        (``cluster_price`` is reported in ``explain()``'s cluster
+        block)."""
         out = dataclasses.asdict(self)
-        del out["cluster_veto"]
+        del out["cluster_price"]
         out["bin_size"] = self.bin_size
         out["splits"] = self.splits
         return out
@@ -404,17 +432,17 @@ def _card_cluster_cost(m: int, d: int, l: int, cp: clusterlib.ClusterPlan,
 
 
 def _cluster_veto(pruned: KernelCost, dense: KernelCost, hw,
-                  pin: Optional[bool]) -> Optional[Tuple[float, float]]:
-    """The ``"h100"`` profile's decision on a cluster plan the crossover
-    enabled: ``(pruned_s, dense_s)``, the two predicted times, where the
-    plan is dropped; None where it stands.  ``pin`` is an index's decision
-    at build time, kept whatever the batch (True: dropped, False: kept);
-    None decides here: dropped where the pruned scan is priced at least
-    as high as the dense scan."""
+                  pin: Optional[bool]) -> Tuple[Tuple[float, float], bool]:
+    """The ``"h100"`` profile's price of a cluster plan the crossover
+    enabled and its decision: ``((pruned_s, dense_s), drop)``, the two
+    predicted times and whether the plan is dropped.  ``pin`` is an
+    index's decision at build time (or a restored index's tables), kept
+    whatever the batch (True: dropped, False: kept); None decides here:
+    dropped where the pruned scan is priced at least as high as the dense
+    scan."""
     pruned_s = pruned.flops / attainable_flops(pruned, hw)
     dense_s = dense.flops / attainable_flops(dense, hw)
-    drop = pruned_s >= dense_s if pin is None else pin
-    return (pruned_s, dense_s) if drop else None
+    return (pruned_s, dense_s), (pruned_s >= dense_s if pin is None else pin)
 
 
 def plan_buckets(
@@ -455,6 +483,48 @@ def _plan_query_block(n: int) -> int:
     return 1 << max(3, int(math.floor(math.log2(max(8, qb)))))
 
 
+def plan_segments(
+    *,
+    n: int,
+    d: int,
+    db_bytes: float,
+    hbm_budget_bytes: float,
+    rescore: bool = False,
+    segment_rows: Optional[int] = None,
+) -> Tuple[int, int]:
+    """Host-tier segment schedule: ``(segment_rows, num_segments)`` (the
+    reference's).
+
+    Two segments are on the device at once — the wave being scanned and
+    the copy of the next — so one segment must fit in half of
+    ``hbm_budget_bytes``.  A segment row costs its stored width plus the
+    per-row bias and scale, plus the f32 rescore tail where the quantized
+    two-pass runs.  Rows round down to ``SEGMENT_ALIGN`` (at least one
+    ``SEGMENT_ALIGN``), and ``segment_rows * num_segments >= n``:
+    ``Index.build`` pads capacity to that product.  An explicit
+    ``segment_rows`` pins the wave (the budget is not checked).
+
+    >>> plan_segments(n=4096, d=128, db_bytes=4, hbm_budget_bytes=2**20)
+    (1024, 4)
+    """
+    if n <= 0:
+        raise ValueError(f"need positive n, got {n}")
+    per_row = float(d * db_bytes) + 8.0            # stored row + bias/scale
+    if rescore:
+        per_row += 4.0 * d + 4.0                   # f32 rescore tail + bias
+    if segment_rows is None:
+        if hbm_budget_bytes <= 0:
+            raise ValueError(
+                f"hbm_budget_bytes must be positive, got {hbm_budget_bytes}"
+            )
+        fit = int(hbm_budget_bytes / 2.0 / per_row)
+        segment_rows = max(
+            SEGMENT_ALIGN, (fit // SEGMENT_ALIGN) * SEGMENT_ALIGN
+        )
+    num_segments = -(-n // segment_rows)
+    return segment_rows, num_segments
+
+
 def plan_search(
     *,
     n: int,
@@ -474,6 +544,9 @@ def plan_search(
     rescore: Optional[bool] = None,
     cluster: str = "off",
     cluster_veto: Optional[bool] = None,
+    residency: str = "hbm",
+    segment_rows: Optional[int] = None,
+    hbm_budget_bytes: Optional[float] = None,
 ) -> Plan:
     """Derive every kernel parameter analytically (Eq. 4–10, 13–14).
 
@@ -486,8 +559,16 @@ def plan_search(
     (:func:`plan_clusters`); ``"off"`` (the default, as in the reference)
     never does.  On the ``"h100"`` profile a plan the crossover enables
     is dropped where the card's price of the pruned scan is at least the
-    dense scan's at this batch (``Plan.cluster_veto`` holds both times);
-    ``cluster_veto`` pins that decision (an index's, made at build).
+    dense scan's at this batch; ``cluster_veto`` pins that decision (an
+    index's, made at build).  ``Plan.cluster_price`` holds the two times
+    either way.
+
+    ``residency="host"`` plans the cold tier's segment waves
+    (:func:`plan_segments` against ``hbm_budget_bytes``, default the
+    profile's ``hbm_bytes``) and never evaluates pruning; unlike the
+    reference, the ``"cuda"`` backend is accepted (its kernels scan each
+    wave), and its segments are sized for its rows as the kernels hold
+    them (``d_pad`` lanes).
 
     >>> v = plan_search(n=1_000_000, d=128, k=10, metric="l2",
     ...                 backend="cuda", device="h100", cluster="auto")
@@ -526,15 +607,31 @@ def plan_search(
     ks = quant.scan_k(storage, k, n=n) if rescore_on else k
     if cluster not in ("auto", "off"):
         raise ValueError(f'cluster must be "auto" or "off", got {cluster!r}')
+    if residency not in ("hbm", "host"):
+        raise ValueError(
+            f'residency must be "hbm" or "host", got {residency!r}'
+        )
+    # a host index never prunes: the gathered scan needs every row resident
     cplan = (plan_clusters(n=n, k_scan=ks, recall_target=recall_target)
-             if cluster == "auto" else None)
+             if cluster == "auto" and residency != "host" else None)
+    seg_rows, num_segs, budget = 0, 0, 0.0
+    d_pad = round_up(d, 128)
+    if residency == "host":
+        budget = float(hbm_budget_bytes or hw.hbm_bytes)
+        # a "cuda" slot holds the kernels' rows, padded to d_pad lanes
+        seg_rows, num_segs = plan_segments(
+            n=n, d=d, db_bytes=sbytes * d_pad / d if backend == "cuda"
+            else sbytes, hbm_budget_bytes=budget, rescore=rescore_on,
+            segment_rows=segment_rows,
+        )
 
     bins = plan_bins(
         n, ks, recall_target,
         reduction_input_size_override=reduction_input_size_override,
     )
-    d_pad = round_up(d, 128)
-    qb = query_block or _plan_query_block(n)
+    # a host wave scores a (query_block, segment_rows) tile
+    qb = query_block or _plan_query_block(
+        seg_rows if residency == "host" else n)
     m_eff = m if m else qb
     expected = bins.expected_recall
     extra = (_rescore_cost(m_eff, bins.num_bins, ks, d) if rescore_on
@@ -549,19 +646,19 @@ def plan_search(
         cost = _cuda_cost(m_eff, n, d, bins.bin_size, ks, storage, dbytes)
     else:
         cost = _dense_cost(m_eff, n, d, bins.num_bins, dbytes, sbytes)
-    veto = None
+    price, drop = None, False
     if cplan is not None and cplan.enabled:
         # the pruned gathered program replaces the scan on every backend
         if device == "h100":
             pruned = _card_cluster_cost(
                 m_eff, d, bins.num_bins, cplan, dbytes, sbytes,
                 d_pad if backend == "cuda" else d)
-            veto = _cluster_veto(with_rescore(pruned), with_rescore(cost), hw,
-                                 cluster_veto)
+            price, drop = _cluster_veto(with_rescore(pruned),
+                                        with_rescore(cost), hw, cluster_veto)
         else:
             pruned = _cluster_cost(m_eff, d, bins.num_bins, cplan, dbytes,
                                    sbytes)
-        if veto is None:
+        if not drop:
             cost = pruned
             expected = cplan.recall_decomposition(ks)["expected_recall"]
         else:
@@ -584,7 +681,8 @@ def plan_search(
         source="user" if pinned else "model",
         reduction_input_size_override=reduction_input_size_override,
         storage=storage, rescore=rescore_on, k_scan=ks, cluster=cplan,
-        cluster_veto=veto,
+        cluster_price=price, residency=residency,
+        segment_rows=seg_rows, num_segments=num_segs, hbm_budget_bytes=budget,
     )
 
 
@@ -636,6 +734,8 @@ def _with_measured_tiles(plan: Plan, bm: int, bn: int, qb: int) -> Plan:
         storage=plan.storage, rescore=plan.rescore,
         cluster="auto" if plan.cluster is not None else "off",
         cluster_veto=plan.cluster_veto is not None,
+        residency=plan.residency, segment_rows=plan.segment_rows or None,
+        hbm_budget_bytes=plan.hbm_budget_bytes or None,
     )
     return dataclasses.replace(refreshed, source="measure")
 
@@ -678,6 +778,9 @@ class PlanCache:
         if plan.cluster is not None and plan.cluster.enabled:
             # the pruned gathered program times nothing like the full scan
             base += "/cl"
+        if plan.residency != "hbm":
+            # nor do the segment waves, which stream the rows each search
+            base += f"/host{plan.segment_rows}"
         if spec is not None and not (
             spec.block_m is None
             and spec.max_block_n is None
@@ -728,25 +831,31 @@ def tune_plan(
     spec: Optional[SearchSpec] = None,
     cache: Optional[PlanCache] = None,
     repeats: int = 3,
+    device=None,
 ) -> Plan:
     """Refine a model plan with a short timed sweep (``plan="measure"``).
 
-    Builds a throwaway index on ``database``'s device per candidate of
-    :func:`_tile_candidates`, times a batch of ``plan.m`` queries (one
+    Builds a throwaway index per candidate of :func:`_tile_candidates`
+    that searches on ``device`` (default: ``database``'s; a host index's
+    rows stay in host memory, so its build passes the device its
+    searches run on), times a batch of ``plan.m`` queries (one
     ``query_block`` if 0, at most two) with :func:`time_search`, and
     returns the plan re-derived for the fastest (``source="measure"``).
     The result is kept in ``cache`` under the card's name, so a later
     build of the same workload on that card runs no timing.  ``spec`` is
-    the workload's own spec: candidates replace only its tile fields.
+    the workload's own spec: candidates replace only its tile fields (a
+    host plan's candidates stream its segments).
     """
     from repro_torch.search.index import Index  # index imports plan
 
     if cache is None:  # NOT ``or``: an empty PlanCache is falsy
         cache = PlanCache()
-    card = _card_name(database.device)
+    device = torch.device(device) if device is not None else database.device
+    card = _card_name(device)
     base_spec = spec if spec is not None else SearchSpec(
         metric=plan.metric, k=plan.k, recall_target=plan.recall_target,
         backend=plan.backend, storage=plan.storage, rescore=plan.rescore,
+        residency=plan.residency,
     )
     hit = cache.get(plan, spec, card)
     if hit is not None:
@@ -755,9 +864,9 @@ def tune_plan(
         )
 
     m_eff = plan.m or plan.query_block
-    g = torch.Generator(device=database.device).manual_seed(0)
+    g = torch.Generator(device=device).manual_seed(0)
     queries = torch.randn((min(m_eff, 2 * plan.query_block), plan.d),
-                          generator=g, device=database.device)
+                          generator=g, device=device)
     # Every candidate is a valid build (only query_block varies, within
     # its clamp), so a failing one fails the sweep (the reference skips
     # candidates its backend rejects).
@@ -765,10 +874,11 @@ def tune_plan(
     for bm, bn, qb in _tile_candidates(plan, spec):
         cand = dataclasses.replace(
             base_spec, block_m=bm, max_block_n=bn, query_block=qb,
+            segment_rows=base_spec.segment_rows or (plan.segment_rows or None),
         )
         # Every tile pinned: the candidate's own plan is no sweep.
         index = Index.build(database, spec=cand, plan="model",
-                            device=database.device, profile=plan.device)
+                            device=device, profile=plan.device)
         wall = time_search(index, queries, repeats=repeats, passes=1)
         if wall < best_wall:
             best, best_wall = (bm, bn, qb), wall

@@ -28,7 +28,9 @@ The GPU form, for an index on a CUDA device:
     batch.  An oversize request (more rows than ``max_batch``) is searched
     eagerly and never captured, as the reference never caches its shape.
     A clustered index is captured like any other: its pruned path holds
-    no host sync.
+    no host sync.  A host-resident index (``residency="host"``) is served
+    eagerly, never captured: each batch restreams the database through
+    its waves, and the copies are what a graph would hide.
   * **Staging.**  Each bucket owns two slots, each a pinned host buffer of
     queries in the compute dtype (numpy has no bf16) and pinned result
     buffers; a batch takes the slot the batch still in flight does not
@@ -426,6 +428,8 @@ class SearchServer:
                 "raw unsorted bin winners"
             )
         self._cuda = index.device.type == "cuda"
+        # a host index streams its waves eagerly (no graph per bucket)
+        self._graphs = self._cuda and spec.residency != "host"
         qb = spec.query_block or 4096
         widened = (self._cuda and index._resolve_backend() == "cuda"
                    and qb < kernels.BLOCK_M)
@@ -756,7 +760,7 @@ class SearchServer:
             self._count("eager_batches")
             return _Pending(*self.index.search(slot.queries))
         with torch.cuda.stream(self._stream):
-            if bucket > self.max_batch:
+            if bucket > self.max_batch or not self._graphs:
                 self._count("eager_batches")
                 res = self.index.search(slot.queries.to(self.index.device))
                 event = torch.cuda.Event()
@@ -1159,9 +1163,15 @@ class SearchServer:
         for bucket in self.buckets:
             t0 = time.perf_counter()
             with self._dispatch_gate:  # may be called on a live server
-                if self._cuda:
+                if self._graphs:
                     with torch.cuda.stream(self._stream):
                         self.index.search_graph(bucket)
+                    self._stream.synchronize()
+                elif self._cuda:
+                    with torch.cuda.stream(self._stream):
+                        self.index.search(torch.zeros(
+                            (bucket, self.index.dim), dtype=self._qdtype,
+                            device=self.index.device))
                     self._stream.synchronize()
                 else:
                     self.index.search(

@@ -94,8 +94,13 @@ class SearchSpec:
         sizes), or None; ``Index.build`` fills it from the planner
         (``plan.plan_buckets`` of the ``query_block``), and a
         ``SearchServer`` without its own ladder uses it.
-      residency: only "hbm" (host tier: ROADMAP queue A item 10).
-      segment_rows: only None (host tier: ROADMAP queue A item 10).
+      residency: where the packed database lives between searches:
+        "hbm" (on the index's device) or "host" (the cold tier: pinned
+        host memory, streamed through the device in fixed-size segment
+        waves, ``repro_torch.search.hosttier``).  Unlike the reference,
+        the "cuda" backend scans the waves with the kernels.
+      segment_rows: rows a host-tier wave streams; None defers to the
+        planner (``plan.plan_segments``).  Unused for "hbm".
 
     >>> SearchSpec(metric="l2", k=4).resolved
     False
@@ -135,10 +140,19 @@ class SearchSpec:
                 f"backend must be one of {BACKENDS}, got {self.backend!r}"
             )
         quant.storage_bytes(self.storage)  # validate the tier name
-        if self.residency != "hbm":
-            raise NotImplementedError(
-                f"residency={self.residency!r}: the host-RAM tier is not "
-                "ported yet (ROADMAP queue A item 10)"
+        if self.residency not in ("hbm", "host"):
+            raise ValueError(
+                f'residency must be "hbm" or "host", got {self.residency!r}'
+            )
+        if self.segment_rows is not None and self.segment_rows <= 0:
+            raise ValueError(
+                f"segment_rows must be positive, got {self.segment_rows}"
+            )
+        if self.residency == "host" and not self.aggregate_to_topk:
+            raise ValueError(
+                'residency="host" merges per-segment top-k carries and '
+                "needs aggregate_to_topk=True: the raw bin winners of one "
+                "segment wave are not comparable across waves"
             )
         if self.dtype not in DTYPES:
             raise ValueError(
@@ -168,11 +182,6 @@ class SearchSpec:
                     f"{self.serve_buckets}"
                 )
             object.__setattr__(self, "serve_buckets", buckets)
-        if self.segment_rows is not None:
-            raise NotImplementedError(
-                "segment_rows: the host-RAM tier is not ported yet (ROADMAP "
-                "queue A item 10)"
-            )
         if self.rescore and self.storage == "f32":
             raise ValueError(
                 "rescore=True requires a quantized storage tier "

@@ -792,3 +792,251 @@ def test_failed_capture_raises(cuda_device):
 
     with pytest.raises(RuntimeError):
         backends.capture_search(syncs, 8, 4, torch.float32, cuda_device)
+
+
+# --- the host-RAM cold tier ---------------------------------------------------
+
+
+def _host_pair(storage="f32", n=200_000, d=128, seg=32_768, metric="l2",
+               hbm=True):
+    """A host index of ``seg``-row waves and (``hbm``) the HBM index of the
+    same rows, both on the card, and the rows."""
+    rng = np.random.default_rng(21)
+    db = rng.standard_normal((n, d), dtype=np.float32)
+    kw = dict(metric=metric, k=10, storage=storage, cluster="off")
+    return (Index.build(db, residency="host", segment_rows=seg, **kw),
+            Index.build(db, **kw) if hbm else None, db)
+
+
+@pytest.mark.parametrize("metric", ["l2", "mips", "cosine"])
+def test_host_f32_bit_equal_to_hbm_on_card(cuda_device, metric):
+    """Segments of whole 4096-row bins: the waves' kernels and carry merge
+    give the HBM index's bits (rows prepared on the card a segment at a
+    time, as the HBM index prepares them all at once)."""
+    host, hbm, _ = _host_pair(metric=metric)
+    assert host.pack().db.is_pinned() and host.device.type == "cuda"
+    assert host.capacity == 7 * 32_768
+    assert 32_768 % host.host_searcher().bin_size == 0
+    rng = np.random.default_rng(22)
+    for m in (16, 300):
+        q = torch.from_numpy(rng.standard_normal((m, 128), dtype=np.float32))
+        a, b = host.search(q), hbm.search(q)
+        assert torch.equal(a.values, b.values) and torch.equal(a.indices, b.indices)
+    dead = torch.arange(0, 200_000, 3)
+    host.delete(dead), hbm.delete(dead.cuda())
+    a, b = host.search(q), hbm.search(q)
+    assert torch.equal(a.values, b.values) and torch.equal(a.indices, b.indices)
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8", "int4"])
+def test_host_waves_launch_two_kernels_each(cuda_device, storage):
+    host, _, db = _host_pair(storage=storage, hbm=False)
+    waves = host.capacity // 32_768
+    q = torch.from_numpy(db[:40] + 0.01)
+    host.search(q)
+    prk.reset_counts()
+    from repro_torch.search import DISPATCH_COUNTS
+    DISPATCH_COUNTS.clear()
+    got = host.search(q)
+    torch.cuda.synchronize()
+    form = prk.kernel_name("partial_reduce_fused", storage, 3)
+    assert dict(prk.LAUNCHES) == {form: waves, "fused_carry_merge": waves}
+    assert not prk.PLAIN_CALLS
+    assert dict(DISPATCH_COUNTS) == {"host": waves}
+    assert (got.indices[:, 0].cpu() == torch.arange(40)).all()
+
+
+@pytest.mark.parametrize("held", ["scan", "copy"])
+def test_host_slots_ordered_behind_a_sleep(cuda_device, held):
+    """With the compute stream held behind a sleep, the copies run ahead
+    and the third wave's copy must wait for the first wave's scan of the
+    same slot; with the copy stream held, every scan must wait for its
+    copy.  Either way the result is the unheld search's bits."""
+    host, _, db = _host_pair(n=150_000, seg=16_384, hbm=False)
+    assert host.capacity // 16_384 >= 9
+    q = torch.from_numpy(db[:64] * 0.5)
+    want = host.search(q)
+    torch.cuda.synchronize()
+    searcher = host.host_searcher()
+    stream = (torch.cuda.current_stream() if held == "scan"
+              else searcher._copy_stream)
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(200_000_000)
+    got = host.search(q)
+    assert torch.equal(got.values, want.values)
+    assert torch.equal(got.indices, want.indices)
+
+
+def test_host_search_adds_no_database_sized_allocation(cuda_device):
+    """The index holds nothing on the card; a search adds its two slots
+    (allocated once) and query-sized work, never the database."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    host, _, db = _host_pair(n=300_000, seg=32_768, hbm=False)
+    torch.cuda.synchronize()
+    db_bytes = host.capacity * 128 * 4
+    slot_bytes = 32_768 * (128 * 4 + 8)
+    q = torch.from_numpy(db[:16])
+    host.search(q)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    assert held <= 2 * slot_bytes + (1 << 20), held
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    host.search(q)
+    torch.cuda.synchronize()
+    added = torch.cuda.max_memory_allocated() - before
+    assert added < slot_bytes and added < db_bytes // 100, added
+
+
+def test_host_searches_from_two_threads_equal_serial(cuda_device):
+    """Two threads search one host index at once, one on its own stream:
+    the searcher issues one search's waves at a time, so neither stages
+    into the other's slot, and every result is its serial search's
+    bits."""
+    import threading
+
+    host, _, db = _host_pair(n=150_000, seg=16_384, hbm=False)
+    qs = [torch.from_numpy(db[i * 50 : i * 50 + 32] * 0.7) for i in range(12)]
+    want = [host.search(q) for q in qs]
+    torch.cuda.synchronize()
+    got, errors = {}, []
+
+    def worker(idx, side):
+        try:
+            stream = torch.cuda.Stream() if side else torch.cuda.current_stream()
+            with torch.cuda.stream(stream):
+                for i in idx:
+                    got[i] = host.search(qs[i])
+                stream.synchronize()
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(range(p, 12, 2), p))
+               for p in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors and len(got) == 12
+    for i, w in enumerate(want):
+        assert torch.equal(got[i].values, w.values)
+        assert torch.equal(got[i].indices, w.indices)
+
+
+def test_host_measure_times_on_the_card(cuda_device, monkeypatch):
+    """plan="measure" for a host index on the card: its rows stay in host
+    memory, its candidates search on the card, and the plan is cached
+    under the card's name."""
+    from repro_torch.search import plan as planlib
+
+    timed = []
+    real = planlib.time_search
+
+    def spy(index, queries, **kw):
+        timed.append((index.device.type, index.spec.residency,
+                       index.pack().db.device.type))
+        return real(index, queries, **kw)
+
+    monkeypatch.setattr(planlib, "time_search", spy)
+    db = np.random.default_rng(24).standard_normal((40_000, 128),
+                                                   dtype=np.float32)
+    cache = planlib.PlanCache()
+    index = Index.build(db, metric="l2", k=10, cluster="off",
+                        residency="host", segment_rows=16_384,
+                        plan="measure", plan_cache=cache)
+    assert index.kernel_plan.source == "measure"
+    assert timed and set(timed) == {("cuda", "host", "cpu")}
+    (key,) = cache._entries
+    assert key.startswith(torch.cuda.get_device_name(0) + "/")
+    assert key.endswith("/host16384")
+
+
+def test_host_unaligned_budget_on_card(cuda_device):
+    """A budget-planned segment that the planned bins do not tile: the
+    card's kernels scan the capped bins within the budget, and match the
+    same index's plain versions on the CPU."""
+    rng = np.random.default_rng(25)
+    n, d = 15_000, 16
+    db = rng.standard_normal((n, d), dtype=np.float32)
+    q = rng.standard_normal((40, d), dtype=np.float32)
+    kw = dict(k=2, recall_target=0.8, cluster="off", backend="cuda",
+              residency="host", hbm_budget_bytes=2 * 3072 * (128 * 4 + 8))
+    card = Index.build(db, **kw)
+    cpu = Index.build(db, device="cpu", **kw)
+    searcher = card.host_searcher()
+    assert searcher.segment_rows == searcher.slot_rows == 3072
+    assert searcher.bin_size == 1024
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    card.search(q)
+    torch.cuda.synchronize()
+    slot_bytes = sum(t.numel() * t.element_size() for s in searcher.slots
+                     for t in s.values() if t is not None)
+    assert slot_bytes <= kw["hbm_budget_bytes"]
+    assert torch.cuda.memory_allocated() - before < slot_bytes
+    a, b = card.search(q), cpu.search(q)
+    assert_topk_close(b.values.numpy(), b.indices.numpy(),
+                      a.values.cpu().numpy(), a.indices.cpu().numpy())
+
+
+def test_host_index_is_served_eagerly(cuda_device):
+    from repro_torch.search import SearchServer, ServeConfig, VirtualClock
+
+    host, _, _ = _host_pair(n=70_000, seg=16_384, hbm=False)
+    server = SearchServer(host, ServeConfig(max_batch=64),
+                          clock=VirtualClock(), warmup=True)
+    reqs = _requests(4, 6, d=128)
+    tickets = [server.submit(q, k=k) for q, k in reqs]
+    server.run_until_idle()
+    for (q, k), t in zip(reqs, tickets):
+        _bits_equal_direct(host, q, k, t.result())
+    s = server.stats()
+    assert s["graph_replays"] == 0 and s["eager_batches"] == s["batches"]
+    with pytest.raises(RuntimeError, match="eagerly"):
+        host.search_graph(16)
+
+
+def test_restored_clustered_snapshot_reports_its_h100_price(cuda_device,
+                                                           tmp_path):
+    """C6: a snapshot with cluster tables restored on the card keeps them
+    (bit-identical results) and reports the "h100" model's price of the
+    pruned scan beside the dense one."""
+    import os
+
+    db, q = _mixture(12, 20_000, 40)
+    index = Index.build(db, metric="l2", k=10, profile="a100")
+    assert index.pack().cluster is not None
+    direct = index.search(q)
+    restored = Index.restore(index.save(os.path.join(tmp_path, "snap")))
+    assert restored.kernel_plan.device == "h100"
+    assert restored.pack().cluster is not None
+    got = restored.search(q)
+    assert torch.equal(got.values, direct.values)
+    assert torch.equal(got.indices, direct.indices)
+    for m in (None, 10_000):
+        cl = restored.explain(m=m)["cluster"]
+        assert cl["enabled"] and cl["predicted_pruned_s"] > 0
+        assert cl["predicted_dense_s"] > 0 and "vetoed_by" not in cl
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_host_snapshot_round_trip_on_card(cuda_device, storage, tmp_path):
+    """A host index saved and restored on the card: the state re-pinned in
+    the kernels' layout, the same search bits, no build work."""
+    import os
+
+    from repro_torch.search import PACK_EVENTS
+
+    host, _, db = _host_pair(storage=storage, n=70_000, seg=16_384, hbm=False)
+    q = torch.from_numpy(db[:30] + 0.1)
+    host.delete(torch.arange(0, 70_000, 9))
+    direct = host.search(q)
+    PACK_EVENTS.clear()
+    back = Index.restore(host.save(os.path.join(tmp_path, "snap")))
+    assert dict(PACK_EVENTS) == {"restore": 1}
+    pk = back.pack()
+    assert pk.backend == "cuda" and pk.db.is_pinned() and pk.db.device.type == "cpu"
+    got = back.search(q)
+    assert torch.equal(got.values, direct.values)
+    assert torch.equal(got.indices, direct.indices)

@@ -115,6 +115,41 @@ def test_clustered_round_trip_keeps_the_tables(tmp_path):
     assert _equal(restored.search(q), direct)
 
 
+@pytest.mark.parametrize("m", [None, 10_000])
+def test_restored_tables_report_the_h100_price(tmp_path, monkeypatch, m):
+    """A restored snapshot keeps its cluster tables (bit-identical results)
+    and, where the device's profile is "h100" (here made so), reports the
+    card's price of pruning them beside the dense scan's: plan_search's
+    two times at the snapshot's shape, the tables' decision pinned."""
+    from repro_torch.search import plan as planlib
+    from repro_torch.search import plan_search
+
+    db, q = _mixture(4, 12_000)
+    ix = Index.build(db, metric="l2", k=10, device="cpu")
+    assert ix.pack().cluster is not None
+    direct = ix.search(q)
+    path = ix.save(os.path.join(tmp_path, "snap"))
+    assert Index.restore(path, device="cpu").kernel_plan.cluster_price is None
+    monkeypatch.setattr(planlib, "detect_device",
+                        lambda name=None, *, device=None: name or "h100")
+    restored = Index.restore(path, device="cpu")
+    assert restored.kernel_plan.device == "h100"
+    assert restored.pack().cluster is not None
+    assert _equal(restored.search(q), direct)
+    cl = restored.explain(m=m)["cluster"]
+    assert cl["enabled"] and "vetoed_by" not in cl
+    kw = dict(n=restored.capacity, d=D, k=10, m=m, metric="l2",
+              backend="torch", device="h100", cluster="auto",
+              query_block=restored.spec.query_block)
+    free = plan_search(**kw)            # what the card's model decides
+    kept = plan_search(cluster_veto=False, **kw)
+    assert kept.cluster.enabled and kept.cluster_veto is None
+    assert kept.cluster_price == (free.cluster_veto or free.cluster_price)
+    assert (cl["predicted_pruned_s"], cl["predicted_dense_s"]) \
+        == kept.cluster_price
+    assert kept.cluster_price[0] > 0 and kept.cluster_price[1] > 0
+
+
 def test_commit_fault_leaves_previous_snapshot_loadable(tmp_path):
     db, q = _data(71, 256, 4)
     ix = Index.build(db, metric="mips", k=4, capacity=512, device="cpu")
