@@ -115,7 +115,25 @@ run in order and the first failure exits non-zero:
      query-sized work than the HBM index's search), each kernel against
      its plain version at a wave's shape; the pinned link's rate, each
      wave's copy and scan (CUDA events) and the search beside
-     max(copies, scans) at M=10,000 and M=16.
+     max(copies, scans) at M=10,000 and M=16;
+ 16. kNN-LM serving at full width: a ``KNNDatastore`` of 2^21 Gaussian
+     keys at D=2048 (f32, 16 GiB, k=32, room for 65,536 more; its
+     build's seconds and the h100 profile's cluster decision), lookups
+     of 1,024 queries at E[recall] - eps against an exact oracle before
+     and after ``extend`` 65,536 / ``forget`` 100,000 (two launches a
+     lookup, no plain call), the functional ``search`` over the raw
+     keys, and a served lookup bit-equal to a direct one; internlm2-1.8b
+     FULL (bf16, random weights from ``--seed``) behind
+     ``ServingEngine(batch=8, max_seq=2048)``: 8 prompts of 64 tokens,
+     32 decode steps with exact and with kNN attention, each step's
+     input token embeddings looked up directly and through the
+     ``SearchServer`` (bit-equal, one graph replay) and mixed by
+     ``knn_lm_logits``; finite logits, no padded id sampled, kNN
+     attention's keys at the last step at E[recall] - eps; then the
+     fused scan, the merge and the two-pass scan at this shape (M=8 and
+     M=128) against their plain versions (phase 7's tolerances) and
+     timed beside their bounds, and the decode step beside its weight
+     bytes.
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
@@ -2019,6 +2037,329 @@ def phase_host_tier(prk, testing, data, results, acc):
     return out
 
 
+# Phase 16: the kNN-LM datastore (2^21 Gaussian keys at D=2048, f32, k=32
+# and the reference's default recall target, room for 65,536 more) and
+# internlm2-1.8b at full width behind the serving engine.
+KNN_LM = dict(n=1 << 21, d=2048, k=32, extra=65_536, forget=100_000,
+              queries=1_024, arch="internlm2-1.8b", batch=8, max_seq=2048,
+              prompt=64, steps=32)
+
+
+def timed_ms(fn):
+    """Host wall time of ``fn()`` in ms, the card synchronized on both
+    sides (a decode step or a retrieval: host work and kernels)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def datastore_recall(ds, q, label, floor_of):
+    """One direct lookup of ``q`` (two launches, no plain call), its ids
+    against an exact top-k of the live keys and its tokens against the
+    value tokens of its ids; returns the recall."""
+    from repro_torch.kernels import partial_reduce as prk
+
+    from repro_torch.testing import bits_equal
+
+    plain = sum(prk.PLAIN_CALLS.values())
+    v, i = launches_of(lambda: ds.index.search(q), 2, label)
+    vals, toks = ds.lookup(q)
+    if sum(prk.PLAIN_CALLS.values()) != plain:
+        fail(f"{label}: a plain version ran")
+    if not (bits_equal(vals, v) and torch.equal(toks, ds.value_tokens[i.long()])):
+        fail(f"{label}: lookup differs from the index's search")
+    if not torch.isfinite(v).all() or tuple(v.shape) != (q.shape[0], ds.k):
+        fail(f"{label}: non-finite or misshapen values")
+    truth = exact_topk("mips", q, ds.keys, ds.index._live, ds.k, chunk=256)
+    r = recall(i, truth)
+    floor = floor_of - hoeffding_eps(q.shape[0])
+    log(f"[knn-lm] {label}: M={q.shape[0]} recall {r:.4f} (floor {floor:.4f})")
+    if not r >= floor:
+        fail(f"{label}: recall {r} < {floor}")
+    return r
+
+
+def knn_attention_recall(records, target):
+    """kNN attention's selected keys at one decode step against the exact
+    top-k over each layer's live cache positions; the masked positions it
+    selects must weigh exactly 0."""
+    from repro_torch.core.binning import plan_bins
+    from repro_torch.core.topk import approx_max_k
+    from repro_torch.models import attention as attn
+
+    hits = total = 0
+    for q, keys, values, valid, k, groups in records:
+        scores = attn._group_scores(q, keys, groups) * attn._const(
+            q.shape[-1] ** -0.5, q)
+        scores = torch.where(valid, scores, attn._const(attn._NEG_INF, scores))
+        top, idx = approx_max_k(scores, k, recall_target=target)
+        probs = torch.softmax(top.float(), dim=-1)
+        if (probs[~valid[idx.long()]] != 0).any():
+            fail("kNN attention weighs a masked position")
+        live = min(k, int(valid.sum()))
+        exact = torch.topk(scores.float(), live, dim=-1).indices
+        sel = torch.where(valid[idx.long()], idx.long(), -1)
+        hits += int((sel[..., :, None] == exact[..., None, :]).any(-1).sum())
+        total += exact.numel()
+        s = keys.shape[1]
+    r = hits / total
+    floor = plan_bins(s, k, target).expected_recall - hoeffding_eps(total // live)
+    log(f"[knn-lm] kNN attention at the last step: {len(records)} layers, "
+        f"{total // live} (query, head) rows, {live} live positions, k={k}: "
+        f"recall {r:.4f} (floor {floor:.4f})")
+    if not r >= floor:
+        fail(f"kNN attention recall {r} < {floor}")
+    return r
+
+
+def run_engine(cfg, model, ds, server, use_knn, seed):
+    """``ServingEngine(batch=8, max_seq=2048)``: admit 8 prompts of 64
+    tokens, then 32 decode steps, each followed by a retrieval of the
+    step's input token embeddings, directly and then through ``server``
+    (bit-equal, one graph replay), mixed with ``knn_lm_logits``."""
+    import numpy as np
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.retrieval.datastore import knn_lm_logits
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.testing import bits_equal
+
+    c = KNN_LM
+    engine = ServingEngine(cfg, model, batch=c["batch"], max_seq=c["max_seq"],
+                           use_knn=use_knn, seed=seed)
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, c["prompt"])
+                    .astype(np.int32), max_new_tokens=c["steps"])
+            for i in range(c["batch"])]
+    prefill_ms, _ = timed_ms(lambda: engine.admit(reqs))
+    table = model.embed.embedding
+    step_ms, direct_ms, served_ms, records = [], [], [], []
+    knn = attn.knn_decode_attention
+
+    def recording(q, keys, values, valid, **kw):
+        records.append((q, keys, values, valid, kw["k"], kw["kv_groups"]))
+        return knn(q, keys, values, valid, **kw)
+
+    for step in range(c["steps"]):
+        inp, position = engine.tokens.clone(), engine.cur_index
+        ms, out = timed_ms(engine.step)
+        step_ms.append(ms)
+        logits = engine.last_logits[:, 0]
+        if not torch.isfinite(logits.float()).all():
+            fail(f"non-finite logits at step {step} (knn={use_knn})")
+        if (out >= cfg.vocab_size).any():
+            fail(f"a padded vocabulary id was sampled: {out}")
+        q = table[inp[:, 0].long()].float()
+        engine.attach_retrieval(ds.index, ds.value_tokens)
+        ms, (dv, dt) = timed_ms(lambda: engine.retrieve(q))
+        direct_ms.append(ms)
+        engine.attach_retrieval(ds.index, ds.value_tokens, server=server)
+        replays = ds.index.cache_info()["replays"]
+        ms, (sv, st) = timed_ms(lambda: engine.retrieve(q))
+        served_ms.append(ms)
+        if ds.index.cache_info()["replays"] != replays + 1:
+            fail("a served retrieval was not one graph replay")
+        if not (bits_equal(sv, dv) and torch.equal(st, dt)):
+            fail("a served retrieval differs from the direct one")
+        mixed = knn_lm_logits(logits.float(), dv, dt)
+        if not torch.isfinite(mixed).all():
+            fail("non-finite kNN-LM logits")
+    if not all(len(r.generated) == c["steps"] for r in reqs):
+        fail("a request did not generate its tokens")
+    if engine._graph is None:
+        fail("the engine's decode step was not captured as a CUDA graph")
+    if use_knn:
+        # the last step again, eagerly on copies of the caches (a graph
+        # replay runs no Python), recording each layer's kNN attention
+        caches = [attn.KVCache(ch.k.clone(), ch.v.clone()) for ch in engine.caches]
+        attn.knn_decode_attention = recording
+        try:
+            tfm.forward_decode(model, inp, caches, position, use_knn=True)
+        finally:
+            attn.knn_decode_attention = knn
+        del caches
+    out = dict(prefill_ms=prefill_ms, step_ms=sorted(step_ms)[len(step_ms) // 2],
+               retrieval_ms=sorted(direct_ms)[len(direct_ms) // 2],
+               served_retrieval_ms=sorted(served_ms)[len(served_ms) // 2])
+    if use_knn:
+        out["knn_attention_recall"] = knn_attention_recall(
+            records, cfg.knn_recall_target)
+    del engine
+    return out
+
+
+def phase_knn_lm(prk, testing, seed, results, smi):
+    """Phase 16: kNN-LM serving at full width.  The datastore's build (the
+    h100 cluster decision and the seconds), lookups of 1,024 queries at
+    E[recall] - eps before and after ``extend`` and ``forget``, the
+    functional search over the raw keys, then internlm2-1.8b behind
+    ``ServingEngine`` with exact and kNN attention and a retrieval each
+    decode step (direct and served); then the path's kernels against their
+    plain versions at M=8 and M=128 and their times beside their bounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.binning import plan_bins
+    from repro_torch.models import transformer as tfm
+    from repro_torch.retrieval.datastore import KNNDatastore
+    from repro_torch.search import functional, pad_queries_to
+
+    c = KNN_LM
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(seed + 16)
+    keys = torch.randn((c["n"], c["d"]), generator=g, device="cuda")
+    tokens = torch.randint(0, 92_544, (c["n"],), generator=g, device="cuda",
+                           dtype=torch.int32)
+    q = torch.randn((c["queries"], c["d"]), generator=g, device="cuda")
+
+    # the main path, its counts from 0
+    prk.reset_counts()
+    build_s, ds = timed_ms(lambda: KNNDatastore(
+        keys, tokens, k=c["k"], capacity=c["n"] + c["extra"]))
+    build_s /= 1e3
+    kp = ds.index.kernel_plan
+    log(f"[knn-lm] datastore build {build_s:.2f} s: N={c['n']}, D={c['d']}, "
+        f"capacity {ds.index.capacity}, k={c['k']}, L={ds.index.plan.num_bins} "
+        f"bins of {ds.index.plan.bin_size}, k_scan {ds.index.k_scan}, "
+        f"E[recall] {ds.index.expected_recall:.4f}; cluster='auto': the "
+        f"h100 profile vetoed pruning: {kp.cluster_veto is not None} "
+        f"(pruned, dense predicted s {kp.cluster_price}), tables built: "
+        f"{ds.index.pack().cluster is not None}")
+    out = dict(build_s=build_s, capacity=ds.index.capacity,
+               bins=ds.index.plan.num_bins, bin_size=ds.index.plan.bin_size,
+               cluster_vetoed=kp.cluster_veto is not None,
+               cluster_price=kp.cluster_price,
+               tables=ds.index.pack().cluster is not None)
+    del keys
+    torch.cuda.empty_cache()
+    out["recall"] = datastore_recall(ds, q, "lookup", ds.index.plan.expected_recall)
+    fv, fi = launches_of(lambda: functional.search(
+        q, ds.keys[: c["n"]], k=c["k"]), 2, "functional search")
+    truth = exact_topk("mips", q, ds.keys[: c["n"]],
+                       torch.ones(c["n"], dtype=torch.bool, device="cuda"),
+                       c["k"], chunk=256)
+    fr = recall(fi, truth)
+    ffloor = (plan_bins(c["n"], c["k"], TARGET).expected_recall
+              - hoeffding_eps(q.shape[0]))
+    log(f"[knn-lm] functional search over the raw keys: recall {fr:.4f} "
+        f"(floor {ffloor:.4f})")
+    if not fr >= ffloor:
+        fail(f"functional search recall {fr} < {ffloor}")
+    del fv, fi, truth
+    torch.cuda.empty_cache()
+    extra = torch.randn((c["extra"], c["d"]), generator=g, device="cuda")
+    ds.extend(extra, torch.randint(0, 92_544, (c["extra"],), generator=g,
+                                   device="cuda", dtype=torch.int32))
+    dead = torch.randperm(ds.index.capacity, generator=g, device="cuda")[: c["forget"]]
+    ds.forget(dead)
+    if len(ds) != c["n"] + c["extra"] - c["forget"] or ds.index.capacity != out["capacity"]:
+        fail(f"datastore size {len(ds)}, capacity {ds.index.capacity} after updates")
+    out["recall_after_updates"] = datastore_recall(
+        ds, q, "lookup after extend + forget", ds.index.plan.expected_recall)
+    del extra
+    server_s, server = timed_ms(lambda: ds.attach_server(warmup=True))
+    log(f"[knn-lm] SearchServer: buckets {server.buckets}, warm-up and "
+        f"capture {server_s / 1e3:.2f} s")
+    sv, st = ds.lookup(q[:8])
+    ds.server = None
+    dv, dt = ds.lookup(q[:8])
+    if not (testing.bits_equal(sv, dv) and torch.equal(st, dt)):
+        fail("the served lookup differs from the direct one")
+
+    cfg = get_config(c["arch"])
+    gm = torch.Generator(device="cuda").manual_seed(seed + 17)
+    init_s, model = timed_ms(lambda: tfm.init_model(cfg, gm, device="cuda",
+                                                     dtype=torch.bfloat16))
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache_bytes = (2 * cfg.num_layers * c["batch"] * c["max_seq"]
+                   * cfg.num_kv_heads * cfg.resolved_head_dim * 2)
+    log(f"[knn-lm] {c['arch']}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, {weight_bytes / 1e9:.3f} GB of bf16 weights, "
+        f"init on the card {init_s / 1e3:.2f} s")
+    engines = {}
+    for use_knn in (False, True):
+        engines["knn" if use_knn else "exact"] = run_engine(
+            cfg, model, ds, server, use_knn, seed)
+    server.close()
+    read_counts(prk, "knn-lm", ("f32",), results, two_pass=False)
+    counts = dict(prk.LAUNCHES)
+    bound_w = 1e3 * weight_bytes / PEAK_HBM_BYTES
+    bound_wc = 1e3 * (weight_bytes + cache_bytes) / PEAK_HBM_BYTES
+    for name, e in engines.items():
+        log(f"[knn-lm] {name} attention: prefill replay {e['prefill_ms']:.1f} ms "
+            f"({c['prompt']} steps), decode step {e['step_ms']:.3f} ms (weight "
+            f"bytes bound {bound_w:.3f} ms, with the whole KV cache "
+            f"{bound_wc:.3f} ms); retrieval per step direct "
+            f"{e['retrieval_ms']:.3f} ms, served {e['served_retrieval_ms']:.3f} "
+            f"ms; on {smi}")
+    out.update(engines=engines, weight_bytes=weight_bytes,
+               weight_bound_ms=bound_w, weight_cache_bound_ms=bound_wc,
+               launches=counts)
+    del model
+    torch.cuda.empty_cache()
+
+    # the path's kernels against their plain versions, then timed
+    acc = {key: dict.fromkeys(names_of("f32"), 0.0 if key == "errs" else 0)
+           for key in ("errs", "agree", "total")}
+    pk = ds.index.pack()
+    db, bias, bs, ks = pk.db, pk.bias, pk.bin_size, ds.index.k_scan
+    n_pad, d = db.shape
+    stored = 4.0 * n_pad * d + 4.0 * n_pad
+    kernels = []
+    for m in (8, 128):
+        qm = q[:m].contiguous()
+        compare_kernels(prk, testing, f"knn-lm datastore M={m}", qm, db, bias,
+                        bs, ks, acc, chunk=128)
+        qp = pad_queries_to(qm, d).contiguous()
+        carries = prk.fused_scan(qp, db, bias, k_scan=ks, bin_size=bs)
+        splits = carries[0].shape[0]
+        flat = carries[0].permute(1, 0, 2).reshape(m, splits * ks).contiguous()
+        t = dict(
+            fused=cuda_ms(lambda: prk.fused_scan(qp, db, bias, k_scan=ks, bin_size=bs)),
+            merge=queued_ms(lambda: prk.fused_carry_merge(*carries)),
+            packed=cuda_ms(lambda: prk.partial_reduce_packed(qm, db, bias, bin_size=bs)),
+            fused_plain=cuda_ms(lambda: prk.partial_reduce_fused_plain(
+                qp, db, bias, k_scan=ks, bin_size=bs), reps=3),
+            merge_plain=queued_ms(lambda: prk.fused_carry_merge_plain(*carries)),
+            packed_plain=cuda_ms(lambda: prk.partial_reduce_packed_plain(
+                qp, db, bias, bin_size=bs), reps=3),
+            topk=queued_ms(lambda: torch.topk(flat, ks, dim=1)),
+            search=cuda_ms(lambda: ds.index.search(qm)),
+        )
+        fb = scan_bounds("f32", m, n_pad, d, 4.0 * m * d + stored + 8.0 * splits * m * ks)
+        pb = scan_bounds("f32", m, n_pad, d, 4.0 * m * d + stored
+                         + 8.0 * m * (n_pad // bs))
+        mb = bound_ms(m * ks * splits, 8.0 * (splits + 1) * m * ks)
+        shape = f"knn-lm datastore D={d} M={m}"
+        fname, mname, pname = names_of("f32")
+        for name, kind, ms, plain_ms, b, by, lib in (
+                (fname, "partial_reduce_fused", t["fused"], t["fused_plain"],
+                 fb["bound_ms"], fb["bound_by"], None),
+                (mname, None, t["merge"], t["merge_plain"], mb[0], mb[1], t["topk"]),
+                (pname, "partial_reduce_packed", t["packed"], t["packed_plain"],
+                 pb["bound_ms"], pb["bound_by"], None)):
+            kernels.append(dict(
+                name=name, shape=shape, route="cuda", source=SRC,
+                replaces=REPLACES[(kind, "f32")] if kind else f"{REF}:219",
+                launches=counts.get(name, 0), max_abs_err=acc["errs"][name],
+                index_agreement=acc["agree"][name] / max(acc["total"][name], 1),
+                ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=lib, splits=splits, bin_size=bs, k_scan=ks))
+        log(f"[knn-lm] M={m}: fused scan {t['fused']:.3f} ms ({fb['bound_by']} "
+            f"bound {fb['bound_ms']:.3f} ms: {100 * fb['bound_ms'] / t['fused']:.1f}%; "
+            f"parts {fb['bound_parts']}), merge {t['merge']:.4f} ms ({splits} "
+            f"splits; bound {mb[0]:.5f}, torch.topk {t['topk']:.4f}), two-pass "
+            f"{t['packed']:.3f} ms (bound {pb['bound_ms']:.3f}); plain fused "
+            f"{t['fused_plain']:.3f}, plain two-pass {t['packed_plain']:.3f} ms; "
+            f"search {t['search']:.3f} ms; on {smi}")
+        out[f"m{m}"] = t
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[knn-lm] phase 16: {out['seconds']:.1f} s")
+    return out, kernels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2167,6 +2508,8 @@ def main(argv=None) -> int:
     # phase 15: the host-RAM cold tier
     host_tier = phase_host_tier(prk, testing, make_data(SIFT, args.seed),
                                 results, acc)
+    # phase 16: kNN-LM serving at full width
+    knn_lm, knn_kernels = phase_knn_lm(prk, testing, args.seed, results, smi)
     for k in kernels:
         for key in ("launches", "plain_calls"):
             k[key] = results[key].get(k["name"], 0)
@@ -2178,7 +2521,8 @@ def main(argv=None) -> int:
     log(json.dumps({"clusters": clusters}))
     log(json.dumps({"serve": serve, "snapshots": snapshots}))
     log(json.dumps({"host_tier": host_tier}))
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"knn_lm": knn_lm}))
+    log(json.dumps({"kernels": kernels + knn_kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,7 @@
     PYTHONPATH=src python scripts/bench_torch_scan.py --merge
         [--m 10000,16] [--splits 1,5,123] [--kscan 10,30] [--reps 5]
     PYTHONPATH=src python scripts/bench_torch_scan.py --search [--m 16]
+    PYTHONPATH=src python scripts/bench_torch_scan.py --datastore [--m 8,128]
 
 Times the ``repro_torch`` package that ``PYTHONPATH`` names, so two
 versions of the port (two checkouts, or a copy with an edited kernel
@@ -35,6 +36,13 @@ least 20: what a caller waits), the card's time per search of searches
 queued back to back, and the host's time to issue one (nothing in a
 search waits for the card, so a loop of them without a synchronize
 times the host alone).
+
+``--datastore`` times both scans and the merge at the kNN-LM datastore's
+shape instead (chip_smoke.py phase 16: mips, 2^21 Gaussian keys of
+D=2048 with room for 65,536 more, k=32), and measures how far the
+two-pass kernel's bin winners and its plain version's lie from their
+float64 scores (the largest error relative to max(1, |score|), over the
+first 8 queries).
 """
 from __future__ import annotations
 
@@ -161,6 +169,50 @@ def bench_search(index, form, q, ms, args) -> None:
             host_ms=host_ms)), flush=True)
 
 
+def bench_datastore(prk, ms, args) -> None:
+    """The ``--datastore`` timings and errors: one JSON line per M."""
+    from repro_torch.search import Index, pad_queries_to
+
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    n, d = 1 << 21, 2048
+    keys = torch.randn((n, d), generator=g, device="cuda")
+    index = Index.build(keys, metric="mips", k=32, cluster="off",
+                        capacity=n + 65_536)
+    del keys
+    pk = index.pack()
+    db, bias, bs, ks = pk.db, pk.bias, pk.bin_size, index.k_scan
+    q = torch.randn((max(ms), d), generator=g, device="cuda")
+
+    def f64_error(v, i, qm):
+        live = v > -1e30
+        rows = db[i.long().clamp_min(0)].double()
+        exact = (rows @ qm.double()[:, :, None])[..., 0] \
+            + bias[0, i.long().clamp_min(0)].double()
+        err = (v.double() - exact).abs() / exact.abs().clamp_min(1.0)
+        return float(err[live].max())
+
+    q8 = q[:8].contiguous()
+    kernel_err = f64_error(*prk.partial_reduce_packed(q8, db, bias, bin_size=bs), q8)
+    plain_err = f64_error(*prk.partial_reduce_packed_plain(
+        q8, db, bias, bin_size=bs), q8)
+    for m in ms:
+        qm = q[:m].contiguous()
+        qp = pad_queries_to(qm, d).contiguous()
+        carries = prk.fused_scan(qp, db, bias, k_scan=ks, bin_size=bs)
+        print(json.dumps(dict(
+            mode="datastore", n_pad=db.shape[0], d=d, bin_size=bs, k_scan=ks,
+            m=m, splits=carries[0].shape[0],
+            fused_ms=median_ms(lambda: prk.fused_scan(
+                qp, db, bias, k_scan=ks, bin_size=bs), args.reps),
+            merge_ms=queued_ms(lambda: prk.fused_carry_merge(*carries),
+                               max(args.reps, 20)),
+            packed_ms=median_ms(lambda: prk.partial_reduce_packed(
+                qm, db, bias, bin_size=bs), args.reps),
+            kernel_f64_rel_err=kernel_err, plain_f64_rel_err=plain_err,
+        )), flush=True)
+        del carries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--forms", default="f32,bf16,int8,int4")
@@ -173,6 +225,8 @@ def main(argv=None) -> int:
                     help="k_scan values of the --merge sweep")
     ap.add_argument("--search", action="store_true",
                     help="time Index.search (see above)")
+    ap.add_argument("--datastore", action="store_true",
+                    help="the kNN-LM datastore's shape (see above)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -189,6 +243,9 @@ def main(argv=None) -> int:
     ms = [int(x) for x in args.m.split(",")]
     if args.merge:
         bench_merge(prk, build, ms, args)
+        return 0
+    if args.datastore:
+        bench_datastore(prk, ms, args)
         return 0
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = torch.randn((1_000_000, 128), generator=g, device="cuda")

@@ -87,8 +87,10 @@
 //   * a producer warp streams stages of 64 rows x 128 lanes in their
 //     stored width with cp.async.bulk and an mbarrier ring of 2-4 stages,
 //     ahead of the math: one copy a stage where the rows are one
-//     contiguous run (d_pad <= 128, every main path), else one a row into
-//     a pitch padded so the fragment loads hit distinct banks;
+//     contiguous run (d_pad <= 128: the Sift1M and Glove1.2M shapes),
+//     else one a row into a pitch padded so the fragment loads hit
+//     distinct banks (the kNN-LM datastore's d_pad = 2048: 16 stages of
+//     128 lanes a tile, each summed apart and folded in, see the loop);
 //   * each consumer warpgroup widens its 64 rows from the stage straight
 //     into A fragments in registers (rows on the wgmma M side), hands the
 //     stage back (after a proxy fence: the refill is an async-proxy write)
@@ -672,29 +674,43 @@ pr_scan_kernel(const void* __restrict__ q, const char* __restrict__ db,
       const uint32_t bq = smem_u32(Bw) + (resident ? kc * KSTEPS : 0) * QP * BPART;
       const char* rows = st + ROWS_OFF;
       const uint32_t empty = empty0 + 8 * s;
+      // Each stage sums into an accumulator of its own, folded into the
+      // tile's with a rounded add: the tensor cores' f32 accumulation
+      // does not round to nearest, so its error grows with the products
+      // it chains, and a chain over all of d (6 x 128 wgmmas at d=2048)
+      // drifts past the tolerance the plain version is held to.  One
+      // stage chains at most 48.  With one stage (d_pad <= 128) acc is
+      // that stage's sum.  (Folding into a second array kept beside the
+      // wgmma accumulator instead spilled the f32 form and serialized
+      // its wgmmas.)
+      float part[32];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) part[r] = 0.f;
       // A full stage in one group (two for f32, whose split rows would
       // not fit the registers at once); a shorter last one (d16 not a
       // multiple of 128) in groups of 4, 2 and 1 k-steps, the stage
       // released by the last.
       if (nk == KSTEPS && FORM == F32) {
-        stage_math<FORM, 4, QP>(acc, rows, P, r0, t, 0, bq, 0u, wg, turn_n);
-        stage_math<FORM, 4, QP>(acc, rows, P, r0, t, 4, bq, empty, wg, turn_n);
+        stage_math<FORM, 4, QP>(part, rows, P, r0, t, 0, bq, 0u, wg, turn_n);
+        stage_math<FORM, 4, QP>(part, rows, P, r0, t, 4, bq, empty, wg, turn_n);
       } else if (nk == KSTEPS) {
-        stage_math<FORM, KSTEPS, QP>(acc, rows, P, r0, t, 0, bq, empty, wg, turn_n);
+        stage_math<FORM, KSTEPS, QP>(part, rows, P, r0, t, 0, bq, empty, wg, turn_n);
       } else {
         int j0 = 0;
         if (nk & 4) {
-          stage_math<FORM, 4, QP>(acc, rows, P, r0, t, j0, bq, nk & 3 ? 0u : empty, wg,
+          stage_math<FORM, 4, QP>(part, rows, P, r0, t, j0, bq, nk & 3 ? 0u : empty, wg,
                                   turn_n);
           j0 += 4;
         }
         if (nk & 2) {
-          stage_math<FORM, 2, QP>(acc, rows, P, r0, t, j0, bq, nk & 1 ? 0u : empty, wg,
+          stage_math<FORM, 2, QP>(part, rows, P, r0, t, j0, bq, nk & 1 ? 0u : empty, wg,
                                   turn_n);
           j0 += 2;
         }
-        if (nk & 1) stage_math<FORM, 1, QP>(acc, rows, P, r0, t, j0, bq, empty, wg, turn_n);
+        if (nk & 1) stage_math<FORM, 1, QP>(part, rows, P, r0, t, j0, bq, empty, wg, turn_n);
       }
+#pragma unroll
+      for (int r = 0; r < 32; ++r) acc[r] = kc == 0 ? part[r] : __fadd_rn(acc[r], part[r]);
     }
     if (!active) continue;
 

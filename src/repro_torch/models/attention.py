@@ -1,0 +1,272 @@
+"""Attention: GQA/MQA/MHA (full-sequence and decode) and the
+paper-integrated kNN top-k decode attention.
+
+Port of the MHA/GQA parts of ``src/repro/models/attention.py`` (one
+device: no sharding hints).  Prefill runs a query-chunked exact
+attention so the (S, S) score matrix never materialises.
+``knn_decode_attention`` treats the KV cache as the paper's database:
+scores are one matmul, PartialReduce selects the top-k keys (Eq. 13
+recall guarantee; ``repro_torch.core.approx_max_k``), and exact softmax
+runs over the k survivors.
+
+Decode updates its KV cache in place and returns it.  The score tiles'
+dtype is ``cfg.attn_scores_dtype`` (the reference sets it as module
+state).  The context-parallel kNN attention (ROADMAP queue A item 11),
+MLA and cross-attention (item 12b) are not ported.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.topk import approx_max_k
+from repro_torch.models.params import ParamDef
+from repro_torch.models.rope import apply_mrope, apply_rope
+
+__all__ = [
+    "attn_defs",
+    "attention_train",
+    "attention_decode",
+    "knn_decode_attention",
+    "KVCache",
+]
+
+_NEG_INF = -1e30  # finite mask value: avoids NaN from (-inf) - (-inf)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor      # (B, S, KV, hd)
+    v: torch.Tensor      # (B, S, KV, hd)
+
+
+def attn_defs(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int):
+    return {
+        "wq": ParamDef((d_model, num_heads, head_dim), ("embed", "heads", "head_dim")),
+        "wk": ParamDef((d_model, num_kv_heads, head_dim), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamDef((d_model, num_kv_heads, head_dim), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamDef((num_heads, head_dim, d_model), ("heads", "head_dim", "embed")),
+    }
+
+
+def _const(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python number in ``like``'s dtype, as JAX's weak typing makes it
+    (``bf16_array * 0.088`` multiplies by the bf16-rounded constant).
+    Filled on the device: ``torch.tensor(value, device=...)`` would copy
+    from the host and wait for the stream on every call."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, KV*groups, hd) by repetition (GQA)."""
+    if groups == 1:
+        return x
+    b, s, kv, hd = x.shape
+    return x[:, :, :, None, :].expand(b, s, kv, groups, hd).reshape(b, s, kv * groups, hd)
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk")."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _attend_chunked(
+    q: torch.Tensor,              # (B, Sq, H, hd)
+    k: torch.Tensor,              # (B, Skv, H, hd)  (already GQA-expanded)
+    v: torch.Tensor,              # (B, Skv, H, hd)
+    q_positions: torch.Tensor,    # (Sq,)
+    kv_positions: torch.Tensor,   # (Skv,)
+    *,
+    causal: bool,
+    window: Optional[int],
+    chunk: int = 512,
+    scores_dtype: str = "float32",
+) -> torch.Tensor:
+    """Exact attention over query chunks (scores stay O(chunk*Skv))."""
+    sq, hd = q.shape[1], q.shape[-1]
+    scale = hd ** -0.5
+    if sq % chunk:
+        # Largest power-of-two divisor of sq not exceeding the request;
+        # degenerate seqs fall back to a single block.
+        c = 1
+        while c * 2 <= chunk and sq % (c * 2) == 0:
+            c *= 2
+        chunk = c if c >= 16 else sq
+    if sq <= chunk:
+        return _attend_block(q, k, v, q_positions, kv_positions, scale, causal,
+                             window, scores_dtype)
+    return torch.cat([
+        _attend_block(q[:, s : s + chunk], k, v, q_positions[s : s + chunk],
+                      kv_positions, scale, causal, window, scores_dtype)
+        for s in range(0, sq, chunk)
+    ], dim=1)
+
+
+def _attend_block(q, k, v, q_pos, kv_pos, scale, causal, window, scores_dtype):
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * _const(scale, q)
+    mask = torch.ones((q_pos.shape[-1], kv_pos.shape[-1]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= kv_pos[None, :]
+    if window is not None:
+        mask &= q_pos[:, None] - kv_pos[None, :] < window
+    scores = torch.where(mask[None, None], scores, _const(_NEG_INF, scores))
+    if scores_dtype == "bfloat16":
+        s16 = scores.to(torch.bfloat16)
+        m = torch.amax(s16, dim=-1, keepdim=True)
+        e = torch.exp((s16 - m).to(torch.float32)).to(torch.bfloat16)
+        denom = torch.sum(e.to(torch.float32), dim=-1, keepdim=True)
+        probs = (e / denom.to(torch.bfloat16)).to(q.dtype)
+    else:
+        probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _qkv(params, x, positions, *, rope_theta, mrope, mrope_positions):
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    if mrope:
+        pos3 = (mrope_positions if mrope_positions is not None
+                else torch.stack([positions] * 3, dim=0))
+        q = apply_mrope(q, pos3, theta=rope_theta)
+        k = apply_mrope(k, pos3, theta=rope_theta)
+    elif rope_theta:
+        q = apply_rope(q, positions, theta=rope_theta)
+        k = apply_rope(k, positions, theta=rope_theta)
+    return q, k, v
+
+
+def _out(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("...hk,hkd->...d")."""
+    h, k, d = wo.shape
+    return out.flatten(-2) @ wo.reshape(h * k, d)
+
+
+def attention_train(
+    params: Dict,
+    x: torch.Tensor,                # (B, S, d)
+    positions: torch.Tensor,        # (S,)
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    rope_theta: float = 10000.0,
+    causal: bool = True,
+    window: Optional[int] = None,
+    mrope: bool = False,
+    mrope_positions: Optional[torch.Tensor] = None,
+    q_chunk: int = 512,
+    return_cache: bool = False,
+    scores_dtype: str = "float32",
+):
+    """Full-sequence self attention (prefill; forward only)."""
+    q, k, v = _qkv(params, x, positions, rope_theta=rope_theta, mrope=mrope,
+                   mrope_positions=mrope_positions)
+    groups = num_heads // num_kv_heads
+    out = _attend_chunked(
+        q, _repeat_kv(k, groups), _repeat_kv(v, groups), positions, positions,
+        causal=causal, window=window, chunk=q_chunk, scores_dtype=scores_dtype,
+    )
+    y = _out(out, params["wo"])
+    if return_cache:
+        return y, KVCache(k=k, v=v)
+    return y
+
+
+def _position(cur_index, device) -> torch.Tensor:
+    """The position being generated as a (1,) int64 tensor: from an int,
+    or from a one-element tensor (what a CUDA graph of the decode step
+    reads, so the step needs no host value)."""
+    if isinstance(cur_index, torch.Tensor):
+        return cur_index.reshape(1).to(torch.int64)
+    return torch.full((1,), cur_index, dtype=torch.int64, device=device)
+
+
+def _group_scores(q: torch.Tensor, keys: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, H, hd) x (B, S, KV, hd) -> (B, H, S): each head against its KV
+    head's keys, the cache never widened to H heads."""
+    b, h, hd = q.shape
+    kv = keys.shape[2]
+    qg = q.reshape(b, kv, groups, hd)
+    return (qg @ keys.permute(0, 2, 3, 1)).reshape(b, h, -1)
+
+
+def attention_decode(
+    params: Dict,
+    x: torch.Tensor,                # (B, 1, d)
+    cache: KVCache,
+    cur_index,                      # position being generated: int or tensor
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    rope_theta: float = 10000.0,
+    window: Optional[int] = None,
+    mrope: bool = False,
+    knn_k: int = 0,
+    knn_recall_target: float = 0.95,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Single-token decode; writes position ``cur_index`` of ``cache`` in
+    place and returns it.
+
+    With ``knn_k > 0`` key selection runs through the paper's PartialReduce
+    (``knn_decode_attention``) instead of full softmax over S.
+    """
+    pos = _position(cur_index, x.device)
+    q, k_new, v_new = _qkv(params, x, pos.to(torch.int32), rope_theta=rope_theta,
+                           mrope=mrope, mrope_positions=None)
+    cache.k.index_copy_(1, pos, k_new.to(cache.k.dtype))
+    cache.v.index_copy_(1, pos, v_new.to(cache.v.dtype))
+    groups = num_heads // num_kv_heads
+
+    q1 = q[:, 0]                    # (B, H, hd)
+    kv_pos = torch.arange(cache.k.shape[1], dtype=torch.int64, device=x.device)
+    valid = kv_pos <= pos
+    if window is not None:
+        valid &= pos - kv_pos < window
+    if knn_k:
+        out = knn_decode_attention(q1, cache.k, cache.v, valid, k=knn_k,
+                                   recall_target=knn_recall_target,
+                                   kv_groups=groups)
+    else:
+        scores = _group_scores(q1, cache.k, groups) * _const(q1.shape[-1] ** -0.5, q1)
+        scores = torch.where(valid, scores, _const(_NEG_INF, scores))
+        probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q1.dtype)
+        b, h, s = probs.shape
+        out = (probs.reshape(b, -1, groups, s) @ cache.v.transpose(1, 2)).reshape(b, h, -1)
+    return _out(out, params["wo"])[:, None], cache
+
+
+def knn_decode_attention(
+    q: torch.Tensor,        # (B, H, hd)
+    keys: torch.Tensor,     # (B, S, KV, hd)  raw (kv_groups expands to H)
+    values: torch.Tensor,   # (B, S, KV, hd)
+    valid: torch.Tensor,    # (S,) bool
+    *,
+    k: int,
+    recall_target: float = 0.95,
+    kv_groups: int = 1,
+    mesh=None,
+) -> torch.Tensor:
+    """Paper-technique attention over a KV cache: all scores in one
+    matmul, ``approx_max_k`` keeps k keys with E[recall] per Eq. 13, an
+    exact softmax over them weighs their values.  Early in a decode
+    (fewer live positions than k) the masked positions it returns weigh
+    exactly 0.  ``mesh=`` (the reference's context-parallel form over a
+    sequence-sharded cache) raises: ROADMAP queue A item 11."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "context-parallel kNN attention (a sequence-sharded cache) is "
+            "ROADMAP queue A item 11 of the port"
+        )
+    b, h, hd = q.shape
+    scores = _group_scores(q, keys, kv_groups) * _const(hd ** -0.5, q)
+    scores = torch.where(valid, scores, _const(_NEG_INF, scores))
+    top_scores, top_idx = approx_max_k(scores, k, recall_target=recall_target)
+    probs = torch.softmax(top_scores.to(torch.float32), dim=-1).to(q.dtype)
+    # the selected values, (B, H, k, hd): head h reads KV head h // groups
+    heads = torch.arange(h, device=q.device) // kv_groups
+    batch = torch.arange(b, device=q.device)
+    sel = values.transpose(1, 2)[batch[:, None, None], heads[None, :, None],
+                                 top_idx.long()]
+    return torch.einsum("bhk,bhkd->bhd", probs, sel)

@@ -10,6 +10,9 @@ in the internal max convention and negate once for distance metrics:
     operands (the reference's ``pallas_search_packed``): the fused
     scan→select kernel, or with ``fused_select=False`` the two-pass
     kernel, ``sentinelize_masked`` and ``merge_topk``.
+  * :func:`cuda_search` — the same over a raw prepared database (the
+    reference's ``pallas_search``, the one-shot functional path): the
+    operands padded to the kernels' tiling contract on every call.
   * :func:`dense_search_quant` and :func:`cuda_search_packed_quant` — the
     same two over any storage tier (``dense_search_quant`` and
     ``pallas_search_packed_quant``), and the one implementation of each
@@ -37,11 +40,14 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.core.binning import plan_bins, round_up
 from repro_torch.kernels import partial_reduce as kernels
 from repro_torch.search.metrics import get_metric
 from repro_torch.search.quant import unpack_int4_rows
 from repro_torch.search.stages import (
+    MASK_VALUE,
     finalize_values,
     merge_topk,
     pad_queries_to,
@@ -61,6 +67,7 @@ __all__ = [
     "SearchGraph",
     "cluster_search",
     "cluster_search_quant",
+    "cuda_search",
     "cuda_search_packed",
     "cuda_search_packed_quant",
     "default_backend",
@@ -251,6 +258,50 @@ def cuda_search_packed(
         queries, database, row_bias, None, None, None, metric=metric, k=k,
         k_scan=k, n=n, bin_size=bin_size, aggregate_to_topk=aggregate_to_topk,
         use_bitonic=use_bitonic, fused_select=fused_select,
+    )
+
+
+def cuda_search(
+    queries: torch.Tensor,
+    database: torch.Tensor,
+    row_bias: Optional[torch.Tensor] = None,
+    *,
+    metric: str = "mips",
+    k: int = 10,
+    recall_target: float = 0.95,
+    reduction_input_size_override: int = -1,
+    aggregate_to_topk: bool = True,
+    use_bitonic: bool = False,
+    fused_select: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-shot kernel search over a raw metric-prepared ``database``
+    (N, D) and its additive ``row_bias`` (N,), the operand contract of
+    :func:`dense_search`.
+
+    Every call pads the operands to the kernels' tiling contract (D to a
+    multiple of 128, N to whole ``max(bin_size, BLOCK_N)`` blocks, the
+    bias clamped at ``MASK_VALUE`` and the tail masked), as the
+    reference's ``pallas_search`` re-packs inside its program; ``Index``
+    packs once instead.  Then :func:`cuda_search_packed`: the fused
+    kernel, or the two-pass one where ``fused_select`` is off or every
+    bin winner is wanted (``aggregate_to_topk=False``).
+    """
+    n, d = database.shape
+    bin_size = plan_bins(
+        n, k, recall_target,
+        reduction_input_size_override=reduction_input_size_override,
+    ).bin_size
+    block_n = max(bin_size, kernels.BLOCK_N)
+    n_pad = round_up(max(n, block_n), block_n)
+    db = F.pad(database, (0, round_up(d, 128) - d, 0, n_pad - n))
+    body = (torch.zeros((n,), dtype=torch.float32, device=database.device)
+            if row_bias is None
+            else torch.clamp(row_bias.to(torch.float32), min=MASK_VALUE))
+    bias = F.pad(body, (0, n_pad - n), value=MASK_VALUE)[None, :]
+    return cuda_search_packed(
+        queries, db, bias, metric=metric, k=k, n=n, bin_size=bin_size,
+        aggregate_to_topk=aggregate_to_topk, use_bitonic=use_bitonic,
+        fused_select=fused_select,
     )
 
 

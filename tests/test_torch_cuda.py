@@ -1040,3 +1040,148 @@ def test_host_snapshot_round_trip_on_card(cuda_device, storage, tmp_path):
     got = back.search(q)
     assert torch.equal(got.values, direct.values)
     assert torch.equal(got.indices, direct.indices)
+
+
+# --- the kNN-LM slice: the datastore's key width, the decode step -----------
+
+
+@pytest.mark.parametrize("m", [8, 128])
+@pytest.mark.parametrize("d", [1024, 2048])
+def test_datastore_widths_match_plain(cuda_device, d, m):
+    """Gaussian rows of 1024 and 2048 lanes (8 and 16 stages a tile, one
+    bulk copy a row, the queries reloaded each stage, each stage summed
+    apart and folded in): both scans at k_scan 32 (the carry at the
+    edge of shared memory) against their plain versions at the usual
+    tolerances."""
+    q, db, bias = packed_operands(m, 40_000, d, bin_size=256, dead=0.1,
+                                  seed=d + m, device=cuda_device)
+    score = bias_scorer(q, db, bias)
+    v, i = prk.partial_reduce_packed(q, db, bias, bin_size=256)
+    fv, fi = prk.partial_reduce_fused(q, db, bias, k_scan=32, bin_size=256)
+    pv, pi = prk.partial_reduce_packed_plain(q, db, bias, bin_size=256)
+    pfv, pfi = prk.partial_reduce_fused_plain(q, db, bias, k_scan=32, bin_size=256)
+    torch.cuda.synchronize()
+    assert_bin_winners_close(pv.cpu(), pi.cpu(), v.cpu(), i.cpu(), bin_size=256,
+                             score=score)
+    assert_topk_close(pfv.cpu(), pfi.cpu(), fv.cpu(), fi.cpu(), score=score)
+
+
+@pytest.mark.parametrize("d", [1024, 2048])
+def test_datastore_widths_integer_inputs_bit_equal(cuda_device, d):
+    q, stored, bias, scale, packed = _integer_operands("f32", 256, 21, d=d)
+    v, i = prk.partial_reduce_packed(q, stored, bias, bin_size=256)
+    fv, fi = prk.partial_reduce_fused(q, stored, bias, k_scan=32, bin_size=256)
+    pv, pi = prk.partial_reduce_packed_plain(q, stored, bias, bin_size=256)
+    pfv, pfi = prk.partial_reduce_fused_plain(q, stored, bias, k_scan=32,
+                                              bin_size=256)
+    torch.cuda.synchronize()
+    for got, want in ((v, pv), (i, pi), (fv, pfv), (fi, pfi)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_knn", [False, True])
+def test_decode_step_on_card_matches_cpu(cuda_device, dtype, use_knn):
+    """A dense smoke model moved to the card: prompt replay and decode
+    steps give the CPU's logits (f32 within 1e-4 of the largest |logit|,
+    bf16 within 2^-5), and greedy engines the same tokens at f32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = dataclasses.replace(get_config("internlm2-1.8b-smoke"), dtype=dtype)
+    cpu = tfm.init_model(cfg, torch.Generator().manual_seed(1), device="cpu")
+    card = tfm.Transformer(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (3, 12)).astype(np.int32))
+    caches = [tfm.init_caches(cfg, 3, 160, device=dev) for dev in ("cpu", cuda_device)]
+    rel = 1e-4 if dtype == "float32" else 2.0 ** -5
+    for t in range(12):
+        a, caches[0] = tfm.forward_decode(cpu, toks[:, t : t + 1], caches[0], t,
+                                          use_knn=use_knn)
+        b, caches[1] = tfm.forward_decode(card, toks[:, t : t + 1].to(cuda_device),
+                                          caches[1], t, use_knn=use_knn)
+        err = (a.float() - b.float().cpu()).abs().max()
+        assert err <= rel * a.float().abs().max()
+    if dtype == "float32":
+        out = []
+        for model in (cpu, card):
+            eng = ServingEngine(cfg, model, batch=3, max_seq=160, use_knn=use_knn,
+                                sample="greedy")
+            reqs = [Request(rid=i, prompt=toks[i].numpy(), max_new_tokens=6)
+                    for i in range(3)]
+            eng.admit(reqs)
+            eng.run(6)
+            out.append([r.generated for r in reqs])
+        assert out[0] == out[1]
+
+
+def test_datastore_and_functional_search_on_card_match_cpu(cuda_device):
+    """A datastore and the functional search on the card (the fused kernel
+    and the merge: two launches, no plain call) against the same on the
+    CPU, then after extend and forget."""
+    from repro_torch.retrieval.datastore import KNNDatastore
+    from repro_torch.search import functional
+
+    rng = np.random.default_rng(4)
+    keys = rng.standard_normal((30_000, 256), dtype=np.float32)
+    toks = rng.integers(0, 1000, 30_000)
+    q = rng.standard_normal((8, 256), dtype=np.float32)
+    stores = [KNNDatastore(keys, toks, k=32, capacity=40_000, device=dev,
+                           cluster="off", backend="cuda")
+              for dev in ("cpu", cuda_device)]
+    score = public_scorer("mips", q, keys)
+    for step in range(2):
+        prk.reset_counts()
+        (cv, ct), (gv, gt) = (s.lookup(q) for s in stores)
+        assert prk.LAUNCHES["partial_reduce_fused"] == 1 and len(prk.LAUNCHES) == 2
+        gi = stores[1].index.search(q).indices
+        assert_topk_close(cv, stores[0].index.search(q).indices, gv.cpu(), gi.cpu(),
+                          score=score)
+        assert torch.equal(gt, stores[1].value_tokens[gi.long()])
+        extra = rng.standard_normal((5_000, 256), dtype=np.float32)
+        keys = np.concatenate([keys, extra])
+        score = public_scorer("mips", q, keys)
+        for s in stores:
+            s.extend(extra, np.arange(5_000))
+            s.forget(np.arange(0, 30_000, 7))
+    prk.reset_counts()
+    fv, fi = functional.search(q, keys[:30_000], k=32)
+    assert dict(prk.LAUNCHES) == {"partial_reduce_fused": 1, "fused_carry_merge": 1}
+    cv, ci = functional.search(q, keys[:30_000], k=32, device="cpu")
+    assert_topk_close(cv, ci, fv.cpu(), fi.cpu(),
+                      score=public_scorer("mips", q, keys[:30_000]))
+
+
+@pytest.mark.parametrize("use_knn", [False, True])
+def test_engine_decode_graph_equals_eager_steps(cuda_device, use_knn):
+    """On the card the engine replays one CUDA graph of the decode step
+    from its second step on: logits and sampled tokens bit-equal to eager
+    decode steps on the same inputs, position and Gumbel draws."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("internlm2-1.8b-smoke")
+    model = tfm.init_model(cfg, torch.Generator(cuda_device).manual_seed(5),
+                           device=cuda_device)
+    engine = ServingEngine(cfg, model, batch=4, max_seq=160, use_knn=use_knn,
+                           seed=9)
+    step = M.make_decode_step(cfg, use_knn=use_knn)
+    caches = tfm.init_caches(cfg, 4, 160, device=cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (4, 1), device=cuda_device,
+                         dtype=torch.int32)
+    for t in range(10):
+        out = engine.step(forced_tokens=toks if t < 3 else None)
+        noise = M.gumbel((4, cfg.decode_sample_k), gen, device=cuda_device)
+        want, logits, caches = step(model, toks, caches, t, None, noise)
+        assert bits_equal(engine.last_logits, logits)
+        assert torch.equal(engine.tokens, want)
+        assert (out == want[:, 0].cpu().numpy()).all()
+        toks = want
+    assert engine._graph is not None

@@ -227,6 +227,12 @@ def test_imports_neither_jax_nor_repro():
         import repro_torch.kernels.partial_reduce
         import repro_torch.search.cluster
         import repro_torch.search.hosttier
+        import repro_torch.search.functional
+        import repro_torch.configs
+        import repro_torch.models.model, repro_torch.models.transformer
+        import repro_torch.serving.engine, repro_torch.serving.kvcache
+        import repro_torch.retrieval.datastore
+        import repro_torch.launch.serve
         from repro_torch.search import Index
         import repro_torch.core, repro_torch.testing
         idx = Index.build([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0]], k=1,
@@ -244,9 +250,6 @@ def test_imports_neither_jax_nor_repro():
 # What repro.search exports that repro_torch.search does not, and why
 # (ROADMAP queue A items and the divergences list).
 NOT_EXPORTED = {
-    # item 12: the functional API
-    "search": "item 12", "mips": "item 12", "l2nns": "item 12",
-    "cosine_nns": "item 12",
     # item 11: multi-device sharding
     "make_sharded_search_fn": "item 11", "normalize_db_axes": "item 11",
     "db_shard_count": "item 11",
