@@ -133,7 +133,23 @@ run in order and the first failure exits non-zero:
      fused scan, the merge and the two-pass scan at this shape (M=8 and
      M=128) against their plain versions (phase 7's tolerances) and
      timed beside their bounds, and the decode step beside its weight
-     bytes.
+     bytes;
+ 17. the other model families at full width: granite-moe-3b-a800m
+     (32 layers, 40 experts top-8, bf16) as phase 16 over a datastore of
+     2^21 Gaussian keys at its d_model, D=1536 (12 stages a tile; value
+     tokens in its vocabulary), the kNN run with ``router_topk_impl=
+     "approx"``, the D=1536 kernels against their plain versions and
+     timed; then behind ``ServingEngine(batch=8, max_seq=2048)``, 8
+     prompts of 64 tokens and 16 decode steps each: deepseek-v2-236b at
+     4 of its 60 layers (one ``mla_dense``, three ``mla_moe``; exact and
+     kNN attention), mamba2-2.7b, qwen2-vl-2b (exact and kNN, and a
+     prefill step from (8, 64, 1536) patch embeddings) and
+     recurrentgemma-9b; whisper-medium's prefill step over (8, 1500,
+     1024) frame embeddings and a 64-token prompt, then the prompt and
+     16 sampled steps through ``make_decode_step`` with its cross KV;
+     each model's decode step beside its weight bytes, its init and
+     its seconds, each freed before the next; no plain kernel version
+     on any of these paths.
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
@@ -2041,8 +2057,19 @@ def phase_host_tier(prk, testing, data, results, acc):
 # and the reference's default recall target, room for 65,536 more) and
 # internlm2-1.8b at full width behind the serving engine.
 KNN_LM = dict(n=1 << 21, d=2048, k=32, extra=65_536, forget=100_000,
-              queries=1_024, arch="internlm2-1.8b", batch=8, max_seq=2048,
-              prompt=64, steps=32)
+              queries=1_024, arch="internlm2-1.8b", vocab=92_544, batch=8,
+              max_seq=2048, prompt=64, steps=32, seed=16)
+# Phase 17: granite-moe-3b-a800m (d_model 1536) with a datastore of the
+# same size at its width, value tokens in its vocabulary; then the other
+# families at full width (deepseek-v2 cut to 4 of its 60 layers: one
+# mla_dense, three mla_moe), each behind the engine for 16 decode steps:
+# (arch, layers kept, kNN attention too).  SSM and RG-LRU layers have no global
+# attention, so their kNN run would be the exact one.
+FAMILY_LM = dict(KNN_LM, d=1536, arch="granite-moe-3b-a800m", vocab=49_155,
+                 seed=18)
+FAMILY_RUNS = (("deepseek-v2-236b", 4, True), ("mamba2-2.7b", None, False),
+               ("qwen2-vl-2b", None, True), ("recurrentgemma-9b", None, False))
+WHISPER = dict(arch="whisper-medium", batch=8, prompt=64, steps=16, max_seq=2048)
 
 
 def timed_ms(fn):
@@ -2053,6 +2080,10 @@ def timed_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return 1e3 * (time.perf_counter() - t0), out
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
 
 
 def datastore_recall(ds, q, label, floor_of):
@@ -2114,11 +2145,15 @@ def knn_attention_recall(records, target):
     return r
 
 
-def run_engine(cfg, model, ds, server, use_knn, seed):
-    """``ServingEngine(batch=8, max_seq=2048)``: admit 8 prompts of 64
-    tokens, then 32 decode steps, each followed by a retrieval of the
-    step's input token embeddings, directly and then through ``server``
-    (bit-equal, one graph replay), mixed with ``knn_lm_logits``."""
+def run_engine(cfg, model, c, use_knn, seed, ds=None, server=None):
+    """``ServingEngine(batch, max_seq)`` of ``c``: admit ``batch`` prompts
+    of ``prompt`` tokens, then ``steps`` decode steps (finite logits, no
+    padded id sampled, the step captured as a CUDA graph).  With a
+    datastore ``ds``, each step is followed by a retrieval of the step's
+    input token embeddings, directly and then through ``server``
+    (bit-equal, one graph replay), mixed with ``knn_lm_logits``; with kNN
+    attention over GQA caches, its keys at the last step are checked
+    against an exact top-k."""
     import numpy as np
 
     from repro_torch.models import attention as attn
@@ -2127,7 +2162,6 @@ def run_engine(cfg, model, ds, server, use_knn, seed):
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.testing import bits_equal
 
-    c = KNN_LM
     engine = ServingEngine(cfg, model, batch=c["batch"], max_seq=c["max_seq"],
                            use_knn=use_knn, seed=seed)
     rng = np.random.default_rng(seed)
@@ -2149,9 +2183,11 @@ def run_engine(cfg, model, ds, server, use_knn, seed):
         step_ms.append(ms)
         logits = engine.last_logits[:, 0]
         if not torch.isfinite(logits.float()).all():
-            fail(f"non-finite logits at step {step} (knn={use_knn})")
+            fail(f"{cfg.name}: non-finite logits at step {step} (knn={use_knn})")
         if (out >= cfg.vocab_size).any():
-            fail(f"a padded vocabulary id was sampled: {out}")
+            fail(f"{cfg.name}: a padded vocabulary id was sampled: {out}")
+        if ds is None:
+            continue
         q = table[inp[:, 0].long()].float()
         engine.attach_retrieval(ds.index, ds.value_tokens)
         ms, (dv, dt) = timed_ms(lambda: engine.retrieve(q))
@@ -2168,53 +2204,47 @@ def run_engine(cfg, model, ds, server, use_knn, seed):
         if not torch.isfinite(mixed).all():
             fail("non-finite kNN-LM logits")
     if not all(len(r.generated) == c["steps"] for r in reqs):
-        fail("a request did not generate its tokens")
+        fail(f"{cfg.name}: a request did not generate its tokens")
     if engine._graph is None:
-        fail("the engine's decode step was not captured as a CUDA graph")
-    if use_knn:
+        fail(f"{cfg.name}: the engine's decode step was not captured as a CUDA graph")
+    gqa = any(k in ("dense", "moe") for k in cfg.layer_kinds())
+    if use_knn and gqa:
         # the last step again, eagerly on copies of the caches (a graph
         # replay runs no Python), recording each layer's kNN attention
-        caches = [attn.KVCache(ch.k.clone(), ch.v.clone()) for ch in engine.caches]
+        caches = [type(ch)(*(f.clone() for f in ch)) for ch in engine.caches]
         attn.knn_decode_attention = recording
         try:
             tfm.forward_decode(model, inp, caches, position, use_knn=True)
         finally:
             attn.knn_decode_attention = knn
         del caches
-    out = dict(prefill_ms=prefill_ms, step_ms=sorted(step_ms)[len(step_ms) // 2],
-               retrieval_ms=sorted(direct_ms)[len(direct_ms) // 2],
-               served_retrieval_ms=sorted(served_ms)[len(served_ms) // 2])
-    if use_knn:
+    out = dict(prefill_ms=prefill_ms, step_ms=median(step_ms))
+    if ds is not None:
+        out.update(retrieval_ms=median(direct_ms), served_retrieval_ms=median(served_ms))
+    if use_knn and gqa:
         out["knn_attention_recall"] = knn_attention_recall(
             records, cfg.knn_recall_target)
     del engine
     return out
 
 
-def phase_knn_lm(prk, testing, seed, results, smi):
-    """Phase 16: kNN-LM serving at full width.  The datastore's build (the
-    h100 cluster decision and the seconds), lookups of 1,024 queries at
+def build_datastore(testing, c, seed):
+    """A ``KNNDatastore`` of ``c["n"]`` Gaussian keys at ``c["d"]`` (f32),
+    value tokens in ``[0, c["vocab"])``: the build (the h100 cluster
+    decision and the seconds), lookups of ``c["queries"]`` queries at
     E[recall] - eps before and after ``extend`` and ``forget``, the
-    functional search over the raw keys, then internlm2-1.8b behind
-    ``ServingEngine`` with exact and kNN attention and a retrieval each
-    decode step (direct and served); then the path's kernels against their
-    plain versions at M=8 and M=128 and their times beside their bounds."""
-    from repro_torch.configs import get_config
+    functional search over the raw keys, and a served lookup bit-equal to
+    a direct one.  Returns (datastore, its server, the queries, the
+    record)."""
     from repro_torch.core.binning import plan_bins
-    from repro_torch.models import transformer as tfm
     from repro_torch.retrieval.datastore import KNNDatastore
-    from repro_torch.search import functional, pad_queries_to
+    from repro_torch.search import functional
 
-    c = KNN_LM
-    t_phase = time.perf_counter()
-    g = torch.Generator(device="cuda").manual_seed(seed + 16)
+    g = torch.Generator(device="cuda").manual_seed(seed + c["seed"])
     keys = torch.randn((c["n"], c["d"]), generator=g, device="cuda")
-    tokens = torch.randint(0, 92_544, (c["n"],), generator=g, device="cuda",
+    tokens = torch.randint(0, c["vocab"], (c["n"],), generator=g, device="cuda",
                            dtype=torch.int32)
     q = torch.randn((c["queries"], c["d"]), generator=g, device="cuda")
-
-    # the main path, its counts from 0
-    prk.reset_counts()
     build_s, ds = timed_ms(lambda: KNNDatastore(
         keys, tokens, k=c["k"], capacity=c["n"] + c["extra"]))
     build_s /= 1e3
@@ -2226,7 +2256,7 @@ def phase_knn_lm(prk, testing, seed, results, smi):
         f"h100 profile vetoed pruning: {kp.cluster_veto is not None} "
         f"(pruned, dense predicted s {kp.cluster_price}), tables built: "
         f"{ds.index.pack().cluster is not None}")
-    out = dict(build_s=build_s, capacity=ds.index.capacity,
+    out = dict(d=c["d"], build_s=build_s, capacity=ds.index.capacity,
                bins=ds.index.plan.num_bins, bin_size=ds.index.plan.bin_size,
                cluster_vetoed=kp.cluster_veto is not None,
                cluster_price=kp.cluster_price,
@@ -2249,7 +2279,7 @@ def phase_knn_lm(prk, testing, seed, results, smi):
     del fv, fi, truth
     torch.cuda.empty_cache()
     extra = torch.randn((c["extra"], c["d"]), generator=g, device="cuda")
-    ds.extend(extra, torch.randint(0, 92_544, (c["extra"],), generator=g,
+    ds.extend(extra, torch.randint(0, c["vocab"], (c["extra"],), generator=g,
                                    device="cuda", dtype=torch.int32))
     dead = torch.randperm(ds.index.capacity, generator=g, device="cuda")[: c["forget"]]
     ds.forget(dead)
@@ -2266,51 +2296,46 @@ def phase_knn_lm(prk, testing, seed, results, smi):
     dv, dt = ds.lookup(q[:8])
     if not (testing.bits_equal(sv, dv) and torch.equal(st, dt)):
         fail("the served lookup differs from the direct one")
+    return ds, server, q, out
 
-    cfg = get_config(c["arch"])
-    gm = torch.Generator(device="cuda").manual_seed(seed + 17)
-    init_s, model = timed_ms(lambda: tfm.init_model(cfg, gm, device="cuda",
-                                                     dtype=torch.bfloat16))
+
+def init_full(arch, seed, layers=None):
+    """A FULL config (``layers`` kept where given) with random bf16
+    weights drawn on the card: (cfg, model, init seconds, weight bytes)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    gm = torch.Generator(device="cuda").manual_seed(seed)
+    init_ms, model = timed_ms(lambda: tfm.init_model(cfg, gm, device="cuda",
+                                                      dtype=torch.bfloat16))
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    cache_bytes = (2 * cfg.num_layers * c["batch"] * c["max_seq"]
-                   * cfg.num_kv_heads * cfg.resolved_head_dim * 2)
-    log(f"[knn-lm] {c['arch']}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab_size}, {weight_bytes / 1e9:.3f} GB of bf16 weights, "
-        f"init on the card {init_s / 1e3:.2f} s")
-    engines = {}
-    for use_knn in (False, True):
-        engines["knn" if use_knn else "exact"] = run_engine(
-            cfg, model, ds, server, use_knn, seed)
-    server.close()
-    read_counts(prk, "knn-lm", ("f32",), results, two_pass=False)
-    counts = dict(prk.LAUNCHES)
-    bound_w = 1e3 * weight_bytes / PEAK_HBM_BYTES
-    bound_wc = 1e3 * (weight_bytes + cache_bytes) / PEAK_HBM_BYTES
-    for name, e in engines.items():
-        log(f"[knn-lm] {name} attention: prefill replay {e['prefill_ms']:.1f} ms "
-            f"({c['prompt']} steps), decode step {e['step_ms']:.3f} ms (weight "
-            f"bytes bound {bound_w:.3f} ms, with the whole KV cache "
-            f"{bound_wc:.3f} ms); retrieval per step direct "
-            f"{e['retrieval_ms']:.3f} ms, served {e['served_retrieval_ms']:.3f} "
-            f"ms; on {smi}")
-    out.update(engines=engines, weight_bytes=weight_bytes,
-               weight_bound_ms=bound_w, weight_cache_bound_ms=bound_wc,
-               launches=counts)
-    del model
-    torch.cuda.empty_cache()
+    log(f"[{arch}] {cfg.num_layers} layers (runs {tfm.runs_of(cfg)}), d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {weight_bytes / 1e9:.3f} GB of "
+        f"bf16 weights, init on the card {init_ms / 1e3:.2f} s")
+    return cfg, model, init_ms / 1e3, weight_bytes
 
-    # the path's kernels against their plain versions, then timed
+
+def datastore_kernels(prk, testing, ds, q, counts, smi):
+    """The datastore's kernels against their plain versions at M=8 and
+    M=128 (phase 7's tolerances), then timed beside their bounds: rows of
+    the kernels line, and the times by M."""
     acc = {key: dict.fromkeys(names_of("f32"), 0.0 if key == "errs" else 0)
            for key in ("errs", "agree", "total")}
+    from repro_torch.search import pad_queries_to
+
     pk = ds.index.pack()
     db, bias, bs, ks = pk.db, pk.bias, pk.bin_size, ds.index.k_scan
     n_pad, d = db.shape
     stored = 4.0 * n_pad * d + 4.0 * n_pad
-    kernels = []
+    kernels, times = [], {}
     for m in (8, 128):
         qm = q[:m].contiguous()
-        compare_kernels(prk, testing, f"knn-lm datastore M={m}", qm, db, bias,
+        compare_kernels(prk, testing, f"knn-lm datastore D={d} M={m}", qm, db, bias,
                         bs, ks, acc, chunk=128)
         qp = pad_queries_to(qm, d).contiguous()
         carries = prk.fused_scan(qp, db, bias, k_scan=ks, bin_size=bs)
@@ -2347,16 +2372,188 @@ def phase_knn_lm(prk, testing, seed, results, smi):
                 index_agreement=acc["agree"][name] / max(acc["total"][name], 1),
                 ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                 library_ms=lib, splits=splits, bin_size=bs, k_scan=ks))
-        log(f"[knn-lm] M={m}: fused scan {t['fused']:.3f} ms ({fb['bound_by']} "
+        log(f"[knn-lm] D={d} M={m}: fused scan {t['fused']:.3f} ms ({fb['bound_by']} "
             f"bound {fb['bound_ms']:.3f} ms: {100 * fb['bound_ms'] / t['fused']:.1f}%; "
             f"parts {fb['bound_parts']}), merge {t['merge']:.4f} ms ({splits} "
             f"splits; bound {mb[0]:.5f}, torch.topk {t['topk']:.4f}), two-pass "
             f"{t['packed']:.3f} ms (bound {pb['bound_ms']:.3f}); plain fused "
             f"{t['fused_plain']:.3f}, plain two-pass {t['packed_plain']:.3f} ms; "
             f"search {t['search']:.3f} ms; on {smi}")
-        out[f"m{m}"] = t
+        times[f"m{m}"] = t
+    return kernels, times
+
+
+def serve_with_datastore(prk, testing, c, seed, results, smi, label):
+    """A datastore of ``c``, then ``c["arch"]`` FULL behind the engine with
+    exact and kNN attention and a retrieval each step (the path's counts
+    from 0 to the end of the engine runs: the fused scan and the merge
+    launched, no plain version), then the datastore's kernels; the
+    datastore and the model are freed."""
+    from repro_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    prk.reset_counts()
+    ds, server, q, out = build_datastore(testing, c, seed)
+    cfg, model, init_s, weight_bytes = init_full(c["arch"], seed + c["seed"] + 1)
+    cache_bytes = sum(f.numel() * f.element_size()
+                      for ch in tfm.init_caches(cfg, 1, 1, device="meta") for f in ch
+                      ) * c["batch"] * c["max_seq"]
+    engines = {}
+    for use_knn in (False, True):
+        if use_knn and cfg.num_experts:  # the forwards read the model's cfg
+            import dataclasses
+
+            model.cfg = dataclasses.replace(cfg, router_topk_impl="approx")
+        engines["knn" if use_knn else "exact"] = run_engine(
+            model.cfg, model, c, use_knn, seed, ds=ds, server=server)
+    model.cfg = cfg
+    server.close()
+    read_counts(prk, label, ("f32",), results, two_pass=False)
+    counts = dict(prk.LAUNCHES)
+    bound_w = 1e3 * weight_bytes / PEAK_HBM_BYTES
+    bound_wc = 1e3 * (weight_bytes + cache_bytes) / PEAK_HBM_BYTES
+    for name, e in engines.items():
+        log(f"[{c['arch']}] {name} attention"
+            + (" (approx router)" if name == "knn" and cfg.num_experts else "")
+            + f": prefill replay {e['prefill_ms']:.1f} ms ({c['prompt']} steps), "
+            f"decode step {e['step_ms']:.3f} ms (weight bytes bound {bound_w:.3f} "
+            f"ms, with the whole KV cache {bound_wc:.3f} ms); retrieval per step "
+            f"direct {e['retrieval_ms']:.3f} ms, served "
+            f"{e['served_retrieval_ms']:.3f} ms; on {smi}")
+    out.update(arch=c["arch"], engines=engines, weight_bytes=weight_bytes,
+               init_s=init_s, weight_bound_ms=bound_w,
+               weight_cache_bound_ms=bound_wc, launches=counts)
+    del model
+    torch.cuda.empty_cache()
+    kernels, times = datastore_kernels(prk, testing, ds, q, counts, smi)
+    out.update(times)
+    del ds, server, q
+    torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"[knn-lm] phase 16: {out['seconds']:.1f} s")
+    log(f"[knn-lm] {label}: {out['seconds']:.1f} s")
+    return out, kernels
+
+
+def phase_knn_lm(prk, testing, seed, results, smi):
+    """Phase 16: kNN-LM serving at full width.  The datastore's build (the
+    h100 cluster decision and the seconds), lookups of 1,024 queries at
+    E[recall] - eps before and after ``extend`` and ``forget``, the
+    functional search over the raw keys, then internlm2-1.8b behind
+    ``ServingEngine`` with exact and kNN attention and a retrieval each
+    decode step (direct and served); then the path's kernels against their
+    plain versions at M=8 and M=128 and their times beside their bounds."""
+    return serve_with_datastore(prk, testing, KNN_LM, seed, results, smi,
+                                "phase 16")
+
+
+def whisper_run(seed, smi):
+    """whisper-medium FULL: ``make_prefill_step`` over random frame
+    embeddings (8, 1500, 1024) and a 64-token prompt (logits, caches,
+    cross KV), then the prompt replayed and 16 sampled steps through
+    ``make_decode_step`` with the cross KV, from ``init_caches``."""
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tfm
+
+    c = WHISPER
+    cfg, model, init_s, weight_bytes = init_full(c["arch"], seed + 40)
+    g = torch.Generator(device="cuda").manual_seed(seed + 41)
+    b = c["batch"]
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, c["prompt"]), generator=g,
+                                     device="cuda", dtype=torch.int32),
+             "enc_embeds": torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g,
+                                       device="cuda", dtype=torch.bfloat16)}
+    prefill_ms, (logits, caches, cross) = timed_ms(
+        lambda: M.make_prefill_step(cfg)(model, batch))
+    if not torch.isfinite(logits.float()).all():
+        fail("whisper: non-finite prefill logits")
+    if len(cross) != cfg.num_layers or tuple(cross[0].k.shape) != (
+            b, cfg.encoder_seq, cfg.num_heads, cfg.resolved_head_dim):
+        fail(f"whisper: cross KV {len(cross)} x {tuple(cross[0].k.shape)}")
+    del caches
+    step = M.make_decode_step(cfg)
+    caches = tfm.init_caches(cfg, b, c["max_seq"], device="cuda")
+    tok, step_ms = batch["tokens"][:, :1], []
+    for t in range(c["prompt"] + c["steps"]):
+        forced = t < c["prompt"]
+        inp = batch["tokens"][:, t : t + 1] if forced else tok
+        ms, (tok, logits, caches) = timed_ms(
+            lambda: step(model, inp, caches, t, g, cross_kv=cross))
+        if not forced:
+            step_ms.append(ms)
+        if not torch.isfinite(logits.float()).all() or (tok >= cfg.vocab_size).any():
+            fail(f"whisper: non-finite logits or a padded id at step {t}")
+    # a decode step reads the decoder's weights (not the encoder's), and
+    # the cross KV and its self cache where attention reads them whole
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    dec_bytes = weight_bytes - nbytes([*model.encoder.parameters(),
+                                       model.enc_final_norm])
+    kv_bytes = nbytes([f for kv in (*cross, *caches) for f in kv])
+    out = dict(init_s=init_s, weight_bytes=weight_bytes, prefill_ms=prefill_ms,
+               step_ms=median(step_ms), decoder_bytes=dec_bytes,
+               weight_bound_ms=1e3 * dec_bytes / PEAK_HBM_BYTES,
+               weight_cache_bound_ms=1e3 * (dec_bytes + kv_bytes) / PEAK_HBM_BYTES)
+    log(f"[whisper-medium] prefill step (encoder over {cfg.encoder_seq} frames, "
+        f"{c['prompt']}-token prompt, cross KV) {prefill_ms:.1f} ms; eager decode "
+        f"step {out['step_ms']:.3f} ms (decoder weight bytes bound "
+        f"{out['weight_bound_ms']:.3f} ms, with the cross KV and the whole "
+        f"self cache {out['weight_cache_bound_ms']:.3f} ms); on {smi}")
+    del model, caches, cross
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(prk, testing, seed, results, smi):
+    """Phase 17: granite-moe-3b-a800m behind the engine with a D=1536
+    datastore (as phase 16, the kNN run with the approx router), then
+    deepseek-v2 (4 layers), mamba2, qwen2-vl (also a prefill step from
+    patch embeddings) and recurrentgemma at full width behind the engine,
+    and whisper through its step functions; each model freed before the
+    next.  No plain kernel version runs on these paths."""
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    out, kernels = serve_with_datastore(prk, testing, FAMILY_LM, seed, results, smi,
+                                        "phase 17 granite-moe")
+    plain = sum(prk.PLAIN_CALLS.values())  # after the datastore's comparisons
+    c = dict(FAMILY_LM, steps=16)
+    models = {}
+    for i, (arch, layers, knn) in enumerate(FAMILY_RUNS):
+        t_model = time.perf_counter()
+        cfg, model, init_s, weight_bytes = init_full(arch, seed + 21 + i, layers)
+        row = dict(layers=cfg.num_layers, init_s=init_s, weight_bytes=weight_bytes,
+                   weight_bound_ms=1e3 * weight_bytes / PEAK_HBM_BYTES)
+        if cfg.input_mode == "embeddings":
+            g = torch.Generator(device="cuda").manual_seed(seed + 30)
+            emb = torch.randn((c["batch"], c["prompt"], cfg.d_model), generator=g,
+                              device="cuda", dtype=torch.bfloat16)
+            ms, (logits, caches) = timed_ms(
+                lambda: M.make_prefill_step(cfg)(model, {"embeddings": emb}))
+            if not torch.isfinite(logits.float()).all():
+                fail(f"{arch}: non-finite prefill logits from patch embeddings")
+            row["prefill_from_embeddings_ms"] = ms
+            del caches, emb
+        for use_knn in (False, True) if knn else (False,):
+            row["knn" if use_knn else "exact"] = run_engine(cfg, model, c, use_knn, seed)
+        row["seconds"] = time.perf_counter() - t_model
+        for name in ("exact", "knn"):
+            if name in row:
+                log(f"[{arch}] {name} attention: decode step "
+                    f"{row[name]['step_ms']:.3f} ms (weight bytes bound "
+                    f"{row['weight_bound_ms']:.3f} ms), prefill replay "
+                    f"{row[name]['prefill_ms']:.1f} ms; init {init_s:.2f} s, "
+                    f"{row['seconds']:.1f} s in all; on {smi}")
+        models[arch] = row
+        del model
+        torch.cuda.empty_cache()
+    models["whisper-medium"] = whisper_run(seed, smi)
+    if sum(prk.PLAIN_CALLS.values()) != plain:
+        fail(f"plain versions ran in phase 17: {dict(prk.PLAIN_CALLS)}")
+    out["models"] = models
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[families] phase 17: {out['seconds']:.1f} s")
     return out, kernels
 
 
@@ -2508,8 +2705,9 @@ def main(argv=None) -> int:
     # phase 15: the host-RAM cold tier
     host_tier = phase_host_tier(prk, testing, make_data(SIFT, args.seed),
                                 results, acc)
-    # phase 16: kNN-LM serving at full width
+    # phase 16: kNN-LM serving at full width; phase 17: the other families
     knn_lm, knn_kernels = phase_knn_lm(prk, testing, args.seed, results, smi)
+    families, family_kernels = phase_families(prk, testing, args.seed, results, smi)
     for k in kernels:
         for key in ("launches", "plain_calls"):
             k[key] = results[key].get(k["name"], 0)
@@ -2522,7 +2720,8 @@ def main(argv=None) -> int:
     log(json.dumps({"serve": serve, "snapshots": snapshots}))
     log(json.dumps({"host_tier": host_tier}))
     log(json.dumps({"knn_lm": knn_lm}))
-    log(json.dumps({"kernels": kernels + knn_kernels}))
+    log(json.dumps({"families": families}))
+    log(json.dumps({"kernels": kernels + knn_kernels + family_kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

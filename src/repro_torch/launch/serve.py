@@ -5,9 +5,12 @@ paper's approx-top-k vocabulary sampler (and optional kNN attention).
       --batch 8 --max-seq 2048 --new-tokens 32 --knn-attention
 
 Port of ``src/repro/launch/serve.py``, with its flags and ``--device``
-(default "cuda"; "cpu" runs the plain path).  The model's weights are
-random, drawn on the device from ``--seed`` in the config's compute
-dtype (what the reference's per-step cast makes of its f32 weights).
+(default "cuda"; "cpu" runs the plain path).  ``--arch`` takes every
+decoder-only architecture; an encoder-decoder (whisper) needs the cross
+KV of its prefill step, which the engine does not carry, and is refused.
+The model's weights are random, drawn on the device from ``--seed`` in
+the config's compute dtype (what the reference's per-step cast makes of
+its f32 weights).
 """
 from __future__ import annotations
 
@@ -35,6 +38,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if cfg.is_encoder_decoder:
+        ap.error(f"{args.arch} is an encoder-decoder: the engine serves "
+                 "decoder-only architectures")
     device = tfm.resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = tfm.init_model(cfg, gen, device=device,

@@ -1,18 +1,23 @@
-"""Attention: GQA/MQA/MHA (full-sequence and decode) and the
-paper-integrated kNN top-k decode attention.
+"""Attention: GQA/MQA/MHA (full-sequence and decode), MLA (deepseek-v2),
+cross-attention (whisper's decoder) and the paper-integrated kNN top-k
+decode attention.
 
-Port of the MHA/GQA parts of ``src/repro/models/attention.py`` (one
-device: no sharding hints).  Prefill runs a query-chunked exact
-attention so the (S, S) score matrix never materialises.
+Port of ``src/repro/models/attention.py`` (one device: no sharding
+hints).  Prefill runs a query-chunked exact attention so the (S, S)
+score matrix never materialises.
 ``knn_decode_attention`` treats the KV cache as the paper's database:
 scores are one matmul, PartialReduce selects the top-k keys (Eq. 13
 recall guarantee; ``repro_torch.core.approx_max_k``), and exact softmax
 runs over the k survivors.
 
-Decode updates its KV cache in place and returns it.  The score tiles'
-dtype is ``cfg.attn_scores_dtype`` (the reference sets it as module
-state).  The context-parallel kNN attention (ROADMAP queue A item 11),
-MLA and cross-attention (item 12b) are not ported.
+Decode updates its cache in place (the ``KVCache`` rows, the
+``MLACache`` latent rows) and returns it.  MLA's decode attends in the
+compressed latent space (the absorbed matmuls); its kNN branch gathers
+each (batch, head)'s selected latent rows from the (B, S, r) cache
+where the reference widens the cache to (B, H, S, r) first (the same
+values).  The score tiles' dtype is ``cfg.attn_scores_dtype`` (the
+reference sets it as module state).  The context-parallel kNN
+attention is ROADMAP queue A item 11.
 """
 from __future__ import annotations
 
@@ -21,15 +26,23 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.topk import approx_max_k
+from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamDef
 from repro_torch.models.rope import apply_mrope, apply_rope
 
 __all__ = [
     "attn_defs",
+    "mla_defs",
+    "cross_attn_defs",
     "attention_train",
     "attention_decode",
+    "mla_train",
+    "mla_decode",
+    "cross_attention",
+    "encode_cross_kv",
     "knn_decode_attention",
     "KVCache",
+    "MLACache",
 ]
 
 _NEG_INF = -1e30  # finite mask value: avoids NaN from (-inf) - (-inf)
@@ -40,6 +53,11 @@ class KVCache(NamedTuple):
     v: torch.Tensor      # (B, S, KV, hd)
 
 
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor   # (B, S, kv_lora)
+    k_rope: torch.Tensor  # (B, S, qk_rope)
+
+
 def attn_defs(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int):
     return {
         "wq": ParamDef((d_model, num_heads, head_dim), ("embed", "heads", "head_dim")),
@@ -47,6 +65,42 @@ def attn_defs(d_model: int, num_heads: int, num_kv_heads: int, head_dim: int):
         "wv": ParamDef((d_model, num_kv_heads, head_dim), ("embed", "kv_heads", "head_dim")),
         "wo": ParamDef((num_heads, head_dim, d_model), ("heads", "head_dim", "embed")),
     }
+
+
+def mla_defs(
+    d_model: int,
+    num_heads: int,
+    *,
+    q_lora_rank: int,
+    kv_lora_rank: int,
+    qk_nope_dim: int = 128,
+    qk_rope_dim: int = 64,
+    v_head_dim: int = 128,
+):
+    defs = {
+        "wkv_a": ParamDef((d_model, kv_lora_rank + qk_rope_dim), ("embed", "kv_lora")),
+        "kv_norm": ParamDef((kv_lora_rank,), ("kv_lora",), "ones"),
+        "wk_b": ParamDef((kv_lora_rank, num_heads, qk_nope_dim), ("kv_lora", "heads", "head_dim")),
+        "wv_b": ParamDef((kv_lora_rank, num_heads, v_head_dim), ("kv_lora", "heads", "head_dim")),
+        "wo": ParamDef((num_heads, v_head_dim, d_model), ("heads", "head_dim", "embed")),
+    }
+    if q_lora_rank:
+        defs["wq_a"] = ParamDef((d_model, q_lora_rank), ("embed", None))
+        defs["q_norm"] = ParamDef((q_lora_rank,), (None,), "ones")
+        defs["wq_b"] = ParamDef(
+            (q_lora_rank, num_heads, qk_nope_dim + qk_rope_dim),
+            (None, "heads", "head_dim"),
+        )
+    else:
+        defs["wq"] = ParamDef(
+            (d_model, num_heads, qk_nope_dim + qk_rope_dim),
+            ("embed", "heads", "head_dim"),
+        )
+    return defs
+
+
+def cross_attn_defs(d_model: int, num_heads: int, head_dim: int):
+    return attn_defs(d_model, num_heads, num_heads, head_dim)
 
 
 def _const(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -83,7 +137,8 @@ def _attend_chunked(
     chunk: int = 512,
     scores_dtype: str = "float32",
 ) -> torch.Tensor:
-    """Exact attention over query chunks (scores stay O(chunk*Skv))."""
+    """Exact attention over query chunks (scores stay O(chunk*Skv)); the
+    value head dim may differ from the query's (MLA)."""
     sq, hd = q.shape[1], q.shape[-1]
     scale = hd ** -0.5
     if sq % chunk:
@@ -270,3 +325,135 @@ def knn_decode_attention(
     sel = values.transpose(1, 2)[batch[:, None, None], heads[None, :, None],
                                  top_idx.long()]
     return torch.einsum("bhk,bhkd->bhd", probs, sel)
+
+
+# --------------------------------------------------------------------------
+# MLA (deepseek-v2 multi-head latent attention)
+# --------------------------------------------------------------------------
+
+
+def _mla_q(params, x, positions, *, qk_nope_dim, qk_rope_dim, rope_theta):
+    if "wq_a" in params:
+        cq = rms_norm(x @ params["wq_a"], params["q_norm"])
+        q = _project(cq, params["wq_b"])
+    else:
+        q = _project(x, params["wq"])
+    q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions, theta=rope_theta)
+    return q_nope, q_rope
+
+
+def mla_train(
+    params: Dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    num_heads: int,
+    kv_lora_rank: int,
+    qk_nope_dim: int = 128,
+    qk_rope_dim: int = 64,
+    rope_theta: float = 10000.0,
+    q_chunk: int = 512,
+    return_cache: bool = False,
+    scores_dtype: str = "float32",
+):
+    """MLA over the full sequence (prefill): the latent expanded to each
+    head's keys and values, then exact causal attention."""
+    b, s, _ = x.shape
+    q_nope, q_rope = _mla_q(params, x, positions, qk_nope_dim=qk_nope_dim,
+                            qk_rope_dim=qk_rope_dim, rope_theta=rope_theta)
+    kv_a = x @ params["wkv_a"]
+    c_kv = rms_norm(kv_a[..., :kv_lora_rank], params["kv_norm"])
+    k_rope = apply_rope(kv_a[..., None, kv_lora_rank:], positions,
+                        theta=rope_theta)  # (B, S, 1, rope_dim) shared across heads
+    k_nope = _project(c_kv, params["wk_b"])
+    value = _project(c_kv, params["wv_b"])
+    k_full = torch.cat([k_nope, k_rope.expand(b, s, num_heads, qk_rope_dim)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    out = _attend_chunked(q_full, k_full, value, positions, positions, causal=True,
+                          window=None, chunk=q_chunk, scores_dtype=scores_dtype)
+    y = _out(out, params["wo"])
+    if return_cache:
+        return y, MLACache(c_kv=c_kv, k_rope=k_rope[:, :, 0, :])
+    return y
+
+
+def mla_decode(
+    params: Dict,
+    x: torch.Tensor,               # (B, 1, d)
+    cache: MLACache,
+    cur_index,                     # position being generated: int or tensor
+    *,
+    num_heads: int,
+    kv_lora_rank: int,
+    qk_nope_dim: int = 128,
+    qk_rope_dim: int = 64,
+    rope_theta: float = 10000.0,
+    knn_k: int = 0,
+    knn_recall_target: float = 0.95,
+) -> Tuple[torch.Tensor, MLACache]:
+    """Absorbed-matmul MLA decode: attends in the compressed kv_lora space
+    (score = q_nopeᵀ(W_kb c) + q_ropeᵀ k_rope, W_kb absorbed into the
+    query); writes position ``cur_index`` of ``cache`` in place."""
+    b = x.shape[0]
+    pos = _position(cur_index, x.device)
+    positions = pos.to(torch.int32)
+    q_nope, q_rope = _mla_q(params, x, positions, qk_nope_dim=qk_nope_dim,
+                            qk_rope_dim=qk_rope_dim, rope_theta=rope_theta)
+    kv_a = x @ params["wkv_a"]
+    c_new = rms_norm(kv_a[..., :kv_lora_rank], params["kv_norm"])
+    kr_new = apply_rope(kv_a[..., None, kv_lora_rank:], positions,
+                        theta=rope_theta)[:, :, 0]
+    cache.c_kv.index_copy_(1, pos, c_new.to(cache.c_kv.dtype))
+    cache.k_rope.index_copy_(1, pos, kr_new.to(cache.k_rope.dtype))
+    c_kv, k_rope = cache.c_kv, cache.k_rope
+
+    # Absorb W_kb into q: (B, H, kv_lora).
+    q_c = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], params["wk_b"])
+    scale = (qk_nope_dim + qk_rope_dim) ** -0.5
+    scores = (q_c @ c_kv.transpose(1, 2)
+              + q_rope[:, 0] @ k_rope.transpose(1, 2)) * _const(scale, q_c)
+    valid = torch.arange(c_kv.shape[1], device=x.device) <= pos
+    scores = torch.where(valid, scores, _const(_NEG_INF, scores))
+
+    if knn_k:
+        top_scores, top_idx = approx_max_k(scores, knn_k,
+                                           recall_target=knn_recall_target)
+        probs = torch.softmax(top_scores.to(torch.float32), dim=-1).to(x.dtype)
+        # each (batch, head)'s selected latent rows, (B, H, k, r)
+        batch = torch.arange(b, device=x.device)
+        sel = c_kv[batch[:, None, None], top_idx.long()]
+        attn_c = torch.einsum("bhk,bhkr->bhr", probs, sel)
+    else:
+        probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
+        attn_c = probs @ c_kv
+    out = torch.einsum("bhr,rhk->bhk", attn_c, params["wv_b"])
+    return _out(out, params["wo"])[:, None], cache
+
+
+# --------------------------------------------------------------------------
+# Cross attention (whisper decoder)
+# --------------------------------------------------------------------------
+
+
+def cross_attention(
+    params: Dict,
+    x: torch.Tensor,               # (B, Sq, d)
+    enc_kv: KVCache,               # precomputed from the encoder output
+    *,
+    num_heads: int,
+    q_chunk: int = 512,
+    scores_dtype: str = "float32",
+):
+    q = _project(x, params["wq"])
+    sq, skv = x.shape[1], enc_kv.k.shape[1]
+    out = _attend_chunked(
+        q, enc_kv.k, enc_kv.v,
+        torch.arange(sq, device=x.device), torch.arange(skv, device=x.device),
+        causal=False, window=None, chunk=q_chunk, scores_dtype=scores_dtype,
+    )
+    return _out(out, params["wo"])
+
+
+def encode_cross_kv(params: Dict, enc_out: torch.Tensor) -> KVCache:
+    return KVCache(k=_project(enc_out, params["wk"]), v=_project(enc_out, params["wv"]))

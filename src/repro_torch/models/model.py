@@ -8,8 +8,12 @@ vocabulary: the padded vocabulary ids are pushed down by 1e9,
 against the unembedding), then a Gumbel draw picks one.  The draw comes
 from the caller's ``torch.Generator``; :func:`sample_tokens` takes the
 noise itself, so a test can hand it the reference's
-``jax.random.gumbel`` draw.  Training (``loss_fn``, ``make_train_step``,
-``TrainState``, ``input_specs``) is ROADMAP queue A item 13b.
+``jax.random.gumbel`` draw.  A batch's main input is ``"tokens"``, or
+``"embeddings"`` for a stubbed modality frontend (qwen2-vl's patches);
+an encoder-decoder's (whisper) also holds ``"enc_embeds"``, and its
+prefill step returns the cross-attention KV its decode step takes.
+Training (``loss_fn``, ``make_train_step``, ``TrainState``,
+``input_specs``) is ROADMAP queue A item 13b.
 """
 from __future__ import annotations
 
@@ -25,11 +29,20 @@ __all__ = ["make_prefill_step", "make_decode_step", "gumbel", "sample_tokens"]
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """prefill_step(model, batch) -> (last logits (B, 1, V), caches);
-    ``batch["tokens"]`` (B, S)."""
+    """prefill_step(model, batch) -> (last logits (B, 1, V), caches), and
+    for an encoder-decoder (logits, caches, cross_kv); ``batch["tokens"]``
+    (B, S) or ``batch["embeddings"]`` (B, S, d), and ``batch["enc_embeds"]``
+    (B, S_enc, d) for an encoder-decoder.  The encoder runs once."""
 
+    @torch.no_grad()
     def prefill_step(model, batch):
-        return tfm.forward_prefill(model, batch["tokens"])
+        if cfg.is_encoder_decoder:
+            params = tfm._cast_params(model.params(), cfg)
+            enc_out = tfm._encode(params, cfg, batch["enc_embeds"])
+            logits, caches = tfm._prefill(params, cfg, batch["tokens"], enc_out=enc_out)
+            return logits, caches, tfm.build_cross_kv(params, cfg, enc_out)
+        main = batch["embeddings"] if cfg.input_mode == "embeddings" else batch["tokens"]
+        return tfm.forward_prefill(model, main)
 
     return prefill_step
 
@@ -63,14 +76,17 @@ def sample_tokens(cfg: ModelConfig, logits: torch.Tensor,
 
 def make_decode_step(cfg: ModelConfig, *, use_knn: bool = False,
                      sample: str = "approx_topk", temperature: float = 0.8):
-    """decode_step(model, tokens, caches, cur_index, generator, noise=None)
-    -> (next tokens (B, 1) int32, logits (B, 1, V), caches).  The Gumbel
-    ``noise`` (B, decode_sample_k) is drawn from ``generator`` unless
-    given (a CUDA graph of the step reads it from a buffer)."""
+    """decode_step(model, tokens, caches, cur_index, generator, noise=None,
+    cross_kv=None) -> (next tokens (B, 1) int32, logits (B, 1, V),
+    caches).  The Gumbel ``noise`` (B, decode_sample_k) is drawn from
+    ``generator`` unless given (a CUDA graph of the step reads it from a
+    buffer); ``cross_kv`` is an encoder-decoder's, from the prefill
+    step."""
 
-    def decode_step(model, tokens, caches, cur_index, generator, noise=None):
+    def decode_step(model, tokens, caches, cur_index, generator, noise=None,
+                    cross_kv=None):
         logits, caches = tfm.forward_decode(model, tokens, caches, cur_index,
-                                            use_knn=use_knn)
+                                            use_knn=use_knn, cross_kv=cross_kv)
         if sample != "greedy" and noise is None:
             noise = gumbel((tokens.shape[0], cfg.decode_sample_k), generator,
                            device=logits.device)

@@ -1,0 +1,153 @@
+"""Mixture-of-Experts layer: token-choice top-k routing, grouped capacity
+dispatch, plus deepseek-style shared experts.
+
+Port of ``src/repro/models/moe.py``.  Router top-k is ``"exact"`` (the
+reference's ``lax.top_k``: a stable descending sort here, so the lowest
+expert index wins a tie) by default; ``"approx"`` runs the paper's
+``approx_max_k`` over the softmaxed probabilities (when k > 1 and
+E >= 2k).  Capacity and drops are the reference's: ``cap =
+int(min(g, max(k, round(g·k/E·cf))))`` (Python's ``round``, halves to
+even), a token's place in its expert's queue counted over the
+token-major (t, k) order, and a pair kept while its place is below the
+capacity.
+
+The reference dispatches and combines with one-hot einsums (the TPU's
+lowering).  Each (expert, slot) receives exactly one token or none, so
+the port gathers instead: a slot's token index (a plain scatter of
+unique destinations; dropped pairs land in a discarded column), the
+tokens gathered into the expert batches, and each token's k outputs
+gathered back and weighed.  No atomic add anywhere: a CUDA graph replay
+of a step is bit-equal to an eager one.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.topk import approx_max_k
+from repro_torch.models.params import ParamDef
+
+__all__ = ["moe_defs", "moe_apply"]
+
+
+def moe_defs(
+    d_model: int,
+    moe_d_ff: int,
+    num_experts: int,
+    *,
+    num_shared_experts: int = 0,
+):
+    defs = {
+        "router": ParamDef((d_model, num_experts), ("embed", None)),
+        "wi": ParamDef((num_experts, d_model, moe_d_ff), ("experts", "embed", "moe_ffn")),
+        "wg": ParamDef((num_experts, d_model, moe_d_ff), ("experts", "embed", "moe_ffn")),
+        "wo": ParamDef((num_experts, moe_d_ff, d_model), ("experts", "moe_ffn", "embed")),
+    }
+    if num_shared_experts:
+        shared_ff = num_shared_experts * moe_d_ff
+        defs["shared_wi"] = ParamDef((d_model, shared_ff), ("embed", "ffn"))
+        defs["shared_wg"] = ParamDef((d_model, shared_ff), ("embed", "ffn"))
+        defs["shared_wo"] = ParamDef((shared_ff, d_model), ("ffn", "embed"))
+    return defs
+
+
+def _router_topk(probs, k, routing: str, recall_target: float):
+    if routing == "approx" and k > 1 and probs.shape[-1] >= 2 * k:
+        return approx_max_k(probs, k, recall_target=recall_target)
+    # lax.top_k: the lowest index wins a tie (torch.topk promises no order)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _capacity(g: int, k: int, num_experts: int, capacity_factor: float) -> int:
+    return int(min(g, max(k, round(g * k / num_experts * capacity_factor))))
+
+
+def _route(params: Dict, xt: torch.Tensor, *, experts_per_token: int,
+          num_experts: int, cap: int, routing: str = "exact",
+          recall_target: float = 0.95, router_scale: Optional[float] = None):
+    """Router of ``xt`` (G, g, d) -> (weights (G, g, k) f32, experts
+    (G, g, k), slots (G, g, k), kept (G, g, k) bool): each (token, choice)
+    pair's renormalised probability, expert, place in that expert's
+    queue and whether the place is below ``cap``."""
+    k = experts_per_token
+    logits = xt @ params["router"]
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    top_p, top_e = _router_topk(probs, k, routing, recall_target)
+    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)  # renormalise
+    if router_scale:
+        top_p = top_p * router_scale
+    top_e = top_e.long()
+    # Place of each (token, choice) in its expert's queue: a running count
+    # over the token-major (t, k) order, as the reference's one-hot cumsum.
+    n_groups, g = xt.shape[:2]
+    sel = top_e[..., None] == torch.arange(num_experts, device=xt.device)
+    counts = torch.cumsum(sel.reshape(n_groups, g * k, num_experts).to(torch.int32),
+                          dim=1).reshape(n_groups, g, k, num_experts)
+    slot = torch.gather(counts, -1, top_e[..., None])[..., 0] - 1
+    return top_p, top_e, slot, slot < cap
+
+
+def moe_apply(
+    params: Dict,
+    x: torch.Tensor,                 # (B, S, d)
+    *,
+    experts_per_token: int,
+    num_experts: int,
+    capacity_factor: float = 1.5,
+    group_size: int = 1024,
+    routing: str = "exact",          # "exact" | "approx"
+    recall_target: float = 0.95,
+    router_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Grouped-capacity MoE forward: tokens reshaped to (G, g), each group
+    dispatched to (E, cap) slots independently."""
+    b, s, d = x.shape
+    k = experts_per_token
+    tokens = b * s
+    g = min(group_size, tokens)
+    if tokens % g:
+        raise ValueError(f"tokens {tokens} not divisible by group {g}")
+    n_groups = tokens // g
+    cap = _capacity(g, k, num_experts, capacity_factor)
+    xt = x.reshape(n_groups, g, d)
+    top_p, top_e, slot, keep = _route(
+        params, xt, experts_per_token=k, num_experts=num_experts, cap=cap,
+        routing=routing, recall_target=recall_target, router_scale=router_scale)
+
+    # Dispatch: the token of each (expert, slot); an empty slot reads the
+    # zero row g.  Destinations of kept pairs are unique; dropped pairs
+    # all go to the column num_experts * cap, which is cut off.
+    flat = top_e * cap + slot
+    dst = torch.where(keep, flat, num_experts * cap).reshape(n_groups, g * k)
+    tok = torch.arange(g, device=x.device)[:, None].expand(g, k).reshape(1, g * k)
+    tok = tok.expand(n_groups, -1)
+    src = torch.full((n_groups, num_experts * cap + 1), g, dtype=torch.long,
+                     device=x.device)
+    src.scatter_(1, dst, tok)
+    xt_pad = F.pad(xt, (0, 0, 0, 1))
+    expert_in = torch.gather(
+        xt_pad, 1, src[:, : num_experts * cap, None].expand(-1, -1, d),
+    ).reshape(n_groups, num_experts, cap, d)
+
+    # Expert FFNs: (G, E, cap, d) x (E, d, f).
+    h = expert_in @ params["wi"]
+    gate = expert_in @ params["wg"]
+    h = F.silu(gate) * h
+    expert_out = (h @ params["wo"]).reshape(n_groups, num_experts * cap, d)
+
+    # Combine: each token's k outputs (a dropped pair weighs 0), weights in
+    # the compute dtype as the reference's combine tensor holds them.
+    got = torch.gather(
+        expert_out, 1,
+        torch.where(keep, flat, 0).reshape(n_groups, g * k, 1).expand(-1, -1, d),
+    ).reshape(n_groups, g, k, d)
+    w = torch.where(keep, top_p, 0.0).to(x.dtype)
+    y = (w[..., None, :] @ got)[..., 0, :]
+
+    if "shared_wi" in params:
+        sh = F.silu(xt @ params["shared_wg"]) * (xt @ params["shared_wi"])
+        y = y + sh @ params["shared_wo"]
+    return y.reshape(b, s, d)

@@ -105,19 +105,29 @@ def _flatten(tree, prefix: str, out: Dict[str, torch.Tensor]) -> None:
 def from_reference(params, cfg) -> Dict[str, torch.Tensor]:
     """The reference's param pytree (``repro.models.transformer
     .init_model``: numpy-convertible leaves, each run of layers stacked on
-    a leading axis, ``runs_of(cfg)`` order) as the port's state dict:
-    ``layers.{i}.…`` for the i-th layer of the model, the other keys
-    joined with dots."""
+    a leading axis, ``runs_of(cfg)`` order, and an encoder-decoder's
+    ``encoder`` one stacked dict) as the port's state dict:
+    ``layers.{i}.…`` for the i-th layer of the model, ``encoder.{i}.…``
+    for the i-th encoder layer, the other keys joined with dots."""
     from repro_torch.models.transformer import runs_of
 
     out: Dict[str, torch.Tensor] = {}
-    _flatten({k: v for k, v in params.items() if k != "layers"}, "", out)
+    _flatten({k: v for k, v in params.items() if k not in ("layers", "encoder")},
+             "", out)
     layer = 0
     for (_, count), stacked in zip(runs_of(cfg), params["layers"]):
-        flat: Dict[str, torch.Tensor] = {}
-        _flatten(stacked, "", flat)
-        for j in range(count):
-            for name, t in flat.items():
-                out[f"layers.{layer + j}.{name}"] = t[j].clone()
+        _unstack(stacked, "layers", layer, count, out)
         layer += count
+    if "encoder" in params:
+        _unstack(params["encoder"], "encoder", 0, cfg.encoder_layers, out)
     return out
+
+
+def _unstack(stacked, key: str, start: int, count: int,
+             out: Dict[str, torch.Tensor]) -> None:
+    """``count`` layers stacked on a leading axis as ``{key}.{start + j}.…``."""
+    flat: Dict[str, torch.Tensor] = {}
+    _flatten(stacked, "", flat)
+    for j in range(count):
+        for name, t in flat.items():
+            out[f"{key}.{start + j}.{name}"] = t[j].clone()

@@ -1,28 +1,45 @@
-"""Model assembly for the dense layer kind: defs, init, prefill and decode.
+"""Model assembly: per-layer defs and forwards for every layer kind, init,
+caches, and the full-sequence, prefill and decode forwards.
 
-Port of the ``"dense"`` parts of ``src/repro/models/transformer.py``: a
-layer is GQA attention + the (gated) MLP, each behind an RMSNorm.  The
-reference scans each run of identical layers with ``lax.scan`` over
+Port of ``src/repro/models/transformer.py``.  Layer kinds:
+  dense      GQA attention + gated MLP
+  moe        GQA attention + MoE FFN (+ shared experts)
+  mla_dense  MLA attention + gated MLP        (deepseek-v2)
+  mla_moe    MLA attention + MoE FFN
+  local_attn GQA attention with sliding window + MLP   (recurrentgemma)
+  rglru      RG-LRU recurrent block + MLP
+  ssm        Mamba-2 SSD block (no separate MLP)
+  enc        bidirectional attention + MLP    (whisper encoder)
+  dec        causal self-attn + cross-attn + MLP (whisper decoder)
+
+The reference scans each run of identical layers with ``lax.scan`` over
 stacked params; the port holds one :class:`ParamTree` a layer in an
-``nn.ModuleList`` (``layers.{i}.attn.wq``, ...) and one KV cache a
-layer, and loops.  Every forward casts f32 parameters to the compute
-dtype first (``_cast_params``), as the reference does; a model built in
-the compute dtype (``init_model(..., dtype=torch.bfloat16)``) skips the
-cast.
+``nn.ModuleList`` (``layers.{i}.attn.wq``, ..., and whisper's
+``encoder.{i}.…``) and one decode cache a layer, and loops.  Every
+forward casts f32 parameters to the compute dtype first
+(``_cast_params``), as the reference does; a model built in the compute
+dtype (``init_model(..., dtype=torch.bfloat16)``) skips the cast.
 
-The other layer kinds (``moe``, ``mla_*``, ``ssm``, ``rglru``,
-``local_attn``, ``dec``), ``input_mode="embeddings"`` and whisper's
-sinusoidal positions are ROADMAP queue A item 12b and raise.
+Decode writes every cache in place: the KV rows and MLA latent rows at
+the position, the ring slot ``position % window`` of a local-attention
+cache, the SSM and RG-LRU state and conv window.  The engine captures
+one CUDA graph of the decode step and keeps no cache the step returns,
+so a cache rebound instead of written would go stale from the second
+replay on.  The position may be a device tensor (the graph's input):
+nothing in the step reads it on the host.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import mlp_apply, mlp_defs, rms_norm
 from repro_torch.models.params import ParamDef, ParamTree, init_params
 
@@ -37,9 +54,20 @@ __all__ = [
     "init_caches",
     "layer_train",
     "layer_decode",
+    "forward_train",
     "forward_prefill",
     "forward_decode",
+    "build_cross_kv",
+    "LocalKVCache",
 ]
+
+
+class LocalKVCache(NamedTuple):
+    """Ring-buffer KV cache for sliding-window attention."""
+
+    k: torch.Tensor      # (B, W, KV, hd)
+    v: torch.Tensor      # (B, W, KV, hd)
+    pos: torch.Tensor    # (W,) absolute position stored in each slot (-1 empty)
 
 
 def runs_of(cfg: ModelConfig) -> List[Tuple[str, int]]:
@@ -53,27 +81,46 @@ def runs_of(cfg: ModelConfig) -> List[Tuple[str, int]]:
     return runs
 
 
-def _check_kind(kind: str) -> None:
-    if kind != "dense":
-        raise NotImplementedError(
-            f"layer kind {kind!r} is ROADMAP queue A item 12b of the port "
-            "(only the dense kind is ported)"
-        )
-
-
 def _norm_def(cfg: ModelConfig):
     return ParamDef((cfg.d_model,), ("embed",), "ones")
 
 
 def layer_defs(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
-    _check_kind(kind)
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    return {
-        "pre_norm": _norm_def(cfg),
-        "attn": attn.attn_defs(d, cfg.num_heads, cfg.num_kv_heads, hd),
-        "mlp_norm": _norm_def(cfg),
-        "mlp": mlp_defs(d, cfg.d_ff, gated=cfg.gated_mlp),
-    }
+    if kind == "ssm":
+        return {
+            "pre_norm": _norm_def(cfg),
+            "ssm": ssm_lib.ssm_defs(d, expand=cfg.ssm_expand,
+                                    head_dim=cfg.ssm_head_dim, n_state=cfg.ssm_state),
+        }
+    if kind == "rglru":
+        return {
+            "pre_norm": _norm_def(cfg),
+            "rglru": rglru_lib.rglru_defs(d, cfg.lru_width or d,
+                                          gate_blocks=cfg.lru_gate_blocks),
+            "mlp_norm": _norm_def(cfg),
+            "mlp": mlp_defs(d, cfg.d_ff, gated=cfg.gated_mlp),
+        }
+    defs: Dict[str, Any] = {"pre_norm": _norm_def(cfg)}
+    if kind.startswith("mla"):
+        defs["attn"] = attn.mla_defs(
+            d, cfg.num_heads,
+            q_lora_rank=cfg.q_lora_rank, kv_lora_rank=cfg.kv_lora_rank,
+            qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+            v_head_dim=cfg.v_head_dim,
+        )
+    else:
+        defs["attn"] = attn.attn_defs(d, cfg.num_heads, cfg.num_kv_heads, hd)
+    if kind == "dec":
+        defs["cross_norm"] = _norm_def(cfg)
+        defs["cross"] = attn.cross_attn_defs(d, cfg.num_heads, hd)
+    defs["mlp_norm"] = _norm_def(cfg)
+    if kind.endswith("moe"):
+        defs["moe"] = moe_lib.moe_defs(d, cfg.moe_d_ff, cfg.num_experts,
+                                       num_shared_experts=cfg.num_shared_experts)
+    else:
+        defs["mlp"] = mlp_defs(d, cfg.d_ff, gated=cfg.gated_mlp)
+    return defs
 
 
 def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -87,18 +134,9 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
         defs["lm_head"] = {
             "embedding": ParamDef((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"))
         }
+    if cfg.is_encoder_decoder:
+        defs["enc_final_norm"] = _norm_def(cfg)
     return defs
-
-
-def _check_config(cfg: ModelConfig) -> None:
-    for kind, _ in runs_of(cfg):
-        _check_kind(kind)
-    if cfg.input_mode != "tokens" or cfg.rope_theta == 0:
-        raise NotImplementedError(
-            f"input_mode={cfg.input_mode!r} (a stubbed modality frontend) and "
-            "absolute sinusoidal positions (rope_theta=0) are ROADMAP queue A "
-            "item 12b of the port"
-        )
 
 
 def resolve_device(device=None) -> torch.device:
@@ -114,21 +152,26 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Transformer(ParamTree):
-    """A dense decoder's parameters under the reference's names:
-    ``embed.embedding``, ``final_norm``, ``lm_head.embedding`` and
-    ``layers.{i}.{pre_norm, attn.{wq,wk,wv,wo}, mlp_norm, mlp.{wi,wo,wg}}``
+    """A model's parameters under the reference's names:
+    ``embed.embedding``, ``final_norm``, ``lm_head.embedding``,
+    ``layers.{i}.…`` as ``layer_defs`` names them for the layer's kind
+    (``pre_norm``, ``attn.wq``, ``moe.router``, ``ssm.in_proj``, ...), and
+    for an encoder-decoder ``enc_final_norm`` and ``encoder.{i}.…``
     (``load_state_dict(params.from_reference(...))`` loads the
     reference's), allocated uninitialized on ``device`` (default "cuda",
     which must exist; pass "cpu" for the CPU) in ``dtype``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
-        _check_config(cfg)
         device = resolve_device(device)
         super().__init__(model_defs(cfg), device=device, dtype=dtype)
         self.cfg = cfg
         self.layers = nn.ModuleList(
             ParamTree(layer_defs(cfg, kind), device=device, dtype=dtype)
             for kind in cfg.layer_kinds()
+        )
+        self.encoder = nn.ModuleList(
+            ParamTree(layer_defs(cfg, "enc"), device=device, dtype=dtype)
+            for _ in range(cfg.encoder_layers if cfg.is_encoder_decoder else 0)
         )
 
     @property
@@ -137,9 +180,11 @@ class Transformer(ParamTree):
 
     def params(self) -> Dict[str, Any]:
         """The parameter tree the forwards read: the reference's dict
-        layout, ``layers`` a list of per-layer dicts."""
+        layout, ``layers`` (and ``encoder``) a list of per-layer dicts."""
         tree = self.tree()
         tree["layers"] = [layer.tree() for layer in self.layers]
+        if self.cfg.is_encoder_decoder:
+            tree["encoder"] = [layer.tree() for layer in self.encoder]
         return tree
 
 
@@ -152,7 +197,7 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device=None,
     would make of f32 master weights)."""
     model = Transformer(cfg, device=device, dtype=dtype)
     init_params(model, generator)
-    for layer in model.layers:
+    for layer in (*model.layers, *model.encoder):
         init_params(layer, generator)
     return model
 
@@ -167,59 +212,210 @@ def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
-                     device=None) -> attn.KVCache:
-    _check_kind(kind)
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+                     device=None):
     dt = _compute_dtype(cfg)
+    hd = cfg.resolved_head_dim
+    if kind == "ssm":
+        return ssm_lib.ssm_init_cache(
+            batch, cfg.d_model, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+            n_state=cfg.ssm_state, dtype=dt, device=device)
+    if kind == "rglru":
+        return rglru_lib.rglru_init_cache(batch, cfg.lru_width or cfg.d_model,
+                                          dtype=dt, device=device)
+    if kind == "local_attn":
+        w = min(cfg.local_window, max_seq)
+        shape = (batch, w, cfg.num_kv_heads, hd)
+        return LocalKVCache(
+            k=torch.zeros(shape, dtype=dt, device=device),
+            v=torch.zeros(shape, dtype=dt, device=device),
+            pos=torch.full((w,), -1, dtype=torch.int32, device=device))
+    if kind.startswith("mla"):
+        return attn.MLACache(
+            c_kv=torch.zeros((batch, max_seq, cfg.kv_lora_rank), dtype=dt, device=device),
+            k_rope=torch.zeros((batch, max_seq, cfg.qk_rope_dim), dtype=dt,
+                               device=device))
+    shape = (batch, max_seq, cfg.num_kv_heads, hd)
     return attn.KVCache(k=torch.zeros(shape, dtype=dt, device=device),
                         v=torch.zeros(shape, dtype=dt, device=device))
 
 
-def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
-                device=None) -> List[attn.KVCache]:
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> List:
     """One decode cache a layer (the reference stacks them per run)."""
     return [init_layer_cache(cfg, kind, batch, max_seq, device)
             for kind in cfg.layer_kinds()]
 
 
 # --------------------------------------------------------------------------
-# Layers
+# Layers (full sequence)
 # --------------------------------------------------------------------------
 
 
-def layer_train(params, x, positions, cfg: ModelConfig, kind: str = "dense",
-                return_cache: bool = False):
-    """One layer over the full sequence (prefill; forward only)."""
-    _check_kind(kind)
-    h = rms_norm(x, params["pre_norm"], cfg.norm_eps)
-    out = attn.attention_train(
-        params["attn"], h, positions,
-        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-        rope_theta=cfg.rope_theta, mrope=cfg.mrope, q_chunk=cfg.q_chunk,
-        return_cache=return_cache, scores_dtype=cfg.attn_scores_dtype,
+def _moe(params, h, cfg: ModelConfig, group_size: int):
+    return moe_lib.moe_apply(
+        params["moe"], h,
+        experts_per_token=cfg.experts_per_token, num_experts=cfg.num_experts,
+        capacity_factor=cfg.moe_capacity_factor, group_size=group_size,
+        routing=cfg.router_topk_impl, recall_target=cfg.knn_recall_target,
     )
+
+
+def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
+                      return_cache: bool, enc_out=None, mrope_positions=None):
+    h = rms_norm(x, params["pre_norm"], cfg.norm_eps)
     cache = None
+    if kind.startswith("mla"):
+        out = attn.mla_train(
+            params["attn"], h, positions,
+            num_heads=cfg.num_heads, kv_lora_rank=cfg.kv_lora_rank,
+            qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+            rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk,
+            return_cache=return_cache, scores_dtype=cfg.attn_scores_dtype,
+        )
+    else:
+        out = attn.attention_train(
+            params["attn"], h, positions,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            rope_theta=cfg.rope_theta, causal=(kind != "enc"),
+            window=cfg.local_window if kind == "local_attn" else None,
+            mrope=cfg.mrope, mrope_positions=mrope_positions,
+            q_chunk=cfg.q_chunk, return_cache=return_cache,
+            scores_dtype=cfg.attn_scores_dtype,
+        )
     if return_cache:
         out, cache = out
     x = x + out
+    if kind == "dec":
+        h = rms_norm(x, params["cross_norm"], cfg.norm_eps)
+        enc_kv = attn.encode_cross_kv(params["cross"], enc_out)
+        x = x + attn.cross_attention(params["cross"], h, enc_kv,
+                                     num_heads=cfg.num_heads, q_chunk=cfg.q_chunk,
+                                     scores_dtype=cfg.attn_scores_dtype)
     h = rms_norm(x, params["mlp_norm"], cfg.norm_eps)
-    return x + mlp_apply(params["mlp"], h, act=cfg.act), cache
+    if kind.endswith("moe"):
+        y = _moe(params, h, cfg, cfg.moe_group_size)
+    else:
+        y = mlp_apply(params["mlp"], h, act=cfg.act)
+    return x + y, cache
+
+
+def layer_train(params, x, positions, cfg: ModelConfig, kind: str = "dense",
+                return_cache: bool = False, enc_out=None, mrope_positions=None):
+    """One layer over the full sequence (forward only); with
+    ``return_cache`` also the layer's decode cache for the sequence."""
+    if kind == "ssm":
+        h = rms_norm(x, params["pre_norm"], cfg.norm_eps)
+        y = ssm_lib.ssm_train(
+            params["ssm"], h, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+            n_state=cfg.ssm_state, chunk=cfg.ssm_chunk, return_cache=return_cache,
+        )
+        cache = None
+        if return_cache:
+            y, cache = y
+        return x + y, cache
+    if kind == "rglru":
+        h = rms_norm(x, params["pre_norm"], cfg.norm_eps)
+        y = rglru_lib.rglru_train(params["rglru"], h, return_cache=return_cache,
+                                  scan_impl=cfg.lru_scan_impl)
+        cache = None
+        if return_cache:
+            y, cache = y
+        x = x + y
+        h = rms_norm(x, params["mlp_norm"], cfg.norm_eps)
+        return x + mlp_apply(params["mlp"], h, act=cfg.act), cache
+    x, cache = _apply_attn_train(params, x, positions, cfg, kind, return_cache,
+                                 enc_out, mrope_positions)
+    if return_cache and kind == "local_attn":
+        cache = _to_ring_cache(cache, positions, cfg)
+    return x, cache
+
+
+def _to_ring_cache(cache: attn.KVCache, positions, cfg: ModelConfig) -> LocalKVCache:
+    """Convert a full prefill KV cache to the sliding-window ring buffer."""
+    s = cache.k.shape[1]
+    w = min(cfg.local_window, s)
+    # Roll so that slot j holds the position p with p % w == j.
+    shift = s % w
+    return LocalKVCache(k=torch.roll(cache.k[:, -w:], shift, dims=1),
+                        v=torch.roll(cache.v[:, -w:], shift, dims=1),
+                        pos=torch.roll(positions[-w:], shift, dims=0).to(torch.int32))
+
+
+# --------------------------------------------------------------------------
+# Layers (single-token decode)
+# --------------------------------------------------------------------------
 
 
 def layer_decode(params, x, cache, cur_index, cfg: ModelConfig,
-                 kind: str = "dense", use_knn: bool = False):
-    _check_kind(kind)
+                 kind: str = "dense", use_knn: bool = False, cross_kv=None):
+    """One layer, one token: writes the layer's cache in place and
+    returns (output, cache)."""
     h = rms_norm(x, params["pre_norm"], cfg.norm_eps)
-    y, cache = attn.attention_decode(
-        params["attn"], h, cache, cur_index,
-        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-        rope_theta=cfg.rope_theta, mrope=cfg.mrope,
-        knn_k=cfg.knn_attention_k if use_knn else 0,
-        knn_recall_target=cfg.knn_recall_target,
-    )
+    knn_k = cfg.knn_attention_k if use_knn else 0
+    if kind == "ssm":
+        y, cache = ssm_lib.ssm_decode(
+            params["ssm"], h, cache, expand=cfg.ssm_expand,
+            head_dim=cfg.ssm_head_dim, n_state=cfg.ssm_state,
+        )
+        return x + y, cache
+    if kind == "rglru":
+        y, cache = rglru_lib.rglru_decode(params["rglru"], h, cache)
+        x = x + y
+        h = rms_norm(x, params["mlp_norm"], cfg.norm_eps)
+        return x + mlp_apply(params["mlp"], h, act=cfg.act), cache
+    if kind.startswith("mla"):
+        y, cache = attn.mla_decode(
+            params["attn"], h, cache, cur_index,
+            num_heads=cfg.num_heads, kv_lora_rank=cfg.kv_lora_rank,
+            qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+            rope_theta=cfg.rope_theta,
+            knn_k=knn_k, knn_recall_target=cfg.knn_recall_target,
+        )
+    elif kind == "local_attn":
+        y, cache = _local_attn_decode(params["attn"], h, cache, cur_index, cfg)
+    else:
+        y, cache = attn.attention_decode(
+            params["attn"], h, cache, cur_index,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            rope_theta=cfg.rope_theta, mrope=cfg.mrope,
+            knn_k=knn_k, knn_recall_target=cfg.knn_recall_target,
+        )
     x = x + y
+    if kind == "dec":
+        h = rms_norm(x, params["cross_norm"], cfg.norm_eps)
+        x = x + attn.cross_attention(params["cross"], h, cross_kv,
+                                     num_heads=cfg.num_heads, q_chunk=cfg.q_chunk,
+                                     scores_dtype=cfg.attn_scores_dtype)
     h = rms_norm(x, params["mlp_norm"], cfg.norm_eps)
-    return x + mlp_apply(params["mlp"], h, act=cfg.act), cache
+    if kind.endswith("moe"):
+        y = _moe(params, h, cfg, min(cfg.moe_group_size, h.shape[0] * h.shape[1]))
+    else:
+        y = mlp_apply(params["mlp"], h, act=cfg.act)
+    return x + y, cache
+
+
+def _local_attn_decode(params, x, cache: LocalKVCache, cur_index, cfg: ModelConfig):
+    """Sliding-window decode on a ring-buffer cache (W slots): the new key
+    and value go to slot ``position % W``, in place."""
+    w = cache.k.shape[1]
+    pos = attn._position(cur_index, x.device)
+    q, k_new, v_new = attn._qkv(params, x, pos.to(torch.int32),
+                                rope_theta=cfg.rope_theta, mrope=False,
+                                mrope_positions=None)
+    slot = torch.remainder(pos, w)
+    cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
+    cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
+    cache.pos.index_copy_(0, slot, pos.to(cache.pos.dtype))
+    groups = cfg.num_heads // cfg.num_kv_heads
+    q1 = q[:, 0]                    # (B, H, hd)
+    scores = attn._group_scores(q1, cache.k, groups) * attn._const(
+        q1.shape[-1] ** -0.5, q1)
+    valid = ((cache.pos >= 0) & (cache.pos <= pos)
+             & (pos - cache.pos < cfg.local_window))
+    scores = torch.where(valid, scores, attn._const(attn._NEG_INF, scores))
+    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
+    b, h, s = probs.shape
+    out = (probs.reshape(b, -1, groups, s) @ cache.v.transpose(1, 2)).reshape(b, h, -1)
+    return attn._out(out, params["wo"])[:, None], cache
 
 
 # --------------------------------------------------------------------------
@@ -237,8 +433,26 @@ def _cast_params(params, cfg: ModelConfig):
     return params.to(dt) if params.dtype == torch.float32 else params
 
 
-def _embed_in(params, cfg: ModelConfig, tokens: torch.Tensor):
-    return params["embed"]["embedding"][tokens.long()].to(_compute_dtype(cfg))
+def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    half = d // 2
+    # filled on the device: a host scalar would be a copy (and a graph
+    # capture refuses one)
+    step = torch.log(torch.full((), 10000.0, device=positions.device)) / half
+    freq = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                   device=positions.device) * step)
+    ang = positions[:, None].to(torch.float32) * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _embed_in(params, cfg: ModelConfig, tokens_or_embeds: torch.Tensor, positions):
+    if tokens_or_embeds.is_floating_point():
+        x = tokens_or_embeds  # stubbed modality frontend output
+    else:
+        x = params["embed"]["embedding"][tokens_or_embeds.long()]
+    x = x.to(_compute_dtype(cfg))
+    if cfg.rope_theta == 0:  # absolute sinusoidal (whisper-style)
+        x = x + _sinusoid(positions, cfg.d_model)[None].to(x.dtype)
+    return x
 
 
 def _unembed(params, cfg: ModelConfig, x):
@@ -248,39 +462,98 @@ def _unembed(params, cfg: ModelConfig, x):
     return x @ table.to(x.dtype).T
 
 
-@torch.no_grad()
-def forward_prefill(model: Transformer, tokens: torch.Tensor, *,
-                    positions: Optional[torch.Tensor] = None):
-    """Prefill: full forward -> (last position's logits (B, 1, V), one
-    KV cache a layer of the prompt's length)."""
-    cfg = model.cfg
-    params = _cast_params(model.params(), cfg)
-    s = tokens.shape[1]
+def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor):
+    """Whisper's encoder: the bidirectional ``enc`` layers over the frame
+    embeddings plus sinusoidal positions, then ``enc_final_norm``."""
+    s = enc_embeds.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=enc_embeds.device)
+    x = enc_embeds.to(_compute_dtype(cfg))
+    x = x + _sinusoid(positions, cfg.d_model)[None].to(x.dtype)
+    for layer_params in params["encoder"]:
+        h, _ = layer_train(layer_params, x, positions, cfg, "enc")
+        x = h.to(x.dtype)
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _forward(params, cfg: ModelConfig, tokens_or_embeds, positions, *,
+             enc_out=None, mrope_positions=None, return_cache=False):
+    """The decoder stack over a full sequence -> (final hidden states,
+    one cache a layer or None)."""
+    s = tokens_or_embeds.shape[1]
     if positions is None:
-        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
-    x = _embed_in(params, cfg, tokens)
+        positions = torch.arange(s, dtype=torch.int32, device=tokens_or_embeds.device)
+    x = _embed_in(params, cfg, tokens_or_embeds, positions)
     caches = []
-    for layer_params in params["layers"]:
-        h, cache = layer_train(layer_params, x, positions, cfg, return_cache=True)
+    for kind, layer_params in zip(cfg.layer_kinds(), params["layers"]):
+        h, cache = layer_train(layer_params, x, positions, cfg, kind,
+                               return_cache=return_cache, enc_out=enc_out,
+                               mrope_positions=mrope_positions)
         x = h.to(x.dtype)
         caches.append(cache)
+    return x, caches
+
+
+@torch.no_grad()
+def forward_train(model: Transformer, tokens_or_embeds: torch.Tensor, *,
+                  enc_embeds=None, positions=None, mrope_positions=None):
+    """Full-sequence forward -> logits (B, S, V): token ids (B, S) or, for
+    a stubbed frontend, float embeddings (B, S, d); ``mrope_positions``
+    (3, S) the M-RoPE streams; ``enc_embeds`` whisper's frames."""
+    cfg = model.cfg
+    params = _cast_params(model.params(), cfg)
+    enc_out = _encode(params, cfg, enc_embeds) if cfg.is_encoder_decoder else None
+    x, _ = _forward(params, cfg, tokens_or_embeds, positions, enc_out=enc_out,
+                    mrope_positions=mrope_positions)
+    return _unembed(params, cfg, x)
+
+
+def _prefill(params, cfg: ModelConfig, tokens_or_embeds, positions=None,
+             enc_out=None):
+    x, caches = _forward(params, cfg, tokens_or_embeds, positions,
+                         enc_out=enc_out, return_cache=True)
     return _unembed(params, cfg, x[:, -1:]), caches
 
 
 @torch.no_grad()
+def forward_prefill(model: Transformer, tokens_or_embeds: torch.Tensor, *,
+                    enc_embeds=None, positions: Optional[torch.Tensor] = None):
+    """Prefill: full forward -> (last position's logits (B, 1, V), one
+    cache a layer of the prompt's length; a local-attention layer's is
+    its ring buffer of min(window, S) slots).  As the reference's, the
+    M-RoPE streams are the 1-D positions stacked."""
+    cfg = model.cfg
+    params = _cast_params(model.params(), cfg)
+    enc_out = _encode(params, cfg, enc_embeds) if cfg.is_encoder_decoder else None
+    return _prefill(params, cfg, tokens_or_embeds, positions, enc_out)
+
+
+@torch.no_grad()
 def forward_decode(model: Transformer, tokens: torch.Tensor, caches,
-                   cur_index, *, use_knn: bool = False):
+                   cur_index, *, use_knn: bool = False, cross_kv=None):
     """Single-token decode step: tokens (B, 1) -> (logits (B, 1, V),
     caches, each written at ``cur_index`` in place).  ``cur_index`` is an
     int or a one-element device tensor (a CUDA graph of the step reads
-    it)."""
+    it).  ``cross_kv`` (whisper) holds one cross-attention ``KVCache`` a
+    layer (``build_cross_kv``)."""
     cfg = model.cfg
+    if cfg.is_encoder_decoder and cross_kv is None:
+        raise ValueError("an encoder-decoder's decode step attends to the "
+                         "cross_kv of its prefill step (make_prefill_step)")
     params = _cast_params(model.params(), cfg)
-    x = _embed_in(params, cfg, tokens)
+    x = _embed_in(params, cfg, tokens, attn._position(cur_index, tokens.device))
     new_caches = []
-    for layer_params, cache in zip(params["layers"], caches):
-        h, cache = layer_decode(layer_params, x, cache, cur_index, cfg,
-                                use_knn=use_knn)
+    for i, (kind, layer_params, cache) in enumerate(
+            zip(cfg.layer_kinds(), params["layers"], caches)):
+        h, cache = layer_decode(
+            layer_params, x, cache, cur_index, cfg, kind, use_knn=use_knn,
+            cross_kv=cross_kv[i] if cross_kv is not None else None)
         x = h.to(x.dtype)
         new_caches.append(cache)
     return _unembed(params, cfg, x), new_caches
+
+
+def build_cross_kv(params, cfg: ModelConfig, enc_out: torch.Tensor) -> List:
+    """Each decoder layer's cross-attention KV from the encoder output
+    (whisper; None for a layer of another kind)."""
+    return [attn.encode_cross_kv(p["cross"], enc_out) if kind == "dec" else None
+            for kind, p in zip(cfg.layer_kinds(), params["layers"])]

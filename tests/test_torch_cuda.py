@@ -1046,9 +1046,9 @@ def test_host_snapshot_round_trip_on_card(cuda_device, storage, tmp_path):
 
 
 @pytest.mark.parametrize("m", [8, 128])
-@pytest.mark.parametrize("d", [1024, 2048])
+@pytest.mark.parametrize("d", [1024, 1536, 2048])
 def test_datastore_widths_match_plain(cuda_device, d, m):
-    """Gaussian rows of 1024 and 2048 lanes (8 and 16 stages a tile, one
+    """Gaussian rows of 1024, 1536 and 2048 lanes (8, 12 and 16 stages a tile, one
     bulk copy a row, the queries reloaded each stage, each stage summed
     apart and folded in): both scans at k_scan 32 (the carry at the
     edge of shared memory) against their plain versions at the usual
@@ -1066,7 +1066,7 @@ def test_datastore_widths_match_plain(cuda_device, d, m):
     assert_topk_close(pfv.cpu(), pfi.cpu(), fv.cpu(), fi.cpu(), score=score)
 
 
-@pytest.mark.parametrize("d", [1024, 2048])
+@pytest.mark.parametrize("d", [1024, 1536, 2048])
 def test_datastore_widths_integer_inputs_bit_equal(cuda_device, d):
     q, stored, bias, scale, packed = _integer_operands("f32", 256, 21, d=d)
     v, i = prk.partial_reduce_packed(q, stored, bias, bin_size=256)
@@ -1185,3 +1185,107 @@ def test_engine_decode_graph_equals_eager_steps(cuda_device, use_knn):
         assert (out == want[:, 0].cpu().numpy()).all()
         toks = want
     assert engine._graph is not None
+
+
+# --- the other model families ------------------------------------------------
+
+FAMILIES = ["deepseek-v2-236b-smoke", "granite-moe-3b-a800m-smoke",
+            "mamba2-2.7b-smoke", "qwen2-vl-2b-smoke", "recurrentgemma-9b-smoke"]
+
+
+@pytest.mark.parametrize("use_knn", [False, True])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_engine_graph_equals_eager_steps(cuda_device, name, use_knn):
+    """Each decoder-only family at smoke size: the engine's CUDA graph
+    replays give the logits and tokens of eager steps on their own
+    caches, bit for bit.  A cache the step rebinds instead of writing in
+    place (an SSM state, a conv window, a ring slot, a latent row) goes
+    stale from the second replay and fails this.  recurrentgemma runs 24
+    steps into its window of 16, so the ring wraps under the graph."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config(name)
+    model = tfm.init_model(cfg, torch.Generator(cuda_device).manual_seed(5),
+                           device=cuda_device, dtype=tfm._compute_dtype(cfg))
+    engine = ServingEngine(cfg, model, batch=4, max_seq=160, use_knn=use_knn,
+                           seed=9)
+    step = M.make_decode_step(cfg, use_knn=use_knn)
+    caches = tfm.init_caches(cfg, 4, 160, device=cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (4, 1), device=cuda_device,
+                         dtype=torch.int32)
+    for t in range(24 if cfg.local_window else 10):
+        out = engine.step(forced_tokens=toks if t < 3 else None)
+        noise = M.gumbel((4, cfg.decode_sample_k), gen, device=cuda_device)
+        want, logits, caches = step(model, toks, caches, t, None, noise)
+        assert bits_equal(engine.last_logits, logits), t
+        assert torch.equal(engine.tokens, want)
+        assert (out == want[:, 0].cpu().numpy()).all()
+        toks = want
+    assert engine._graph is not None
+    for ours, theirs in zip(engine.caches, caches):
+        for a, b in zip(ours, theirs):
+            assert bits_equal(a, b)
+
+
+@pytest.mark.parametrize("routing", ["exact", "approx"])
+def test_moe_routing_on_card_equals_cpu(cuda_device, routing):
+    """Integer-valued router inputs (exact logits, ties among them): the
+    experts, queue places and drops on the card equal the CPU's, the
+    weights to f32 rounding; the layer's output to 1e-5 relative."""
+    from repro_torch.models import moe
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randint(-3, 4, (1, 256, 32), generator=g).float()
+    p = {k: torch.randn(v.shape, generator=g) * 0.2
+         for k, v in moe.moe_defs(32, 16, 40, num_shared_experts=1).items()}
+    p["router"] = torch.randint(-2, 3, (32, 40), generator=g).float()
+    kw = dict(experts_per_token=8, num_experts=40, cap=moe._capacity(256, 8, 40, 0.5),
+              routing=routing)
+    cpu = moe._route(p, x, **kw)
+    card = moe._route({k: v.to(cuda_device) for k, v in p.items()}, x.to(cuda_device),
+                      **kw)
+    for a, b in zip(cpu[1:], card[1:]):
+        assert torch.equal(a, b.cpu())
+    assert not cpu[3].all()
+    torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=1e-6, atol=1e-7)
+    args = dict(experts_per_token=8, num_experts=40, capacity_factor=0.5,
+                group_size=256, routing=routing)
+    y = moe.moe_apply(p, x, **args)
+    yc = moe.moe_apply({k: v.to(cuda_device) for k, v in p.items()},
+                       x.to(cuda_device), **args)
+    torch.testing.assert_close(yc.cpu(), y, rtol=1e-5, atol=1e-5)
+
+
+def test_whisper_decode_on_card_matches_cpu(cuda_device):
+    """whisper-medium-smoke at f32: the prefill step's logits and cross KV,
+    then 12 decode steps reading it, on the card against the CPU within
+    1e-4 of the largest |logit|."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(get_config("whisper-medium-smoke"), dtype="float32")
+    cpu = tfm.init_model(cfg, torch.Generator().manual_seed(1), device="cpu")
+    card = tfm.Transformer(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (3, 12), generator=g,
+                                     dtype=torch.int32),
+             "enc_embeds": torch.randn((3, cfg.encoder_seq, cfg.d_model), generator=g)}
+    prefill = M.make_prefill_step(cfg)
+    a = prefill(cpu, batch)
+    b = prefill(card, {k: v.to(cuda_device) for k, v in batch.items()})
+    assert (a[0] - b[0].cpu()).abs().max() <= 1e-4 * a[0].abs().max()
+    caches = [tfm.init_caches(cfg, 3, 64, device=dev) for dev in ("cpu", cuda_device)]
+    for t in range(12):
+        tok = batch["tokens"][:, t : t + 1]
+        la, caches[0] = tfm.forward_decode(cpu, tok, caches[0], t, cross_kv=a[2])
+        lb, caches[1] = tfm.forward_decode(card, tok.to(cuda_device), caches[1], t,
+                                           cross_kv=b[2])
+        assert (la - lb.cpu()).abs().max() <= 1e-4 * la.abs().max()

@@ -71,8 +71,7 @@ def test_config_fields_and_counts_equal_reference(name):
     assert ours.layer_kinds() == ref.layer_kinds()
     assert (ours.padded_vocab, ours.resolved_head_dim) == (
         ref.padded_vocab, ref.resolved_head_dim)
-    if ours.layer_kinds()[0] == "dense":
-        assert tfm.runs_of(ours) == ref_tfm.runs_of(ref)
+    assert tfm.runs_of(ours) == ref_tfm.runs_of(ref)
 
 
 # --- parameters ----------------------------------------------------------------
@@ -101,6 +100,63 @@ def test_defs_and_state_dict_follow_reference_names(name):
         model.layers[1].attn.wq.numpy(), np.asarray(ref_p["layers"][0]["attn"]["wq"][1]))
     np.testing.assert_array_equal(model.embed.embedding.numpy(),
                                   np.asarray(ref_p["embed"]["embedding"]))
+
+
+@pytest.mark.parametrize("name", NOT_DENSE)
+def test_every_kind_defs_follow_reference(name):
+    """Each layer kind's defs (and whisper's ``enc``) with the reference's
+    names, shapes, axes and inits (each family's test loads the
+    reference's parameters through ``from_reference``; qwen2-vl's layers
+    are dense)."""
+    cfg = port_configs.get_config(name)
+    rcfg = ref_configs.get_config(name)
+    assert _defs_equal(tfm.model_defs(cfg), ref_tfm.model_defs(rcfg))
+    kinds = set(cfg.layer_kinds()) | ({"enc"} if cfg.is_encoder_decoder else set())
+    for kind in kinds:
+        assert _defs_equal(tfm.layer_defs(cfg, kind), ref_tfm.layer_defs(rcfg, kind))
+        assert params.param_axes(tfm.layer_defs(cfg, kind)) == \
+            ref_params.param_axes(ref_tfm.layer_defs(rcfg, kind))
+
+
+def _reference_shapes(rcfg):
+    """{state-dict name: shape} of the reference's parameters, from its
+    abstract init (no allocation), layers unstacked as from_reference
+    names them."""
+    tree = jax.eval_shape(lambda: ref_tfm.init_model(jax.random.PRNGKey(0), rcfg))
+    out = {}
+
+    def walk(sub, prefix, stack=None):
+        if isinstance(sub, dict):
+            for k, v in sub.items():
+                walk(v, f"{prefix}{k}.", stack)
+        elif stack is None:
+            out[prefix[:-1]] = tuple(sub.shape)
+        else:
+            key, start, count = stack
+            for j in range(count):
+                out[f"{key}.{start + j}.{prefix[:-1]}"] = tuple(sub.shape[1:])
+
+    walk({k: v for k, v in tree.items() if k not in ("layers", "encoder")}, "")
+    start = 0
+    for (_, count), stacked in zip(ref_tfm.runs_of(rcfg), tree["layers"]):
+        walk(stacked, "", ("layers", start, count))
+        start += count
+    if "encoder" in tree:
+        walk(tree["encoder"], "", ("encoder", 0, rcfg.encoder_layers))
+    return out
+
+
+@pytest.mark.parametrize("name", ref_configs.list_configs())
+def test_every_registered_config_builds_with_reference_shapes(name):
+    """FULL, SMOKE and OPT: the port's parameters are the reference's,
+    name for name and shape for shape (FULL and OPT on the meta device:
+    no memory; the smoke configs on the CPU)."""
+    cfg = port_configs.get_config(name)
+    device = "cpu" if name.endswith("-smoke") else "meta"
+    model = tfm.Transformer(cfg, device=device)
+    ours = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    assert ours == _reference_shapes(ref_configs.get_config(name))
+    assert model.device.type == device
 
 
 def test_init_model_is_seeded_and_scaled():
@@ -297,14 +353,6 @@ def test_decode_replay_equals_full_forward(name):
         full, _ = tfm.forward_prefill(model, toks[:, : t + 1])
         err = (logits - full).abs().max()
         assert err <= F32_REL * full.abs().max()
-
-
-@pytest.mark.parametrize("name", NOT_DENSE + ["sinusoidal"])
-def test_other_kinds_raise_item_12b(name):
-    cfg = (dataclasses.replace(port_configs.get_config(DENSE[0]), rope_theta=0.0)
-           if name == "sinusoidal" else port_configs.get_config(name))
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tfm.Transformer(cfg, device="cpu")
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine without a card")

@@ -247,3 +247,36 @@ def test_launch_serve_runs_a_smoke_config():
     lines = out.getvalue().splitlines()
     assert lines[0].startswith("[serve] 6 tokens in ")
     assert len(lines) == 3 and all(line.startswith("  req ") for line in lines[1:])
+
+
+DECODER_ONLY = [n for n in ref_configs.list_configs()
+                if n.endswith("-smoke") and not ref_configs.get_config(n).is_encoder_decoder]
+
+
+@pytest.mark.parametrize("name", DECODER_ONLY)
+def test_launch_serve_and_example_run_every_decoder_only_family(name):
+    """``launch/serve.py`` and ``examples/torch_long_context_serve.py`` at
+    smoke size on the CPU, kNN attention on."""
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parents[1] / "examples"
+            / "torch_long_context_serve.py")
+    spec = importlib.util.spec_from_file_location("torch_long_context_serve", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_serve.main(["--arch", name, "--batch", "2", "--max-seq", "160",
+                           "--new-tokens", "3", "--knn-attention", "--device", "cpu"])
+        example.main(["--arch", name, "--device", "cpu"])
+    lines = out.getvalue().splitlines()
+    assert lines[0].startswith("[serve] 6 tokens in ")
+    assert all(line.startswith("  req ") for line in lines[1:3])
+    assert lines[3].startswith(f"[{name} on cpu] greedy tokens agree: ")
+    assert lines[4].startswith("at S=524288: ") and len(lines) == 5
+
+
+def test_launch_serve_refuses_an_encoder_decoder():
+    with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
+        launch_serve.main(["--arch", "whisper-medium-smoke", "--device", "cpu"])
