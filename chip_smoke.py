@@ -149,7 +149,23 @@ run in order and the first failure exits non-zero:
      16 sampled steps through ``make_decode_step`` with its cross KV;
      each model's decode step beside its weight bytes, its init and
      its seconds, each freed before the next; no plain kernel version
-     on any of these paths.
+     on any of these paths;
+ 18. the rest of the search package and sharding, at the Sift1M shape:
+     ``stream=False`` (f32, int8) at M=10,000, one dispatch and two
+     launches a ``query_block`` and no plain call, bit-equal to the
+     one-call search, both timed, and ``explain(validate_hlo=True)`` at
+     M=16 and M=10,000 within 1%; the index on a mesh of 4 logical shards
+     of ``cuda:0`` (f32, int8, int4): 2 launches a shard at M=10,000 and
+     M=16 and no plain call, recall at E[recall] - eps, bit-equal to the
+     composition of each shard's rows searched alone (recall against the
+     global N), offset and merged; each shard's kernels against their
+     plain versions; a (2, 2) mesh with ``batch_axis`` bit-equal to 2
+     shards; add 10,000 / delete 50,000 with recall and no deleted id;
+     times beside the unsharded index's and the kernel rows at the
+     shard's shape; a ``KNNDatastore`` of 2^19 x 2048 keys over 2
+     logical shards (recall, a served lookup bit-equal to a direct one);
+     ``_knn_decode_attention_cp`` over 4 shards at internlm2-1.8b's
+     decode shape (batch 8, S=2,048) against the unsharded attention.
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
@@ -2557,6 +2573,386 @@ def phase_families(prk, testing, seed, results, smi):
     return out, kernels
 
 
+# Phase 18: the per-block loop, logical shards, the FLOP cross-check, a
+# sharded datastore and context-parallel kNN attention.  The attention
+# shape is internlm2-1.8b's decode (configs/internlm2_1_8b.py: 16 heads, 8
+# KV heads of 128 lanes) at batch 8 over a 2,048-position cache.
+SHARDS = 4
+SHARD_DS = dict(n=1 << 19, d=2048, k=32, queries=1_024, shards=2)
+CP_ATTN = dict(batch=8, seq=2048, heads=16, kv_heads=8, head_dim=128, k=128,
+               live=1_900)
+
+
+def logical_mesh(shape, names):
+    from repro_torch.parallel import make_mesh
+
+    return make_mesh(shape, names, devices=["cuda:0"] * math.prod(shape))
+
+
+def shard_kernel_rows(prk, testing, label, q, pk, ks, counts, smi, acc):
+    """One shard's kernels (its packed operands, the form of its tier)
+    against their plain versions (phase 7's tolerances) and timed beside
+    their bounds at M = len(q): rows of the kernels line."""
+    from repro_torch.search import pad_queries_to
+
+    db, bias, scale, bs = pk.db, pk.bias, pk.scale, pk.bin_size
+    i4 = pk.int4_packed
+    m = q.shape[0]
+    compare_kernels(prk, testing, label, q, db, bias, bs, ks, acc, scale=scale,
+                    int4_packed=i4)
+    form = prk.storage_form(db, scale, i4)
+    n_pad, width = db.shape[0], db.shape[1] * (2 if i4 else 1)
+    qp = pad_queries_to(q, width).contiguous()
+    kw = dict(bin_size=bs, int4_packed=i4)
+    carries = prk.fused_scan(qp, db, bias, scale, k_scan=ks, **kw)
+    splits = carries[0].shape[0]
+    flat = carries[0].permute(1, 0, 2).reshape(m, splits * ks).contiguous()
+    t = dict(
+        fused=cuda_ms(lambda: prk.fused_scan(qp, db, bias, scale, k_scan=ks, **kw)),
+        merge=queued_ms(lambda: prk.fused_carry_merge(*carries)),
+        packed=cuda_ms(lambda: prk.partial_reduce_packed(q, db, bias, scale, **kw)),
+        fused_plain=cuda_ms(lambda: prk.partial_reduce_fused_plain(
+            qp, db, bias, scale, k_scan=ks, **kw), reps=3),
+        merge_plain=queued_ms(lambda: prk.fused_carry_merge_plain(*carries)),
+        packed_plain=cuda_ms(lambda: prk.partial_reduce_packed_plain(
+            qp, db, bias, scale, **kw), reps=3),
+        topk=queued_ms(lambda: torch.topk(flat, ks, dim=1)),
+    )
+    stored = n_pad * (db.shape[1] * db.element_size() + 4.0
+                      + (4.0 if scale is not None else 0.0))
+    fb = scan_bounds(form, m, n_pad, pk.d, 4.0 * m * pk.d + stored
+                     + 8.0 * splits * m * ks)
+    pb = scan_bounds(form, m, n_pad, pk.d, 4.0 * m * pk.d + stored
+                     + 8.0 * m * (n_pad // bs))
+    mb = bound_ms(m * ks * splits, 8.0 * (splits + 1) * m * ks)
+    fname, mname, pname = names_of(form)
+    rows = []
+    for name, kind, ms, plain_ms, b, by, lib in (
+            (fname, "partial_reduce_fused", t["fused"], t["fused_plain"],
+             fb["bound_ms"], fb["bound_by"], None),
+            (mname, None, t["merge"], t["merge_plain"], mb[0], mb[1], t["topk"]),
+            (pname, "partial_reduce_packed", t["packed"], t["packed_plain"],
+             pb["bound_ms"], pb["bound_by"], None)):
+        rows.append(dict(
+            name=name, shape=label, route="cuda", source=SRC,
+            replaces=REPLACES[(kind, form)] if kind else f"{REF}:219",
+            launches=counts.get(name, 0), max_abs_err=acc["errs"][name],
+            index_agreement=acc["agree"][name] / max(acc["total"][name], 1),
+            ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib,
+            splits=splits, bin_size=bs, k_scan=ks))
+    log(f"[{label}] fused scan {t['fused']:.3f} ms ({fb['bound_by']} bound "
+        f"{fb['bound_ms']:.3f} ms), merge {t['merge']:.4f} ms ({splits} splits; "
+        f"torch.topk {t['topk']:.4f}), two-pass {t['packed']:.3f} ms (bound "
+        f"{pb['bound_ms']:.3f}); plain fused {t['fused_plain']:.3f}, plain "
+        f"two-pass {t['packed_plain']:.3f} ms; on {smi}")
+    return rows
+
+
+def phase_loop(prk, testing, data, out, smi):
+    """Phase 18a: ``stream=False`` at the Sift1M shape, f32 and int8: one
+    dispatch and 2 launches a ``query_block`` and no plain call, the
+    result bit-equal to the one-call search (else, with the reason
+    logged, the tie-aware helper), both timed; then ``explain(m,
+    validate_hlo=True)`` at M=16 and M=10,000 within 1%."""
+    from repro_torch.search import DISPATCH_COUNTS, Index
+    from repro_torch.testing import assert_topk_close, public_scorer
+
+    db, q = data[:2]
+    for storage in ("f32", "int8"):
+        kw = dict(metric="l2", k=K, recall_target=TARGET, cluster="off",
+                  storage=storage)
+        one = Index.build(db, **kw)
+        loop = Index.build(db, stream=False, **kw)
+        qb = loop.spec.query_block
+        want = one.search(q)
+        loop.search(q[:qb])
+        torch.cuda.synchronize()
+        DISPATCH_COUNTS.clear()
+        prk.reset_counts()
+        got = loop.search(q)
+        torch.cuda.synchronize()
+        blocks = -(-q.shape[0] // qb)
+        launches, plain = sum(prk.LAUNCHES.values()), dict(prk.PLAIN_CALLS)
+        if dict(DISPATCH_COUNTS) != {"cuda": blocks} or launches != 2 * blocks \
+                or plain:
+            fail(f"stream=False {storage}: dispatches {dict(DISPATCH_COUNTS)}, "
+                 f"launches {launches}, plain {plain}; want {blocks} blocks")
+        bit_equal = bool(torch.equal(got.values, want.values)
+                         and torch.equal(got.indices, want.indices))
+        if not bit_equal:
+            log(f"[loop {storage}] not bit-equal to the one call (the split "
+                f"plan differs by M); held to the tie-aware helper")
+            assert_topk_close(want.values.cpu(), want.indices.cpu(),
+                              got.values.cpu(), got.indices.cpu(),
+                              score=public_scorer("l2", q, db))
+        one_ms = cuda_ms(lambda: one.search(q), reps=3)
+        loop_ms = cuda_ms(lambda: loop.search(q), reps=3)
+        hlo = {}
+        for m in (16, q.shape[0]):
+            h = one.explain(m=m, validate_hlo=True)["hlo"]
+            if not abs(h["flops_ratio"] - 1.0) < 0.01:
+                fail(f"validate_hlo {storage} m={m}: flops_ratio "
+                     f"{h['flops_ratio']}")
+            hlo[m] = {key: h[key] for key in ("flops_ratio", "split_passes",
+                                              "hlo_dot_flops", "model_flops")}
+        log(f"[loop {storage}] M={q.shape[0]}, query_block {qb}: {blocks} "
+            f"dispatches, {launches} launches, no plain call, bit-equal "
+            f"{bit_equal}; one call {one_ms:.3f} ms, loop {loop_ms:.3f} ms; "
+            f"validate_hlo flops_ratio {hlo[16]['flops_ratio']:.6f} (M=16), "
+            f"{hlo[q.shape[0]]['flops_ratio']:.6f} (M={q.shape[0]}), split "
+            f"passes {hlo[16]['split_passes']}; on {smi}")
+        out[f"loop {storage}"] = dict(query_block=qb, blocks=blocks,
+                                      launches=launches, bit_equal=bit_equal,
+                                      one_call_ms=one_ms, loop_ms=loop_ms,
+                                      hlo=hlo)
+        del one, loop
+
+
+def phase_shards(prk, testing, data, out, smi, results):
+    """Phase 18b: the Sift1M index on 4 logical shards of cuda:0, f32,
+    int8 and int4 (the path's counts from 0 just before its searches,
+    read just after): 2 launches a shard, recall at E[recall] - eps,
+    bit-equal to the per-shard composition; each shard's kernels against
+    their plain versions; a (2, 2) mesh with ``batch_axis`` bit-equal to
+    2 shards; add 10,000 / delete 50,000 (growth) with recall and no
+    deleted id; times beside the unsharded index's, and the kernel rows
+    at the shard's shape."""
+    from repro_torch.search import Index, merge_topk
+
+    db, q, extra, dead = data
+    n = db.shape[0]
+    mesh = logical_mesh((SHARDS,), ("model",))
+    kernels = []
+    acc = {key: {name: (0.0 if key == "errs" else 0)
+                 for form in FORMS for name in names_of(form)}
+           for key in ("errs", "agree", "total")}
+    live = torch.ones(n, dtype=torch.bool, device="cuda")
+    truth = exact_topk("l2", q, db, live, K)
+    rows_after = torch.cat([db, extra])
+    live_after = torch.ones(rows_after.shape[0], dtype=torch.bool, device="cuda")
+    live_after[dead] = False
+    truth_after = exact_topk("l2", q, rows_after, live_after, K)
+    for storage in ("f32", "int8", "int4"):
+        kw = dict(metric="l2", k=K, recall_target=TARGET, cluster="off",
+                  storage=storage)
+        base = Index.build(db, **kw)
+        sh = base.shard(mesh)
+        q16 = q[:16]
+        sh.search(q16)  # the kernels are built: launches only from here
+        torch.cuda.synchronize()
+        prk.reset_counts()
+        v, i = launches_of(lambda: sh.search(q), 2 * SHARDS, f"sharded {storage}")
+        v16, i16 = launches_of(lambda: sh.search(q16), 2 * SHARDS,
+                               f"sharded {storage} M=16")
+        torch.cuda.synchronize()
+        read_counts(prk, f"phase 18 sharded {storage}", (storage,), results,
+                    two_pass=False)
+        counts = dict(prk.LAUNCHES)
+        r = recall(i, truth)
+        floor = sh.expected_recall - hoeffding_eps(q.shape[0])
+        if not r >= floor:
+            fail(f"sharded {storage}: recall {r} < {floor}")
+        if not torch.isfinite(v).all() or tuple(v.shape) != (q.shape[0], K):
+            fail(f"sharded {storage}: non-finite or misshapen values")
+        # the composition: each shard's rows searched alone (recall
+        # against the global N), offset, merged in shard order
+        n_local, parts_v, parts_i = n // SHARDS, [], []
+        for j in range(SHARDS):
+            part = Index.build(db[j * n_local:(j + 1) * n_local],
+                               reduction_input_size_override=n, **kw)
+            pv, pi = part.search(q)
+            parts_v.append(-pv)
+            parts_i.append(torch.where(pi >= 0, pi + j * n_local, pi).int())
+            del part
+        mv, mi = merge_topk(torch.cat(parts_v, 1), torch.cat(parts_i, 1), K)
+        if not (torch.equal(-mv, v) and torch.equal(mi, i)):
+            fail(f"sharded {storage}: not bit-equal to the per-shard composition")
+        pk = sh.pack()
+        for j, shard in enumerate(pk.shards):
+            qj = q if j == 0 else q16
+            compare_kernels(prk, testing, f"shard {j} of {SHARDS} {storage} "
+                            f"M={qj.shape[0]}", qj, shard.db, shard.bias,
+                            shard.bin_size, sh.k_scan, acc, scale=shard.scale,
+                            int4_packed=shard.int4_packed)
+        batch_equal = None
+        if storage == "f32":
+            two = base.shard(logical_mesh((2, 2), ("data", "model")),
+                             batch_axis="data")
+            one = base.shard(logical_mesh((2,), ("model",)))
+            a, b = two.search(q), one.search(q)
+            batch_equal = bool(torch.equal(a.values, b.values)
+                               and torch.equal(a.indices, b.indices))
+            if not batch_equal:
+                fail("the (2, 2) mesh with batch_axis differs from 2 shards")
+            del two, one
+        t = dict(
+            sharded_ms=cuda_ms(lambda: sh.search(q), reps=3),
+            unsharded_ms=cuda_ms(lambda: base.search(q), reps=3),
+            sharded_m16_ms=cuda_ms(lambda: sh.search(q16)),
+            unsharded_m16_ms=cuda_ms(lambda: base.search(q16)),
+            sharded_m16_queued_ms=queued_ms(lambda: sh.search(q16), reps=20),
+            unsharded_m16_queued_ms=queued_ms(lambda: base.search(q16), reps=20),
+        )
+        kernels += shard_kernel_rows(
+            prk, testing, f"shard of {SHARDS} sift1m {storage} M={q.shape[0]}",
+            q, pk.shards[0], sh.k_scan, counts, smi, acc)
+        kernels += shard_kernel_rows(
+            prk, testing, f"shard of {SHARDS} sift1m {storage} M=16",
+            q16, pk.shards[0], sh.k_scan, counts, smi, acc)
+        sh.add(extra)
+        sh.delete(dead)
+        v2, i2 = sh.search(q)
+        if torch.isin(i2.long(), dead).any():
+            fail(f"sharded {storage}: a deleted id came back")
+        r2 = recall(i2, truth_after)
+        floor2 = sh.expected_recall - hoeffding_eps(q.shape[0])
+        if not r2 >= floor2 or sh.size != n + 10_000 - 50_000:
+            fail(f"sharded {storage} after updates: recall {r2} < {floor2} or "
+                 f"size {sh.size}")
+        plan = sh._replan(n=sh.capacity, m=q.shape[0], pin_from=sh.kernel_plan)
+        base_plan = base._replan(n=base.capacity, m=q.shape[0],
+                                 pin_from=base.kernel_plan)
+        log(f"[sharded {storage}] {SHARDS} logical shards of {n_local} rows "
+            f"(bins of {pk.shards[0].bin_size}, k_scan {sh.k_scan}): M="
+            f"{q.shape[0]} recall {r:.4f} (floor {floor:.4f}), 2 launches a "
+            f"shard, bit-equal to the per-shard composition"
+            + (f", (2, 2) batch_axis = 2 shards" if batch_equal else "")
+            + f"; after add/delete capacity {sh.capacity}, recall {r2:.4f}; "
+            f"M={q.shape[0]} sharded {t['sharded_ms']:.3f} ms vs unsharded "
+            f"{t['unsharded_ms']:.3f} ms; M=16 {t['sharded_m16_ms']:.3f} vs "
+            f"{t['unsharded_m16_ms']:.3f} ms (queued {t['sharded_m16_queued_ms']:.3f}"
+            f" vs {t['unsharded_m16_queued_ms']:.3f}); plan: {plan.db_shards} "
+            f"shards, predicted {1e3 * plan.predicted_s:.3f} ms of which gather "
+            f"{1e3 * plan.ici_s:.5f} ms at M={q.shape[0]} (unsharded "
+            f"{1e3 * base_plan.predicted_s:.3f} ms); on {smi}")
+        out[f"sharded {storage}"] = dict(
+            recall=r, recall_after_updates=r2, expected_recall=sh.expected_recall,
+            capacity_after=sh.capacity, shard_bin_size=pk.shards[0].bin_size,
+            k_scan=sh.k_scan, batch_axis_equal=batch_equal, launches=counts,
+            predicted_ms=1e3 * plan.predicted_s, ici_ms=1e3 * plan.ici_s,
+            unsharded_predicted_ms=1e3 * base_plan.predicted_s, **t)
+        del base, sh, pk
+        torch.cuda.empty_cache()
+    return kernels
+
+
+def phase_shard_datastore(prk, seed, out, smi):
+    """Phase 18c: a ``KNNDatastore`` of 2^19 Gaussian keys at D=2048 over
+    2 logical shards (4 launches a lookup, no plain call), its recall at
+    E[recall] - eps against an exact oracle, and a served lookup (eager)
+    bit-equal to a direct one."""
+    from repro_torch.retrieval.datastore import KNNDatastore
+    from repro_torch.search import ServeConfig
+
+    c = SHARD_DS
+    g = torch.Generator(device="cuda").manual_seed(seed + 18)
+    keys = torch.randn((c["n"], c["d"]), generator=g, device="cuda")
+    toks = torch.randint(0, 92_544, (c["n"],), generator=g, device="cuda")
+    q = torch.randn((c["queries"], c["d"]), generator=g, device="cuda")
+    t0 = time.perf_counter()
+    ds = KNNDatastore(keys, toks, logical_mesh((1, c["shards"]), ("data", "model")),
+                      k=c["k"], cluster="off")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ds.lookup(q[:8])
+    torch.cuda.synchronize()
+    prk.reset_counts()
+    v, i = launches_of(lambda: ds.index.search(q), 2 * c["shards"], "sharded datastore")
+    if prk.PLAIN_CALLS:
+        fail(f"sharded datastore: plain calls {dict(prk.PLAIN_CALLS)}")
+    vals, got_toks = ds.lookup(q)
+    if not (torch.equal(vals, v) and torch.equal(got_toks, toks[i.long()])):
+        fail("sharded datastore: lookup differs from the index's search")
+    truth = exact_topk("mips", q, keys, ds.index._live, c["k"], chunk=256)
+    r = recall(i, truth)
+    floor = ds.index.expected_recall - hoeffding_eps(q.shape[0])
+    if not r >= floor:
+        fail(f"sharded datastore: recall {r} < {floor}")
+    ds.attach_server(config=ServeConfig(max_batch=64))
+    served = ds.lookup(q[:16])
+    direct = ds.index.search(q[:16])
+    ds.server.close()
+    if not (torch.equal(served[0], direct.values)
+            and torch.equal(served[1], toks[direct.indices.long()])):
+        fail("sharded datastore: a served lookup differs from a direct one")
+    ms = cuda_ms(lambda: ds.index.search(q), reps=3)
+    log(f"[sharded datastore] 2^19 x {c['d']} over {c['shards']} logical "
+        f"shards: build {build_s:.2f} s, M={q.shape[0]} recall {r:.4f} (floor "
+        f"{floor:.4f}), served = direct, lookup {ms:.3f} ms; on {smi}")
+    out["sharded datastore"] = dict(build_s=build_s, recall=r, floor=floor,
+                                    lookup_ms=ms)
+    del ds, keys, toks, q
+    torch.cuda.empty_cache()
+
+
+def phase_cp_attention(seed, out, smi):
+    """Phase 18d: ``_knn_decode_attention_cp`` over 4 context-parallel
+    logical shards at internlm2-1.8b's decode shape against the unsharded
+    ``knn_decode_attention``: its selected positions at E[recall] - eps
+    against the exact top-k (phase 16's check), its output equal to the
+    softmax over them, and beside the unsharded output."""
+    from repro_torch.core.binning import plan_bins
+    from repro_torch.core.rescoring import stable_topk
+    from repro_torch.models import attention as attn
+
+    c = CP_ATTN
+    g = torch.Generator(device="cuda").manual_seed(seed + 19)
+    b, s, h, kv, hd = c["batch"], c["seq"], c["heads"], c["kv_heads"], c["head_dim"]
+    q = torch.randn((b, h, hd), generator=g, device="cuda").bfloat16()
+    keys = torch.randn((b, s, kv, hd), generator=g, device="cuda").bfloat16()
+    values = torch.randn((b, s, kv, hd), generator=g, device="cuda").bfloat16()
+    valid = torch.arange(s, device="cuda") < c["live"]
+    mesh = logical_mesh((SHARDS,), ("model",))
+    kw = dict(k=c["k"], recall_target=0.95, kv_groups=h // kv)
+    got = attn._knn_decode_attention_cp(q, keys, values, valid, mesh=mesh,
+                                        cp_axes=("model",), **kw)
+    whole = attn.knn_decode_attention(q, keys, values, valid, **kw)
+    vals, pos, _ = attn._knn_cp_candidates(q, keys, values, valid, mesh=mesh,
+                                           cp_axes=("model",), **kw)
+    _, sel = stable_topk(vals, c["k"])
+    chosen = torch.gather(pos, 2, sel)
+    scores = attn._group_scores(q, keys, h // kv) * attn._const(hd ** -0.5, q)
+    scores = torch.where(valid, scores, attn._const(attn._NEG_INF, scores))
+    exact = torch.topk(scores.float(), c["k"], dim=-1).indices
+    r = float((chosen[..., :, None] == exact[..., None, :]).any(-1).float().mean())
+    floor = plan_bins(s // SHARDS, c["k"], 0.95,
+                      reduction_input_size_override=s).expected_recall \
+        - hoeffding_eps(b * h)
+    if not r >= floor:
+        fail(f"context-parallel attention: recall {r} < {floor}")
+    if not (torch.isfinite(got.float()).all() and got.shape == whole.shape):
+        fail("context-parallel attention: non-finite or misshapen output")
+    diff = float((got.float() - whole.float()).abs().max())
+    ms = cuda_ms(lambda: attn._knn_decode_attention_cp(
+        q, keys, values, valid, mesh=mesh, cp_axes=("model",), **kw))
+    whole_ms = cuda_ms(lambda: attn.knn_decode_attention(q, keys, values, valid,
+                                                         **kw))
+    log(f"[cp attention] B={b} S={s} H={h} KV={kv} hd={hd} k={c['k']} over "
+        f"{SHARDS} shards: recall {r:.4f} (floor {floor:.4f}), max |diff| vs "
+        f"unsharded {diff:.4g}; {ms:.3f} ms vs unsharded {whole_ms:.3f} ms; "
+        f"on {smi}")
+    out["cp attention"] = dict(recall=r, floor=floor, max_abs_diff=diff, ms=ms,
+                               unsharded_ms=whole_ms)
+
+
+def phase_sharding(prk, testing, seed, results, smi):
+    """Phase 18: the rest of the search package and sharding (see the
+    module docstring); returns its report and its kernel rows."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    data = make_data(SIFT, seed)
+    phase_loop(prk, testing, data, out, smi)
+    kernels = phase_shards(prk, testing, data, out, smi, results)
+    del data
+    torch.cuda.empty_cache()
+    phase_shard_datastore(prk, seed, out, smi)
+    phase_cp_attention(seed, out, smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 18] {out['seconds']:.1f} s")
+    return out, kernels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2708,6 +3104,10 @@ def main(argv=None) -> int:
     # phase 16: kNN-LM serving at full width; phase 17: the other families
     knn_lm, knn_kernels = phase_knn_lm(prk, testing, args.seed, results, smi)
     families, family_kernels = phase_families(prk, testing, args.seed, results, smi)
+    # phase 18: stream=False, logical shards, the FLOP cross-check, the
+    # sharded datastore and context-parallel attention
+    sharding, shard_kernels = phase_sharding(prk, testing, args.seed, results,
+                                             smi)
     for k in kernels:
         for key in ("launches", "plain_calls"):
             k[key] = results[key].get(k["name"], 0)
@@ -2721,7 +3121,9 @@ def main(argv=None) -> int:
     log(json.dumps({"host_tier": host_tier}))
     log(json.dumps({"knn_lm": knn_lm}))
     log(json.dumps({"families": families}))
-    log(json.dumps({"kernels": kernels + knn_kernels + family_kernels}))
+    log(json.dumps({"sharding": sharding}))
+    log(json.dumps({"kernels": kernels + knn_kernels + family_kernels
+                    + shard_kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.rescoring import stable_topk
 from repro_torch.core.topk import approx_max_k
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamDef
@@ -307,12 +308,15 @@ def knn_decode_attention(
     matmul, ``approx_max_k`` keeps k keys with E[recall] per Eq. 13, an
     exact softmax over them weighs their values.  Early in a decode
     (fewer live positions than k) the masked positions it returns weigh
-    exactly 0.  ``mesh=`` (the reference's context-parallel form over a
-    sequence-sharded cache) raises: ROADMAP queue A item 11."""
+    exactly 0.  ``mesh=`` raises: the reference picks the context-parallel
+    axes from its logical-axis rules, which come with the LM training
+    stack (ROADMAP queue A item 13b); :func:`_knn_decode_attention_cp`
+    takes the mesh and its axes explicitly."""
     if mesh is not None:
         raise NotImplementedError(
-            "context-parallel kNN attention (a sequence-sharded cache) is "
-            "ROADMAP queue A item 11 of the port"
+            "knn_decode_attention(mesh=) picks its context-parallel axes "
+            "from the logical-axis rules of ROADMAP queue A item 13b; call "
+            "_knn_decode_attention_cp(..., mesh=, cp_axes=) with them"
         )
     b, h, hd = q.shape
     scores = _group_scores(q, keys, kv_groups) * _const(hd ** -0.5, q)
@@ -325,6 +329,71 @@ def knn_decode_attention(
     sel = values.transpose(1, 2)[batch[:, None, None], heads[None, :, None],
                                  top_idx.long()]
     return torch.einsum("bhk,bhkd->bhd", probs, sel)
+
+
+def _knn_cp_candidates(q, keys, values, valid, *, k: int,
+                       recall_target: float, mesh, cp_axes,
+                       kv_groups: int = 1):
+    """Every context-parallel shard's bin winners, gathered to ``q``'s
+    device in shard order: values (B, H, L) f32, their global cache
+    positions (B, H, L) and value rows (B, H, L, hd) in bf16."""
+    cp_axes = (cp_axes,) if isinstance(cp_axes, str) else tuple(cp_axes)
+    devices = mesh.device_grid(cp_axes)[0]
+    b, h, hd = q.shape
+    global_s = keys.shape[1]
+    if global_s % len(devices):
+        raise ValueError(f"S={global_s} does not split into {len(devices)} "
+                         "context-parallel shards")
+    s_l = global_s // len(devices)
+    home = q.device
+    all_vals, all_pos, all_v = [], [], []
+    for j, dev in enumerate(devices):
+        part = slice(j * s_l, (j + 1) * s_l)
+        ql, keys_l = q.to(dev), keys[:, part].to(dev)
+        values_l, valid_l = values[:, part].to(dev), valid[part].to(dev)
+        scores = _group_scores(ql, keys_l, kv_groups) * _const(hd ** -0.5, ql)
+        scores = torch.where(valid_l, scores, _const(_NEG_INF, scores))
+        vals, idxs = approx_max_k(scores, min(k, s_l),
+                                  recall_target=recall_target,
+                                  reduction_input_size_override=global_s,
+                                  aggregate_to_topk=False)
+        heads = torch.arange(h, device=dev) // kv_groups
+        batch = torch.arange(b, device=dev)
+        # the winners' value rows travel in bf16 (scores stay f32)
+        sel = values_l.transpose(1, 2)[batch[:, None, None],
+                                       heads[None, :, None],
+                                       idxs.long()].to(torch.bfloat16)
+        all_vals.append(vals.to(home))
+        all_pos.append(idxs.long().to(home) + j * s_l)
+        all_v.append(sel.to(home))
+    return (torch.cat(all_vals, dim=2), torch.cat(all_pos, dim=2),
+            torch.cat(all_v, dim=2))
+
+
+def _knn_decode_attention_cp(q, keys, values, valid, *, k: int,
+                             recall_target: float, mesh, cp_axes,
+                             kv_groups: int = 1) -> torch.Tensor:
+    """kNN attention over a sequence-sharded cache (paper §7), the
+    reference's ``_knn_decode_attention_cp`` on a mesh of torch devices
+    (``repro_torch.parallel.mesh``).
+
+    The cache's S positions split into the shards of ``cp_axes``
+    (row-major over them).  Each shard, on its device, scores its keys
+    group-wise and keeps its bin winners (``approx_max_k`` against the
+    global S, ``aggregate_to_topk=False``) with their value rows in bf16;
+    the winners are gathered to the first device in shard order
+    (:func:`_knn_cp_candidates`), and a global top-k (the earliest
+    position wins a tie) and an exact softmax weigh the values.  Shapes
+    as :func:`knn_decode_attention`.
+    """
+    vals, _, sel_v = _knn_cp_candidates(
+        q, keys, values, valid, k=k, recall_target=recall_target, mesh=mesh,
+        cp_axes=cp_axes, kv_groups=kv_groups)
+    top_vals, pos = stable_topk(vals, k)
+    probs = torch.softmax(top_vals.to(torch.float32), dim=-1).to(q.dtype)
+    top_v = torch.gather(sel_v, 2,
+                         pos[..., None].expand(-1, -1, -1, q.shape[-1]))
+    return torch.einsum("bhk,bhkd->bhd", probs, top_v.to(q.dtype))
 
 
 # --------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """kNN-LM datastore on the search API.
 
-Port of ``src/repro/retrieval/datastore.py`` (one device; ``mesh=``, the
-sharded datastore, is ROADMAP queue A item 11).  The datastore is a
-``repro_torch.search.Index`` over (key, value-token) pairs plus the
-kNN-LM interpolation head.  The index is index-free, so the datastore
-takes frequent updates: ``extend`` appends pairs and ``forget``
-tombstones old ones with no rebuild.
+Port of ``src/repro/retrieval/datastore.py``.  The datastore is a
+``repro_torch.search.Index`` over (key, value-token) pairs, optionally
+split over a mesh of torch devices (``Index.shard``: each shard scanned
+on its device with the recall accounted against the global N, the
+winners gathered and merged), plus the kNN-LM interpolation head.  The
+index is index-free, so the datastore takes frequent updates: ``extend``
+appends pairs and ``forget`` tombstones old ones with no rebuild.
 
 ``lookup`` never prepares or pads the (N, D) key matrix (that happened
 once at construction or ``extend``); on the card a lookup is the fused
@@ -35,8 +36,10 @@ class KNNDatastore:
     indexed on ``device`` (default "cuda", which must exist; "cpu" runs
     the plain path).  ``build_kwargs`` go to ``Index.build`` (the
     default ``cluster="auto"`` lets the planner decide on pruning).
-    ``mesh=`` raises; the reference's sharding arguments (``db_axis``,
-    ``batch_axis``) come with it."""
+    ``mesh=`` (a ``repro_torch.parallel.mesh.Mesh``) shards the keys
+    over ``db_axis`` and the lookups over ``batch_axis`` (where the mesh
+    has that axis), on the mesh's devices; ``device`` is then the mesh's
+    first."""
 
     def __init__(
         self,
@@ -46,21 +49,29 @@ class KNNDatastore:
         *,
         k: int = 32,
         recall_target: float = 0.95,
+        db_axis="model",
+        batch_axis: Optional[str] = "data",
         metric: str = "mips",
         capacity: Optional[int] = None,
         device=None,
         **build_kwargs,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded datastore is ROADMAP queue A item 11 of the port"
-            )
         # Pre-allocating ``capacity`` keeps ``extend`` on the cheap path:
-        # append-slice patches only, no packed-layout growth copies.
+        # append-slice patches only, no packed-layout growth copies.  With
+        # a mesh, backend="sharded" packs nothing before ``shard`` does.
+        if mesh is not None:
+            device = mesh.devices.flat[0]
+            build_kwargs.setdefault("backend", "sharded")
         self.index = Index.build(
             keys, metric=metric, k=k, recall_target=recall_target,
             capacity=capacity, device=device, **build_kwargs,
         )
+        if mesh is not None:
+            if batch_axis is not None and batch_axis not in mesh.shape:
+                batch_axis = None  # a mesh without the axis: no batch split
+            self.index = self.index.shard(mesh, db_axis=db_axis,
+                                          batch_axis=batch_axis)
+        self.mesh = mesh
         self.k = k
         self.value_tokens = torch.as_tensor(value_tokens, device=self.index.device)
         self.server: Optional[SearchServer] = None

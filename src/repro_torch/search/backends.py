@@ -28,6 +28,15 @@ in the internal max convention and negate once for distance metrics:
     the port (a gather and a dot in a fixed order, ``stages.dot_rows``),
     in query chunks whose gathered rows fit ``GATHER_BUDGET_BYTES``.
 
+  * :func:`make_sharded_search_fn` and :func:`sharded_search` — the
+    ``"sharded"`` backend (paper §7): the database rows split over a mesh
+    of torch devices (``repro_torch.parallel.mesh``), each shard searched
+    on its device with that device's path (the kernels on a card, the
+    plain path on the CPU), its bins planned for its rows against the
+    global N, its ids offset to global ones; the shards' winners are
+    gathered to the first device and merged (``stages.merge_topk``, so a
+    tie goes to the earlier shard, the lowest global id).
+
 ``DISPATCH_COUNTS`` counts searches issued per backend by ``Index``, and
 the replays of a captured search (one a served batch).
 
@@ -37,7 +46,7 @@ one ``torch.cuda.CUDAGraph`` per query-block shape of an index's search
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,11 +79,15 @@ __all__ = [
     "cuda_search",
     "cuda_search_packed",
     "cuda_search_packed_quant",
+    "db_shard_count",
     "default_backend",
     "dense_search",
     "dense_search_quant",
+    "make_sharded_search_fn",
+    "normalize_db_axes",
     "reset_dispatch_counts",
     "reset_trace_counts",
+    "sharded_search",
 ]
 
 # backend name -> searches issued by Index (one per query block) and
@@ -104,9 +117,11 @@ def reset_trace_counts() -> None:
     kernels.reset_counts()
 
 
-def default_backend(device) -> str:
-    """Resolve backend="auto": the CUDA kernels for a CUDA device, the
-    plain PyTorch path otherwise."""
+def default_backend(device, mesh=None) -> str:
+    """Resolve backend="auto": ``"sharded"`` with a mesh attached, the
+    CUDA kernels for a CUDA device, the plain PyTorch path otherwise."""
+    if mesh is not None:
+        return "sharded"
     return "cuda" if torch.device(device).type == "cuda" else "torch"
 
 
@@ -326,7 +341,20 @@ def dense_search_quant(
     values), then with a rescore tail the bins planned for ``k_scan`` and
     the exact rescore; without one, the scan's top-k."""
     m = get_metric(metric)
-    q = m.prepare_queries(queries)
+    vals, idxs = _dense_candidates(
+        m.prepare_queries(queries), database, row_bias, scale, rescore_db,
+        rescore_bias, k=k, k_scan=k_scan, recall_target=recall_target,
+        reduction_input_size_override=reduction_input_size_override,
+        aggregate_to_topk=aggregate_to_topk, use_bitonic=use_bitonic)
+    return finalize_values(vals, m.negate_output), idxs
+
+
+def _dense_candidates(q, database, row_bias, scale, rescore_db, rescore_bias,
+                      *, k, k_scan, recall_target,
+                      reduction_input_size_override, aggregate_to_topk,
+                      use_bitonic):
+    """:func:`dense_search_quant` on prepared queries, in the internal max
+    convention."""
     scores = score_rows(q, database, row_bias, scale)
     if rescore_db is not None:
         vals, idxs = scan_candidates(
@@ -334,16 +362,14 @@ def dense_search_quant(
             reduction_input_size_override=reduction_input_size_override,
             aggregate_to_topk=False,
         )
-        vals, idxs = rescore_candidates(
+        return rescore_candidates(
             q, vals, idxs, rescore_db, rescore_bias, k, k_scan, use_bitonic
         )
-    else:
-        vals, idxs = scan_candidates(
-            scores, k, recall_target=recall_target,
-            reduction_input_size_override=reduction_input_size_override,
-            aggregate_to_topk=aggregate_to_topk, use_bitonic=use_bitonic,
-        )
-    return finalize_values(vals, m.negate_output), idxs
+    return scan_candidates(
+        scores, k, recall_target=recall_target,
+        reduction_input_size_override=reduction_input_size_override,
+        aggregate_to_topk=aggregate_to_topk, use_bitonic=use_bitonic,
+    )
 
 
 def cuda_search_packed_quant(
@@ -375,7 +401,19 @@ def cuda_search_packed_quant(
     ``merge_topk``.
     """
     m_obj = get_metric(metric)
-    q = m_obj.prepare_queries(queries)
+    vals, idxs = _cuda_candidates(
+        m_obj.prepare_queries(queries), database, row_bias, scale, rescore_db,
+        rescore_bias, k=k, k_scan=k_scan, n=n, bin_size=bin_size,
+        aggregate_to_topk=aggregate_to_topk, use_bitonic=use_bitonic,
+        fused_select=fused_select, int4_packed=int4_packed)
+    return finalize_values(vals, m_obj.negate_output), idxs
+
+
+def _cuda_candidates(q, database, row_bias, scale, rescore_db, rescore_bias,
+                     *, k, k_scan, n, bin_size, aggregate_to_topk,
+                     use_bitonic, fused_select, int4_packed):
+    """:func:`cuda_search_packed_quant` on prepared queries, in the
+    internal max convention."""
     if fused_select and (rescore_db is not None or aggregate_to_topk):
         vals, idxs = kernels.partial_reduce_fused(
             q, database, row_bias, scale,
@@ -386,19 +424,19 @@ def cuda_search_packed_quant(
             vals, idxs = rescore_candidates(
                 q, vals, idxs, rescore_db, rescore_bias, k, k_scan, use_bitonic
             )
-        return finalize_values(vals, m_obj.negate_output), idxs
+        return vals, idxs
     vals, idxs = kernels.partial_reduce_packed(
         q, database, row_bias, scale, bin_size=bin_size,
         int4_packed=int4_packed,
     )
     idxs = sentinelize_masked(vals, idxs, n)
     if rescore_db is not None:
-        vals, idxs = rescore_candidates(
+        return rescore_candidates(
             q, vals, idxs, rescore_db, rescore_bias, k, k_scan, use_bitonic
         )
-    elif aggregate_to_topk:
-        vals, idxs = merge_topk(vals, idxs, k, use_bitonic=use_bitonic)
-    return finalize_values(vals, m_obj.negate_output), idxs
+    if aggregate_to_topk:
+        return merge_topk(vals, idxs, k, use_bitonic=use_bitonic)
+    return vals, idxs
 
 
 def cluster_search(
@@ -461,7 +499,26 @@ def cluster_search_quant(
     ``GATHER_BUDGET_BYTES``.
     """
     m_obj = get_metric(metric)
-    q = m_obj.prepare_queries(queries)
+    vals, idxs = _cluster_candidates(
+        m_obj.prepare_queries(queries), database, row_bias, scale, rescore_db,
+        rescore_bias, (centroids, centroid_bias, cluster_rows, spill_rows),
+        k=k, k_scan=k_scan, probes=probes, target_scan=target_scan,
+        aggregate_to_topk=aggregate_to_topk, use_bitonic=use_bitonic,
+        int4_packed=int4_packed)
+    return finalize_values(vals, m_obj.negate_output), idxs
+
+
+def _cluster_candidates(q, database, row_bias, scale, rescore_db, rescore_bias,
+                        tables, *, k, k_scan, probes, target_scan,
+                        aggregate_to_topk, use_bitonic, int4_packed,
+                        offset: int = 0, n_local: Optional[int] = None):
+    """:func:`cluster_search_quant` on prepared queries, in the internal
+    max convention.  With ``n_local`` the operands are one shard's rows
+    ``[offset, offset + n_local)`` (the reference's sharded pruned scan):
+    the slots of rows another shard owns are masked like empty ones, the
+    gather and the rescore read shard-local rows, and the ids returned
+    are global."""
+    centroids, centroid_bias, cluster_rows, spill_rows = tables
     width = database.shape[1] * (2 if int4_packed else 1)
     slots = probes * cluster_rows.shape[1] + spill_rows.shape[0]
     chunk = max(1, GATHER_BUDGET_BYTES // (4 * slots * width))
@@ -470,18 +527,24 @@ def cluster_search_quant(
         qc = q[s : s + chunk]
         idc, valid = prune_candidates(qc, centroids, centroid_bias,
                                       cluster_rows, spill_rows, probes)
-        rows = database[idc.long()]                    # (m, S, stored width)
+        local = idc
+        if n_local is not None:
+            local = idc - offset
+            valid = valid & (local >= 0) & (local < n_local)
+            local = torch.clamp(local, 0, n_local - 1)
+        rows = database[local.long()]                  # (m, S, stored width)
         if int4_packed:
             rows = unpack_int4_rows(rows)
         scores = score_gathered(pad_queries_to(qc, width),
-                                rows.to(torch.float32), row_bias, idc, valid,
+                                rows.to(torch.float32), row_bias, local, valid,
                                 scale)
         if rescore_db is not None:
             vals, pos = scan_candidates(scores, k_scan, recall_target=target_scan,
                                         aggregate_to_topk=False)
-            idxs = torch.gather(idc, -1, pos.long())
-            vals, idxs = rescore_candidates(qc, vals, idxs, rescore_db,
+            lsel = torch.gather(local, -1, pos.long())
+            vals, idxs = rescore_candidates(qc, vals, lsel, rescore_db,
                                             rescore_bias, k, k_scan, use_bitonic)
+            idxs = idxs + offset
         else:
             vals, pos = scan_candidates(
                 scores, k, recall_target=target_scan,
@@ -490,5 +553,213 @@ def cluster_search_quant(
             idxs = torch.gather(idc, -1, pos.long())
         out_v.append(vals)
         out_i.append(idxs)
-    return (finalize_values(torch.cat(out_v), m_obj.negate_output),
-            torch.cat(out_i))
+    return torch.cat(out_v), torch.cat(out_i)
+
+
+# --- the sharded backend (paper §7) ------------------------------------------
+
+
+def normalize_db_axes(db_axis) -> Tuple[str, ...]:
+    """A database-axis spec (``"model"`` or a tuple of mesh axis names) as
+    a tuple; the tuple form splits the rows over the product of those
+    axes, shards linearized row-major over them."""
+    return (db_axis,) if isinstance(db_axis, str) else tuple(db_axis)
+
+
+def db_shard_count(mesh, db_axis) -> int:
+    """Database shards: the product of the mesh extents of every axis the
+    rows are split over."""
+    count = 1
+    for a in normalize_db_axes(db_axis):
+        count *= mesh.shape[a]
+    return count
+
+
+class _Tables(NamedTuple):
+    """Cluster tables passed as operands (the functional sharded path)."""
+
+    centroids: torch.Tensor
+    centroid_bias: torch.Tensor
+    cluster_rows: torch.Tensor
+    spill_rows: torch.Tensor
+
+    def operands(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(self)
+
+
+def _check_axes(mesh, db_axis, batch_axis) -> Tuple[str, ...]:
+    db_axes = normalize_db_axes(db_axis)
+    if batch_axis is not None and batch_axis in db_axes:
+        raise ValueError(
+            f"batch_axis {batch_axis!r} cannot also shard the database "
+            f"(db_axis={db_axes!r})"
+        )
+    for a in db_axes + ((batch_axis,) if batch_axis else ()):
+        if a not in mesh.shape:
+            raise ValueError(f"axis {a!r} is not in the mesh {dict(mesh.shape)}")
+    return db_axes
+
+
+def _shard_candidates(q, shard, j: int, *, n: int, k: int, k_scan: int,
+                      recall_target: float, use_bitonic: bool,
+                      fused_select: bool, cluster=None):
+    """One shard's winners on its device: prepared queries ``q`` against
+    ``shard`` (a PackedState over rows ``[j * n_local, (j + 1) *
+    n_local)``), in the internal max convention, with global ids (a
+    masked kernel slot keeps -1).  ``cluster``: ``(tables, probes,
+    target_scan)`` of the replicated pruning tables."""
+    n_local = shard.n
+    offset = j * n_local
+    ks = min(k_scan, n_local)
+    kk = min(k, n_local)
+    ops = (q, shard.db, shard.bias, shard.scale, shard.rescore_db,
+           shard.rescore_bias)
+    if cluster is not None:
+        tables, probes, target_scan = cluster
+        return _cluster_candidates(
+            *ops, tables, k=kk, k_scan=ks, probes=probes,
+            target_scan=target_scan, aggregate_to_topk=True,
+            use_bitonic=use_bitonic, int4_packed=shard.int4_packed,
+            offset=offset, n_local=n_local)
+    if shard.backend == "cuda":
+        vals, idxs = _cuda_candidates(
+            *ops, k=kk, k_scan=ks, n=n_local, bin_size=shard.bin_size,
+            aggregate_to_topk=True, use_bitonic=use_bitonic,
+            fused_select=fused_select, int4_packed=shard.int4_packed)
+    else:
+        vals, idxs = _dense_candidates(
+            *ops, k=kk, k_scan=ks, recall_target=recall_target,
+            reduction_input_size_override=n, aggregate_to_topk=True,
+            use_bitonic=use_bitonic)
+    return vals, torch.where(idxs >= 0, idxs + offset, idxs)
+
+
+def sharded_search(
+    queries: torch.Tensor,
+    state,
+    *,
+    metric: str,
+    k: int,
+    k_scan: int,
+    recall_target: float,
+    batch_groups: int = 1,
+    use_bitonic: bool = False,
+    fused_select: bool = True,
+    probes: Optional[int] = None,
+    target_scan: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Search a ``packed.ShardedState``: every shard on its device, the
+    winners gathered to the first device and merged.
+
+    With ``batch_groups`` > 1 (a ``batch_axis``) the query rows split
+    over the groups, each searching its own replicas of the shards; rows
+    that do not divide run on the first group (replicated, as the
+    reference replicates them).  On several cards each shard's launches
+    queue on its device's current stream and the cross-device copies
+    order themselves: no host synchronization between shards.
+    """
+    m_obj = get_metric(metric)
+    q = m_obj.prepare_queries(queries)
+    home = state.device
+    groups = batch_groups if q.shape[0] % batch_groups == 0 else 1
+    parts_v, parts_i = [], []
+    rows = q.shape[0] // groups
+    for g in range(groups):
+        qg = q[g * rows : (g + 1) * rows]
+        vals, idxs = [], []
+        for j in range(len(state.shards)):
+            shard = state.replica(g, j)
+            dev = shard.db.device
+            cl = None
+            if state.cluster is not None:
+                cl = (state.cluster_operands(dev), probes, target_scan)
+            v, i = _shard_candidates(
+                qg.to(dev), shard, j, n=state.n, k=k, k_scan=k_scan,
+                recall_target=recall_target, use_bitonic=use_bitonic,
+                fused_select=fused_select, cluster=cl)
+            vals.append(v.to(home))
+            idxs.append(i.to(home, torch.int32))
+        v, i = merge_topk(torch.cat(vals, dim=-1), torch.cat(idxs, dim=-1), k,
+                          use_bitonic=use_bitonic)
+        parts_v.append(v)
+        parts_i.append(i)
+    return (finalize_values(torch.cat(parts_v), m_obj.negate_output),
+            torch.cat(parts_i))
+
+
+def make_sharded_search_fn(
+    mesh,
+    *,
+    metric: str = "mips",
+    k: int = 10,
+    recall_target: float = 0.95,
+    db_axis="model",
+    batch_axis: Optional[str] = None,
+    use_bitonic: bool = False,
+    k_scan: Optional[int] = None,
+    cluster_probes: Optional[int] = None,
+    cluster_target_scan: Optional[float] = None,
+    fused_select: bool = True,
+):
+    """``(queries, database, row_bias, ...) -> (values, indices)`` over a
+    mesh (``repro_torch.parallel.mesh.Mesh``), the reference's signature.
+
+    ``database`` (N, D) holds metric-prepared rows of the logical layout
+    (int4 as one code a byte); ``row_bias`` (N,) their fused bias.  Each
+    call splits them into the mesh's database shards (N must divide) and
+    lays each out for its device (the kernels' padded layout on a card),
+    as the reference's one-shot paths re-pack inside their program; an
+    ``Index.shard`` lays them out once.  Then :func:`sharded_search`.
+    A quantized tier passes ``scale`` and the rescore tail
+    ``rescore_db``/``rescore_bias``: each shard rescores its own
+    ``k_scan`` winners with shard-local ids before the offset.  The
+    cluster tables (``cluster_probes``/``cluster_target_scan`` and the
+    four table operands) are replicated: each shard scores only the
+    candidate slots it owns.
+    """
+    from repro_torch.search import packed as packedlib
+    from repro_torch.search.spec import SearchSpec
+
+    db_axes = _check_axes(mesh, db_axis, batch_axis)
+    grid = mesh.device_grid(db_axes, batch_axis)
+    n_shards = len(grid[0])
+    scan_k = k if k_scan is None else k_scan
+
+    def searcher(queries, database, row_bias=None, scale=None,
+                 rescore_db=None, rescore_bias=None, centroids=None,
+                 centroid_bias=None, cluster_rows=None, spill_rows=None):
+        n, d = database.shape
+        if n % n_shards:
+            raise ValueError(
+                f"database rows {n} not divisible by {n_shards} shards")
+        with_cluster = centroids is not None
+        if with_cluster and (cluster_probes is None
+                             or cluster_target_scan is None):
+            raise ValueError(
+                "cluster operands passed but make_sharded_search_fn was "
+                "built without cluster_probes/cluster_target_scan")
+        # int4 codes held one a byte score as the int8 values they are
+        storage = ("int8" if database.dtype == torch.int8 else
+                   "bf16" if rescore_db is not None else "f32")
+        spec = SearchSpec(metric=metric, k=k, recall_target=recall_target,
+                          storage=storage)
+        bias = (torch.zeros((n,), dtype=torch.float32, device=database.device)
+                if row_bias is None else row_bias.to(torch.float32))
+        flat = packedlib.PackedState(
+            backend="torch", db=database, bias=bias, n=n, d=d, plan=None,
+            bin_size=0, block_n=0, storage=storage, scale=scale,
+            rescore_db=rescore_db, rescore_bias=rescore_bias,
+            compute_dtype=str(queries.dtype).removeprefix("torch."))
+        if with_cluster:
+            flat.cluster = _Tables(centroids, centroid_bias, cluster_rows,
+                                   spill_rows)
+        state = packedlib.ShardedState.split(flat, grid, n, spec, scan_k,
+                                             default_backend(grid[0][0]))
+        return sharded_search(
+            queries.to(state.device), state, metric=metric, k=k,
+            k_scan=scan_k, recall_target=recall_target,
+            batch_groups=len(grid), use_bitonic=use_bitonic,
+            fused_select=fused_select, probes=cluster_probes,
+            target_scan=cluster_target_scan)
+
+    return searcher

@@ -8,7 +8,9 @@ database on every call, fuse its metric bias with ``packed.fuse_bias``
 ``"cuda"`` kernels there (``backends.cuda_search``), or the plain path
 (``backends.dense_search``) on the CPU.  ``device`` defaults to the card
 and raises without one, as ``Index.build`` does; pass ``device="cpu"``
-for the plain PyTorch path.
+for the plain PyTorch path.  ``mesh=`` (a ``repro_torch.parallel.mesh.
+Mesh``) searches the rows split over its devices
+(``backends.make_sharded_search_fn``).
 
 Value conventions are owned by ``repro_torch.search.metrics``.
 
@@ -19,7 +21,7 @@ Value conventions are owned by ``repro_torch.search.metrics``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -61,17 +63,13 @@ def _tensor(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-_SHARDED = ("the sharded search (mesh=, backend='sharded') is ROADMAP "
-            "queue A item 11 of the port")
-
-
 def _run(backend: str, queries, database, row_bias, **kw):
     if backend == "cuda":
         return backends.cuda_search(queries, database, row_bias, **kw)
     if backend == "torch":
         return backends.dense_search(queries, database, row_bias, **kw)
     if backend == "sharded":
-        raise NotImplementedError(_SHARDED)
+        raise ValueError("backend='sharded' requires a mesh")
     raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -84,6 +82,8 @@ def search(
     recall_target: float = 0.95,
     backend: str = "auto",
     mesh=None,
+    db_axis="model",
+    batch_axis: Optional[str] = None,
     row_bias=None,
     reduction_input_size_override: int = -1,
     aggregate_to_topk: bool = True,
@@ -93,12 +93,16 @@ def search(
 
     ``backend="auto"`` runs the kernels on a CUDA ``device`` and the
     plain path on the CPU (``"torch"`` and ``"cuda"`` pick one; the
-    kernels run their plain versions on CPU tensors).  ``mesh=`` and
-    ``backend="sharded"`` raise: multi-device sharding (and with it the
-    reference's ``db_axis``/``batch_axis``) is not ported yet.
+    kernels run their plain versions on CPU tensors).  With ``mesh=``
+    ``"auto"`` is ``"sharded"``: the rows split over ``db_axis``, the
+    query rows over ``batch_axis``, each shard searched on its device and
+    the results gathered to the mesh's first device (``device`` is then
+    that device), the recall accounted against the global N
+    (``reduction_input_size_override`` does not apply), as in the
+    reference.
     """
     if mesh is not None:
-        raise NotImplementedError(_SHARDED)
+        device = mesh.devices.flat[0]
     device = _device(device)
     queries, database = _tensor(queries, device), _tensor(database, device)
     db, metric_bias = get_metric(metric).prepare_database(database)
@@ -109,7 +113,12 @@ def search(
         fused = fuse_bias(metric_bias, num_rows=db.shape[0])
         row_bias = fused if row_bias is None else row_bias + fused
     if backend == "auto":
-        backend = backends.default_backend(device)
+        backend = backends.default_backend(device, mesh)
+    if backend == "sharded" and mesh is not None:
+        fn = backends.make_sharded_search_fn(
+            mesh, metric=metric, k=k, recall_target=recall_target,
+            db_axis=db_axis, batch_axis=batch_axis)
+        return fn(queries, db, row_bias)
     return _run(
         backend, queries, db, row_bias, metric=metric, k=k,
         recall_target=recall_target,

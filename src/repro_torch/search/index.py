@@ -1,7 +1,7 @@
 """Index: the index-free front door of the search API.
 
 Port of ``src/repro/search/index.py`` (every storage tier, both
-compute dtypes, cluster pruning, one device).  ``Index.build`` does the
+compute dtypes, cluster pruning, one device or a mesh of them).  ``Index.build`` does the
 only precompute the algorithm needs — the cast to ``spec.dtype``, metric
 preparation, quantization for a ``storage`` tier other than f32, packing
 into the backend's layout (``repro_torch.search.packed``) and, where the
@@ -37,10 +37,22 @@ On a CUDA device the ``"cuda"`` backend searches any number of queries
 with a fixed number of kernel launches.  The plain paths — the
 ``"torch"`` backend anywhere, and the ``"cuda"`` backend's plain kernel
 versions on the CPU — stream queries in ``spec.query_block`` blocks to
-bound their (query_block, N) score tile.  On a CUDA device
-``search_graph(m)`` captures one search of an (m, D) block as a CUDA
-graph (``backends.GraphCache``); ``SearchServer`` replays those, and
-``search`` itself stays eager.
+bound their (query_block, N) score tile.  ``SearchSpec(stream=False)``
+is the reference's per-block loop on every backend, the card included:
+one search of each ``query_block`` rows (the parity oracle and the
+dispatch baseline).  On a CUDA device ``search_graph(m)`` captures one
+search of an (m, D) block as a CUDA graph (``backends.GraphCache``);
+``SearchServer`` replays those, and ``search`` itself stays eager.
+
+``shard(mesh)`` returns the index split over a mesh of torch devices
+(``repro_torch.parallel.mesh``; a device may repeat, for logical shards
+on one card or on the CPU): capacity padded to a multiple of the shard
+count with dead rows, the packed rows carried over
+(``packed.ShardedState``), each shard searched on its device and the
+winners merged on the first (``backends.sharded_search``).  A sharded
+index is searched eagerly (no graph) and saves its logical arrays in the
+reference's ``"sharded"`` format; a restored one lands without a mesh
+and searches only after ``.shard(mesh)``.
 
 ``save``/``restore`` write and read crash-safe snapshots in the
 reference's format (``repro_torch.checkpoint``).
@@ -78,8 +90,10 @@ SNAPSHOT_FORMAT = "repro.search.index"
 SNAPSHOT_VERSION = 1
 
 # Backend names in a snapshot's spec: the reference's, both ways.
-_REFERENCE_BACKEND = {"auto": "auto", "torch": "xla", "cuda": "pallas"}
-_PORT_BACKEND = {"auto": "auto", "xla": "torch", "pallas": "cuda"}
+_REFERENCE_BACKEND = {"auto": "auto", "torch": "xla", "cuda": "pallas",
+                      "sharded": "sharded"}
+_PORT_BACKEND = {"auto": "auto", "xla": "torch", "pallas": "cuda",
+                 "sharded": "sharded"}
 
 class SearchResult(NamedTuple):
     """(values, indices), both (M, k); value conventions per the metric
@@ -134,10 +148,20 @@ class Index:
         capacity_block: int = 1024,
         kernel_plan: planlib.Plan,
         device=None,
+        mesh=None,
+        db_axis="model",
+        batch_axis: Optional[str] = None,
     ):
         self.spec = spec
+        self._mesh = mesh
+        self._db_axis = db_axis
+        self._batch_axis = batch_axis
+
         # the device searches run on; a host index keeps its state on the CPU
         self._device = db.device if device is None else torch.device(device)
+        # a sharded index's shards keep the layout of its backend before
+        # ``shard`` ("cuda" by default on a card)
+        self._shard_layout = backends.default_backend(self._device)
         self._db = db
         self._live = live
         self._size = size          # append high-water mark (<= capacity)
@@ -229,7 +253,8 @@ class Index:
         # The plan covers the capacity's row space, as the packed layout
         # (and its bin plan) does.
         plan_backend = spec.backend
-        if plan_backend == "auto":
+        if plan_backend in ("auto", "sharded"):
+            # a sharded spec is planned unsharded until ``shard``
             plan_backend = backends.default_backend(device)
         if isinstance(plan, planlib.Plan):
             plan_obj = plan
@@ -267,7 +292,9 @@ class Index:
         index = cls(spec, database, live, size=n, num_live=n,
                     capacity_block=capacity_block, kernel_plan=plan_obj,
                     device=device)
-        index.pack()
+        if spec.backend != "sharded":
+            # backend="sharded" has no mesh yet: ``shard`` packs instead
+            index.pack()
         return index
 
     # -- introspection -------------------------------------------------------
@@ -279,8 +306,15 @@ class Index:
     @property
     def device(self) -> torch.device:
         """The device searches run on (a host index's state is on the
-        CPU)."""
+        CPU; a sharded index's results are gathered to this, the mesh's
+        first device)."""
         return self._device
+
+    @property
+    def mesh(self):
+        """The ``repro_torch.parallel.mesh.Mesh`` of a sharded index, or
+        None."""
+        return self._mesh
 
     @property
     def capacity(self) -> int:
@@ -363,15 +397,19 @@ class Index:
         return cp, cp.recall_decomposition(k_scan)
 
     def _replan(self, *, n: int, m: Optional[int],
-                pin_from: planlib.Plan) -> planlib.Plan:
+                pin_from: planlib.Plan, backend: Optional[str] = None,
+                db_shards: Optional[int] = None) -> planlib.Plan:
         """``pin_from`` re-planned for ``n`` rows and a batch of ``m``
-        (growth, ``explain(m=...)``): its tiles, backend and profile, the
-        spec's recall accounting and tier, its provenance."""
+        (growth, ``shard``, ``explain(m=...)``): its tiles, backend (or
+        ``backend``) and profile, the spec's recall accounting and tier,
+        the shard count (default: this index's), its provenance."""
         spec = self.spec
         plan = planlib.plan_search(
             n=n, d=self.dim, k=spec.k, m=m, metric=spec.metric,
             recall_target=spec.recall_target, dtype=spec.dtype or "float32",
-            backend=pin_from.backend, device=pin_from.device,
+            backend=backend or pin_from.backend, device=pin_from.device,
+            db_shards=self._num_db_shards() if db_shards is None
+            else db_shards,
             reduction_input_size_override=spec.reduction_input_size_override,
             storage=spec.storage, rescore=spec.rescore_enabled,
             cluster=spec.cluster, cluster_veto=self._cluster_vetoed,
@@ -406,9 +444,12 @@ class Index:
 
         ``measure=True`` also times a batch of random queries on this
         index (``plan.time_search``) and reports the share of the
-        predicted roof it reached.  ``validate_hlo=True`` reports
-        ``{"skipped": ...}``: the FLOP count of a compiled program is not
-        ported.
+        predicted roof it reached.  ``validate_hlo=True`` counts the ops
+        of one search of ``m`` queries without running it
+        (``repro_torch.analysis.op_cost``) and reports them beside the
+        plan's (``plan.hlo_check``).  A sharded index reports its
+        ``sharding`` block: the axes, the shard count, each shard's rows
+        and the predicted gather of the winners.
         """
         plan = self.kernel_plan
         if m is not None and m != plan.m:
@@ -455,15 +496,35 @@ class Index:
                     for i in range(waves)
                 ],
             }
+        if self._mesh is not None:
+            # the §7 picture: each shard's scan, and the one gather of the
+            # shards' (value, global id) winners
+            report["sharding"] = {
+                "db_axes": list(backends.normalize_db_axes(self._db_axis)),
+                "batch_axis": self._batch_axis,
+                "db_shards": plan.db_shards,
+                "per_shard_n": plan.n // max(plan.db_shards, 1),
+                "ici_gather_bytes": plan.ici_bytes,
+                "ici_s": plan.ici_s,
+                "mesh": dict(self._mesh.shape),
+            }
         report["cluster"] = self._explain_cluster(plan, report)
         report["expected_recall_live"] = self.expected_recall_live
-        if self._packed is not None:
+        pk = self._packed
+        if pk is not None:
+            shards = getattr(pk, "shards", None)
             report["packed"] = {
-                "n": self._packed.n,
-                "db_shape": tuple(self._packed.db.shape),
-                "bin_size": self._packed.bin_size,
-                "block_n": self._packed.block_n,
+                "n": pk.n,
+                "db_shape": ((pk.n, pk.d) if shards is not None
+                             else tuple(pk.db.shape)),
+                "bin_size": pk.bin_size,
+                "block_n": pk.block_n,
             }
+            if shards is not None:
+                report["packed"]["shards"] = [
+                    {"device": str(s.db.device), "n": s.n,
+                     "db_shape": tuple(s.db.shape), "bin_size": s.bin_size,
+                     "block_n": s.block_n} for s in shards]
         m_eff = m or plan.m or plan.query_block
         if measure:
             g = torch.Generator(device=self.device).manual_seed(0)
@@ -478,8 +539,9 @@ class Index:
                 "roofline_fraction": achieved / plan.attainable_flops,
             }
         if validate_hlo:
-            report["hlo"] = {"skipped": "the compiled program's FLOP count "
-                             "is not ported (ROADMAP queue A item 13)"}
+            from repro_torch.analysis.op_cost import search_cost
+
+            report["hlo"] = planlib.hlo_check(plan, search_cost(self, m_eff))
         return report
 
     def _explain_cluster(self, plan: planlib.Plan, report: dict) -> dict:
@@ -541,17 +603,38 @@ class Index:
         return out
 
     def __repr__(self) -> str:
+        mesh = f", mesh={dict(self._mesh.shape)}" if self._mesh else ""
         return (
             f"Index(metric={self.spec.metric!r}, k={self.spec.k}, "
             f"backend={self._resolve_backend()!r}, size={self.size}, "
-            f"capacity={self.capacity}, dim={self.dim}, device={self.device})"
+            f"capacity={self.capacity}, dim={self.dim}, "
+            f"device={self.device}{mesh})"
         )
 
     # -- packed state --------------------------------------------------------
 
     def _resolve_backend(self) -> str:
         b = self.spec.backend
-        return backends.default_backend(self.device) if b == "auto" else b
+        if b == "auto":
+            return backends.default_backend(self.device, self._mesh)
+        if b == "sharded" and self._mesh is None:
+            raise ValueError(
+                "backend='sharded' requires a mesh — call "
+                ".shard(mesh, db_axis=...) first"
+            )
+        return b
+
+    def _num_db_shards(self) -> int:
+        """Database shards: the product of the db-axis extents (1 without
+        a mesh)."""
+        if self._mesh is None:
+            return 1
+        return backends.db_shard_count(self._mesh, self._db_axis)
+
+    def _grid(self) -> list:
+        """The mesh's devices as ``[batch group][database shard]``."""
+        return self._mesh.device_grid(
+            backends.normalize_db_axes(self._db_axis), self._batch_axis)
 
     @property
     def _home(self) -> torch.device:
@@ -572,6 +655,16 @@ class Index:
                     chunk_rows=self._segment_rows(),
                 )
                 self._place_packed()
+            elif self._mesh is not None:
+                # prepared once in the shards' layout, then split
+                flat = packedlib.pack_state(
+                    self._db, self._live, self.metric, self.spec,
+                    self._shard_layout, self.kernel_plan.cluster,
+                    timings=self.pack_timings,
+                )
+                self._packed = flat.relayout(
+                    "sharded", self.capacity, self.spec, grid=self._grid(),
+                    k_scan=self._scan_k_bound(flat.n))
             else:
                 self._packed = packedlib.pack_state(
                     self._db, self._live, self.metric, self.spec,
@@ -612,8 +705,14 @@ class Index:
         of a quantized tier, capped by the live rows (reading ``size``
         syncs with the device, so this runs at build, growth and an add
         that can lift the cap, never on delete or search)."""
+        self._k_scan = self._scan_k_bound(self._packed.n)
+        if self._mesh is not None:
+            # each shard's bins are planned for the bound k
+            self._packed = self._packed.rebin(self._k_scan, self.spec)
+
+    def _scan_k_bound(self, n: int) -> int:
         live = self.size if self.spec.rescore_enabled else None
-        self._k_scan = packedlib.scan_k_for(self.spec, self._packed.n, live=live)
+        return packedlib.scan_k_for(self.spec, n, live=live)
 
     @property
     def k_scan(self) -> int:
@@ -646,12 +745,14 @@ class Index:
         if self.spec.dtype is not None:
             queries = queries.to(getattr(torch, self.spec.dtype))
         if self.spec.residency == "host":
-            # the waves stream the database once for the whole batch
+            # the waves stream the database once for the whole batch,
+            # stream=False too
             return SearchResult(*self._search_block(queries))
-        on_kernels = self._resolve_backend() == "cuda" and self.device.type == "cuda"
+        on_kernels = (self.spec.stream and self.device.type == "cuda"
+                      and self._resolve_backend() in ("cuda", "sharded"))
         if on_kernels or queries.shape[0] <= self.spec.query_block:
             return SearchResult(*self._search_block(queries))
-        return self._search_stream(queries)
+        return self._search_loop(queries)
 
     def _search_block(self, q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """One dispatch: :meth:`_search_ops`, counted in
@@ -667,6 +768,16 @@ class Index:
         backend = self._resolve_backend()
         pk = self.pack()
         spec = self.spec
+        if backend == "sharded":
+            cplan = pk.cluster.plan if pk.cluster is not None else None
+            return backends.sharded_search(
+                q, pk, metric=spec.metric, k=spec.k, k_scan=self._k_scan,
+                recall_target=spec.recall_target,
+                batch_groups=len(pk.grid), use_bitonic=spec.use_bitonic,
+                fused_select=spec.fused_select_enabled,
+                probes=cplan.probes if cplan else None,
+                target_scan=cplan.target_scan if cplan else None,
+            )
         operands = (q, pk.db, pk.bias, pk.scale, pk.rescore_db, pk.rescore_bias)
         common = dict(metric=spec.metric, k=spec.k, k_scan=self._k_scan,
                       aggregate_to_topk=spec.aggregate_to_topk,
@@ -713,6 +824,10 @@ class Index:
             raise RuntimeError(
                 "a host-resident index is searched eagerly: each search "
                 "streams the database through its waves")
+        if self._mesh is not None:
+            raise RuntimeError(
+                "a sharded index is searched eagerly: each search launches "
+                "on every shard's device and gathers to the first")
         pk = self.pack()
         signature = (self._k_scan, pk.n, pk.bin_size) + tuple(
             (t.data_ptr(), tuple(t.shape)) for t in pk.operands()
@@ -759,9 +874,13 @@ class Index:
                       self.expected_recall_live, **labels)
         return telemetry.export_json()
 
-    def _search_stream(self, queries: torch.Tensor) -> SearchResult:
-        """The plain paths' executor: one ``_search_block`` per
-        ``query_block`` rows (each result row depends on its query only)."""
+    def _search_loop(self, queries: torch.Tensor) -> SearchResult:
+        """One ``_search_block`` per ``query_block`` rows: the plain
+        paths' executor, and with ``stream=False`` every backend's, the
+        card's kernels included (2 launches and one ``DISPATCH_COUNTS``
+        entry a block): the reference's per-block loop, the parity oracle
+        of the one-call search and the dispatch baseline.  The last block
+        is not padded: a result row depends on its query only."""
         qb = self.spec.query_block
         parts = [self._search_block(queries[s : s + qb])
                  for s in range(0, queries.shape[0], qb)]
@@ -799,6 +918,9 @@ class Index:
             # Linear growth, not doubling: spare capacity is masked but
             # still scored on every search.
             block = self._capacity_block
+            if self._mesh is not None:
+                # capacity stays a multiple of the shard count
+                block = math.lcm(block, self._num_db_shards())
             if self.spec.residency == "host" and self.spec.segment_rows:
                 # capacity stays a whole number of segment waves
                 block = math.lcm(block, self.spec.segment_rows)
@@ -944,17 +1066,17 @@ class Index:
             )
         fields = dict(meta["spec"])
         if fields["backend"] not in _PORT_BACKEND:
-            raise NotImplementedError(
-                f"backend={fields['backend']!r}: sharded indexes are not "
-                "ported yet (ROADMAP queue A item 11)"
-            )
+            raise ValueError(f"unknown backend {fields['backend']!r}")
         fields["backend"] = _PORT_BACKEND[fields["backend"]]
         fields["block_m"] = fields["max_block_n"] = None  # the fixed tiles
         spec = SearchSpec.from_json_dict(fields)
         device = _resolve_device(device)
         home = _home_device(spec, device)
+        # a "sharded" snapshot lands without a mesh, laid out for the
+        # device, and searches after ``.shard(mesh)``
         plan_backend = (backends.default_backend(device)
-                        if spec.backend == "auto" else spec.backend)
+                        if spec.backend in ("auto", "sharded")
+                        else spec.backend)
         # laid out for the backend the searches run (a host state lives on
         # the CPU, its layout is the device's)
         pk = packedlib.state_from_arrays(
@@ -984,3 +1106,69 @@ class Index:
         index._bind_k_scan()
         telemetry.registry().inc("repro_snapshot_restores_total")
         return index
+
+    # -- sharding ------------------------------------------------------------
+
+    def shard(self, mesh, *, db_axis="model",
+              batch_axis: Optional[str] = None) -> "Index":
+        """A copy of this index split over ``mesh`` (a
+        ``repro_torch.parallel.mesh.Mesh``): database rows over
+        ``db_axis`` (one axis name, or a tuple whose shards linearize
+        row-major), query rows optionally over ``batch_axis``.
+
+        Capacity is padded with dead rows to a multiple of the shard
+        count; the packed rows are carried over (``relayout``), not
+        prepared again; each shard's bins are planned for its rows with
+        the recall accounted against the global N.  A host-resident index
+        is refused.
+
+        >>> import torch
+        >>> from repro_torch.parallel import make_mesh
+        >>> idx = Index.build(torch.eye(32), k=2, device="cpu")
+        >>> sh = idx.shard(make_mesh((4,), ("model",), devices=["cpu"] * 4))
+        >>> sh.kernel_plan.db_shards, int(sh.search(torch.eye(32)[5:6]).indices[0, 0])
+        (4, 5)
+        """
+        if self.spec.residency != "hbm":
+            raise ValueError(
+                "host-resident indexes cannot be sharded — the cold tier "
+                "streams segments through one device; rebuild with "
+                "residency='hbm' first"
+            )
+        backends._check_axes(mesh, db_axis, batch_axis)
+        n_shards = backends.db_shard_count(mesh, db_axis)
+        grid = mesh.device_grid(backends.normalize_db_axes(db_axis),
+                                batch_axis)
+        home = grid[0][0]
+        cap = round_up(self.capacity, n_shards)
+        db, live = self._db.to(home), self._live.to(home)
+        if cap > self.capacity:
+            db = F.pad(db, (0, 0, 0, cap - self.capacity))
+            live = F.pad(live, (0, cap - self.capacity))
+        p = self._kernel_plan
+        plan = self._replan(n=cap, m=p.m or None, pin_from=p,
+                            backend="sharded", db_shards=n_shards)
+        num_live = self._num_live
+        if not isinstance(num_live, int):
+            num_live = num_live.to(home)
+        out = Index(
+            self.spec.with_backend("sharded"), db, live, size=self._size,
+            num_live=num_live, capacity_block=self._capacity_block,
+            kernel_plan=plan, device=home, mesh=mesh, db_axis=db_axis,
+            batch_axis=batch_axis,
+        )
+        out._cluster_vetoed = self._cluster_vetoed
+        out._shard_layout = (self.spec.backend
+                             if self.spec.backend in ("torch", "cuda")
+                             else self._shard_layout)
+        if self._packed is None:
+            out.pack()
+        else:
+            flat = self._packed
+            if flat.backend not in (out._shard_layout, "sharded"):
+                flat = flat.relayout(out._shard_layout, flat.n, self.spec)
+            out._packed = flat.relayout(
+                "sharded", cap, out.spec, grid=grid,
+                k_scan=out._scan_k_bound(cap))
+            out._bind_k_scan()
+        return out

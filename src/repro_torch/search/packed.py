@@ -36,9 +36,21 @@ only an appended slice and slots it into the cluster tables,
 carries the tables), ``rebuild_cluster`` is the lazy recluster, and
 ``pack_state`` is the only full pack (``pack_host_state`` its form for a
 host-resident index: the rows prepared on the compute device a chunk at
-a time, the state kept in host memory, pinned by ``pin_state``).  Unlike the reference's immutable
-arrays, ``update_rows`` and ``delete_rows`` write into the tensors in
-place.  ``PACK_EVENTS`` counts each kind of work by name.
+a time, the state kept in host memory, pinned by ``pin_state``).
+Unlike the reference's immutable arrays, ``update_rows`` and
+``delete_rows`` write into the tensors in place.  ``PACK_EVENTS`` counts
+each kind of work by name.
+
+A sharded index (``Index.shard``) holds a :class:`ShardedState`: one
+PackedState a database shard over ``n_local = n / shards`` rows, each on
+its shard's device in the layout of the index's backend before it was
+sharded (``"cuda"`` on a card by default: the kernels; on the CPU the
+``"cuda"`` layout runs their plain versions), its bins planned for the
+shard's rows with the recall accounted against the global N
+(:func:`shard_bins`, the reference's per-shard plan), so no bin or tile
+crosses a shard.  The cluster tables are global (user row ids) and
+replicated to each device that searches.  ``relayout("sharded", ...)``
+of either state builds one.
 """
 from __future__ import annotations
 
@@ -63,6 +75,7 @@ from repro_torch.search import telemetry
 __all__ = [
     "PACK_EVENTS",
     "PackedState",
+    "ShardedState",
     "fuse_bias",
     "pack_host_state",
     "pack_state",
@@ -71,6 +84,7 @@ __all__ = [
     "reset_pack_events",
     "restore_state",
     "scan_k_for",
+    "shard_bins",
     "snapshot_state",
     "state_from_arrays",
 ]
@@ -184,6 +198,13 @@ class PackedState:
         """The per-row scale without layout padding: (n,) or None."""
         return None if self.scale is None else self._flat(self.scale)[: self.n]
 
+    def rescore_tail(self):
+        """``(rescore_db, rescore_bias)`` without layout padding, or
+        ``(None, None)``."""
+        if self.rescore_db is None:
+            return None, None
+        return self.rescore_db[: self.n], self.rescore_bias[: self.n]
+
     def exact_rows_bias(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-precision prepared rows and fused bias, (n, d) / (n,): the
         f32 tier's own rows, a quantized tier's rescore tail, or (rescore
@@ -252,31 +273,242 @@ class PackedState:
             self.rescore_bias[ids] = MASK_VALUE
         PACK_EVENTS.inc("bias_patched")
 
-    def relayout(self, backend: str, new_n: int, spec: SearchSpec) -> "PackedState":
+    def relayout(self, backend: str, new_n: int, spec: SearchSpec, *,
+                 grid=None, k_scan: Optional[int] = None):
         """Copy into a new capacity and/or backend, reusing prepared rows.
 
         The grown region is dead (bias ``MASK_VALUE``, scale 0) until
         ``update_rows`` writes it; the bin plan is re-derived for
         ``new_n``.  The cluster tables hold user row ids, which a relayout
-        never renumbers: they are carried as they are.
+        never renumbers: they are carried as they are.  ``"sharded"``
+        returns a :class:`ShardedState` over the devices of ``grid``
+        (``Mesh.device_grid``), its bins planned for ``k_scan``, each
+        shard in this state's layout.
         """
-        rows, bias, scale = self.rows(), self.bias_row(), self.scale_row()
-        rescore_db, rescore_bias = self.rescore_db, self.rescore_bias
-        if new_n > self.n:
-            grow = new_n - self.n
-            rows = F.pad(rows, (0, 0, 0, grow))
-            bias = F.pad(bias, (0, grow), value=MASK_VALUE)
-            if scale is not None:
-                scale = F.pad(scale, (0, grow))
-            if rescore_db is not None:
-                rescore_db = F.pad(rescore_db, (0, 0, 0, grow))
-                rescore_bias = F.pad(rescore_bias, (0, grow), value=MASK_VALUE)
+        if backend == "sharded":
+            return ShardedState.split(self, grid, new_n, spec, k_scan,
+                                      self.backend)
+        rows, bias, scale, rescore_db, rescore_bias = _grown(self, new_n)
         PACK_EVENTS.inc("relayout")
         out = _layout(backend, rows, bias, new_n, self.d, spec, scale=scale,
                       rescore_db=rescore_db, rescore_bias=rescore_bias,
                       compute_dtype=self.compute_dtype)
         out.cluster = self.cluster
         return out
+
+
+def _grown(state, new_n: int):
+    """A state's logical (rows, bias, scale, rescore_db, rescore_bias),
+    padded with dead rows to ``new_n``."""
+    rows, bias, scale = state.rows(), state.bias_row(), state.scale_row()
+    rescore_db, rescore_bias = state.rescore_tail()
+    if new_n > state.n:
+        grow = new_n - state.n
+        rows = F.pad(rows, (0, 0, 0, grow))
+        bias = F.pad(bias, (0, grow), value=MASK_VALUE)
+        if scale is not None:
+            scale = F.pad(scale, (0, grow))
+        if rescore_db is not None:
+            rescore_db = F.pad(rescore_db, (0, 0, 0, grow))
+            rescore_bias = F.pad(rescore_bias, (0, grow), value=MASK_VALUE)
+    return rows, bias, scale, rescore_db, rescore_bias
+
+
+def shard_bins(n_local: int, k_scan: int, recall_target: float,
+               global_n: int) -> BinPlan:
+    """One shard's bin plan (the reference's sharded search): the shard's
+    rows, ``min(k_scan, n_local)``, recall accounted against the global
+    N."""
+    return plan_bins(n_local, min(k_scan, n_local), recall_target,
+                     reduction_input_size_override=global_n)
+
+
+@dataclasses.dataclass
+class ShardedState:
+    """The packed state of a sharded index: one :class:`PackedState` a
+    database shard (``shards[j]`` over rows ``[j * n_local, (j + 1) *
+    n_local)`` on ``grid[0][j]``), the global cluster tables, and the
+    layout the reference's ``"sharded"`` state reports (``plan`` over the
+    global N, ``block_n`` 0).
+
+    ``k_scan`` is what each shard's bins are planned for
+    (:func:`shard_bins`); ``layout`` is every shard's (``"torch"`` or
+    ``"cuda"``).  ``grid`` is the mesh's ``[batch group][shard]``
+    devices; :meth:`replica` gives shard ``j`` on group ``g``'s device
+    (the shard itself where that is its device, else a copy made at the
+    first search after a mutation).
+    """
+
+    shards: list
+    grid: list
+    n: int
+    d: int
+    plan: BinPlan
+    storage: str
+    compute_dtype: str
+    k_scan: int
+    layout: str
+    cluster: Optional[clusterlib.ClusterState] = None
+    cluster_rejected_miss: Optional[float] = None
+    backend: str = "sharded"
+    block_n: int = 0
+    _copies: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @classmethod
+    def split(cls, state, grid, new_n: int, spec: SearchSpec,
+              k_scan: int, layout: str) -> "ShardedState":
+        """Lay ``state`` (either kind) out as ``layout`` shards over
+        ``grid``'s database shards, padded with dead rows to ``new_n`` (a
+        multiple of the shard count); no row is prepared again."""
+        count = len(grid[0])
+        if new_n % count:
+            raise ValueError(f"{new_n} rows do not split into {count} shards")
+        rows, bias, scale, rescore_db, rescore_bias = _grown(state, new_n)
+        n_local = new_n // count
+        bins = shard_bins(n_local, k_scan, spec.recall_target, new_n)
+        shards = []
+        for j, dev in enumerate(grid[0]):
+            part = slice(j * n_local, (j + 1) * n_local)
+
+            def on(t):
+                return None if t is None else t[part].to(dev)
+            shards.append(_layout(
+                layout, on(rows), on(bias), n_local, state.d,
+                spec, scale=on(scale), rescore_db=on(rescore_db),
+                rescore_bias=on(rescore_bias),
+                compute_dtype=state.compute_dtype, bins=bins))
+        PACK_EVENTS.inc("relayout")
+        return cls(
+            shards=shards, grid=grid, n=new_n, d=state.d,
+            plan=plan_bins(new_n, scan_k_for(spec, new_n), spec.recall_target,
+                           reduction_input_size_override=
+                           spec.reduction_input_size_override),
+            storage=state.storage, compute_dtype=state.compute_dtype,
+            k_scan=k_scan, layout=layout, cluster=state.cluster,
+            cluster_rejected_miss=state.cluster_rejected_miss)
+
+    @property
+    def n_local(self) -> int:
+        return self.n // len(self.shards)
+
+    @property
+    def bin_size(self) -> int:
+        return self.plan.bin_size
+
+    @property
+    def device(self) -> torch.device:
+        """The controller's device: where results are gathered."""
+        return self.grid[0][0]
+
+    @property
+    def int4_packed(self) -> bool:
+        return False  # the logical arrays hold one code a byte
+
+    def _cat(self, part) -> Optional[torch.Tensor]:
+        pieces = [part(s) for s in self.shards]
+        if pieces[0] is None:
+            return None
+        return torch.cat([p.to(self.device) for p in pieces])
+
+    def rows(self) -> torch.Tensor:
+        return self._cat(PackedState.rows)
+
+    def bias_row(self) -> torch.Tensor:
+        return self._cat(PackedState.bias_row)
+
+    def scale_row(self) -> Optional[torch.Tensor]:
+        return self._cat(PackedState.scale_row)
+
+    def rescore_tail(self):
+        return (self._cat(lambda s: s.rescore_tail()[0]),
+                self._cat(lambda s: s.rescore_tail()[1]))
+
+    def exact_rows_bias(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (self._cat(lambda s: s.exact_rows_bias()[0]),
+                self._cat(lambda s: s.exact_rows_bias()[1]))
+
+    def operands(self) -> Tuple[Optional[torch.Tensor], ...]:
+        """Every shard's operands, then the cluster tables."""
+        ops = tuple(t for s in self.shards for t in s.operands())
+        return ops + (self.cluster.operands() if self.cluster else ())
+
+    def replica(self, g: int, j: int) -> PackedState:
+        """Shard ``j`` on the device of batch group ``g``."""
+        dev, shard = self.grid[g][j], self.shards[j]
+        if shard.db.device == dev:
+            return shard
+        key = (g, j)
+        if key not in self._copies:
+            moved = {name: getattr(shard, name).to(dev)
+                     for name in ("db", "bias", "scale", "rescore_db",
+                                  "rescore_bias")
+                     if getattr(shard, name) is not None}
+            self._copies[key] = dataclasses.replace(shard, **moved)
+        return self._copies[key]
+
+    def cluster_operands(self, device) -> tuple:
+        """The cluster tables on ``device`` (replicated: every shard ranks
+        the same centroids)."""
+        if self.cluster.centroids.device == device:
+            return self.cluster.operands()
+        key = ("cluster", id(self.cluster), str(device))
+        if key not in self._copies:
+            self._copies[key] = tuple(t.to(device)
+                                      for t in self.cluster.operands())
+        return self._copies[key]
+
+    def _touched(self) -> None:
+        self._copies.clear()  # copies are remade at the next search
+
+    def update_rows(self, start: int, rows: torch.Tensor, metric: Metric):
+        """Prepare an appended slice into the shards that own its rows
+        (``divmod(pos, n_local)``), then slot its exact rows into the
+        global cluster tables."""
+        n_local = self.n_local
+        stop = start + rows.shape[0]
+        for j in range(start // n_local, (stop - 1) // n_local + 1):
+            lo, hi = max(start, j * n_local), min(stop, (j + 1) * n_local)
+            shard = self.shards[j]
+            shard.update_rows(lo - j * n_local,
+                              rows[lo - start : hi - start].to(shard.db.device),
+                              metric)
+        if self.cluster is not None:
+            exact = self._cat(lambda s: s.exact_rows_bias()[0])[start:stop]
+            clusterlib.assign_rows(self.cluster, exact, start)
+            PACK_EVENTS.inc("cluster_assigned")
+        self._touched()
+
+    def delete_rows(self, ids: torch.Tensor):
+        """Tombstone rows by global id, in the shards that own them."""
+        owner = torch.div(ids, self.n_local, rounding_mode="floor")
+        for j, shard in enumerate(self.shards):
+            local = ids[owner == j] - j * self.n_local
+            if local.numel():
+                shard.delete_rows(local.to(shard.db.device))
+        self._touched()
+
+    def relayout(self, backend: str, new_n: int, spec: SearchSpec, *,
+                 grid=None, k_scan: Optional[int] = None) -> "ShardedState":
+        """Growth: the shards re-split for ``new_n`` rows (a sharded state
+        stays sharded)."""
+        if backend != "sharded":
+            raise ValueError(f"a sharded state relays out as 'sharded', "
+                             f"not {backend!r}")
+        return ShardedState.split(self, grid or self.grid, new_n, spec,
+                                  self.k_scan if k_scan is None else k_scan,
+                                  self.layout)
+
+    def rebin(self, k_scan: int, spec: SearchSpec) -> "ShardedState":
+        """The state with its shards' bins planned for ``k_scan`` (a
+        re-split only where a shard's bin size changes)."""
+        bins = shard_bins(self.n_local, k_scan, spec.recall_target, self.n)
+        if all(s.bin_size == bins.bin_size for s in self.shards):
+            for s in self.shards:
+                s.plan = bins
+            self.k_scan = k_scan
+            return self
+        return ShardedState.split(self, self.grid, self.n, spec, k_scan,
+                                  self.layout)
 
 
 def scan_k_for(spec: SearchSpec, n: int, live: Optional[int] = None) -> int:
@@ -309,11 +541,13 @@ def _layout(
     rescore_db: Optional[torch.Tensor] = None,
     rescore_bias: Optional[torch.Tensor] = None,
     compute_dtype: str = "float32",
+    bins: Optional[BinPlan] = None,
 ) -> PackedState:
     """Lay prepared (rows, bias, scale) out in the backend's shape (new
     tensors: the state never aliases the caller's rows).  The rescore tail
-    keeps its gather layout on every backend."""
-    plan = plan_bins(
+    keeps its gather layout on every backend.  ``bins`` overrides the bin
+    plan (a shard's, :func:`shard_bins`)."""
+    plan = bins or plan_bins(
         n, scan_k_for(spec, n), spec.recall_target,
         reduction_input_size_override=spec.reduction_input_size_override,
     )
@@ -501,7 +735,7 @@ def rebuild_cluster(state: PackedState, live: Optional[torch.Tensor],
 
 # The reference's names of the two layouts: "xla" is the port's "torch"
 # layout (rows, bias and scale unpadded), "pallas" the padded kernel layout.
-REFERENCE_LAYOUT = {"torch": "xla", "cuda": "pallas"}
+REFERENCE_LAYOUT = {"torch": "xla", "cuda": "pallas", "sharded": "sharded"}
 
 
 def snapshot_state(state: PackedState) -> Tuple[dict, dict]:
@@ -511,7 +745,18 @@ def snapshot_state(state: PackedState) -> Tuple[dict, dict]:
     restores it: the ``"torch"`` layout is the reference's ``"xla"`` one,
     and the ``"cuda"`` layout its ``"pallas"`` one, int4 re-padded to the
     reference's 256 lanes (the port's own is 128).  The bin plan is not
-    stored: a restore re-plans it and checks the recorded ``bin_size``."""
+    stored: a restore re-plans it and checks the recorded ``bin_size``.
+    A :class:`ShardedState` writes its full logical arrays under the
+    reference's ``"sharded"`` layout (unpadded, one int4 code a byte)."""
+    if isinstance(state, ShardedState):
+        arrays = {"packed/db": state.rows(), "packed/bias": state.bias_row()}
+        if state.scale_row() is not None:
+            arrays["packed/scale"] = state.scale_row()
+        rescore_db, rescore_bias = state.rescore_tail()
+        if rescore_db is not None:
+            arrays["packed/rescore_db"] = rescore_db
+            arrays["packed/rescore_bias"] = rescore_bias
+        return arrays, _snapshot_meta(state, arrays)
     db = state.db
     if state.int4_packed:
         codes = quant.unpack_int4_rows(db)
@@ -523,6 +768,10 @@ def snapshot_state(state: PackedState) -> Tuple[dict, dict]:
     if state.rescore_db is not None:
         arrays["packed/rescore_db"] = state.rescore_db
         arrays["packed/rescore_bias"] = state.rescore_bias
+    return arrays, _snapshot_meta(state, arrays)
+
+
+def _snapshot_meta(state, arrays: dict) -> dict:
     meta = {
         "backend": REFERENCE_LAYOUT[state.backend],
         "n": state.n,
@@ -538,7 +787,7 @@ def snapshot_state(state: PackedState) -> Tuple[dict, dict]:
         cl_arrays, cl_meta = clusterlib.snapshot_tables(state.cluster)
         arrays.update(cl_arrays)
         meta["cluster"] = cl_meta
-    return arrays, meta
+    return meta
 
 
 def _tensor(a, device) -> torch.Tensor:

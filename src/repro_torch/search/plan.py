@@ -70,6 +70,7 @@ __all__ = [
     "PlanCache",
     "SEGMENT_ALIGN",
     "detect_device",
+    "hlo_check",
     "plan_buckets",
     "plan_clusters",
     "plan_search",
@@ -190,6 +191,12 @@ class Plan:
     price); ``cluster_veto`` is that price where the plan was dropped,
     else None.
 
+    Sharded (``backend="sharded"``, the reference's fields):
+    ``db_shards``, the database shard count; the scan is priced for one
+    shard's rows (the shards run at once), and ``ici_bytes``/``ici_s``
+    price the one gather of the shards' (f32 value, int32 id) winners at
+    the profile's ``ici_bandwidth``; both 0 with one shard.
+
     Host tier (``residency="host"``, the reference's fields): the
     segment-wave schedule — ``segment_rows`` a wave, ``num_segments``
     waves a search, two segments on the device at once inside
@@ -237,6 +244,9 @@ class Plan:
     k_scan: int = 0
     cluster: Optional[clusterlib.ClusterPlan] = None
     cluster_price: Optional[Tuple[float, float]] = None
+    db_shards: int = 1
+    ici_bytes: float = 0.0
+    ici_s: float = 0.0
     residency: str = "hbm"
     segment_rows: int = 0
     num_segments: int = 0
@@ -471,12 +481,16 @@ def plan_buckets(
     return tuple(out)
 
 
-def _plan_query_block(n: int) -> int:
+def _plan_query_block(n: int, backend: str = "torch") -> int:
     """Rows a plain path scores at a time: the largest power of two (at
     least 8, at most ``DEFAULT_QUERY_BLOCK``) whose (rows, N) f32 score
     tile fits ``SCORE_TILE_BUDGET`` (the reference's rule for its XLA
     path).  Both port backends run plain paths on the CPU; the CUDA
-    kernels take any M in one call and ignore it."""
+    kernels take any M in one call and ignore it.  The sharded backend
+    keeps the default, as the reference's does: its tile is (rows,
+    N / shards) a shard, and the shard count is not known here."""
+    if backend == "sharded":
+        return DEFAULT_QUERY_BLOCK
     qb = SCORE_TILE_BUDGET // max(1, 4 * n)
     if qb >= DEFAULT_QUERY_BLOCK:
         return DEFAULT_QUERY_BLOCK
@@ -544,6 +558,7 @@ def plan_search(
     rescore: Optional[bool] = None,
     cluster: str = "off",
     cluster_veto: Optional[bool] = None,
+    db_shards: int = 1,
     residency: str = "hbm",
     segment_rows: Optional[int] = None,
     hbm_budget_bytes: Optional[float] = None,
@@ -570,6 +585,14 @@ def plan_search(
     wave), and its segments are sized for its rows as the kernels hold
     them (``d_pad`` lanes).
 
+    ``backend="sharded"`` with ``db_shards`` > 1 prices one shard's scan
+    over ``ceil(n / db_shards)`` rows, its bins laid against the global
+    N, plus the gather of the shards' winners (``ici_bytes``, ``ici_s``):
+    as the reference prices it (the plain shard's unfused scan, its L bin
+    winners gathered, k_scan with a rescore) on every profile but
+    ``"h100"``, where each shard runs the port's CUDA scan and sends its
+    top-``k_scan``.
+
     >>> v = plan_search(n=1_000_000, d=128, k=10, metric="l2",
     ...                 backend="cuda", device="h100", cluster="auto")
     >>> v.cluster.enabled, v.m, v.query_block, v.cluster_veto is not None
@@ -586,8 +609,13 @@ def plan_search(
         raise ValueError(f"need positive n, d; got n={n}, d={d}")
     if k > n:
         raise ValueError(f"k={k} exceeds database size n={n}")
-    if backend not in ("torch", "cuda"):
-        raise ValueError(f'backend must be "torch" or "cuda", got {backend!r}')
+    if backend not in ("torch", "cuda", "sharded"):
+        raise ValueError(
+            f'backend must be "torch", "cuda" or "sharded", got {backend!r}')
+    if db_shards < 1:
+        raise ValueError(f"db_shards must be >= 1, got {db_shards}")
+    if residency == "host" and backend == "sharded":
+        raise ValueError('residency="host" cannot be sharded over a mesh')
     check_tiles(block_m, max_block_n)
     device = detect_device(device)
     hw = HARDWARE[device]
@@ -631,7 +659,7 @@ def plan_search(
     )
     # a host wave scores a (query_block, segment_rows) tile
     qb = query_block or _plan_query_block(
-        seg_rows if residency == "host" else n)
+        seg_rows if residency == "host" else n, backend)
     m_eff = m if m else qb
     expected = bins.expected_recall
     extra = (_rescore_cost(m_eff, bins.num_bins, ks, d) if rescore_on
@@ -642,10 +670,18 @@ def plan_search(
                           hbm_bytes=c.hbm_bytes + extra.hbm_bytes,
                           cops=c.cops + extra.cops)
 
-    if backend == "cuda":
-        cost = _cuda_cost(m_eff, n, d, bins.bin_size, ks, storage, dbytes)
+    n_scan, scan_bins = n, bins
+    if backend == "sharded" and db_shards > 1:
+        # the shards run at once: the wall is one shard's scan
+        n_scan = -(-n // db_shards)
+        scan_bins = plan_bins(n_scan, min(ks, n_scan), recall_target,
+                              reduction_input_size_override=n)
+    if backend == "cuda" or (backend == "sharded" and device == "h100"):
+        cost = _cuda_cost(m_eff, n_scan, d, scan_bins.bin_size, ks, storage,
+                          dbytes)
     else:
-        cost = _dense_cost(m_eff, n, d, bins.num_bins, dbytes, sbytes)
+        cost = _dense_cost(m_eff, n_scan, d, scan_bins.num_bins, dbytes,
+                           sbytes)
     price, drop = None, False
     if cplan is not None and cplan.enabled:
         # the pruned gathered program replaces the scan on every backend
@@ -666,6 +702,14 @@ def plan_search(
     cost = with_rescore(cost)
     att = attainable_flops(cost, hw)
     predicted_s = cost.flops / att
+    ici_bytes = ici_s = 0.0
+    if backend == "sharded" and db_shards > 1:
+        # the one cross-device transfer: each shard's (f32 value, int32
+        # global id) winners, 8 bytes each
+        cand = ks if rescore_on or device == "h100" else scan_bins.num_bins
+        ici_bytes = 8.0 * m_eff * cand * db_shards
+        ici_s = ici_bytes / hw.ici_bandwidth
+        predicted_s = predicted_s + ici_s
     pinned = all(v is not None for v in (block_m, max_block_n, query_block))
     return Plan(
         m=m or 0, n=n, d=d, k=k, metric=metric, dtype=dtype_name,
@@ -681,7 +725,8 @@ def plan_search(
         source="user" if pinned else "model",
         reduction_input_size_override=reduction_input_size_override,
         storage=storage, rescore=rescore_on, k_scan=ks, cluster=cplan,
-        cluster_price=price, residency=residency,
+        cluster_price=price, db_shards=db_shards, ici_bytes=ici_bytes,
+        ici_s=ici_s, residency=residency,
         segment_rows=seg_rows, num_segments=num_segs, hbm_budget_bytes=budget,
     )
 
@@ -734,6 +779,7 @@ def _with_measured_tiles(plan: Plan, bm: int, bn: int, qb: int) -> Plan:
         storage=plan.storage, rescore=plan.rescore,
         cluster="auto" if plan.cluster is not None else "off",
         cluster_veto=plan.cluster_veto is not None,
+        db_shards=plan.db_shards,
         residency=plan.residency, segment_rows=plan.segment_rows or None,
         hbm_budget_bytes=plan.hbm_budget_bytes or None,
     )
@@ -778,6 +824,8 @@ class PlanCache:
         if plan.cluster is not None and plan.cluster.enabled:
             # the pruned gathered program times nothing like the full scan
             base += "/cl"
+        if plan.db_shards > 1:
+            base += f"/sh{plan.db_shards}"
         if plan.residency != "hbm":
             # nor do the segment waves, which stream the rows each search
             base += f"/host{plan.segment_rows}"
@@ -887,3 +935,48 @@ def tune_plan(
         "wall_s": best_wall, "source": "measure",
     }, spec, card)
     return _with_measured_tiles(plan, *best)
+
+
+# --- the FLOP cross-check (the reference's HLO self-audit) -------------------
+
+
+def split_passes(plan: Plan) -> int:
+    """The tensor-core passes the plan charges a CUDA scan (the exact
+    bf16 split, :data:`_SPLIT_PASSES`; one with bf16 queries), 1 for a
+    plain path."""
+    cuda = plan.backend == "cuda" or (plan.backend == "sharded"
+                                      and plan.device == "h100")
+    if not cuda:
+        return 1
+    dbytes = _dtype_bytes(plan.dtype)
+    if dbytes == 2:
+        return 1
+    return _SPLIT_PASSES["f32" if plan.storage == "f32" else plan.storage]
+
+
+def hlo_check(plan: Plan, cost) -> dict:
+    """The plan's analytic cost beside the ops a search runs.
+
+    ``cost`` is ``repro_torch.analysis.op_cost.search_cost`` of the index
+    at the plan's batch: the dot FLOPs, byte and COP counts of its plain
+    search path, counted without running it.  The reference's keys
+    (``flops_ratio``: the counted dot FLOPs over the model's), and
+    ``split_passes``: the model charges the CUDA scan the passes of its
+    exact bf16 split where the kernel's plain version does one product,
+    so the ratio counts the scan's FLOPs that many times (the plan's
+    scan divided by its passes, against the plain version).  Bytes and
+    COPs are op-granularity estimates on both sides, so only reported.
+    """
+    passes = split_passes(plan)
+    counted = cost.dot_flops + (passes - 1) * cost.kernel_dot_flops
+    return {
+        "model_flops": plan.flops,
+        "hlo_dot_flops": cost.dot_flops,
+        "flops_ratio": counted / max(plan.flops, 1e-30),
+        "split_passes": passes,
+        "model_hbm_bytes": plan.hbm_bytes,
+        "hlo_hbm_bytes": cost.hbm_bytes,
+        "hlo_hbm_bytes_bounds": (cost.hbm_bytes_lo, cost.hbm_bytes_hi),
+        "model_cops": plan.cops,
+        "hlo_cop_count": cost.cop_count,
+    }

@@ -30,7 +30,10 @@ The GPU form, for an index on a CUDA device:
     A clustered index is captured like any other: its pruned path holds
     no host sync.  A host-resident index (``residency="host"``) is served
     eagerly, never captured: each batch restreams the database through
-    its waves, and the copies are what a graph would hide.
+    its waves, and the copies are what a graph would hide.  So is a
+    sharded index (``Index.shard``): its search launches on each shard's
+    device and gathers to the first, which one graph of one device does
+    not hold.
   * **Staging.**  Each bucket owns two slots, each a pinned host buffer of
     queries in the compute dtype (numpy has no bf16) and pinned result
     buffers; a batch takes the slot the batch still in flight does not
@@ -428,8 +431,10 @@ class SearchServer:
                 "raw unsorted bin winners"
             )
         self._cuda = index.device.type == "cuda"
-        # a host index streams its waves eagerly (no graph per bucket)
-        self._graphs = self._cuda and spec.residency != "host"
+        # a host index streams its waves eagerly, a sharded one runs on
+        # the mesh's devices: no graph per bucket
+        self._graphs = (self._cuda and spec.residency != "host"
+                        and index.mesh is None)
         qb = spec.query_block or 4096
         widened = (self._cuda and index._resolve_backend() == "cuda"
                    and qb < kernels.BLOCK_M)

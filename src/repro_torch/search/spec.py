@@ -9,8 +9,12 @@ reference's; the backends are the port's own:
     (``repro_torch.kernels.partial_reduce``; the reference's
     ``"pallas"``).  On a CPU tensor the kernels' front ends run their
     plain PyTorch versions, which is how the CPU tests drive this path;
-  * ``"auto"``  — ``"cuda"`` for an index on a CUDA device, else
-    ``"torch"``.
+  * ``"sharded"`` — the database rows split over a mesh of torch
+    devices (``repro_torch.parallel.mesh``), each shard searched on its
+    own device with that device's path, the winners merged on the first
+    (the reference's ``"sharded"``, paper §7);
+  * ``"auto"``  — ``"sharded"`` for an index with a mesh attached, else
+    ``"cuda"`` for an index on a CUDA device, else ``"torch"``.
 
 Fields the reference has but the port does not serve yet raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
@@ -28,7 +32,7 @@ from repro_torch.search import quant
 
 __all__ = ["BACKENDS", "DTYPES", "SearchSpec", "check_tiles"]
 
-BACKENDS = ("auto", "torch", "cuda")
+BACKENDS = ("auto", "torch", "cuda", "sharded")
 
 # Compute dtypes the port runs (None: the database's own, float32).
 DTYPES = (None, "float32", "bfloat16")
@@ -77,9 +81,12 @@ class SearchSpec:
       query_block: rows per block when a search streams queries.  Only the
         plain paths stream (to bound their (query_block, N) score tile);
         the CUDA kernels take any M in one call.
-      stream: only True (the port's one executor).  False, the
-        reference's per-block dispatch loop, raises until the benchmarks
-        that use it as a baseline are ported (ROADMAP queue A item 13).
+      stream: True (default): the CUDA kernels take a whole batch in one
+        call, the plain paths stream it in ``query_block`` blocks.  False
+        is the reference's per-block dispatch loop on every backend (one
+        search of each ``query_block`` rows, the card included): the
+        parity oracle and the dispatch baseline.  A host index streams
+        its waves over the whole batch either way.
       aggregate_to_topk: rescore to the top-k (True) or return the raw
         bin winners (False).
       use_bitonic: the rescore and merge stages sort with the paper's
@@ -165,10 +172,10 @@ class SearchSpec:
                 f'cluster must be "auto" or "off", got {self.cluster!r} — '
                 "cluster parameters are planner-derived, not user knobs"
             )
-        if not self.stream:
-            raise NotImplementedError(
-                "stream=False: the per-block dispatch loop is not ported "
-                "yet (ROADMAP queue A item 13); the port has one executor"
+        if self.residency == "host" and self.backend == "sharded":
+            raise ValueError(
+                'residency="host" streams database segments through one '
+                "device; it cannot be sharded over a mesh"
             )
         if self.serve_buckets is not None:
             buckets = tuple(int(b) for b in self.serve_buckets)
@@ -246,6 +253,9 @@ class SearchSpec:
             or self.max_block_n is None
             or self.query_block is None
         )
+
+    def with_backend(self, backend: str) -> "SearchSpec":
+        return dataclasses.replace(self, backend=backend)
 
     # -- snapshot (de)serialization ------------------------------------------
 

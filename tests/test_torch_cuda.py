@@ -1289,3 +1289,98 @@ def test_whisper_decode_on_card_matches_cpu(cuda_device):
         lb, caches[1] = tfm.forward_decode(card, tok.to(cuda_device), caches[1], t,
                                            cross_kv=b[2])
         assert (la - lb.cpu()).abs().max() <= 1e-4 * la.abs().max()
+
+
+# --- sharding over a mesh of logical shards, stream=False, validate_hlo --------
+
+
+def _logical_mesh(shape=(4,), names=("model",)):
+    from repro_torch.parallel import make_mesh
+
+    return make_mesh(shape, names, devices=["cuda:0"] * int(np.prod(shape)))
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8", "int4"])
+def test_sharded_on_card_equals_per_shard_composition(cuda_device, storage):
+    """Four logical shards on the card: 2 launches a shard and no plain
+    call, bit for bit the one-device search of each shard's rows (recall
+    accounted against the global N), offset, then ``merge_topk``."""
+    from repro_torch.search import merge_topk
+
+    rng = np.random.default_rng(4)
+    n, d, k = 40_000, 128, 10
+    db = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda()
+    q = torch.from_numpy(rng.standard_normal((100, d), dtype=np.float32)).cuda()
+    ix = Index.build(db, metric="l2", k=k, storage=storage, cluster="off")
+    sh = ix.shard(_logical_mesh())
+    sh.search(q)  # builds the kernels
+    torch.cuda.synchronize()
+    prk.reset_counts()
+    v, i = sh.search(q)
+    torch.cuda.synchronize()
+    assert sum(prk.LAUNCHES.values()) == 8 and not prk.PLAIN_CALLS
+    n_local, parts_v, parts_i = n // 4, [], []
+    for j in range(4):
+        part = Index.build(db[j * n_local:(j + 1) * n_local], metric="l2",
+                           k=k, storage=storage, cluster="off",
+                           reduction_input_size_override=n)
+        pv, pi = part.search(q)
+        parts_v.append(-pv)
+        parts_i.append(torch.where(pi >= 0, pi + j * n_local, pi).int())
+    mv, mi = merge_topk(torch.cat(parts_v, 1), torch.cat(parts_i, 1), k)
+    assert torch.equal(-mv, v) and torch.equal(mi, i)
+
+
+@pytest.mark.parametrize("storage", ["f32", "int8"])
+def test_stream_false_on_card_bit_equal_to_one_call(cuda_device, storage):
+    rng = np.random.default_rng(6)
+    db = torch.from_numpy(rng.standard_normal((50_000, 128), dtype=np.float32))
+    q = torch.from_numpy(rng.standard_normal((300, 128), dtype=np.float32))
+    kw = dict(metric="l2", k=10, storage=storage, cluster="off",
+              query_block=64)
+    one = Index.build(db.cuda(), **kw)
+    loop = Index.build(db.cuda(), stream=False, **kw)
+    want = one.search(q.cuda())
+    from repro_torch.search import DISPATCH_COUNTS
+
+    DISPATCH_COUNTS.clear()
+    prk.reset_counts()
+    got = loop.search(q.cuda())
+    torch.cuda.synchronize()
+    assert dict(DISPATCH_COUNTS) == {"cuda": 5}
+    assert sum(prk.LAUNCHES.values()) == 10 and not prk.PLAIN_CALLS
+    assert torch.equal(got.values, want.values)
+    assert torch.equal(got.indices, want.indices)
+
+
+@pytest.mark.parametrize("m", [16, 10_000])
+def test_validate_hlo_on_card_within_one_percent(cuda_device, m):
+    db = torch.randn(100_000, 128, device="cuda")
+    ix = Index.build(db, metric="l2", k=10, cluster="off")
+    prk.reset_counts()
+    hlo = ix.explain(m=m, validate_hlo=True)["hlo"]
+    assert abs(hlo["flops_ratio"] - 1.0) < 0.01 and hlo["split_passes"] == 6
+    assert not prk.LAUNCHES and not prk.PLAIN_CALLS  # counted, not run
+
+
+def test_sharded_index_refuses_search_graph(cuda_device):
+    sh = Index.build(torch.randn(4096, 64, device="cuda"), k=5,
+                     cluster="off").shard(_logical_mesh())
+    with pytest.raises(RuntimeError, match="eagerly"):
+        sh.search_graph(16)
+
+
+def test_sharded_index_served_eagerly_equals_direct(cuda_device):
+    from repro_torch.search import SearchServer, ServeConfig, VirtualClock
+
+    db = torch.randn(8192, 128, device="cuda")
+    sh = Index.build(db, k=10, cluster="off").shard(_logical_mesh())
+    server = SearchServer(sh, ServeConfig(max_batch=64),
+                          clock=VirtualClock(), warmup=True)
+    reqs = _requests(4, 6, d=128)
+    tickets = [server.submit(q, k=k) for q, k in reqs]
+    server.run_until_idle()
+    for (q, k), t in zip(reqs, tickets):
+        _bits_equal_direct(sh, q, k, t.result())
+    s = server.stats()
+    assert s["graph_replays"] == 0 and s["eager_batches"] == s["batches"]

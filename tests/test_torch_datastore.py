@@ -177,9 +177,21 @@ def test_knn_lm_logits_matches_reference():
 
 
 def test_mesh_raises_item_11():
-    keys, toks, _ = _data(8, n=64)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_ds.KNNDatastore(keys, toks, mesh=object(), device="cpu")
+    """Item 11 is ported: ``mesh=`` shards the datastore (here 2 logical
+    shards on the CPU); a lookup equals the unsharded one's."""
+    from repro_torch.parallel import make_mesh
+
+    keys, toks, q = _data(8, n=64)
+    mesh = make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2)
+    sharded = port_ds.KNNDatastore(keys, toks, mesh=mesh, k=4,
+                                   cluster="off", device="cpu")
+    plain = port_ds.KNNDatastore(keys, toks, k=4, cluster="off",
+                                 device="cpu")
+    assert sharded.index.mesh is mesh and sharded.mesh is mesh
+    assert sharded.index.kernel_plan.db_shards == 2
+    (sv, st), (pv, pt) = sharded.lookup(q), plain.lookup(q)
+    np.testing.assert_allclose(sv.numpy(), pv.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(st.numpy(), pt.numpy())
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine without a card")

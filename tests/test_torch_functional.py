@@ -137,10 +137,17 @@ def test_cuda_backend_on_cpu_is_the_plain_version_of_the_kernels():
 
 
 def test_mesh_and_sharded_raise_item_11():
+    """Item 11 is ported: ``mesh=`` searches the rows split over the
+    mesh's devices (4 logical shards on the CPU) and agrees with the
+    one-device search; ``backend="sharded"`` without a mesh raises."""
+    from repro_torch.parallel import make_mesh
+
     q, db = _data(9, n=64)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port.search(q, db, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    mesh = make_mesh((4,), ("model",), devices=["cpu"] * 4)
+    (sv, si), (pv, pi) = (port.search(q, db, k=4, mesh=mesh),
+                          port.search(q, db, k=4, device="cpu"))
+    assert_topk_close(pv.numpy(), pi.numpy(), sv.numpy(), si.numpy())
+    with pytest.raises(ValueError, match="requires a mesh"):
         port.search(q, db, backend="sharded", device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         port.search(q, db, backend="xla", device="cpu")

@@ -286,7 +286,9 @@ def test_knn_decode_attention_selection_and_masked_slots(live):
 
 
 def test_context_parallel_knn_attention_raises_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # the explicit-mesh form is ported (tests/test_torch_sharded.py); the
+    # public mesh= needs the logical-axis rules of item 13b
+    with pytest.raises(NotImplementedError, match="item 13b"):
         attn.knn_decode_attention(torch.zeros(1, 2, 4), torch.zeros(1, 8, 2, 4),
                                   torch.zeros(1, 8, 2, 4), torch.ones(8, dtype=bool),
                                   k=2, mesh=object())

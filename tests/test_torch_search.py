@@ -199,18 +199,24 @@ def test_build_needs_card_unless_cpu(monkeypatch):
 # cluster="auto" and serve_buckets are ported, so the first, third,
 # fourth and eighth cases pair them with a field that is still outside
 # it; the host tier is ported, so every case that named it pairs it with
-# stream=False).
+# stream=False; stream=False is ported too, so each case that named it
+# pairs it with a tile other than the kernels' fixed 128, the one spec
+# field still outside the port).
 @pytest.mark.parametrize("kw,match", [
-    (dict(storage="int8", cluster="auto", stream=False), "item 13"),
-    (dict(residency="host", stream=False), "item 13"),
+    (dict(storage="int8", cluster="auto", stream=False, max_block_n=256),
+     "fixed at 128x128"),
+    (dict(residency="host", stream=False, block_m=64), "fixed at 128x128"),
     (dict(dtype="bfloat16", serve_buckets=(8, 64), segment_rows=4096,
-          stream=False), "item 13"),
-    (dict(cluster="auto", residency="host", stream=False), "item 13"),
+          stream=False, max_block_n=512), "fixed at 128x128"),
+    (dict(cluster="auto", residency="host", stream=False, block_m=256),
+     "fixed at 128x128"),
     (dict(block_m=256), "fixed at 128x128"),
-    (dict(storage="int8", residency="host", stream=False), "item 13"),
-    (dict(stream=False), "item 13"),
-    (dict(serve_buckets=(8, 64), stream=False), "item 13"),
-    (dict(segment_rows=4096, stream=False), "item 13"),
+    (dict(storage="int8", residency="host", stream=False, max_block_n=64),
+     "fixed at 128x128"),
+    (dict(stream=False, block_m=32), "fixed at 128x128"),
+    (dict(serve_buckets=(8, 64), stream=False, max_block_n=1024),
+     "fixed at 128x128"),
+    (dict(segment_rows=4096, stream=False, block_m=512), "fixed at 128x128"),
 ], ids=["kw0-item 7", "kw1-item 10", "kw2-item 6", "kw3-item 7",
         "kw4-item 5", "kw5-item 5", "kw6-item 13", "kw7-item 8",
         "kw8-item 10"])
@@ -250,11 +256,6 @@ def test_imports_neither_jax_nor_repro():
 # What repro.search exports that repro_torch.search does not, and why
 # (ROADMAP queue A items and the divergences list).
 NOT_EXPORTED = {
-    # item 11: multi-device sharding
-    "make_sharded_search_fn": "item 11", "normalize_db_axes": "item 11",
-    "db_shard_count": "item 11",
-    # item 13a: the compiled program's FLOP count
-    "hlo_check": "item 13a",
     # renamed backends: "pallas" is the port's "cuda", a compiled program
     # its CUDA graph (GraphCache), a trace its kernels' launch counts
     "pallas_search": "divergence: cuda_search",
