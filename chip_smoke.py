@@ -165,7 +165,22 @@ run in order and the first failure exits non-zero:
      shard's shape; a ``KNNDatastore`` of 2^19 x 2048 keys over 2
      logical shards (recall, a served lookup bit-equal to a direct one);
      ``_knn_decode_attention_cp`` over 4 shards at internlm2-1.8b's
-     decode shape (batch 8, S=2,048) against the unsharded attention.
+     decode shape (batch 8, S=2,048) against the unsharded attention;
+     ``explain(measure=True)`` on the 4 logical shards reports (f32) a
+     ``roofline_fraction`` within 20% of the unsharded index's (C7);
+ 19. training: the kNN workload registry at full N (``make_vector_
+     dataset`` for Sift1M and Glove1.2M, ``Index.build(..., cluster=
+     "off")`` with the registry plan's bins and ``k_scan``, a search at
+     M=10,000 at E[recall] - eps, the fused scan and the merge launched,
+     no plain version); each of the ten smoke configs trained 5 steps at
+     lr 3e-3 (finite, the loss falling, the first step's loss and
+     grad_norm within 1e-4 and 1e-3 relative of a CPU step's on the same
+     weights and batch, an ``AsyncCheckpointer`` checkpoint restored
+     onto the card bit for bit); internlm2-1.8b at
+     full width (f32 masters, bf16 compute, ``remat="dots"``, batch 4 x
+     2,048): a step's ms and tokens/s beside its ``model_flops`` bound,
+     its peak memory beside the state's 16 bytes a parameter, and the
+     lower peak of ``microbatches=2``.
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
@@ -2809,6 +2824,16 @@ def phase_shards(prk, testing, data, out, smi, results):
         if not r2 >= floor2 or sh.size != n + 10_000 - 50_000:
             fail(f"sharded {storage} after updates: recall {r2} < {floor2} or "
                  f"size {sh.size}")
+        # C7: the h100 plan of shards that share the card prices them one
+        # after another, so the share of the bound reached is the
+        # unsharded index's within 20%
+        fractions = [ix.explain(m=q.shape[0], measure=True)["measured"][
+            "roofline_fraction"] for ix in (sh, base)]
+        fraction_ratio = fractions[0] / fractions[1]
+        if storage == "f32" and not 0.8 <= fraction_ratio <= 1.2:
+            fail(f"sharded {storage}: explain(measure=True) roofline_fraction "
+                 f"{fractions[0]:.4f} not within 20% of the unsharded "
+                 f"{fractions[1]:.4f}")
         plan = sh._replan(n=sh.capacity, m=q.shape[0], pin_from=sh.kernel_plan)
         base_plan = base._replan(n=base.capacity, m=q.shape[0],
                                  pin_from=base.kernel_plan)
@@ -2822,15 +2847,20 @@ def phase_shards(prk, testing, data, out, smi, results):
             f"{t['unsharded_ms']:.3f} ms; M=16 {t['sharded_m16_ms']:.3f} vs "
             f"{t['unsharded_m16_ms']:.3f} ms (queued {t['sharded_m16_queued_ms']:.3f}"
             f" vs {t['unsharded_m16_queued_ms']:.3f}); plan: {plan.db_shards} "
-            f"shards, predicted {1e3 * plan.predicted_s:.3f} ms of which gather "
-            f"{1e3 * plan.ici_s:.5f} ms at M={q.shape[0]} (unsharded "
-            f"{1e3 * base_plan.predicted_s:.3f} ms); on {smi}")
+            f"shards ({plan.shards_per_device} on the busiest device, "
+            f"{plan.db_devices} device), predicted {1e3 * plan.predicted_s:.3f} "
+            f"ms of which gather {1e3 * plan.ici_s:.5f} ms at M={q.shape[0]} "
+            f"(unsharded {1e3 * base_plan.predicted_s:.3f} ms); explain("
+            f"measure=True) roofline_fraction sharded {fractions[0]:.4f}, "
+            f"unsharded {fractions[1]:.4f} (ratio {fraction_ratio:.4f}); on {smi}")
         out[f"sharded {storage}"] = dict(
             recall=r, recall_after_updates=r2, expected_recall=sh.expected_recall,
             capacity_after=sh.capacity, shard_bin_size=pk.shards[0].bin_size,
             k_scan=sh.k_scan, batch_axis_equal=batch_equal, launches=counts,
             predicted_ms=1e3 * plan.predicted_s, ici_ms=1e3 * plan.ici_s,
-            unsharded_predicted_ms=1e3 * base_plan.predicted_s, **t)
+            unsharded_predicted_ms=1e3 * base_plan.predicted_s,
+            roofline_fraction=fractions[0],
+            unsharded_roofline_fraction=fractions[1], **t)
         del base, sh, pk
         torch.cuda.empty_cache()
     return kernels
@@ -2951,6 +2981,275 @@ def phase_sharding(prk, testing, seed, results, smi):
     out["seconds"] = time.perf_counter() - t0
     log(f"[phase 18] {out['seconds']:.1f} s")
     return out, kernels
+
+
+# --- phase 19: training -------------------------------------------------------
+
+TRAIN_LR = 3e-3  # phase 19b's steps, as the reference's loss-decrease test
+# phase 19b: the card's first-step loss and grad_norm against the CPU's,
+# relative; the largest spreads measured over the ten smoke configs were
+# 1.64e-5 and 2.56e-4 (H100 80GB HBM3, 700 W)
+TRAIN_PARITY_RTOL = {"loss": 1e-4, "grad_norm": 1e-3}
+FULL_TRAIN = dict(arch="internlm2-1.8b", batch=4, seq=2048)
+
+
+def phase_registry(prk, seed, results, smi):
+    """Phase 19a: the kNN workload registry at full N.  Each workload's
+    vectors from ``make_vector_dataset`` (its corpus and its M queries
+    drawn as one set, so they share the clusters), ``Index.build(...,
+    cluster="off")`` on the card; the index's bins and ``k_scan`` equal
+    ``KNN_WORKLOADS[name].plan()``'s; a search at M=10,000 (the path's
+    counts from 0 just before it, read just after: the fused scan and
+    the merge, no plain version) at E[recall] - eps against the exact
+    oracle, and timed."""
+    from repro_torch.configs import KNN_WORKLOADS
+    from repro_torch.data.pipeline import make_vector_dataset
+    from repro_torch.search import Index
+
+    out = {}
+    for i, name in enumerate(("sift1m", "glove1.2m")):
+        kc = KNN_WORKLOADS[name]
+        t0 = time.perf_counter()
+        rows = make_vector_dataset(kc.n + kc.m, kc.d, seed=seed + i,
+                                   metric=kc.metric)
+        db = torch.from_numpy(rows[: kc.n]).cuda()
+        q = torch.from_numpy(rows[kc.n :]).cuda()
+        del rows
+        data_s = time.perf_counter() - t0
+        index = Index.build(db, metric=kc.metric, k=kc.k,
+                            recall_target=kc.recall_target, cluster="off")
+        plan, kp = kc.plan(), index.kernel_plan
+        got = (kp.num_bins, kp.bin_size, kp.k_scan, kp.device, kp.backend)
+        want = (plan.num_bins, plan.bin_size, plan.k_scan, plan.device,
+                plan.backend)
+        if got != want:
+            fail(f"registry {name}: the index's plan {got} is not the "
+                 f"registry's {want}")
+        index.search(q[:16])  # the kernels are built: launches only from here
+        torch.cuda.synchronize()
+        prk.reset_counts()
+        v, idx = index.search(q)
+        torch.cuda.synchronize()
+        read_counts(prk, f"phase 19 registry {name}", ("f32",), results,
+                    two_pass=False)
+        live = torch.ones(kc.n, dtype=torch.bool, device="cuda")
+        r = recall(idx, exact_topk(kc.metric, q, db, live, kc.k))
+        floor = index.expected_recall - hoeffding_eps(kc.m)
+        if not r >= floor:
+            fail(f"registry {name}: recall {r} < {floor}")
+        if not torch.isfinite(v).all() or tuple(v.shape) != (kc.m, kc.k):
+            fail(f"registry {name}: non-finite or misshapen values")
+        ms = cuda_ms(lambda: index.search(q), reps=3)
+        log(f"[registry {name}] N={kc.n} d={kc.d} {kc.metric}, "
+            f"make_vector_dataset {data_s:.1f} s; plan = registry's (bins "
+            f"{kp.num_bins} of {kp.bin_size}, k_scan {kp.k_scan}, predicted "
+            f"{1e3 * plan.predicted_s:.3f} ms at M={kc.m}); M={kc.m} recall "
+            f"{r:.4f} (floor {floor:.4f}), search {ms:.3f} ms; on {smi}")
+        out[name] = dict(n=kc.n, d=kc.d, metric=kc.metric, num_bins=kp.num_bins,
+                         bin_size=kp.bin_size, k_scan=kp.k_scan, recall=r,
+                         recall_floor=floor, search_ms=ms,
+                         predicted_ms=1e3 * plan.predicted_s,
+                         cops_per_dot=kc.cops_per_dot)
+        del index, db, q
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_smoke(seed, smi):
+    """Phase 19b: each of the ten smoke configs as shipped (bf16 compute,
+    f32 masters, ``remat="dots"``) trains 5 steps on the card at lr 3e-3
+    over ``SyntheticTokenSource`` batches of 4 x 64: loss and grad_norm
+    finite, the last loss below the first; the first step's loss and
+    grad_norm within ``TRAIN_PARITY_RTOL`` of the port's CPU step on the
+    same weights and batch; the state after the steps saved with
+    ``AsyncCheckpointer`` and restored onto the card bit for bit
+    (parameters, moments, step)."""
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
+    from repro_torch.configs import get_config, list_configs
+    from repro_torch.data.pipeline import SyntheticTokenSource
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import model as M
+
+    out = {}
+    dev = torch.device("cuda")
+    for name in sorted(n for n in list_configs() if n.endswith("-smoke")):
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        state = M.init_train_state(torch.Generator(device=dev).manual_seed(seed),
+                                   cfg, device=dev)
+        src = SyntheticTokenSource(
+            cfg.vocab_size, 64, 4, seed=seed,
+            input_mode=cfg.input_mode if not cfg.is_encoder_decoder else "tokens",
+            d_model=cfg.d_model,
+            enc_seq=cfg.encoder_seq if cfg.is_encoder_decoder else 0,
+            mrope=cfg.mrope)
+        step = M.make_train_step(cfg, learning_rate=TRAIN_LR)
+        cpu = M.init_train_state(torch.Generator().manual_seed(seed), cfg,
+                                 device="cpu")
+        cpu.params.load_state_dict({k: v.detach().cpu()
+                                    for k, v in state.params.state_dict().items()})
+        _, cpu_metrics = step(cpu, to_device(src.batch(0), torch.device("cpu")))
+        cpu_loss = float(cpu_metrics["loss"])
+        cpu_norm = float(cpu_metrics["grad_norm"])
+        del cpu
+        losses, norms = [], []
+        for i in range(5):
+            state, metrics = step(state, to_device(src.batch(i), dev))
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+        if not all(math.isfinite(x) for x in losses + norms):
+            fail(f"train {name}: non-finite loss or grad_norm {losses} {norms}")
+        if not losses[-1] < losses[0]:
+            fail(f"train {name}: the loss did not fall over 5 steps: {losses}")
+        rel = {"loss": abs(losses[0] - cpu_loss) / abs(cpu_loss),
+               "grad_norm": abs(norms[0] - cpu_norm) / abs(cpu_norm)}
+        for key, err in rel.items():
+            if not err <= TRAIN_PARITY_RTOL[key]:
+                fail(f"train {name}: the card's first-step {key} differs from "
+                     f"the CPU's by {err:.3e} relative (limit "
+                     f"{TRAIN_PARITY_RTOL[key]}): {losses[0]}/{norms[0]} against "
+                     f"{cpu_loss}/{cpu_norm}")
+        with tempfile.TemporaryDirectory() as d:
+            writer = AsyncCheckpointer(d)
+            writer.save(5, state)
+            writer.wait()
+            like = M.init_train_state(
+                torch.Generator(device=dev).manual_seed(seed + 1), cfg, device=dev)
+            restored, at = restore_checkpoint(d, like)
+        same = (at == 5 and int(restored.step) == int(state.step) == 5
+                and all(torch.equal(a, b) for a, b in zip(
+                    restored.params.parameters(), state.params.parameters()))
+                and all(torch.equal(restored.opt_state.m[k], state.opt_state.m[k])
+                        and torch.equal(restored.opt_state.v[k], state.opt_state.v[k])
+                        for k in state.opt_state.m))
+        if not same:
+            fail(f"train {name}: the checkpoint restored onto the card differs")
+        secs = time.perf_counter() - t0
+        log(f"[train {name}] losses {[round(x, 4) for x in losses]}, grad_norm "
+            f"{[round(x, 4) for x in norms]}, first step vs CPU: loss "
+            f"{losses[0]:.6f} / {cpu_loss:.6f} (rel {rel['loss']:.3e}), "
+            f"grad_norm {norms[0]:.6f} / {cpu_norm:.6f} (rel "
+            f"{rel['grad_norm']:.3e}), checkpoint restored bit-equal, "
+            f"{secs:.1f} s")
+        out[name] = dict(losses=losses, grad_norms=norms, cpu_loss=cpu_loss,
+                         cpu_grad_norm=cpu_norm, rel_err=rel,
+                         checkpoint_equal=same, seconds=secs)
+        del state, like, restored
+    torch.cuda.empty_cache()
+    return out
+
+
+def _timed_steps(step, state, batches):
+    """CUDA-event ms of each step over ``batches``, and the last state and
+    metrics."""
+    times = []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, b)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, state, metrics
+
+
+def phase_train_full(seed, smi):
+    """Phase 19c: internlm2-1.8b at full width (24 layers, d 2048, vocab
+    92,544): f32 masters on the card, bf16 compute, ``remat="dots"``,
+    synthetic tokens, batch 4 x seq 2,048.  2 warm steps, then 5 timed
+    (CUDA events; loss and grad_norm finite); ms a step and tokens/s
+    beside ``model_flops`` over the ``"h100"`` profile's bf16 peak; the
+    peak of ``torch.cuda.max_memory_allocated`` over the timed steps
+    beside the state's 16 bytes a parameter; then 2 steps with
+    ``microbatches=2``, whose peak must be lower."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.roofline import HARDWARE
+    from repro_torch.data.pipeline import SyntheticTokenSource
+    from repro_torch.launch.dryrun import ideal_memory_bytes, model_flops
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config(FULL_TRAIN["arch"])
+    b, s = FULL_TRAIN["batch"], FULL_TRAIN["seq"]
+    if (cfg.remat, cfg.dtype) != ("dots", "bfloat16"):
+        fail(f"{cfg.name}: remat {cfg.remat}, dtype {cfg.dtype}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = M.init_train_state(torch.Generator(device=dev).manual_seed(seed),
+                               cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.params.parameters())
+    state_bytes = 16 * n_params  # f32 params, grads, m and v
+    src = SyntheticTokenSource(cfg.vocab_size, s, b, seed=seed)
+    batches = [to_device(src.batch(i), dev) for i in range(7)]
+    step = M.make_train_step(cfg, learning_rate=3e-4)
+    warm, state, _ = _timed_steps(step, state, batches[:2])
+    torch.cuda.reset_peak_memory_stats()
+    times, state, metrics = _timed_steps(step, state, batches[2:])
+    peak1 = torch.cuda.max_memory_allocated()
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    if not (math.isfinite(loss) and math.isfinite(gnorm)):
+        fail(f"{cfg.name} training: loss {loss}, grad_norm {gnorm}")
+    ms = median(times)
+    shape = ShapeConfig("train", s, b, "train")
+    flops = model_flops(cfg, shape)
+    peak_flops = HARDWARE["h100"].peak_flops
+    bound = 1e3 * flops / peak_flops
+    step2 = M.make_train_step(cfg, learning_rate=3e-4, microbatches=2)
+    torch.cuda.reset_peak_memory_stats()
+    times2, state, metrics2 = _timed_steps(step2, state, batches[:2])
+    peak2 = torch.cuda.max_memory_allocated()
+    if not math.isfinite(float(metrics2["loss"])):
+        fail(f"{cfg.name} training with 2 microbatches: non-finite loss")
+    if not peak2 < peak1:
+        fail(f"{cfg.name}: peak memory with 2 microbatches {peak2} is not "
+             f"below one batch's {peak1}")
+    out = dict(
+        arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, params=n_params, batch=b, seq=s,
+        init_s=init_s, warm_ms=warm, step_ms=times, median_step_ms=ms,
+        tokens_per_s=b * s / (ms / 1e3), model_flops=flops,
+        bound_ms=bound, bound_share=bound / ms,
+        ideal_memory_bytes=ideal_memory_bytes(cfg, shape),
+        peak_bytes=peak1, state_bytes=state_bytes,
+        microbatches2_step_ms=times2, microbatches2_peak_bytes=peak2,
+        loss=loss, grad_norm=gnorm)
+    del state, batches
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[train {cfg.name}] {n_params / 1e9:.3f} B parameters, init "
+        f"{init_s:.1f} s; batch {b} x seq {s}, bf16 compute, remat "
+        f"{cfg.remat}: step {ms:.1f} ms (timed {[round(x, 1) for x in times]}, "
+        f"warm {[round(x, 1) for x in warm]}), {out['tokens_per_s']:.0f} "
+        f"tokens/s; model_flops {flops:.4e} -> bound {bound:.1f} ms at "
+        f"{peak_flops / 1e12:.1f} TFLOP/s bf16, share {bound / ms:.4f}; peak "
+        f"memory {peak1 / 1e9:.2f} GB beside the state's {state_bytes / 1e9:.2f} "
+        f"GB (16 B a parameter); microbatches=2: peak {peak2 / 1e9:.2f} GB, "
+        f"steps {[round(x, 1) for x in times2]} ms; loss {loss:.4f}, grad_norm "
+        f"{gnorm:.4f}; {out['seconds']:.1f} s; on {smi}")
+    return out
+
+
+def phase_training(prk, seed, results, smi):
+    """Phase 19: the registry, the smoke families' training and
+    internlm2-1.8b's at full width; returns its report."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"registry": phase_registry(prk, seed, results, smi)}
+    prk.reset_counts()
+    out["smoke"] = phase_train_smoke(seed, smi)
+    out["full"] = phase_train_full(seed, smi)
+    # training runs no kernel of the port's: no launch, no plain version
+    if sum(prk.LAUNCHES.values()) or sum(prk.PLAIN_CALLS.values()):
+        fail(f"phase 19 training launched {dict(prk.LAUNCHES)}, plain calls "
+             f"{dict(prk.PLAIN_CALLS)}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 19] {out['seconds']:.1f} s")
+    return out
 
 
 def main(argv=None) -> int:
@@ -3108,6 +3407,8 @@ def main(argv=None) -> int:
     # sharded datastore and context-parallel attention
     sharding, shard_kernels = phase_sharding(prk, testing, args.seed, results,
                                              smi)
+    # phase 19: the kNN workload registry, then training on the card
+    training = phase_training(prk, args.seed, results, smi)
     for k in kernels:
         for key in ("launches", "plain_calls"):
             k[key] = results[key].get(k["name"], 0)
@@ -3122,6 +3423,7 @@ def main(argv=None) -> int:
     log(json.dumps({"knn_lm": knn_lm}))
     log(json.dumps({"families": families}))
     log(json.dumps({"sharding": sharding}))
+    log(json.dumps({"training": training}))
     log(json.dumps({"kernels": kernels + knn_kernels + family_kernels
                     + shard_kernels}))
     log(smi)

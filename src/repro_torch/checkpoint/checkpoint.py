@@ -1,7 +1,25 @@
-"""Named snapshots: one logical state in a directory, committed atomically.
+"""Fault-tolerant checkpointing: atomic training-step directories, an
+async writer, and named snapshots (one logical state in a directory).
 
-Port of ``save_snapshot``/``load_snapshot`` of
-``src/repro/checkpoint/checkpoint.py`` with the same on-disk format:
+Port of ``src/repro/checkpoint/checkpoint.py`` with its on-disk formats,
+so that either package reads what the other writes.
+
+Training checkpoints (:func:`save_checkpoint`, :func:`latest_step`,
+:func:`restore_checkpoint`, :class:`AsyncCheckpointer`)::
+
+  <dir>/step_00000123.tmp/   -> written, then renamed to
+  <dir>/step_00000123/       (rename is the commit point)
+      arrays.npz           flat {path: np.ndarray} of the full state
+      META.json            {"step": int, "leaf_paths": [...]}
+
+A state is written in the reference's layout: a port
+``models.model.TrainState`` becomes ``.step``, ``.params/...`` and
+``.opt_state/.m|.v/...`` with each run of layers stacked
+(``params.to_reference``), the paths ``jax.tree_util.keystr`` spells
+(``.params/['layers']/[0]/['attn']/['wq']``), dict keys in sorted order,
+as the reference flattens its pytree.
+
+Named snapshots (``save_snapshot``/``load_snapshot``) keep
 ``arrays.npz`` plus ``META.json`` (its ``array_dtypes`` names each
 array's logical dtype), bf16 stored as its 16-bit pattern (numpy has no
 bf16), so that a snapshot written by either package loads in the other.
@@ -14,14 +32,281 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Tuple
+import threading
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.search import faults
 
-__all__ = ["load_snapshot", "save_snapshot"]
+__all__ = [
+    "save_checkpoint",
+    "restore_checkpoint",
+    "latest_step",
+    "AsyncCheckpointer",
+    "save_snapshot",
+    "load_snapshot",
+]
+
+
+# -- training checkpoints ----------------------------------------------------
+
+
+def _is_train_state(state) -> bool:
+    from repro_torch.models.transformer import Transformer
+
+    return (hasattr(state, "_fields") and "params" in state._fields
+            and isinstance(state.params, Transformer))
+
+
+def _reference_tree(state):
+    """``state`` in the reference's layout: a port TrainState with its
+    model and moments restacked per run; any other tree as it is."""
+    if not _is_train_state(state):
+        return state
+    from repro_torch.models.params import to_reference
+    from repro_torch.optim.adamw import AdamWState
+
+    cfg = state.params.cfg
+    params = {k: v.detach() for k, v in state.params.state_dict().items()}
+    opt = state.opt_state
+    return type(state)(
+        step=state.step,
+        params=to_reference(params, cfg),
+        opt_state=AdamWState(m=to_reference(opt.m, cfg),
+                             v=to_reference(opt.v, cfg)),
+    )
+
+
+def _flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) pairs in ``jax.tree_util`` order and spelling: a named
+    tuple's fields ``.name``, dict keys sorted as ``['key']``, sequence
+    items ``[i]``, joined by ``/``; None is an empty subtree."""
+    def join(part):
+        return f"{prefix}/{part}" if prefix else part
+
+    if tree is None:
+        return []
+    if hasattr(tree, "_fields"):
+        return [kv for f in tree._fields
+                for kv in _flatten_with_paths(getattr(tree, f), join(f".{f}"))]
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _flatten_with_paths(tree[k], join(f"[{k!r}]"))]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree)
+                for kv in _flatten_with_paths(v, join(f"[{i}]"))]
+    return [(prefix, tree)]
+
+
+def _host(leaf, copy: bool = False) -> np.ndarray:
+    """A leaf as a host numpy array (a bf16 tensor widened to f32: npz
+    has no bf16; a restore casts it back to the target's dtype); with
+    ``copy`` never a view of the leaf's memory."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.to(torch.float32)
+        elif copy and leaf.device.type == "cpu":
+            leaf = leaf.clone()
+        return leaf.cpu().numpy()
+    return np.array(leaf, copy=True) if copy else np.asarray(leaf)
+
+
+def _to_host(tree):
+    """The reference-layout tree with every leaf copied to a host numpy
+    array."""
+    if tree is None:
+        return None
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_to_host(getattr(tree, f)) for f in tree._fields))
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return _host(tree, copy=True)
+
+
+def save_checkpoint(directory: str, step: int, state) -> str:
+    """Synchronous atomic save of ``state`` (a port TrainState, or a tree
+    of named tuples, dicts, lists and arrays/tensors) in the reference's
+    layout.  Returns the committed path."""
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    leaves = _flatten_with_paths(_reference_tree(state))
+    arrays = {k: _host(v) for k, v in leaves}
+    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    with open(os.path.join(tmp, "META.json"), "w") as f:
+        json.dump({"step": step, "leaf_paths": [k for k, _ in leaves]}, f)
+    # Commit.
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def latest_step(directory: str) -> Optional[int]:
+    """The newest committed step under ``directory`` (``.tmp`` and
+    directories without ``META.json`` do not count), or None."""
+    if not os.path.isdir(directory):
+        return None
+    steps = []
+    for name in os.listdir(directory):
+        if name.startswith("step_") and not name.endswith(".tmp"):
+            meta = os.path.join(directory, name, "META.json")
+            if os.path.exists(meta):  # only committed checkpoints count
+                steps.append(int(name[5:]))
+    return max(steps) if steps else None
+
+
+@torch.no_grad()
+def _fill(like, arrays, prefix: str = ""):
+    """``like`` with each leaf restored from ``arrays`` (path -> array):
+    a tensor copied into in place, a numpy leaf replaced."""
+    if like is None:
+        return None
+    if hasattr(like, "_fields"):
+        return type(like)(*(_fill(getattr(like, f), arrays, _join(prefix, f".{f}"))
+                            for f in like._fields))
+    if isinstance(like, dict):
+        return {k: _fill(v, arrays, _join(prefix, f"[{k!r}]"))
+                for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_fill(v, arrays, _join(prefix, f"[{i}]"))
+                          for i, v in enumerate(like))
+    arr = arrays[prefix]
+    if isinstance(like, torch.Tensor):
+        _copy_in(like, arr, prefix)
+        return like
+    if hasattr(like, "dtype") and arr.dtype != like.dtype:
+        arr = arr.astype(like.dtype)
+    return arr
+
+
+def _join(prefix: str, part: str) -> str:
+    return f"{prefix}/{part}" if prefix else part
+
+
+def _copy_in(target: torch.Tensor, arr: np.ndarray, path: str) -> None:
+    if tuple(arr.shape) != tuple(target.shape):
+        raise ValueError(f"{path}: checkpoint shape {tuple(arr.shape)} != "
+                         f"{tuple(target.shape)}")
+    target.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(target.dtype))
+
+
+def _reference_paths(names, cfg):
+    """Each port parameter name -> (its reference path under ``.params``,
+    its index in the run's stack or None)."""
+    from repro_torch.models.transformer import runs_of
+
+    run_of = []
+    for r, (_, count) in enumerate(runs_of(cfg)):
+        run_of += [(r, j) for j in range(count)]
+
+    def spell(parts):
+        return "/".join(f"[{p!r}]" for p in parts)
+
+    out = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] == "layers":
+            r, j = run_of[int(parts[1])]
+            out[name] = (f"['layers']/[{r}]/" + spell(parts[2:]), j)
+        elif parts[0] == "encoder":
+            out[name] = ("['encoder']/" + spell(parts[2:]), int(parts[1]))
+        else:
+            out[name] = (spell(parts), None)
+    return out
+
+
+@torch.no_grad()
+def _restore_train_state(like, arrays):
+    model = like.params
+    paths = _reference_paths([n for n, _ in model.named_parameters()],
+                             model.cfg)
+    targets = [(".params", dict(model.named_parameters())),
+               (".opt_state/.m", like.opt_state.m),
+               (".opt_state/.v", like.opt_state.v)]
+    for prefix, tensors in targets:
+        for name, t in tensors.items():
+            path, j = paths[name]
+            key = f"{prefix}/{path}"
+            arr = arrays[key] if j is None else arrays[key][j]
+            _copy_in(t, arr, key)
+    return like._replace(step=torch.as_tensor(arrays[".step"], dtype=torch.int32))
+
+
+def restore_checkpoint(directory: str, like, step: Optional[int] = None):
+    """Restore the checkpoint of ``step`` (default the latest committed
+    one) into the structure of ``like``; returns ``(state, step)``.
+
+    ``like`` is a port TrainState (its model's parameters and its moments
+    are overwritten in place, on their devices; the returned state holds
+    them and a new step) or a tree of tensors (copied into in place) and
+    numpy arrays (replaced).  The checkpoint may come from either
+    package; each array is cast to the dtype of its target."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint under {directory}")
+    path = os.path.join(directory, f"step_{step:08d}")
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        arrays = {k: data[k] for k in data.files}
+    if _is_train_state(like):
+        return _restore_train_state(like, arrays), step
+    return _fill(like, arrays), step
+
+
+class AsyncCheckpointer:
+    """Background-thread checkpoint writer with at-most-one in flight.
+
+    ``save`` copies the state to host memory synchronously (the only part
+    that blocks the train loop) and commits it on the worker thread;
+    ``wait()`` joins outstanding work (call before exit).  The ``keep``
+    newest committed steps survive each save.
+    """
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._pending: Optional[threading.Thread] = None
+        self._lock = threading.Lock()
+
+    def save(self, step: int, state):
+        host_state = _to_host(_reference_tree(state))
+        self.wait()
+
+        def worker():
+            save_checkpoint(self.directory, step, host_state)
+            self._gc()
+
+        with self._lock:
+            self._pending = threading.Thread(target=worker, daemon=True)
+            self._pending.start()
+
+    def wait(self):
+        with self._lock:
+            t = self._pending
+        if t is not None:
+            t.join()
+
+    def _gc(self):
+        steps = sorted(
+            int(n[5:])
+            for n in os.listdir(self.directory)
+            if n.startswith("step_") and not n.endswith(".tmp")
+        )
+        for s in steps[: -self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+
+# -- named snapshots (single logical state, e.g. Index.save/restore) ---------
 
 
 def _encode_array(a) -> Tuple[np.ndarray, str]:

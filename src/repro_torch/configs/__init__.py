@@ -2,14 +2,16 @@
 
 Port of ``src/repro/configs``: the ten architectures (FULL and SMOKE,
 and the reference's optimized variants), field for field.  The paper's
-kNN workloads (``knn_workloads``) are not here: they come with the
-port's benchmark.
+kNN workloads (``knn_workloads``: ``KNNConfig``, ``KNN_WORKLOADS``) are
+exported beside them and stay out of the model registry, as in the
+reference.
 """
 from repro_torch.configs import (  # noqa: F401
     deepseek_v2_236b,
     granite_20b,
     granite_moe_3b_a800m,
     internlm2_1_8b,
+    knn_workloads,
     mamba2_2_7b,
     qwen2_vl_2b,
     recurrentgemma_9b,
@@ -25,6 +27,7 @@ from repro_torch.configs.base import (  # noqa: F401
     list_configs,
     register,
 )
+from repro_torch.configs.knn_workloads import KNN_WORKLOADS, KNNConfig  # noqa: F401
 
 ASSIGNED_ARCHS = (
     "deepseek-v2-236b",

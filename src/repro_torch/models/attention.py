@@ -17,7 +17,9 @@ each (batch, head)'s selected latent rows from the (B, S, r) cache
 where the reference widens the cache to (B, H, S, r) first (the same
 values).  The score tiles' dtype is ``cfg.attn_scores_dtype`` (the
 reference sets it as module state).  The context-parallel kNN
-attention is ROADMAP queue A item 11.
+attention over a mesh is :func:`_knn_decode_attention_cp`, with its axes
+given explicitly; the public ``mesh=`` waits for the logical-axis rules
+(ROADMAP queue A item 13b step 5).
 """
 from __future__ import annotations
 
@@ -309,13 +311,13 @@ def knn_decode_attention(
     exact softmax over them weighs their values.  Early in a decode
     (fewer live positions than k) the masked positions it returns weigh
     exactly 0.  ``mesh=`` raises: the reference picks the context-parallel
-    axes from its logical-axis rules, which come with the LM training
-    stack (ROADMAP queue A item 13b); :func:`_knn_decode_attention_cp`
-    takes the mesh and its axes explicitly."""
+    axes from its logical-axis rules, the mesh rules of ROADMAP queue A
+    item 13b step 5; :func:`_knn_decode_attention_cp` takes the mesh and
+    its axes explicitly."""
     if mesh is not None:
         raise NotImplementedError(
             "knn_decode_attention(mesh=) picks its context-parallel axes "
-            "from the logical-axis rules of ROADMAP queue A item 13b; call "
+            "from the logical-axis rules of ROADMAP queue A item 13b step 5; call "
             "_knn_decode_attention_cp(..., mesh=, cp_axes=) with them"
         )
     b, h, hd = q.shape

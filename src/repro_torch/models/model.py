@@ -1,8 +1,17 @@
-"""Step functions of the serving path: prefill and decode with the paper's
-approx top-k sampler.
+"""Step functions: training, and prefill and decode with the paper's
+approx top-k sampler; abstract input specs.
 
-Port of ``make_prefill_step``/``make_decode_step`` of
-``src/repro/models/model.py``.  Sampling runs the paper's op over the
+Port of ``src/repro/models/model.py``.  Training: :class:`TrainState`
+holds the step (a CPU int32 scalar), the model (its parameters the f32
+masters, requiring grad) and AdamW's f32 moments keyed by the model's
+parameter names; :func:`make_train_step` updates the model and the
+moments in place and returns the next state (the reference returns new
+arrays).  Each step casts the masters to the compute dtype inside the
+forward (``transformer._cast_params``).  :func:`input_specs` returns
+``device="meta"`` tensors where the reference returns
+``ShapeDtypeStruct`` stand-ins.
+
+Sampling runs the paper's op over the
 vocabulary: the padded vocabulary ids are pushed down by 1e9,
 ``approx_max_k`` keeps the top ``cfg.decode_sample_k`` logits (the MIPS
 against the unembedding), then a Gumbel draw picks one.  The draw comes
@@ -12,20 +21,142 @@ noise itself, so a test can hand it the reference's
 ``"embeddings"`` for a stubbed modality frontend (qwen2-vl's patches);
 an encoder-decoder's (whisper) also holds ``"enc_embeds"``, and its
 prefill step returns the cross-attention KV its decode step takes.
-Training (``loss_fn``, ``make_train_step``, ``TrainState``,
-``input_specs``) is ROADMAP queue A item 13b.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.topk import approx_max_k
 from repro_torch.models import transformer as tfm
+from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 
-__all__ = ["make_prefill_step", "make_decode_step", "gumbel", "sample_tokens"]
+__all__ = [
+    "loss_fn",
+    "make_train_step",
+    "make_prefill_step",
+    "make_decode_step",
+    "input_specs",
+    "init_train_state",
+    "TrainState",
+    "gumbel",
+    "sample_tokens",
+]
+
+
+class TrainState(NamedTuple):
+    step: torch.Tensor          # () int32, on the CPU
+    params: tfm.Transformer     # f32 masters, requires_grad
+    opt_state: AdamWState
+
+
+def _model_inputs(cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    use_embeds = cfg.input_mode == "embeddings" and not cfg.is_encoder_decoder
+    main = batch["embeddings"] if use_embeds else batch["tokens"]
+    kwargs = {}
+    if cfg.is_encoder_decoder:
+        kwargs["enc_embeds"] = batch["enc_embeds"]
+    if cfg.mrope and "mrope_positions" in batch:
+        kwargs["mrope_positions"] = batch["mrope_positions"]
+    return main, kwargs
+
+
+def loss_fn(model: tfm.Transformer, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token cross entropy (labels provided explicitly; a label < 0
+    is masked), f32."""
+    main, kwargs = _model_inputs(cfg, batch)
+    logits = tfm.forward_train(model, main, **kwargs).to(torch.float32)
+    labels = batch["labels"].long()
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+        logits = logits - 1e9 * pad_mask
+    logp = torch.log_softmax(logits, dim=-1)
+    take = torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return -(take * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _split(batch: Dict[str, torch.Tensor], microbatches: int):
+    """The batch's microbatches: every array whose leading dim is the
+    batch's split on it, the rest (M-RoPE streams) shared."""
+    bsz = batch["labels"].shape[0]
+    if bsz % microbatches:
+        raise ValueError(f"batch {bsz} not divisible by microbatches {microbatches}")
+    split = {k for k, v in batch.items() if v.ndim >= 1 and v.shape[0] == bsz}
+    static = {k: v for k, v in batch.items() if k not in split}
+    parts = {k: batch[k].chunk(microbatches) for k in split}
+    return [{**static, **{k: parts[k][i] for k in split}}
+            for i in range(microbatches)]
+
+
+def make_train_step(cfg: ModelConfig, *, learning_rate=3e-4,
+                    weight_decay: float = 0.1, grad_clip: float = 1.0,
+                    grad_dtype: Optional[str] = None, microbatches: int = 1):
+    """Build train_step(state, batch) -> (state, metrics).
+
+    The batch is a dict of tensors on the model's device (as
+    :func:`input_specs` lays it out).  ``grad_dtype="bfloat16"`` rounds
+    the gradients to bf16 and back (the compressed reduction);
+    ``microbatches > 1`` splits the batch on dim 0 and accumulates each
+    part's gradients in f32 (the masters' ``.grad``), the loss and the
+    gradients averaged, so the activations held drop by the factor.  The
+    gradients are clipped to a global norm of ``grad_clip``;
+    ``learning_rate`` is a float or callable(step).  ``metrics`` holds
+    ``loss``, ``grad_norm`` (before clipping; device tensors) and
+    ``step``.
+    """
+
+    def train_step(state: TrainState, batch):
+        model = state.params
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        for _, p in named:
+            p.grad = None
+        parts = [batch] if microbatches <= 1 else _split(batch, microbatches)
+        loss = None
+        for part in parts:
+            part_loss = loss_fn(model, cfg, part)
+            part_loss.backward()
+            part_loss = part_loss.detach()
+            loss = part_loss if loss is None else loss + part_loss
+        grads = []
+        for _, p in named:
+            g = torch.zeros_like(p) if p.grad is None else p.grad
+            p.grad = None
+            grads.append(g)
+        if microbatches > 1:
+            inv = 1.0 / microbatches
+            loss = loss * inv
+            torch._foreach_mul_(grads, inv)
+        if grad_dtype == "bfloat16":
+            grads = [g.to(torch.bfloat16).to(torch.float32) for g in grads]
+        grads = [g.to(torch.float32) for g in grads]
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+        scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
+        torch._foreach_mul_(grads, scale)
+        adamw_update(
+            {n: p for n, p in named}, {n: g for (n, _), g in zip(named, grads)},
+            state.opt_state, step=state.step, learning_rate=learning_rate,
+            weight_decay=weight_decay,
+        )
+        metrics = {"loss": loss, "grad_norm": gnorm, "step": state.step}
+        return TrainState(step=state.step + 1, params=model,
+                          opt_state=state.opt_state), metrics
+
+    return train_step
+
+
+def init_train_state(generator: torch.Generator, cfg: ModelConfig, *,
+                     device=None) -> TrainState:
+    """Step 0, a model of f32 master parameters drawn from ``generator``
+    (a generator of ``device``, default "cuda"), requiring grad, and
+    AdamW's zero moments."""
+    model = tfm.init_model(cfg, generator, device=device)
+    model.requires_grad_(True)
+    return TrainState(step=torch.zeros((), dtype=torch.int32), params=model,
+                      opt_state=adamw_init(dict(model.named_parameters())))
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -95,3 +226,54 @@ def make_decode_step(cfg: ModelConfig, *, use_knn: bool = False,
         return next_tokens.to(torch.int32), logits, caches
 
     return decode_step
+
+
+# --------------------------------------------------------------------------
+# Abstract input specs (tensors on the "meta" device, no allocation)
+# --------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Abstract inputs for one (arch x shape) cell, as ``device="meta"``
+    tensors.
+
+    train/prefill: token (or stub-embedding) batch + labels.
+    decode: single token + fully-populated caches (one a layer) +
+    cur_index + rng (the reference's two-word key; the port's step takes
+    a ``torch.Generator``) and an encoder-decoder's cross KV, one a layer.
+    """
+    b, s = shape.global_batch, shape.seq_len
+    f = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if shape.kind in ("train", "prefill"):
+        batch: Dict[str, Any] = {"labels": _meta((b, s), torch.int32)}
+        if cfg.input_mode == "embeddings" and not cfg.is_encoder_decoder:
+            batch["embeddings"] = _meta((b, s, cfg.d_model), f)
+        else:
+            batch["tokens"] = _meta((b, s), torch.int32)
+        if cfg.is_encoder_decoder:
+            batch["enc_embeds"] = _meta((b, cfg.encoder_seq, cfg.d_model), f)
+        if cfg.mrope:
+            batch["mrope_positions"] = _meta((3, s), torch.int32)
+        if shape.kind == "prefill":
+            batch.pop("labels")
+        return batch
+    spec = {
+        "tokens": _meta((b, 1), torch.int32),
+        "caches": tfm.init_caches(cfg, b, s, device="meta"),
+        "cur_index": _meta((), torch.int32),
+        "rng": _meta((2,), torch.uint32),
+    }
+    if cfg.is_encoder_decoder:
+        from repro_torch.models.attention import KVCache
+
+        hd = cfg.resolved_head_dim
+        kv = (b, cfg.encoder_seq, cfg.num_heads, hd)
+        spec["cross_kv"] = [
+            KVCache(k=_meta(kv, f), v=_meta(kv, f)) if kind == "dec" else None
+            for kind in cfg.layer_kinds()
+        ]
+    return spec

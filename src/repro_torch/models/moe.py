@@ -17,7 +17,11 @@ the port gathers instead: a slot's token index (a plain scatter of
 unique destinations; dropped pairs land in a discarded column), the
 tokens gathered into the expert batches, and each token's k outputs
 gathered back and weighed.  No atomic add anywhere: a CUDA graph replay
-of a step is bit-equal to an eager one.
+of a step is bit-equal to an eager one.  The backward keeps that: the
+gradient of a token is the sum of its k slots' gradients, gathered
+(:class:`_Dispatch`), and the gradient of an expert output row is its one
+pair's, scattered to a unique destination (:class:`_Combine`); autograd's
+own backward of a gather would add them with atomics.
 """
 from __future__ import annotations
 
@@ -59,6 +63,53 @@ def _router_topk(probs, k, routing: str, recall_target: float):
     # lax.top_k: the lowest index wins a tie (torch.topk promises no order)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+class _Dispatch(torch.autograd.Function):
+    """``xt`` (G, g, d) -> the (G, E·cap, d) expert batches: slot j reads
+    token ``src[:, j]`` (g, the zero row, for an empty slot).  ``dst``
+    (G, g·k) is each (token, choice) pair's slot, E·cap for a dropped
+    pair; the backward gathers each token's k slot gradients and sums
+    them in choice order."""
+
+    @staticmethod
+    def forward(ctx, xt, src, dst, k):
+        ctx.save_for_backward(dst)
+        ctx.k = k
+        d = xt.shape[-1]
+        return torch.gather(F.pad(xt, (0, 0, 0, 1)), 1,
+                            src[..., None].expand(-1, -1, d))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dst,) = ctx.saved_tensors
+        n_groups, _, d = grad.shape
+        per = torch.gather(F.pad(grad, (0, 0, 0, 1)), 1,
+                           dst[..., None].expand(-1, -1, d))
+        return per.reshape(n_groups, -1, ctx.k, d).sum(2), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """The (G, E·cap, d) expert outputs -> each (token, choice) pair's
+    row (G, g·k, d), a zero row for a dropped pair (``dst`` E·cap).  The
+    kept pairs' slots are unique, so the backward scatters without
+    accumulating (the dropped pairs write the cut-off row)."""
+
+    @staticmethod
+    def forward(ctx, expert_out, dst):
+        ctx.save_for_backward(dst)
+        ctx.rows = expert_out.shape[1]
+        d = expert_out.shape[-1]
+        return torch.gather(F.pad(expert_out, (0, 0, 0, 1)), 1,
+                            dst[..., None].expand(-1, -1, d))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dst,) = ctx.saved_tensors
+        n_groups, _, d = grad.shape
+        out = grad.new_zeros((n_groups, ctx.rows + 1, d))
+        out.scatter_(1, dst[..., None].expand(-1, -1, d), grad)
+        return out[:, : ctx.rows], None
 
 
 def _capacity(g: int, k: int, num_experts: int, capacity_factor: float) -> int:
@@ -127,10 +178,8 @@ def moe_apply(
     src = torch.full((n_groups, num_experts * cap + 1), g, dtype=torch.long,
                      device=x.device)
     src.scatter_(1, dst, tok)
-    xt_pad = F.pad(xt, (0, 0, 0, 1))
-    expert_in = torch.gather(
-        xt_pad, 1, src[:, : num_experts * cap, None].expand(-1, -1, d),
-    ).reshape(n_groups, num_experts, cap, d)
+    expert_in = _Dispatch.apply(xt, src[:, : num_experts * cap], dst, k
+                                ).reshape(n_groups, num_experts, cap, d)
 
     # Expert FFNs: (G, E, cap, d) x (E, d, f).
     h = expert_in @ params["wi"]
@@ -140,10 +189,7 @@ def moe_apply(
 
     # Combine: each token's k outputs (a dropped pair weighs 0), weights in
     # the compute dtype as the reference's combine tensor holds them.
-    got = torch.gather(
-        expert_out, 1,
-        torch.where(keep, flat, 0).reshape(n_groups, g * k, 1).expand(-1, -1, d),
-    ).reshape(n_groups, g, k, d)
+    got = _Combine.apply(expert_out, dst).reshape(n_groups, g, k, d)
     w = torch.where(keep, top_p, 0.0).to(x.dtype)
     y = (w[..., None, :] @ got)[..., 0, :]
 

@@ -7,7 +7,9 @@ param dict keys (``attn.wq``, ``mlp.wi``, ...), :func:`init_params`
 fills them with the port's own random values, and :func:`param_axes`
 returns the logical-axes tree (kept as data: one device, no sharding
 yet).  :func:`from_reference` turns the reference's param pytree into
-the port's state dict, the way parity tests carry weights across.
+the port's state dict, the way parity tests carry weights across, and
+:func:`to_reference` is its inverse: a port state dict restacked into
+the reference's runs, the layout its training checkpoints hold.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["ParamDef", "ParamTree", "init_params", "param_axes", "from_reference"]
+__all__ = ["ParamDef", "ParamTree", "init_params", "param_axes", "from_reference",
+           "to_reference"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,3 +134,47 @@ def _unstack(stacked, key: str, start: int, count: int,
     for j in range(count):
         for name, t in flat.items():
             out[f"{key}.{start + j}.{name}"] = t[j].clone()
+
+
+def _nest(flat: Dict[str, torch.Tensor]) -> Dict:
+    """``{"a.b": t}`` -> ``{"a": {"b": t}}``."""
+    out: Dict = {}
+    for name, t in flat.items():
+        *path, leaf = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t
+    return out
+
+
+def _stack(state: Dict[str, torch.Tensor], key: str, start: int,
+           count: int) -> Dict:
+    """Layers ``{key}.{start}`` .. ``{key}.{start + count - 1}`` stacked
+    on a leading axis, nested by name."""
+    prefix = f"{key}.{start}."
+    names = [n[len(prefix):] for n in state if n.startswith(prefix)]
+    return _nest({name: torch.stack([state[f"{key}.{start + j}.{name}"]
+                                     for j in range(count)])
+                  for name in names})
+
+
+def to_reference(state: Dict[str, torch.Tensor], cfg) -> Dict:
+    """The inverse of :func:`from_reference`: a port state dict (a
+    model's, or anything keyed as its parameters are, such as AdamW's
+    moments) as the reference's param tree — nested dicts, ``layers`` a
+    list with one dict a run of ``runs_of(cfg)``, each leaf stacked over
+    the run's layers, and an encoder-decoder's ``encoder`` one stacked
+    dict.  Leaves are tensors on the state's device."""
+    from repro_torch.models.transformer import runs_of
+
+    out = _nest({k: v for k, v in state.items()
+                 if not k.startswith(("layers.", "encoder."))})
+    layers, start = [], 0
+    for _, count in runs_of(cfg):
+        layers.append(_stack(state, "layers", start, count))
+        start += count
+    out["layers"] = layers
+    if cfg.is_encoder_decoder:
+        out["encoder"] = _stack(state, "encoder", 0, cfg.encoder_layers)
+    return out

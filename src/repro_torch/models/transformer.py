@@ -20,6 +20,15 @@ forward casts f32 parameters to the compute dtype first
 (``_cast_params``), as the reference does; a model built in the compute
 dtype (``init_model(..., dtype=torch.bfloat16)``) skips the cast.
 
+:func:`forward_train` records autograd wherever the parameters require
+grad (the training step's f32 masters) and honours ``cfg.remat`` per
+layer, as the reference's ``_maybe_remat``: ``"none"`` keeps every
+activation, ``"full"`` recomputes the layer in the backward
+(``torch.utils.checkpoint``), ``"dots"`` saves the outputs of the
+matmuls without batch dims (``aten.mm``/``aten.addmm``, the counterpart
+of ``dots_with_no_batch_dims_saveable``) and recomputes the rest.  The
+prefill and decode forwards run without autograd.
+
 Decode writes every cache in place: the KV rows and MLA latent rows at
 the position, the ring slot ``position % window`` of a local-attention
 cache, the SSM and RG-LRU state and conv window.  The engine captures
@@ -30,10 +39,12 @@ nothing in the step reads it on the host.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -300,8 +311,10 @@ def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
 
 def layer_train(params, x, positions, cfg: ModelConfig, kind: str = "dense",
                 return_cache: bool = False, enc_out=None, mrope_positions=None):
-    """One layer over the full sequence (forward only); with
-    ``return_cache`` also the layer's decode cache for the sequence."""
+    """One layer over the full sequence -> (output, cache): with
+    ``return_cache`` the layer's decode cache for the sequence, else None.
+    Differentiable in every input and parameter (the decode caches are
+    built from the forward's values, not written in place)."""
     if kind == "ssm":
         h = rms_norm(x, params["pre_norm"], cfg.norm_eps)
         y = ssm_lib.ssm_train(
@@ -423,6 +436,28 @@ def _local_attn_decode(params, x, cache: LocalKVCache, cur_index, cfg: ModelConf
 # --------------------------------------------------------------------------
 
 
+# matmuls without batch dims: what "dots" saves (every other op recomputes)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat`` where autograd records (see the module
+    docstring); ``fn`` itself without grad or with ``"none"``."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    return functools.partial(
+        ckpt.checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                     _dots_policy))
+
+
 def _cast_params(params, cfg: ModelConfig):
     """Cast master (f32) params to the compute dtype (norms upcast internally)."""
     dt = _compute_dtype(cfg)
@@ -469,8 +504,9 @@ def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor):
     positions = torch.arange(s, dtype=torch.int32, device=enc_embeds.device)
     x = enc_embeds.to(_compute_dtype(cfg))
     x = x + _sinusoid(positions, cfg.d_model)[None].to(x.dtype)
+    layer = _maybe_remat(layer_train, cfg)
     for layer_params in params["encoder"]:
-        h, _ = layer_train(layer_params, x, positions, cfg, "enc")
+        h, _ = layer(layer_params, x, positions, cfg, "enc")
         x = h.to(x.dtype)
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
@@ -483,22 +519,24 @@ def _forward(params, cfg: ModelConfig, tokens_or_embeds, positions, *,
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=tokens_or_embeds.device)
     x = _embed_in(params, cfg, tokens_or_embeds, positions)
+    layer = _maybe_remat(layer_train, cfg)
     caches = []
     for kind, layer_params in zip(cfg.layer_kinds(), params["layers"]):
-        h, cache = layer_train(layer_params, x, positions, cfg, kind,
-                               return_cache=return_cache, enc_out=enc_out,
-                               mrope_positions=mrope_positions)
+        h, cache = layer(layer_params, x, positions, cfg, kind,
+                         return_cache=return_cache, enc_out=enc_out,
+                         mrope_positions=mrope_positions)
         x = h.to(x.dtype)
         caches.append(cache)
     return x, caches
 
 
-@torch.no_grad()
 def forward_train(model: Transformer, tokens_or_embeds: torch.Tensor, *,
                   enc_embeds=None, positions=None, mrope_positions=None):
     """Full-sequence forward -> logits (B, S, V): token ids (B, S) or, for
     a stubbed frontend, float embeddings (B, S, d); ``mrope_positions``
-    (3, S) the M-RoPE streams; ``enc_embeds`` whisper's frames."""
+    (3, S) the M-RoPE streams; ``enc_embeds`` whisper's frames.  Autograd
+    records where the model's parameters require grad (the training
+    step), each layer under ``cfg.remat``; a serving model's do not."""
     cfg = model.cfg
     params = _cast_params(model.params(), cfg)
     enc_out = _encode(params, cfg, enc_embeds) if cfg.is_encoder_decoder else None

@@ -67,6 +67,7 @@ on growth.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import NamedTuple, Optional, Tuple, Union
@@ -112,6 +113,16 @@ def _cluster_pin(plan: planlib.Plan) -> Optional[bool]:
     if plan.cluster is not None and plan.cluster.enabled:
         return False
     return None
+
+
+def _shard_devices(grid: Optional[list]) -> Tuple[int, Optional[int]]:
+    """(shards the busiest device holds, distinct devices) over a mesh's
+    ``[batch group][shard]`` devices; ``(1, None)`` (one shard a device)
+    without a mesh."""
+    if grid is None:
+        return 1, None
+    counts = collections.Counter(str(torch.device(d)) for d in grid[0])
+    return max(counts.values()), len(counts)
 
 
 def _home_device(spec: SearchSpec, device: torch.device) -> torch.device:
@@ -398,18 +409,24 @@ class Index:
 
     def _replan(self, *, n: int, m: Optional[int],
                 pin_from: planlib.Plan, backend: Optional[str] = None,
-                db_shards: Optional[int] = None) -> planlib.Plan:
+                db_shards: Optional[int] = None,
+                grid: Optional[list] = None) -> planlib.Plan:
         """``pin_from`` re-planned for ``n`` rows and a batch of ``m``
         (growth, ``shard``, ``explain(m=...)``): its tiles, backend (or
         ``backend``) and profile, the spec's recall accounting and tier,
-        the shard count (default: this index's), its provenance."""
+        the shard count and the shards' devices (default: this index's;
+        ``grid`` a mesh's ``[batch group][shard]`` devices), its
+        provenance."""
         spec = self.spec
+        if grid is None and self._mesh is not None:
+            grid = self._grid()
+        per_device, devices = _shard_devices(grid)
         plan = planlib.plan_search(
             n=n, d=self.dim, k=spec.k, m=m, metric=spec.metric,
             recall_target=spec.recall_target, dtype=spec.dtype or "float32",
             backend=backend or pin_from.backend, device=pin_from.device,
             db_shards=self._num_db_shards() if db_shards is None
-            else db_shards,
+            else db_shards, shards_per_device=per_device, db_devices=devices,
             reduction_input_size_override=spec.reduction_input_size_override,
             storage=spec.storage, rescore=spec.rescore_enabled,
             cluster=spec.cluster, cluster_veto=self._cluster_vetoed,
@@ -504,6 +521,8 @@ class Index:
                 "batch_axis": self._batch_axis,
                 "db_shards": plan.db_shards,
                 "per_shard_n": plan.n // max(plan.db_shards, 1),
+                "shards_per_device": plan.shards_per_device,
+                "db_devices": plan.db_devices,
                 "ici_gather_bytes": plan.ici_bytes,
                 "ici_s": plan.ici_s,
                 "mesh": dict(self._mesh.shape),
@@ -1147,7 +1166,7 @@ class Index:
             live = F.pad(live, (0, cap - self.capacity))
         p = self._kernel_plan
         plan = self._replan(n=cap, m=p.m or None, pin_from=p,
-                            backend="sharded", db_shards=n_shards)
+                            backend="sharded", db_shards=n_shards, grid=grid)
         num_live = self._num_live
         if not isinstance(num_live, int):
             num_live = num_live.to(home)

@@ -195,7 +195,12 @@ class Plan:
     ``db_shards``, the database shard count; the scan is priced for one
     shard's rows (the shards run at once), and ``ici_bytes``/``ici_s``
     price the one gather of the shards' (f32 value, int32 id) winners at
-    the profile's ``ici_bandwidth``; both 0 with one shard.
+    the profile's ``ici_bandwidth``; both 0 with one shard.  The port
+    adds ``shards_per_device`` (the shards the busiest device holds) and
+    ``db_devices`` (the distinct devices holding shards): on the
+    ``"h100"`` profile the busiest device scans its shards one after
+    another, and the gather is priced as one block of winners from each
+    device (none when one device holds them all).
 
     Host tier (``residency="host"``, the reference's fields): the
     segment-wave schedule — ``segment_rows`` a wave, ``num_segments``
@@ -247,6 +252,8 @@ class Plan:
     db_shards: int = 1
     ici_bytes: float = 0.0
     ici_s: float = 0.0
+    shards_per_device: int = 1
+    db_devices: int = 1
     residency: str = "hbm"
     segment_rows: int = 0
     num_segments: int = 0
@@ -308,9 +315,11 @@ class Plan:
         """Flat dict view (what ``Index.explain()`` embeds), with the
         ``bin_size`` and the kernels' ``splits``; the reference's keys
         (``cluster_price`` is reported in ``explain()``'s cluster
+        block, ``shards_per_device`` and ``db_devices`` in its sharding
         block)."""
         out = dataclasses.asdict(self)
-        del out["cluster_price"]
+        for key in ("cluster_price", "shards_per_device", "db_devices"):
+            del out[key]
         out["bin_size"] = self.bin_size
         out["splits"] = self.splits
         return out
@@ -559,6 +568,8 @@ def plan_search(
     cluster: str = "off",
     cluster_veto: Optional[bool] = None,
     db_shards: int = 1,
+    shards_per_device: int = 1,
+    db_devices: Optional[int] = None,
     residency: str = "hbm",
     segment_rows: Optional[int] = None,
     hbm_budget_bytes: Optional[float] = None,
@@ -591,7 +602,14 @@ def plan_search(
     as the reference prices it (the plain shard's unfused scan, its L bin
     winners gathered, k_scan with a rescore) on every profile but
     ``"h100"``, where each shard runs the port's CUDA scan and sends its
-    top-``k_scan``.
+    top-``k_scan``.  ``shards_per_device`` (default 1) and ``db_devices``
+    (default ``ceil(db_shards / shards_per_device)``) say how the shards
+    lie on the devices; the ``"h100"`` profile prices the busiest
+    device's shards one after another (``backends.sharded_search`` loops
+    over a device's shards) and the gather as one ``(m, k_scan)`` block
+    of winners from each of the ``db_devices`` (where the reference
+    counts one a shard; none on one device).  The other profiles ignore
+    both and price the reference's plan.
 
     >>> v = plan_search(n=1_000_000, d=128, k=10, metric="l2",
     ...                 backend="cuda", device="h100", cluster="auto")
@@ -614,6 +632,11 @@ def plan_search(
             f'backend must be "torch", "cuda" or "sharded", got {backend!r}')
     if db_shards < 1:
         raise ValueError(f"db_shards must be >= 1, got {db_shards}")
+    if not 1 <= shards_per_device <= db_shards:
+        raise ValueError(f"shards_per_device must be in [1, db_shards], "
+                         f"got {shards_per_device}")
+    if db_devices is None:
+        db_devices = -(-db_shards // shards_per_device)
     if residency == "host" and backend == "sharded":
         raise ValueError('residency="host" cannot be sharded over a mesh')
     check_tiles(block_m, max_block_n)
@@ -679,6 +702,11 @@ def plan_search(
     if backend == "cuda" or (backend == "sharded" and device == "h100"):
         cost = _cuda_cost(m_eff, n_scan, d, scan_bins.bin_size, ks, storage,
                           dbytes)
+        if backend == "sharded" and shards_per_device > 1:
+            # the busiest device scans its shards one after another
+            cost = KernelCost(flops=shards_per_device * cost.flops,
+                              hbm_bytes=shards_per_device * cost.hbm_bytes,
+                              cops=shards_per_device * cost.cops)
     else:
         cost = _dense_cost(m_eff, n_scan, d, scan_bins.num_bins, dbytes,
                            sbytes)
@@ -703,11 +731,13 @@ def plan_search(
     att = attainable_flops(cost, hw)
     predicted_s = cost.flops / att
     ici_bytes = ici_s = 0.0
-    if backend == "sharded" and db_shards > 1:
+    if backend == "sharded" and db_shards > 1 and (
+            device != "h100" or db_devices > 1):
         # the one cross-device transfer: each shard's (f32 value, int32
-        # global id) winners, 8 bytes each
+        # global id) winners, 8 bytes each; on "h100" one block a device
         cand = ks if rescore_on or device == "h100" else scan_bins.num_bins
-        ici_bytes = 8.0 * m_eff * cand * db_shards
+        senders = db_devices if device == "h100" else db_shards
+        ici_bytes = 8.0 * m_eff * cand * senders
         ici_s = ici_bytes / hw.ici_bandwidth
         predicted_s = predicted_s + ici_s
     pinned = all(v is not None for v in (block_m, max_block_n, query_block))
@@ -726,7 +756,8 @@ def plan_search(
         reduction_input_size_override=reduction_input_size_override,
         storage=storage, rescore=rescore_on, k_scan=ks, cluster=cplan,
         cluster_price=price, db_shards=db_shards, ici_bytes=ici_bytes,
-        ici_s=ici_s, residency=residency,
+        ici_s=ici_s, shards_per_device=shards_per_device,
+        db_devices=db_devices, residency=residency,
         segment_rows=seg_rows, num_segments=num_segs, hbm_budget_bytes=budget,
     )
 
@@ -779,8 +810,9 @@ def _with_measured_tiles(plan: Plan, bm: int, bn: int, qb: int) -> Plan:
         storage=plan.storage, rescore=plan.rescore,
         cluster="auto" if plan.cluster is not None else "off",
         cluster_veto=plan.cluster_veto is not None,
-        db_shards=plan.db_shards,
-        residency=plan.residency, segment_rows=plan.segment_rows or None,
+        db_shards=plan.db_shards, shards_per_device=plan.shards_per_device,
+        db_devices=plan.db_devices, residency=plan.residency,
+        segment_rows=plan.segment_rows or None,
         hbm_budget_bytes=plan.hbm_budget_bytes or None,
     )
     return dataclasses.replace(refreshed, source="measure")
@@ -826,6 +858,8 @@ class PlanCache:
             base += "/cl"
         if plan.db_shards > 1:
             base += f"/sh{plan.db_shards}"
+            if plan.shards_per_device > 1:
+                base += f"x{plan.shards_per_device}"
         if plan.residency != "hbm":
             # nor do the segment waves, which stream the rows each search
             base += f"/host{plan.segment_rows}"

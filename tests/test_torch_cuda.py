@@ -1384,3 +1384,94 @@ def test_sharded_index_served_eagerly_equals_direct(cuda_device):
         _bits_equal_direct(sh, q, k, t.result())
     s = server.stats()
     assert s["graph_replays"] == 0 and s["eager_batches"] == s["batches"]
+
+
+def test_sharded_roofline_fraction_within_20_percent_of_unsharded(cuda_device):
+    """C7: on the ``"h100"`` profile 4 logical shards of one card are
+    priced one after another, so ``explain(measure=True)`` at the Sift1M
+    shape reports a share of the bound within 20% of the unsharded
+    index's."""
+    db = torch.randn(1_000_000, 128, device="cuda")
+    base = Index.build(db, metric="l2", k=10, cluster="off")
+    sh = base.shard(_logical_mesh())
+    p = sh.kernel_plan
+    assert (p.shards_per_device, p.db_devices, p.ici_s) == (4, 1, 0.0)
+    fractions = [ix.explain(m=10_000, measure=True)["measured"]["roofline_fraction"]
+                 for ix in (sh, base)]
+    assert 0.8 <= fractions[0] / fractions[1] <= 1.2, fractions
+
+
+# --- training on the card (item 13b) -----------------------------------------
+
+
+def _smoke_train(name="internlm2-1.8b-smoke", dtype=None, remat=None, seed=0):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokenSource
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import model as M
+
+    cfg = get_config(name)
+    cfg = dataclasses.replace(cfg, **{k: v for k, v in
+                                      (("dtype", dtype), ("remat", remat)) if v})
+    state = M.init_train_state(torch.Generator(device="cuda").manual_seed(seed),
+                               cfg, device="cuda")
+    src = SyntheticTokenSource(
+        cfg.vocab_size, 64, 4, seed=seed,
+        input_mode=cfg.input_mode if not cfg.is_encoder_decoder else "tokens",
+        d_model=cfg.d_model,
+        enc_seq=cfg.encoder_seq if cfg.is_encoder_decoder else 0, mrope=cfg.mrope)
+    return cfg, state, [to_device(src.batch(i), torch.device("cuda")) for i in range(3)]
+
+
+def test_train_step_on_card_moves_the_parameters(cuda_device):
+    from repro_torch.models import model as M
+
+    cfg, state, batches = _smoke_train()
+    before = [p.detach().clone() for p in state.params.parameters()]
+    state, metrics = M.make_train_step(cfg, learning_rate=3e-3)(state, batches[0])
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    assert metrics["loss"].device.type == "cuda" and int(state.step) == 1
+    moved = [not torch.equal(a, p) for a, p in zip(before, state.params.parameters())]
+    assert all(moved)
+    assert all(p.grad is None for p in state.params.parameters())
+
+
+@pytest.mark.parametrize("name", ["internlm2-1.8b-smoke", "granite-moe-3b-a800m-smoke"])
+def test_remat_dots_equals_none_on_card(cuda_device, name):
+    """At f32 the recomputed layers give the gradients of the unrecomputed
+    ones (rtol 1e-5, atol 1e-7: the embedding's backward adds with
+    atomics, in no fixed order)."""
+    from repro_torch.models import model as M
+
+    grads = {}
+    for remat in ("none", "dots"):
+        cfg, state, batches = _smoke_train(name, dtype="float32", remat=remat)
+        loss = M.loss_fn(state.params, cfg, batches[0])
+        loss.backward()
+        grads[remat] = {n: p.grad.clone() for n, p in state.params.named_parameters()}
+    for n, g in grads["none"].items():
+        torch.testing.assert_close(grads["dots"][n], g, rtol=1e-5, atol=1e-7)
+
+
+def test_checkpoint_from_card_restores_onto_card(cuda_device, tmp_path):
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
+    from repro_torch.models import model as M
+
+    cfg, state, batches = _smoke_train("whisper-medium-smoke")
+    step = M.make_train_step(cfg, learning_rate=3e-3)
+    for b in batches[:2]:
+        state, _ = step(state, b)
+    writer = AsyncCheckpointer(str(tmp_path))
+    writer.save(2, state)
+    writer.wait()
+    like = M.init_train_state(torch.Generator(device="cuda").manual_seed(1), cfg,
+                              device="cuda")
+    restored, at = restore_checkpoint(str(tmp_path), like)
+    assert at == 2 and int(restored.step) == 2
+    for a, b in zip(restored.params.parameters(), state.params.parameters()):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    for k in state.opt_state.m:
+        assert torch.equal(restored.opt_state.m[k], state.opt_state.m[k])
+        assert torch.equal(restored.opt_state.v[k], state.opt_state.v[k])

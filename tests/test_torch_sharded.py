@@ -259,6 +259,93 @@ def test_plan_sharded_on_h100_prices_the_cuda_shards():
     assert PlanCache.key(four).endswith("/sh4")
 
 
+SIFT = dict(n=1_000_000, d=128, k=10, m=10_000, metric="l2",
+            recall_target=0.95)
+
+
+@pytest.mark.parametrize("storage", STORAGES)
+def test_h100_plan_of_shards_sharing_a_device_is_the_unsharded_scan(storage):
+    """C7: on the ``"h100"`` profile, 4 shards that one device holds are
+    scanned one after another (the busiest device's rows are all N) with
+    no gather, so the prediction is the unsharded scan's within the
+    shards' padding to whole bins (rtol 2e-2; each shard pads its rows)."""
+    one = plan_search(**SIFT, storage=storage, backend="cuda", device="h100")
+    rep = plan_search(**SIFT, storage=storage, backend="sharded",
+                      device="h100", db_shards=4, shards_per_device=4)
+    assert rep.db_devices == 1 and rep.shards_per_device == 4
+    assert rep.ici_bytes == 0.0 and rep.ici_s == 0.0
+    np.testing.assert_allclose(rep.predicted_s, one.predicted_s, rtol=2e-2)
+    np.testing.assert_allclose(rep.flops, one.flops, rtol=2e-2)
+    # distinct devices (the default): one shard's scan plus the gather
+    four = plan_search(**SIFT, storage=storage, backend="sharded",
+                       device="h100", db_shards=4)
+    assert four.db_devices == 4 and four.ici_s > 0
+    assert four.predicted_s < rep.predicted_s / 3.5
+    # two devices, two shards each: two shards' scans and the gather of
+    # one block a device, half of four devices' (a tier's rescore is
+    # priced once: rtol 1e-4)
+    two = plan_search(**SIFT, storage=storage, backend="sharded",
+                      device="h100", db_shards=4, shards_per_device=2)
+    assert two.db_devices == 2 and two.ici_bytes == four.ici_bytes / 2
+    np.testing.assert_allclose(two.flops, 2 * four.flops, rtol=1e-4)
+    # an uneven layout (2 + 1 + 1 shards): the busiest device's two scans
+    # and three devices' blocks
+    three = plan_search(**SIFT, storage=storage, backend="sharded",
+                        device="h100", db_shards=4, shards_per_device=2,
+                        db_devices=3)
+    assert three.ici_bytes == 3 * four.ici_bytes / 4
+    assert three.flops == two.flops
+
+
+@pytest.mark.parametrize("profile", ["cpu", "v100", "a100"])
+@pytest.mark.parametrize("per_device", [1, 4])
+def test_other_profiles_ignore_the_shards_devices(profile, per_device):
+    """C7 is repaired on ``"h100"`` only: the other profiles' sharded
+    plans stay the reference's field for field, wherever the shards lie."""
+    for storage in STORAGES:
+        kw = dict(n=1 << 20, d=128, k=10, m=10_000, backend="sharded",
+                  device=profile, storage=storage, db_shards=4)
+        ours = plan_search(**kw, shards_per_device=per_device)
+        theirs = ref_plan.plan_search(**kw)
+        for key in ("db_shards", "ici_bytes", "ici_s", "flops", "hbm_bytes",
+                    "cops", "predicted_s", "num_bins", "k_scan"):
+            assert getattr(ours, key) == getattr(theirs, key), key
+
+
+def test_index_on_a_mesh_repeating_one_device_prices_the_unsharded_scan():
+    """``Index.shard`` over a mesh that names one device four times
+    passes the planner the busiest device's shard count and the distinct
+    devices: on ``"h100"`` the prediction is the unsharded index's and
+    ``ici_s`` is 0; ``explain()`` reports both counts."""
+    db, _ = _data()
+    base = Index.build(db, metric="l2", k=K, cluster="off", backend="cuda",
+                       device="cpu", profile="h100")
+    sh = base.shard(_mesh())
+    p = sh.kernel_plan
+    assert (p.db_shards, p.shards_per_device, p.db_devices) == (4, 4, 1)
+    assert p.ici_s == 0.0
+    for m in (16, 10_000):
+        ours = sh.explain(m=m)
+        want = base.explain(m=m)["predicted"]["wall_s"]
+        np.testing.assert_allclose(ours["predicted"]["wall_s"], want,
+                                   rtol=2e-2)
+        assert ours["sharding"]["ici_s"] == 0.0
+        assert ours["sharding"]["db_devices"] == 1
+
+
+@pytest.mark.parametrize("grid, want", [
+    (None, (1, None)),
+    ([["cuda:0", "cuda:1", "cuda:2", "cuda:3"]], (1, 4)),
+    ([["cuda:0", "cuda:0", "cuda:1", "cuda:2"]], (2, 3)),
+    ([["cuda:0"] * 4, ["cuda:1"] * 4], (4, 1)),
+])
+def test_shard_devices_reads_the_busiest_device_and_the_distinct_ones(grid, want):
+    """What ``Index._replan`` passes the planner: the shards the busiest
+    device of a batch group holds and the distinct devices among them."""
+    from repro_torch.search.index import _shard_devices
+    assert _shard_devices(grid) == want
+
+
 # --- meshes: batch axis, tuple db axis -----------------------------------------
 
 
