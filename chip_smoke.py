@@ -180,7 +180,22 @@ run in order and the first failure exits non-zero:
      full width (f32 masters, bf16 compute, ``remat="dots"``, batch 4 x
      2,048): a step's ms and tokens/s beside its ``model_flops`` bound,
      its peak memory beside the state's 16 bytes a parameter, and the
-     lower peak of ``microbatches=2``.
+     lower peak of ``microbatches=2``;
+ 20. the mesh rules and the dry run: internlm2-1.8b's kNN decode step at
+     full width over a long_500k cache (524,288 positions, or the
+     largest power of two that fits), under ``use_mesh`` of a logical
+     (1, 4) mesh of ``cuda:0`` with ``cell_rules(cfg, long_500k,
+     mesh)``: every layer through ``_knn_decode_attention_cp``, layer
+     0's recall at phase 18d's floor, the logits beside the unsharded
+     kNN step's, both timed, beside the dry run's count of the cell; the
+     trainer with ``--model-parallel 2`` bit-equal to ``1`` (PyTorch's
+     deterministic algorithms on);
+     ``remesh_state`` and ``restore_checkpoint(shardings=)`` onto the
+     card bit for bit; ``count_cell`` of phase 19's full-width training
+     shape on fake tensors against the same step run under
+     ``FlopCounterMode`` (the same dot FLOPs), its counted peak beside
+     ``torch.cuda.max_memory_allocated`` and its roofline beside the
+     measured step.
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
@@ -3252,6 +3267,315 @@ def phase_training(prk, seed, results, smi):
     return out
 
 
+# --- phase 20: the mesh rules and the dry run ------------------------------------
+
+CP_DECODE = dict(arch="internlm2-1.8b", seq=524_288, batch=1)
+# phase 20a: the context-parallel step's logits beside the unsharded kNN
+# step's, relative to the largest |logit| (a sanity bound set before the
+# first run: both select ~k of S keys a head, from bins of other sizes)
+CP_LOGIT_REL = 0.1
+
+
+def _cp_caches(cfg, seq, batch, seed):
+    """Random bf16 KV caches of every layer at ``seq`` positions, the
+    largest power of two from ``seq`` down that fits beside a 4 GB
+    margin."""
+    from repro_torch.models import attention as attn
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = lambda s: (batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
+    while True:
+        need = 2 * cfg.num_layers * math.prod(shape(seq)) * 2
+        if need + 4e9 < torch.cuda.mem_get_info()[0]:
+            break
+        seq //= 2
+    return seq, [attn.KVCache(
+        k=torch.randn(shape(seq), generator=g, device="cuda", dtype=torch.bfloat16),
+        v=torch.randn(shape(seq), generator=g, device="cuda", dtype=torch.bfloat16))
+        for _ in range(cfg.num_layers)]
+
+
+def phase_cp_decode(seed, smi):
+    """Phase 20a: internlm2-1.8b's kNN decode step (greedy) at full width
+    over random bf16 caches of the long_500k length (written at the last
+    position, every position live), under ``use_mesh`` of a logical
+    (1, 4) mesh with ``cell_rules(cfg, long_500k, mesh)``: every layer
+    through ``_knn_decode_attention_cp`` over ("model",), layer 0's
+    recall against the exact top-k at phase 18d's floor; the unsharded
+    kNN step on the same caches: logits within ``CP_LOGIT_REL`` of the
+    largest |logit|, greedy tokens compared; both steps timed (median of
+    3) beside the dry run's count of the cell."""
+    from repro_torch.configs import SHAPES, ShapeConfig
+    from repro_torch.core.binning import plan_bins
+    from repro_torch.core.rescoring import stable_topk
+    from repro_torch.launch.dryrun import count_cell, roofline
+    from repro_torch.launch.shardspecs import cell_rules
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model as M
+    from repro_torch.parallel import use_mesh
+
+    torch.cuda.empty_cache()
+    cfg, model, _, weight_bytes = init_full(CP_DECODE["arch"], seed)
+    b = CP_DECODE["batch"]
+    seq, caches = _cp_caches(cfg, CP_DECODE["seq"], b, seed + 20)
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches for t in c)
+    tokens = torch.randint(0, cfg.vocab_size, (b, 1), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(seed))
+    pos = seq - 1
+    mesh = logical_mesh((1, SHARDS), ("data", "model"))
+    rules = cell_rules(cfg, SHAPES["long_500k"], mesh)
+    step = M.make_decode_step(cfg, use_knn=True, sample="greedy")
+    calls, records = [], []
+    real = attn._knn_decode_attention_cp
+
+    def spy(q, keys, values, valid, **kw):
+        calls.append(tuple(kw["cp_axes"]))
+        if not records:
+            records.append((q, keys, values, valid, kw))
+        return real(q, keys, values, valid, **kw)
+
+    def cp_step():
+        with use_mesh(mesh, rules=rules):
+            return step(model, tokens, caches, pos, None)
+    attn._knn_decode_attention_cp = spy
+    try:
+        _, (cp_tok, cp_logits, _) = timed_ms(cp_step)
+    finally:
+        attn._knn_decode_attention_cp = real
+    if calls != [("model",)] * cfg.num_layers:
+        fail(f"context-parallel decode: {len(calls)} calls of "
+             f"_knn_decode_attention_cp over {set(calls)}, want {cfg.num_layers} "
+             f"over ('model',)")
+    q, keys, values, valid, kw = records[0]
+    h, hd, k = q.shape[1], q.shape[-1], kw["k"]
+    vals, cpos, _ = attn._knn_cp_candidates(q, keys, values, valid, **kw)
+    _, sel = stable_topk(vals, k)
+    chosen = torch.gather(cpos, 2, sel)
+    scores = attn._group_scores(q, keys, kw["kv_groups"]) * attn._const(hd ** -0.5, q)
+    exact = torch.topk(scores.float(), k, dim=-1).indices
+    r = float((chosen[..., :, None] == exact[..., None, :]).any(-1).float().mean())
+    floor = plan_bins(seq // SHARDS, k, kw["recall_target"],
+                      reduction_input_size_override=seq).expected_recall \
+        - hoeffding_eps(b * h)
+    del records, q, keys, values, valid, vals, cpos, scores
+    if not r >= floor:
+        fail(f"context-parallel decode: layer 0 recall {r} < {floor}")
+    _, (tok, logits, _) = timed_ms(lambda: step(model, tokens, caches, pos, None))
+    if not (torch.isfinite(cp_logits.float()).all() and cp_logits.shape == logits.shape):
+        fail("context-parallel decode: non-finite or misshapen logits")
+    diff = float((cp_logits.float() - logits.float()).abs().max())
+    top = float(logits.float().abs().max())
+    if not diff <= CP_LOGIT_REL * top:
+        fail(f"context-parallel decode: logits differ by {diff} (largest |logit| "
+             f"{top}) from the unsharded kNN step")
+    top1 = bool(torch.equal(cp_tok, tok))
+    cp_ms = median([timed_ms(cp_step)[0] for _ in range(3)])
+    ms = median([timed_ms(lambda: step(model, tokens, caches, pos, None))[0]
+                 for _ in range(3)])
+    shape = ShapeConfig("long_500k", seq, b, "decode")
+    t0 = time.perf_counter()
+    cost = count_cell(cfg, shape, make_meta_mesh())
+    count_s = time.perf_counter() - t0
+    roof = roofline(cfg, shape, cost, 0.0)
+    log(f"[cp decode] {cfg.name} kNN decode (greedy) over a {seq}-position "
+        f"cache ({cache_bytes / 1e9:.2f} GB bf16 KV beside {weight_bytes / 1e9:.2f} "
+        f"GB of weights), logical (1, {SHARDS}) mesh with long_500k's rules: "
+        f"{len(calls)} layers through _knn_decode_attention_cp over ('model',); "
+        f"layer 0 recall {r:.4f} (floor {floor:.4f}, k={k}); logits max |diff| "
+        f"vs unsharded {diff:.4g} (largest |logit| {top:.4g}), greedy token "
+        f"equal {top1}; step {cp_ms:.3f} ms vs unsharded {ms:.3f} ms; dry run "
+        f"(counted in {count_s:.1f} s): memory term {1e3 * roof['memory_s']:.3f} "
+        f"ms, ideal {1e3 * roof['ideal_step_s']:.3f} ms, {cost.hbm_bytes:.4e} "
+        f"bytes, {cost.dot_flops:.4e} dot FLOPs; on {smi}")
+    out = dict(seq=seq, batch=b, cache_bytes=cache_bytes, weight_bytes=weight_bytes,
+               cp_calls=len(calls), recall=r, recall_floor=floor, k=k,
+               max_abs_diff=diff, max_abs_logit=top, top1_equal=top1,
+               cp_step_ms=cp_ms, unsharded_step_ms=ms,
+               dryrun=dict(dot_flops=cost.dot_flops, hbm_bytes=cost.hbm_bytes,
+                           peak_bytes=cost.peak_bytes, count_s=count_s, **roof))
+    del model, caches, cp_logits, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def make_meta_mesh():
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh(1, devices=["meta"])
+
+
+def phase_model_parallel(smi):
+    """Phase 20b: ``launch.train.main`` with ``--model-parallel 2`` on the
+    card (one card: a (1, 1) mesh), the losses and the final state
+    bit-equal to ``--model-parallel 1``'s, both run with PyTorch's
+    deterministic algorithms (the embedding's backward otherwise adds
+    with atomics in no fixed order); returns its state for 20c."""
+    from repro_torch.launch import train
+
+    args = ["--arch", "internlm2-1.8b-smoke", "--steps", "5", "--seq", "64",
+            "--global-batch", "8", "--lr", "3e-3", "--log-every", "1"]
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        one = train.main(args + ["--model-parallel", "1"])
+        two = train.main(args + ["--model-parallel", "2"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = (one["losses"] == two["losses"] and all(
+        torch.equal(p, q) for p, q in zip(one["state"].params.parameters(),
+                                          two["state"].params.parameters())))
+    if not same or tuple(two["mesh"].shape.values()) != (1, 1):
+        fail(f"--model-parallel 2 on {dict(two['mesh'].shape)} is not bit-equal "
+             f"to 1: {one['losses']} vs {two['losses']}")
+    secs = time.perf_counter() - t0
+    log(f"[model parallel] internlm2-1.8b-smoke, 5 steps: --model-parallel 2 on "
+        f"a {tuple(two['mesh'].shape.values())} mesh of {two['mesh'].devices.flat[0]} "
+        f"bit-equal to 1 (losses {[round(x, 4) for _, x in two['losses']]}); "
+        f"{secs:.1f} s; on {smi}")
+    return dict(losses=[x for _, x in two["losses"]], bit_equal=same,
+                mesh=list(two["mesh"].shape.values()), seconds=secs), two["state"]
+
+
+def phase_remesh(state, smi):
+    """Phase 20c: a CPU copy of 20b's state placed onto a logical (1, 2)
+    mesh of the card by ``remesh_state``, and 20b's checkpoint restored
+    from disk into a CPU state with ``shardings=`` for that mesh: every
+    leaf on ``cuda:0`` and bit-equal to the card's state."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.ft import remesh_state
+    from repro_torch.launch import shardspecs as SS
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import AdamWState
+
+    cfg = state.params.cfg
+    mesh = logical_mesh((1, 2), ("data", "model"))
+
+    def cpu_state(seed):
+        return M.init_train_state(torch.Generator().manual_seed(seed), cfg,
+                                  device="cpu")
+
+    def equal(a, b):
+        pa, pb = dict(a.params.named_parameters()), dict(b.params.named_parameters())
+        return int(a.step) == int(b.step) and all(
+            pa[n].device == mesh.devices.flat[0] and torch.equal(pa[n], pb[n])
+            and torch.equal(a.opt_state.m[n], b.opt_state.m[n])
+            and torch.equal(a.opt_state.v[n], b.opt_state.v[n]) for n in pb)
+    host = cpu_state(1)
+    with torch.no_grad():
+        for n, p in host.params.named_parameters():
+            p.copy_(state.params.get_parameter(n).cpu())
+            host.opt_state.m[n].copy_(state.opt_state.m[n].cpu())
+            host.opt_state.v[n].copy_(state.opt_state.v[n].cpu())
+    host = host._replace(step=state.step.clone())
+    axes = tfm.model_axes(cfg)
+    moved = remesh_state(host, M.TrainState(step=(), params=axes, opt_state=AdamWState(
+        m=axes, v=axes)), mesh)
+    remeshed = equal(moved, state)
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, int(state.step), state)
+        like = cpu_state(2)
+        sh = SS.sanitize_tree(SS.train_state_shardings(cfg, mesh), like, mesh)
+        restored, _ = restore_checkpoint(d, like, shardings=sh)
+    restored_equal = equal(restored, state)
+    if not (remeshed and restored_equal):
+        fail(f"remesh_state bit-equal {remeshed}, restore_checkpoint(shardings=) "
+             f"bit-equal {restored_equal}")
+    log(f"[remesh] {cfg.name}: remesh_state of a CPU copy onto a logical (1, 2) "
+        f"mesh of the card and restore_checkpoint(shardings=) from disk: every "
+        f"leaf on {mesh.devices.flat[0]}, bit-equal; on {smi}")
+    return dict(remesh_equal=remeshed, restore_equal=restored_equal)
+
+
+def phase_dryrun_train(seed, smi):
+    """Phase 20d: ``count_cell`` of phase 19's full-width training shape
+    (internlm2-1.8b, batch 4 x 2,048) on fake tensors on the host, then
+    the same step on the card: one under ``FlopCounterMode`` (the dot
+    FLOPs must equal the count's: the same program), then 3 timed (CUDA
+    events) with the peak of ``torch.cuda.max_memory_allocated`` beside
+    the count's peak, and the step time beside the dry run's
+    ``step_time_s`` and ``ideal_step_s`` on the ``"h100"`` profile."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import SyntheticTokenSource
+    from repro_torch.launch.dryrun import count_cell, roofline
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import model as M
+
+    cfg = get_config(FULL_TRAIN["arch"])
+    b, s = FULL_TRAIN["batch"], FULL_TRAIN["seq"]
+    shape = ShapeConfig("train", s, b, "train")
+    t0 = time.perf_counter()
+    cost = count_cell(cfg, shape, make_meta_mesh())
+    count_s = time.perf_counter() - t0
+    roof = roofline(cfg, shape, cost, 0.0)
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    state = M.init_train_state(torch.Generator(device=dev).manual_seed(seed), cfg,
+                               device=dev)
+    src = SyntheticTokenSource(cfg.vocab_size, s, b, seed=seed)
+    batches = [to_device(src.batch(i), dev) for i in range(5)]
+    step = M.make_train_step(cfg, learning_rate=3e-4,
+                             microbatches=cfg.train_microbatches)
+    state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    with FlopCounterMode(display=False) as flops:
+        state, _ = step(state, batches[1])
+    torch.cuda.synchronize()
+    real = float(flops.get_total_flops())
+    if real != cost.dot_flops:
+        fail(f"{cfg.name} train step: counted {cost.dot_flops} dot FLOPs on fake "
+             f"tensors, {real} on the card")
+    torch.cuda.reset_peak_memory_stats()
+    times, state, metrics = _timed_steps(step, state, batches[2:])
+    peak = torch.cuda.max_memory_allocated()
+    if not math.isfinite(float(metrics["loss"])):
+        fail(f"{cfg.name} train step: non-finite loss")
+    ms = median(times)
+    out = dict(arch=cfg.name, batch=b, seq=s, count_s=count_s,
+               dot_flops=cost.dot_flops, card_dot_flops=real,
+               hbm_bytes=cost.hbm_bytes, hbm_bytes_lo=cost.hbm_bytes_lo,
+               hbm_bytes_hi=cost.hbm_bytes_hi, cop_count=cost.cop_count,
+               argument_bytes=cost.argument_bytes, counted_peak_bytes=cost.peak_bytes,
+               card_peak_bytes=peak, step_ms=times, median_step_ms=ms,
+               roofline=roof)
+    log(f"[dry run] {cfg.name} train {b} x {s}: counted on fake tensors in "
+        f"{count_s:.1f} s: {cost.dot_flops:.6e} dot FLOPs (the card's step under "
+        f"FlopCounterMode: {real:.6e}, equal), {cost.hbm_bytes:.4e} bytes "
+        f"({cost.hbm_bytes_lo:.4e}..{cost.hbm_bytes_hi:.4e}), {cost.cop_count:.4e} "
+        f"COPs; peak {cost.peak_bytes / 1e9:.2f} GB counted vs "
+        f"{peak / 1e9:.2f} GB max_memory_allocated; roofline on h100: compute "
+        f"{1e3 * roof['compute_s']:.1f} ms, memory {1e3 * roof['memory_s']:.1f} ms, "
+        f"instruction {1e3 * roof['instruction_s']:.1f} ms -> step_time_s "
+        f"{1e3 * roof['step_time_s']:.1f} ms ({roof['dominant']}), ideal "
+        f"{1e3 * roof['ideal_step_s']:.1f} ms; measured {ms:.1f} ms (timed "
+        f"{[round(x, 1) for x in times]}): {roof['step_time_s'] * 1e3 / ms:.4f} "
+        f"of the counted bound, {roof['ideal_step_s'] * 1e3 / ms:.4f} of the "
+        f"ideal; on {smi}")
+    del state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_and_dryrun(prk, seed, smi):
+    """Phase 20 (see the module docstring); returns its report."""
+    t0 = time.perf_counter()
+    prk.reset_counts()
+    out = {"cp_decode": phase_cp_decode(seed, smi)}
+    out["model_parallel"], state = phase_model_parallel(smi)
+    out["remesh"] = phase_remesh(state, smi)
+    del state
+    out["dryrun_train"] = phase_dryrun_train(seed, smi)
+    # the mesh rules and the dry run reach no kernel of the port's
+    if sum(prk.LAUNCHES.values()) or sum(prk.PLAIN_CALLS.values()):
+        fail(f"phase 20 launched {dict(prk.LAUNCHES)}, plain calls "
+             f"{dict(prk.PLAIN_CALLS)}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 20] {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3409,6 +3733,8 @@ def main(argv=None) -> int:
                                              smi)
     # phase 19: the kNN workload registry, then training on the card
     training = phase_training(prk, args.seed, results, smi)
+    # phase 20: the mesh rules and the dry run
+    mesh_dryrun = phase_mesh_and_dryrun(prk, args.seed, smi)
     for k in kernels:
         for key in ("launches", "plain_calls"):
             k[key] = results[key].get(k["name"], 0)
@@ -3424,6 +3750,7 @@ def main(argv=None) -> int:
     log(json.dumps({"families": families}))
     log(json.dumps({"sharding": sharding}))
     log(json.dumps({"training": training}))
+    log(json.dumps({"mesh_and_dryrun": mesh_dryrun}))
     log(json.dumps({"kernels": kernels + knn_kernels + family_kernels
                     + shard_kernels}))
     log(smi)

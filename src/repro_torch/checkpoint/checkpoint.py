@@ -38,6 +38,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import place
 from repro_torch.search import faults
 
 __all__ = [
@@ -241,7 +242,8 @@ def _restore_train_state(like, arrays):
     return like._replace(step=torch.as_tensor(arrays[".step"], dtype=torch.int32))
 
 
-def restore_checkpoint(directory: str, like, step: Optional[int] = None):
+def restore_checkpoint(directory: str, like, step: Optional[int] = None,
+                       shardings=None):
     """Restore the checkpoint of ``step`` (default the latest committed
     one) into the structure of ``like``; returns ``(state, step)``.
 
@@ -249,7 +251,15 @@ def restore_checkpoint(directory: str, like, step: Optional[int] = None):
     are overwritten in place, on their devices; the returned state holds
     them and a new step) or a tree of tensors (copied into in place) and
     numpy arrays (replaced).  The checkpoint may come from either
-    package; each array is cast to the dtype of its target."""
+    package; each array is cast to the dtype of its target.
+
+    ``shardings``: a matching tree of ``parallel.sharding.NamedSharding``
+    (``launch.shardspecs.train_state_shardings``).  ``like`` is placed on
+    their devices first (``parallel.sharding.place``) and the arrays are
+    copied there straight from the file: the elastic-restart path onto
+    another mesh."""
+    if shardings is not None:
+        like = place(like, shardings)
     if step is None:
         step = latest_step(directory)
         if step is None:

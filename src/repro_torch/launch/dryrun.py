@@ -1,15 +1,67 @@
-"""The model-FLOP and ideal-memory counts of a cell.
+"""Dry run: count a cell's step on fake tensors, and its rooflines.
 
-Port of ``model_flops`` and ``ideal_memory_bytes`` of
-``src/repro/launch/dryrun.py`` (arithmetic on a config and a shape).  The
-rest of the reference's dry run (a cell lowered and costed without
-running it) is ROADMAP queue A item 13b step 6.
+Port of ``src/repro/launch/dryrun.py``.  For each (arch x shape) cell on
+one card this writes ``{arch}_{shape}_{mesh}.json`` (into ``--out``)
+with the reference's keys:
+  * the counted cost of the step (``analysis.op_cost.program_cost``: dot
+    FLOPs, bytes, COPs, the live-bytes peak) where the reference compiles
+    the step and reads its HLO,
+  * the cross-device copies (``collective_bytes``; none on one card),
+  * the roofline terms on a hardware profile (``"h100"`` by default),
+  * MODEL_FLOPS = 6*N(_active)*D and the useful-compute ratio.
+
+:func:`count_cell` builds the train state or the parameters on
+``device="meta"`` (nothing is allocated), places them by
+``launch.shardspecs`` under the cell's rules and counts the train,
+prefill or decode step as the port runs it.  ``"single"`` is one card
+(``chips: 1``, a (1, 1) mesh).  The reference's ``"multi"`` cell (its
+512-chip pod) has no counterpart: the port has no partitioner, so no
+per-device program exists to count; :func:`run_cell` refuses it.
+
+Usage (on the CPU; nothing runs on a card):
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2-1.8b \\
+      --shape train_4k --mesh single
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig
+import argparse
+import collections
+import json
+import os
+import time
+import traceback
+from typing import Any, Dict
 
-__all__ = ["model_flops", "ideal_memory_bytes"]
+import torch
+
+from repro_torch.analysis.op_cost import (
+    ProgramCost,
+    collective_bytes,
+    device_copies,
+    program_cost,
+)
+from repro_torch.configs import ASSIGNED_ARCHS, SHAPES, get_config
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.roofline import HARDWARE
+from repro_torch.launch import shardspecs as SS
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import model as M
+from repro_torch.models import transformer as tfm
+from repro_torch.optim.adamw import adamw_init
+from repro_torch.parallel.mesh import Mesh
+from repro_torch.parallel.sharding import place, use_mesh
+
+__all__ = ["model_flops", "ideal_memory_bytes", "count_cell", "roofline",
+           "run_cell", "main"]
+
+
+def _knn_attn_for_cell(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """long_500k uses the paper's knn top-k attention for KV-cache archs."""
+    if shape.name != "long_500k":
+        return False
+    kinds = set(cfg.layer_kinds())
+    return any(k in kinds for k in ("dense", "moe", "mla_dense", "mla_moe", "dec"))
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
@@ -57,3 +109,191 @@ def ideal_memory_bytes(cfg: ModelConfig, shape: ShapeConfig) -> float:
     if shape.kind == "prefill":
         return 2.0 * n_total + cache
     return 2.0 * n + cache
+
+
+def _abstract_train_state(cfg: ModelConfig) -> M.TrainState:
+    """``models.model.init_train_state``'s layout on ``"meta"``: f32
+    masters requiring grad, zero moments, step 0 (on the host)."""
+    model = tfm.Transformer(cfg, device="meta")
+    model.requires_grad_(True)
+    return M.TrainState(step=torch.zeros((), dtype=torch.int32), params=model,
+                        opt_state=adamw_init(dict(model.named_parameters())))
+
+
+def count_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh) -> ProgramCost:
+    """The cell's step (train, prefill, or decode with the kNN attention
+    where ``_knn_attn_for_cell`` says) counted on fake tensors, its
+    arguments built on ``"meta"`` and placed by the cell's shardings,
+    under ``use_mesh(mesh, rules=shardspecs.cell_rules(...))``."""
+    specs = M.input_specs(cfg, shape)
+    with use_mesh(mesh, rules=SS.cell_rules(cfg, shape, mesh)):
+        if shape.kind == "train":
+            state = _abstract_train_state(cfg)
+            state = place(state, SS.sanitize_tree(
+                SS.train_state_shardings(cfg, mesh, shape), state, mesh))
+            batch = place(specs, SS.sanitize_tree(
+                SS.batch_shardings(cfg, shape, mesh), specs, mesh))
+            step = M.make_train_step(cfg, microbatches=cfg.train_microbatches)
+            return program_cost(step, state, batch)
+        model = tfm.Transformer(cfg, device="meta")
+        if shape.kind == "prefill":
+            model = place(model, SS.sanitize_tree(
+                SS.param_shardings(cfg, mesh, shape), model, mesh))
+            batch = place(specs, SS.sanitize_tree(
+                SS.batch_shardings(cfg, shape, mesh), specs, mesh))
+            return program_cost(M.make_prefill_step(cfg), model, batch)
+        arg_sh = SS.decode_arg_shardings(cfg, shape, mesh)
+        model = place(model, SS.sanitize_tree(arg_sh["params"], model, mesh))
+        caches = place(specs["caches"], SS.sanitize_tree(
+            arg_sh["caches"], specs["caches"], mesh))
+        cross_kv = specs.get("cross_kv")
+        if cross_kv is not None:
+            cross_kv = place(cross_kv, SS.sanitize_tree(
+                arg_sh["cross_kv"], cross_kv, mesh))
+        # the Gumbel draw is the step's input (the engine draws it outside)
+        noise = torch.empty((shape.global_batch, cfg.decode_sample_k),
+                            device="meta")
+        step = M.make_decode_step(cfg, use_knn=_knn_attn_for_cell(cfg, shape))
+        return program_cost(step, model, specs["tokens"], caches,
+                            specs["cur_index"], None, noise=noise,
+                            cross_kv=cross_kv)
+
+
+def roofline(cfg: ModelConfig, shape: ShapeConfig, cost: ProgramCost,
+             coll_bytes: float, hw_name: str = "h100",
+             chips: int = 1) -> Dict[str, Any]:
+    """The reference's ``roofline`` dict of a counted step: its four terms
+    on ``HARDWARE[hw_name]`` (the largest is ``step_time_s``), the ideal
+    step from ``model_flops`` and ``ideal_memory_bytes``, and their
+    ratios."""
+    hw = HARDWARE[hw_name]
+    compute_s = cost.dot_flops / hw.peak_flops
+    memory_s = cost.hbm_bytes / hw.hbm_bandwidth
+    collective_s = coll_bytes / hw.ici_bandwidth
+    instruction_s = cost.cop_count / hw.peak_cops  # the paper's third wall
+    terms = {"compute": compute_s, "memory": memory_s,
+             "collective": collective_s, "instruction": instruction_s}
+    dominant = max(terms, key=terms.get)
+    step_time = max(terms.values())
+    mf = model_flops(cfg, shape)
+    mf_per_device = mf / chips
+    # Ideal step time: the better of the compute roofline and the
+    # unavoidable-traffic memory roofline — decode is *supposed* to be
+    # memory-bound, so MFU alone would misgrade it.
+    ideal_bytes_dev = ideal_memory_bytes(cfg, shape) / chips
+    t_ideal = max(mf_per_device / hw.peak_flops, ideal_bytes_dev / hw.hbm_bandwidth)
+    return {
+        "compute_s": compute_s,
+        "memory_s": memory_s,
+        "collective_s": collective_s,
+        "instruction_s": instruction_s,
+        "dominant": dominant,
+        "step_time_s": step_time,
+        "model_flops": mf,
+        "ideal_bytes_per_device": ideal_bytes_dev,
+        "ideal_step_s": t_ideal,
+        "useful_ratio": mf_per_device / cost.dot_flops if cost.dot_flops else 0.0,
+        "mfu_bound": (mf_per_device / hw.peak_flops) / step_time if step_time else 0.0,
+        "roofline_fraction": t_ideal / step_time if step_time else 0.0,
+    }
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
+             hw_name: str = "h100") -> Dict[str, Any]:
+    """One cell's record, the reference's keys: ``lower_s`` is the time to
+    build and count the step (the port compiles nothing: ``compile_s`` is
+    0), ``xla_cost_analysis`` holds the counted FLOPs and the
+    fusion-boundary bytes, ``memory`` the exact argument and output
+    bytes and the counted peak."""
+    if mesh_kind == "multi":
+        raise ValueError(
+            "the multi-pod cell (512 chips) has no counterpart in the port: "
+            "one process with no partitioner has no per-device program to "
+            "count; run mesh_kind='single' (one card)")
+    if mesh_kind != "single":
+        raise ValueError(f"mesh_kind {mesh_kind!r}: 'single' or 'multi'")
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    mesh = make_host_mesh(1, devices=["meta"])
+    chips = 1
+    result: Dict[str, Any] = {
+        "arch": arch, "shape": shape_name, "mesh": mesh_kind, "chips": chips,
+        "knn_attention": _knn_attn_for_cell(cfg, shape),
+    }
+    t0 = time.time()
+    cost = count_cell(cfg, shape, mesh)
+    result["lower_s"] = round(time.time() - t0, 2)
+    result["compile_s"] = 0.0
+    result["xla_cost_analysis"] = {"flops": cost.dot_flops,
+                                   "bytes": cost.hbm_bytes_hi}
+    result["memory"] = {
+        "argument_bytes": cost.argument_bytes,
+        "output_bytes": cost.output_bytes,
+        "temp_bytes": cost.peak_bytes - cost.argument_bytes,
+        "peak_bytes": cost.peak_bytes,
+    }
+    t2 = time.time()
+    coll_total, coll_kinds = collective_bytes(cost.trace)
+    result["analyze_s"] = round(time.time() - t2, 2)
+    result["hlo_flops_per_device"] = cost.dot_flops
+    result["hlo_bytes_per_device"] = cost.hbm_bytes
+    result["hlo_cops_per_device"] = cost.cop_count
+    result["hlo_flops"] = cost.dot_flops * chips
+    result["hlo_bytes"] = cost.hbm_bytes * chips
+    result["while_trips"] = cost.while_trips
+    result["collective_bytes"] = coll_total
+    result["collective_breakdown"] = coll_kinds
+    result["collective_counts"] = dict(collections.Counter(
+        kind for kind, _ in device_copies(cost.trace)))
+    result["roofline"] = roofline(cfg, shape, cost, coll_total, hw_name, chips)
+    return result
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default="dryrun_torch")
+    ap.add_argument("--skip-existing", action="store_true")
+    args = ap.parse_args(argv)
+
+    os.makedirs(args.out, exist_ok=True)
+    archs = list(ASSIGNED_ARCHS) if args.all or not args.arch else [args.arch]
+    shapes = list(SHAPES) if args.all or not args.shape else [args.shape]
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+
+    failures = 0
+    for arch in archs:
+        for shape in shapes:
+            for mesh_kind in meshes:
+                path = os.path.join(args.out, f"{arch}_{shape}_{mesh_kind}.json")
+                if args.skip_existing and os.path.exists(path):
+                    print(f"[skip] {path}")
+                    continue
+                print(f"[dryrun] {arch} x {shape} x {mesh_kind} ...", flush=True)
+                try:
+                    res = run_cell(arch, shape, mesh_kind)
+                    dom = res["roofline"]["dominant"]
+                    print(
+                        f"  ok: count={res['lower_s']}s flops={res['hlo_flops']:.3e} "
+                        f"coll={res['collective_bytes']:.3e}B dominant={dom}",
+                        flush=True,
+                    )
+                except Exception as e:
+                    failures += 1
+                    res = {
+                        "arch": arch, "shape": shape, "mesh": mesh_kind,
+                        "error": f"{type(e).__name__}: {e}",
+                        "traceback": traceback.format_exc()[-4000:],
+                    }
+                    print(f"  FAIL: {type(e).__name__}: {e}", flush=True)
+                with open(path, "w") as f:
+                    json.dump(res, f, indent=1)
+    print(f"done; failures={failures}")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -8,8 +8,14 @@ Port of ``src/repro/launch/train.py`` with its flags, and ``--device``
 (default "cuda", which must exist; "cpu" runs on the CPU).  Batches move
 to the card through pinned host memory.  The model's f32 master weights
 are drawn on the device from ``--seed``; each step computes in the
-config's dtype.  ``--model-parallel`` > 1 (the reference's sharded step)
-waits for the mesh rules, ROADMAP queue A item 13b step 5.
+config's dtype.  As the reference does, the run builds a host mesh
+(``launch.mesh.make_host_mesh(--model-parallel)``: over the visible
+cards, or over the one ``--device`` named, such as ``cpu``), places the state by
+``launch.shardspecs.train_state_shardings`` and steps under
+``parallel.sharding.use_mesh``.  The port has no partitioner: the state
+lies whole on the mesh's first device (the ``--device``), and one card
+with ``--model-parallel 2`` gives the reference's (1, 1) mesh, so the
+losses equal ``--model-parallel 1``'s bit for bit.
 
 CPU-runnable end to end with the smoke configs:
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b-smoke \\
@@ -32,9 +38,12 @@ from repro_torch.checkpoint.checkpoint import (
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import Prefetcher, SyntheticTokenSource
 from repro_torch.ft.straggler import StragglerPolicy
+from repro_torch.launch import shardspecs as SS
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.adamw import cosine_schedule
+from repro_torch.parallel.sharding import place, use_mesh
 
 
 def to_device(host_batch: Dict[str, np.ndarray], device: torch.device
@@ -67,12 +76,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 shards the step over a mesh, which waits "
-            "for the mesh rules (ROADMAP queue A item 13b step 5)")
     device = tfm.resolve_device(args.device)
     cfg = get_config(args.arch)
+    # over every visible card for "cuda"; a named card or the CPU alone
+    mesh = make_host_mesh(args.model_parallel,
+                          devices=None if device == torch.device("cuda") else [device])
     sched = cosine_schedule(args.lr, args.warmup, args.steps)
     step_fn = M.make_train_step(
         cfg, learning_rate=sched,
@@ -87,16 +95,22 @@ def main(argv=None) -> dict:
         mrope=cfg.mrope,
     )
 
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = M.init_train_state(gen, cfg, device=device)
+    with use_mesh(mesh):
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        state = M.init_train_state(gen, cfg, device=device)
+        state_sh = SS.sanitize_tree(SS.train_state_shardings(cfg, mesh), state,
+                                    mesh)
+        state = place(state, state_sh)
+        device = state.params.device
 
-    start = 0
-    ck = None
-    if args.ckpt_dir:
-        ck = AsyncCheckpointer(args.ckpt_dir)
-        if latest_step(args.ckpt_dir) is not None:
-            state, start = restore_checkpoint(args.ckpt_dir, state)
-            print(f"[train] resumed from step {start}")
+        start = 0
+        ck = None
+        if args.ckpt_dir:
+            ck = AsyncCheckpointer(args.ckpt_dir)
+            if latest_step(args.ckpt_dir) is not None:
+                state, start = restore_checkpoint(args.ckpt_dir, state,
+                                                  shardings=state_sh)
+                print(f"[train] resumed from step {start}")
 
     pf = Prefetcher(src, start_step=start)
     policy = StragglerPolicy()
@@ -106,7 +120,8 @@ def main(argv=None) -> dict:
     try:
         for _ in range(start, args.steps):
             step_i, host_batch = pf.next()
-            state, metrics = step_fn(state, to_device(host_batch, device))
+            with use_mesh(mesh):
+                state, metrics = step_fn(state, to_device(host_batch, device))
             if (step_i + 1) % args.log_every == 0:
                 loss = float(metrics["loss"])
                 losses.append((step_i + 1, loss))
@@ -133,7 +148,7 @@ def main(argv=None) -> dict:
     else:
         print(f"[train] done at step {args.steps}, final loss {final:.4f}")
     return {"start": start, "step": args.steps, "losses": losses,
-            "final_loss": final, "state": state}
+            "final_loss": final, "state": state, "mesh": mesh}
 
 
 if __name__ == "__main__":

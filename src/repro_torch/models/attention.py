@@ -16,10 +16,10 @@ compressed latent space (the absorbed matmuls); its kNN branch gathers
 each (batch, head)'s selected latent rows from the (B, S, r) cache
 where the reference widens the cache to (B, H, S, r) first (the same
 values).  The score tiles' dtype is ``cfg.attn_scores_dtype`` (the
-reference sets it as module state).  The context-parallel kNN
-attention over a mesh is :func:`_knn_decode_attention_cp`, with its axes
-given explicitly; the public ``mesh=`` waits for the logical-axis rules
-(ROADMAP queue A item 13b step 5).
+reference sets it as module state).  ``knn_decode_attention`` takes
+the context-parallel path (:func:`_knn_decode_attention_cp`, paper §7)
+where the active mesh's rules map ``"cp_seq"`` to axes present on it
+(``repro_torch.parallel.sharding``), as the reference's does.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ from repro_torch.core.topk import approx_max_k
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamDef
 from repro_torch.models.rope import apply_mrope, apply_rope
+from repro_torch.parallel.sharding import current_mesh, logical_to_spec
 
 __all__ = [
     "attn_defs",
@@ -304,22 +305,29 @@ def knn_decode_attention(
     k: int,
     recall_target: float = 0.95,
     kv_groups: int = 1,
-    mesh=None,
 ) -> torch.Tensor:
     """Paper-technique attention over a KV cache: all scores in one
     matmul, ``approx_max_k`` keeps k keys with E[recall] per Eq. 13, an
     exact softmax over them weighs their values.  Early in a decode
     (fewer live positions than k) the masked positions it returns weigh
-    exactly 0.  ``mesh=`` raises: the reference picks the context-parallel
-    axes from its logical-axis rules, the mesh rules of ROADMAP queue A
-    item 13b step 5; :func:`_knn_decode_attention_cp` takes the mesh and
-    its axes explicitly."""
+    exactly 0.
+
+    When the cache sequence is context-parallel (the active mesh's rules
+    map the ``"cp_seq"`` logical axis to axes of that mesh), this runs
+    the paper's §7 algorithm, :func:`_knn_decode_attention_cp` over those
+    axes: PartialReduce per shard against the global S, only the bin
+    winners and their value rows gathered, the global top-k and softmax
+    after."""
+    mesh = current_mesh()
+    cp = None
     if mesh is not None:
-        raise NotImplementedError(
-            "knn_decode_attention(mesh=) picks its context-parallel axes "
-            "from the logical-axis rules of ROADMAP queue A item 13b step 5; call "
-            "_knn_decode_attention_cp(..., mesh=, cp_axes=) with them"
-        )
+        spec = logical_to_spec(("cp_seq",))[0]
+        if spec is not None:
+            cp = spec if isinstance(spec, tuple) else (spec,)
+    if cp:
+        return _knn_decode_attention_cp(
+            q, keys, values, valid, k=k, recall_target=recall_target,
+            mesh=mesh, cp_axes=cp, kv_groups=kv_groups)
     b, h, hd = q.shape
     scores = _group_scores(q, keys, kv_groups) * _const(hd ** -0.5, q)
     scores = torch.where(valid, scores, _const(_NEG_INF, scores))

@@ -52,12 +52,13 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import mlp_apply, mlp_defs, rms_norm
-from repro_torch.models.params import ParamDef, ParamTree, init_params
+from repro_torch.models.params import ParamDef, ParamTree, init_params, param_axes
 
 __all__ = [
     "runs_of",
     "layer_defs",
     "model_defs",
+    "model_axes",
     "Transformer",
     "resolve_device",
     "init_model",
@@ -148,6 +149,28 @@ def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.is_encoder_decoder:
         defs["enc_final_norm"] = _norm_def(cfg)
     return defs
+
+
+def _flat_axes(tree, prefix: str, out: Dict[str, Tuple]) -> None:
+    for name, sub in tree.items():
+        if isinstance(sub, dict):
+            _flat_axes(sub, f"{prefix}{name}.", out)
+        else:
+            out[prefix + name] = sub
+
+
+def model_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """Each parameter's logical axes by its name in the model's state dict
+    (``layers.{i}.attn.wq``, ...).  The reference's ``model_axes`` nests
+    the same axes with each run stacked (a leading ``"layers"`` axis,
+    which maps to no mesh axis)."""
+    out: Dict[str, Tuple] = {}
+    _flat_axes(param_axes(model_defs(cfg)), "", out)
+    for i, kind in enumerate(cfg.layer_kinds()):
+        _flat_axes(param_axes(layer_defs(cfg, kind)), f"layers.{i}.", out)
+    for i in range(cfg.encoder_layers if cfg.is_encoder_decoder else 0):
+        _flat_axes(param_axes(layer_defs(cfg, "enc")), f"encoder.{i}.", out)
+    return out
 
 
 def resolve_device(device=None) -> torch.device:

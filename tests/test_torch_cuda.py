@@ -1475,3 +1475,121 @@ def test_checkpoint_from_card_restores_onto_card(cuda_device, tmp_path):
     for k in state.opt_state.m:
         assert torch.equal(restored.opt_state.m[k], state.opt_state.m[k])
         assert torch.equal(restored.opt_state.v[k], state.opt_state.v[k])
+
+
+# --- the mesh rules and the dry run (item 13b steps 5–6) ----------------------
+
+
+def test_knn_attention_under_a_mesh_on_card_takes_the_cp_path(cuda_device):
+    """Under ``use_mesh`` of a logical (1, 4) mesh of the card, the public
+    kNN attention equals the explicit context-parallel call bit for bit,
+    and the card's value is the CPU's (rtol 1e-5, atol 1e-5)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.parallel import make_mesh, use_mesh
+
+    g = torch.Generator().manual_seed(5)
+    q, keys, values = (torch.randn(s, generator=g) for s in
+                       ((2, 4, 16), (2, 256, 2, 16), (2, 256, 2, 16)))
+    valid = torch.arange(256) < 200
+    kw = dict(k=8, recall_target=0.95, kv_groups=2)
+    out = {}
+    for dev in ("cpu", "cuda:0"):
+        mesh = make_mesh((1, 4), ("data", "model"), devices=[dev] * 4)
+        a = [t.to(dev) for t in (q, keys, values, valid)]
+        with use_mesh(mesh):
+            out[dev] = attn.knn_decode_attention(*a, **kw)
+        want = attn._knn_decode_attention_cp(*a, mesh=mesh, cp_axes=("model",), **kw)
+        assert torch.equal(out[dev], want)
+    torch.testing.assert_close(out["cuda:0"].cpu(), out["cpu"], rtol=1e-5, atol=1e-5)
+
+
+def test_trainer_model_parallel_on_card_equals_one(cuda_device):
+    """``--model-parallel 2`` on one card is a (1, 1) mesh: the losses and
+    the state equal ``--model-parallel 1``'s bit for bit (deterministic
+    algorithms on: the embedding's backward otherwise adds with atomics
+    in no fixed order)."""
+    from repro_torch.launch import train
+
+    args = ["--arch", "internlm2-1.8b-smoke", "--steps", "3", "--seq", "32",
+            "--log-every", "1"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        one = train.main(args + ["--model-parallel", "1"])
+        two = train.main(args + ["--model-parallel", "2"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert tuple(two["mesh"].shape.values()) == (1, 1)
+    assert two["losses"] == one["losses"]
+    for p, q in zip(one["state"].params.parameters(), two["state"].params.parameters()):
+        assert p.device.type == "cuda" and torch.equal(p, q)
+
+
+@pytest.mark.parametrize("kind", ["train", "knn_decode"])
+def test_count_cell_equals_the_cards_flop_counter(cuda_device, kind):
+    """The dry run's dot FLOPs of a smoke step (counted on fake tensors)
+    are those of the same step run on the card under ``FlopCounterMode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.dryrun import count_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardspecs import cell_rules
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import use_mesh
+
+    cfg = get_config("internlm2-1.8b-smoke")
+    shape = (ShapeConfig("train", 64, 4, "train") if kind == "train"
+             else ShapeConfig("long_500k", 512, 1, "decode"))
+    counted = count_cell(cfg, shape, make_host_mesh(1, devices=["meta"])).dot_flops
+    g = torch.Generator(device="cuda").manual_seed(0)
+    mesh = make_host_mesh(1)
+    with use_mesh(mesh, rules=cell_rules(cfg, shape, mesh)):
+        if kind == "train":
+            state = M.init_train_state(g, cfg, device="cuda")
+            batch = {k: torch.randint(0, cfg.vocab_size, (4, 64), device="cuda",
+                                      dtype=torch.int32) for k in ("tokens", "labels")}
+            step = M.make_train_step(cfg)
+            with FlopCounterMode(display=False) as flops:
+                step(state, batch)
+        else:
+            model = tfm.init_model(cfg, g, device="cuda")
+            caches = tfm.init_caches(cfg, 1, 512, device="cuda")
+            step = M.make_decode_step(cfg, use_knn=True)
+            noise = torch.zeros((1, cfg.decode_sample_k), device="cuda")
+            with FlopCounterMode(display=False) as flops:
+                step(model, torch.zeros((1, 1), dtype=torch.int32, device="cuda"),
+                     caches, 511, None, noise=noise)
+    assert flops.get_total_flops() == counted > 0
+
+
+def test_restore_checkpoint_with_shardings_onto_the_card(cuda_device, tmp_path):
+    """A CPU state's checkpoint restored into a CPU state with ``shardings=``
+    of a logical (1, 2) mesh of the card (the elastic restart), and the
+    CPU state re-placed there by ``remesh_state``: every leaf on the card,
+    bit-equal."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.ft import remesh_state
+    from repro_torch.launch import shardspecs as SS
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.parallel import make_mesh
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("internlm2-1.8b-smoke")
+    state = M.init_train_state(torch.Generator().manual_seed(3), cfg, device="cpu")
+    want = {n: p.detach().clone() for n, p in state.params.named_parameters()}
+    save_checkpoint(str(tmp_path), 0, state)
+    mesh = make_mesh((1, 2), ("data", "model"), devices=["cuda:0"] * 2)
+    like = M.init_train_state(torch.Generator().manual_seed(4), cfg, device="cpu")
+    sh = SS.sanitize_tree(SS.train_state_shardings(cfg, mesh), like, mesh)
+    restored, _ = restore_checkpoint(str(tmp_path), like, shardings=sh)
+    axes = tfm.model_axes(cfg)
+    moved = remesh_state(state, M.TrainState(step=(), params=axes,
+                                             opt_state=AdamWState(m=axes, v=axes)), mesh)
+    for s in (restored, moved):
+        for n, p in s.params.named_parameters():
+            assert p.device == torch.device("cuda", 0) and torch.equal(p.cpu(), want[n])
+            assert s.opt_state.m[n].device.type == "cuda"

@@ -285,13 +285,45 @@ def test_knn_decode_attention_selection_and_masked_slots(live):
     assert int((~_t(valid)[idx.long()]).sum()) == b * h * max(k - live, 0)
 
 
-def test_context_parallel_knn_attention_raises_item_11():
-    # the explicit-mesh form is ported (tests/test_torch_sharded.py); the
-    # public mesh= needs the logical-axis rules of item 13b
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        attn.knn_decode_attention(torch.zeros(1, 2, 4), torch.zeros(1, 8, 2, 4),
-                                  torch.zeros(1, 8, 2, 4), torch.ones(8, dtype=bool),
-                                  k=2, mesh=object())
+def test_context_parallel_knn_attention_raises_item_11(monkeypatch):
+    """The context-parallel kNN attention is chosen by the active mesh's
+    rules, not by an argument (the reference's ``knn_decode_attention``):
+    "cp_seq" mapped to axes present on the mesh takes
+    ``_knn_decode_attention_cp`` over them (its value exactly); no mesh, a
+    mesh without those axes, or rules mapping "cp_seq" to nothing take the
+    local path.  (Item 11 ported the explicit form; item 13b's rules pick
+    the axes.)"""
+    from repro_torch.parallel import LOGICAL_RULES, make_mesh, use_mesh
+
+    rng = np.random.default_rng(4)
+    q = _t(rng.standard_normal((1, 4, 8), dtype=np.float32))
+    keys = _t(rng.standard_normal((1, 64, 2, 8), dtype=np.float32))
+    values = _t(rng.standard_normal((1, 64, 2, 8), dtype=np.float32))
+    valid = torch.arange(64) < 50
+    kw = dict(k=4, kv_groups=2)
+    calls = []
+    real = attn._knn_decode_attention_cp
+
+    def spy(*a, **k):
+        calls.append(tuple(k["cp_axes"]))
+        return real(*a, **k)
+    monkeypatch.setattr(attn, "_knn_decode_attention_cp", spy)
+    local = attn.knn_decode_attention(q, keys, values, valid, **kw)
+    assert calls == []
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    with use_mesh(mesh):
+        out = attn.knn_decode_attention(q, keys, values, valid, **kw)
+    assert calls == [("model",)]
+    want = real(q, keys, values, valid, recall_target=0.95, mesh=mesh,
+                cp_axes=("model",), **kw)
+    assert torch.equal(out, want)
+    rules = dict(LOGICAL_RULES)
+    for m, r in ((make_mesh((4,), ("data",), devices=["cpu"] * 4), None),
+                 (mesh, tuple(dict(rules, cp_seq=None).items()))):
+        with use_mesh(m, rules=r):
+            assert torch.equal(attn.knn_decode_attention(q, keys, values, valid, **kw),
+                               local)
+    assert calls == [("model",)]
 
 
 # --- whole models --------------------------------------------------------------

@@ -4,9 +4,11 @@ over 20 steps at lr 3e-3 (as ``tests/test_system.py::
 test_train_loss_decreases`` shows for the reference: the mean of the
 last five logged losses at least 0.2 below the first five's), a restart
 resumes from the last checkpoint and reproduces the uninterrupted run's
-losses, and ``--model-parallel`` > 1 is refused."""
+losses, and ``--model-parallel`` > 1 runs on the host mesh as the
+reference's trainer does."""
 import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -48,9 +50,56 @@ def test_loss_falls_and_a_restart_resumes(tmp_path):
     assert done["start"] == 20 and done["final_loss"] is None
 
 
-def test_model_parallel_and_a_missing_card_are_refused():
-    with pytest.raises(NotImplementedError, match="item 13b step 5"):
-        train.main(ARGS + ["--steps", "1", "--model-parallel", "2"])
+def _reference_losses(argv, capsys):
+    """``repro.launch.train.main`` run as its CLI (on this process's one
+    device: ``make_host_mesh(2)`` is its (1, 1) mesh), its logged losses
+    read from what it prints."""
+    from repro.launch import train as ref_train
+
+    capsys.readouterr()
+    old = sys.argv
+    sys.argv = ["train"] + argv
+    try:
+        ref_train.main()
+    finally:
+        sys.argv = old
+    return [float(x) for x in re.findall(r"loss=([0-9.]+) ", capsys.readouterr().out)]
+
+
+def test_model_parallel_and_a_missing_card_are_refused(monkeypatch, capsys):
+    """``--model-parallel 2`` runs on a (1, 1) host mesh of the CPU, as the
+    reference's does on one device: the losses and the final state equal
+    ``--model-parallel 1``'s bit for bit, and the reference's trainer with
+    the same flags, from the same weights (the reference's, carried in),
+    logs the same losses within the bf16 training tolerance (rtol 2e-2,
+    ``tests/torch_train_parity.py::check_bf16_step``).  Without a card the
+    default device is refused."""
+    import jax
+
+    from repro.models import model as ref_model
+    from repro_torch.models import model as M
+    from repro_torch.models import params
+
+    flags = ["--steps", "4", "--seed", "3"]
+    init = M.init_train_state
+
+    def from_reference(generator, cfg, *, device=None):
+        """The port's state holding the reference trainer's initial weights."""
+        state = init(generator, cfg, device=device)
+        ref = ref_model.init_train_state(jax.random.PRNGKey(3), cfg)
+        with torch.no_grad():
+            for name, t in params.from_reference(ref.params, cfg).items():
+                state.params.get_parameter(name).copy_(t)
+        return state
+    monkeypatch.setattr(M, "init_train_state", from_reference)
+    one = train.main(ARGS + flags + ["--model-parallel", "1"])
+    two = train.main(ARGS + flags + ["--model-parallel", "2"])
+    assert tuple(two["mesh"].shape.values()) == (1, 1)
+    assert two["losses"] == one["losses"] and len(one["losses"]) == 4
+    for p, q in zip(one["state"].params.parameters(), two["state"].params.parameters()):
+        assert torch.equal(p, q)
+    ref = _reference_losses(ARGS[:-2] + flags + ["--model-parallel", "2"], capsys)
+    np.testing.assert_allclose([loss for _, loss in two["losses"]], ref, rtol=2e-2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train.main(ARGS[:-2] + ["--steps", "1"])
