@@ -195,7 +195,25 @@ run in order and the first failure exits non-zero:
      shape on fake tensors against the same step run under
      ``FlopCounterMode`` (the same dot FLOPs), its counted peak beside
      ``torch.cuda.max_memory_allocated`` and its roofline beside the
-     measured step.
+     measured step;
+ 21. training across processes (``parallel.distributed``), every run
+     with PyTorch's deterministic algorithms: one torchrun launch of two
+     ranks (this script with ``--train-ranks``) starts before phase 20
+     and waits while this process runs phase 20, then (a) one NCCL rank
+     on a (1, 1) mesh in this
+     process (a ``file://`` store), internlm2-1.8b at full width, batch
+     4 x 2,048, 3 steps: every loss and grad_norm bit-equal to the
+     single-process trainer's at the same seed; and the single-process
+     references of (b) and (c), two steps each.  Then the ranks run (b)
+     two ranks sharing ``cuda:0`` over gloo (host staged) on a (1, 2)
+     tensor-parallel mesh, full width and depth, batch 2 x 2,048, 2
+     steps, and (c) the same on a (2, 1) data-parallel mesh at 8 layers
+     (two full-depth replicas do not fit one card): both steps' losses
+     and grad norms within ``DIST_RTOL`` (relative, by step) of the
+     single process's; each rank's peak memory and step seconds beside
+     the single process's, rank 0's seconds in collectives, and where
+     each run's seconds went; no kernel of the port and no plain version
+     runs (training reaches none).
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
@@ -210,15 +228,20 @@ as its last line ``{"ok": true, "device": {...}}``.  Data is random from
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import torch
 
@@ -3576,10 +3599,326 @@ def phase_mesh_and_dryrun(prk, seed, smi):
     return out
 
 
+DIST_ARCH = "internlm2-1.8b"
+# The two ranks' losses and grad norms against one process's, relative,
+# at steps 1 and 2: about ten times the largest error of 21b and 21c on
+# the card (2.75e-6 and 6.34e-6 for the loss, 4.90e-5 and 2.22e-5 for
+# the grad norm: the same in every run, deterministic algorithms on;
+# PERF.md section 6).
+DIST_RTOL = {"loss": (3e-5, 7e-5), "grad_norm": (5e-4, 3e-4)}
+DIST_DP_LAYERS = 8  # two full-depth replicas (30 GB of state each) won't fit
+
+
+def cut_config(arch: str, layers: Optional[int]) -> str:
+    """The name of ``arch`` cut to ``layers`` layers, registered in this
+    process (``arch`` itself where ``layers`` is None)."""
+    from repro_torch.configs import get_config, register
+
+    if layers is None:
+        return arch
+    name = f"{arch}-{layers}-layers"
+    register(dataclasses.replace(get_config(arch), name=name, num_layers=layers))
+    return name
+
+
+def train_ranks(spec_path: str) -> int:
+    """A rank of phase 21's torchrun launch (``--train-ranks SPEC``): it
+    makes its CUDA context, waits for the spec's ``go`` file (the parent
+    runs phase 20, 21a and the single-process references meanwhile), then
+    runs
+    ``launch.train.main`` on each entry's ``argv``, all under one process
+    group; an entry with ``layers`` trains ``arch`` cut to that depth."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.zeros(1, device=spec["device"])
+    # every run asks for them; the first call in a process takes ~8 s on
+    # the card's machine (PERF.md section 6), paid here while waiting
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    deadline, agent = time.monotonic() + 900, os.getppid()
+    while not os.path.exists(spec["go"]):
+        if time.monotonic() > deadline or os.getppid() != agent:
+            print("chip_smoke: no go from the parent", file=sys.stderr)
+            return 3
+        time.sleep(0.05)
+    for run in spec["runs"]:
+        argv = list(run["argv"])
+        at = argv.index("--arch") + 1
+        argv[at] = cut_config(argv[at], run["layers"])
+        train.main(argv)
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return 0
+
+
+def start_ranks(nproc: int, spec: dict, d: str):
+    """``torchrun --standalone --nproc-per-node nproc chip_smoke.py
+    --train-ranks`` over ``spec`` (written to ``d``), from the checkout,
+    in a session of its own (so a failure kills every rank); its output
+    goes to files in ``d``."""
+    path = os.path.join(d, "ranks.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    src = pathlib.Path(__file__).resolve().parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    if os.path.exists("/sys/class/net/lo"):  # no network: the loopback
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", str(pathlib.Path(__file__).resolve()),
+           "--train-ranks", path]
+    with open(os.path.join(d, "ranks.out"), "w") as out, \
+            open(os.path.join(d, "ranks.err"), "w") as err:
+        return subprocess.Popen(cmd, stdout=out, stderr=err, env=env,
+                                start_new_session=True)
+
+
+def stop_ranks(proc) -> None:
+    """Ends the launch: SIGTERM has torchrun stop its ranks (each in a
+    session of its own), SIGKILL follows after 30 s."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def wait_ranks(proc, d: str, timeout: float = 240) -> None:
+    """Waits for the launch; fails (killing it) on a timeout or a non-zero
+    exit, with the tails of its output."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        rc = "a timeout"
+    stop_ranks(proc)
+    if rc != 0:
+        tails = [pathlib.Path(d, n).read_text()[-4000:] for n in ("ranks.out",
+                                                                 "ranks.err")]
+        fail(f"torchrun of phase 21b/c exited with {rc}:\n" + "\n".join(tails))
+
+
+def single_run(argv, report):
+    """``launch.train.main(argv)`` in this process (no torchrun: the
+    single-process trainer); its report, the deterministic algorithms
+    switched off after."""
+    from repro_torch.launch import train
+
+    try:
+        train.main(argv + ["--report", report])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(report) as f:
+        return json.load(f)
+
+
+def nccl_rank(argv, report, store):
+    """:func:`single_run` as the one rank of an NCCL process group in
+    this process: the environment torchrun gives a world of one, a
+    ``file://`` store at ``store``; the group is destroyed and the
+    environment restored after."""
+    import torch.distributed as dist
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"file://{store}",
+                            rank=0, world_size=1)
+    try:
+        return single_run(argv, report)
+    finally:
+        dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _gb(xs):
+    return [round(x / 1e9, 2) for x in xs]
+
+
+def _steps(rep):
+    return [round(x * 1e3, 1) for x in rep["step_s"]]
+
+
+def _collective_s(rep):
+    """Rank 0's host seconds in collectives, and MB moved, each step."""
+    return [(round(sum(c["seconds"] for c in step.values()), 3),
+             round(sum(c["bytes"] for c in step.values()) / 1e6, 1))
+            for step in rep["collectives"]]
+
+
+def _phases(rep):
+    """Where a ``main``'s seconds went: the mesh, the state, the steps,
+    the rest."""
+    s = rep["seconds"]
+    return {"main": round(s["total"], 1), "mesh": round(s["mesh"], 1),
+            "init": round(s["init"], 1), "steps": round(sum(rep["step_s"]), 1),
+            "rest": round(s["total"] - s["mesh"] - s["init"]
+                          - sum(rep["step_s"]), 1)}
+
+
+def _rel(rank, one):
+    """The ranks' relative errors from one process's, a list by step, for
+    the loss and the grad norm."""
+    return {k: [abs(r - o) / abs(o) for (_, r), (_, o) in zip(rank[v], one[v])]
+            for k, v in (("loss", "losses"), ("grad_norm", "grad_norms"))}
+
+
+# phase 21's arguments: every run with deterministic algorithms (21a's
+# bit-equality needs them), warmup 1 (the first AdamW update, which step
+# 2 reads, at the full rate)
+DIST_COMMON = ["--seq", "2048", "--log-every", "1", "--lr", "3e-4",
+               "--warmup", "1", "--deterministic"]
+DIST_CASES = {"b": (2, None), "c": (1, DIST_DP_LAYERS)}  # model-parallel, layers
+
+
+def start_distributed(seed, d):
+    """Starts phase 21's torchrun launch of two ranks for 21b and 21c,
+    reporting into ``d``; they wait for :func:`phase_distributed`."""
+    common = DIST_COMMON + ["--seed", str(seed)]
+    runs = {key: common + ["--arch", DIST_ARCH, "--global-batch", "2",
+                           "--steps", "2"] for key in DIST_CASES}
+    spec = dict(go=os.path.join(d, "go"), device="cuda:0", runs=[dict(
+        layers=layers, argv=runs[key] + [
+            "--model-parallel", str(mp), "--device", "cuda:0",
+            "--dist-backend", "gloo", "--report", f"{d}/{key}.json"])
+        for key, (mp, layers) in DIST_CASES.items()])
+    return dict(d=d, go=spec["go"], runs=runs, t_launch=time.perf_counter(),
+                proc=start_ranks(2, spec, d))
+
+
+def phase_distributed(prk, seed, smi, ranks):
+    """Phase 21 (see the module docstring) with the ranks
+    :func:`start_distributed` started; returns its report.  This process
+    runs 21a and the single-process references, frees the card, and
+    lets the ranks step."""
+    t0 = time.perf_counter()
+    prk.reset_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    d, runs, proc = ranks["d"], ranks["runs"], ranks["proc"]
+    common = DIST_COMMON + ["--seed", str(seed)]
+    out = {}
+    # (a) one NCCL rank in this process against the single process
+    argv = common + ["--arch", DIST_ARCH, "--global-batch", "4", "--steps", "3"]
+    one = single_run(argv + ["--device", "cuda"], f"{d}/single_a.json")
+    rank = nccl_rank(argv + ["--dist-backend", "nccl"], f"{d}/a.json",
+                     f"{d}/store_a")
+    same = (rank["losses"] == one["losses"]
+            and rank["grad_norms"] == one["grad_norms"]
+            and len(one["losses"]) == 3)
+    if not same or rank["mesh"] != {"data": 1, "model": 1} \
+            or rank["backend"] != "nccl":
+        fail(f"phase 21a: one NCCL rank on {rank['mesh']} ({rank['backend']}) "
+             f"is not bit-equal to the single process: losses "
+             f"{rank['losses']} / {one['losses']}, grad norms "
+             f"{rank['grad_norms']} / {one['grad_norms']}")
+    out["a"] = dict(losses=rank["losses"], grad_norms=rank["grad_norms"],
+                    bit_equal=same, step_ms=_steps(rank),
+                    single_step_ms=_steps(one), peak_bytes=rank["peak_bytes"],
+                    single_peak_bytes=one["peak_bytes"], main=_phases(rank),
+                    single_main=_phases(one))
+    log(f"[phase 21a] {DIST_ARCH}, batch 4 x 2048, 3 steps: one NCCL rank (in "
+        f"this process, a file:// store) on a (1, 1) mesh bit-equal to the "
+        f"single process (losses {[round(x, 4) for _, x in rank['losses']]}, "
+        f"grad norms {[round(x, 4) for _, x in rank['grad_norms']]}); step ms "
+        f"{_steps(rank)} vs {_steps(one)}; peak {_gb(rank['peak_bytes'])} vs "
+        f"{_gb(one['peak_bytes'])} GB; main {_phases(rank)}; on {smi}")
+    # the single-process references of (b) and (c), two steps each
+    singles = {}
+    for key, (_, layers) in DIST_CASES.items():
+        argv = list(runs[key])
+        argv[argv.index("--arch") + 1] = cut_config(DIST_ARCH, layers)
+        singles[key] = single_run(argv + ["--device", "cuda"],
+                                  f"{d}/single_{key}.json")
+    t_go = time.perf_counter()
+    open(ranks["go"], "w").close()
+    wait_ranks(proc, d)
+    t_end = time.perf_counter()
+    # (b) and (c): two ranks sharing cuda:0 over gloo
+    for key, (mp, layers) in DIST_CASES.items():
+        with open(f"{d}/{key}.json") as f:
+            rank = json.load(f)
+        one = singles[key]
+        want = {"data": 2 // mp, "model": mp}
+        rel = _rel(rank, one)
+        ok = (rank["mesh"] == want and rank["backend"] == "gloo"
+              and len(rank["losses"]) == len(one["losses"]) == 2
+              and all(e <= lim for k in rel
+                      for e, lim in zip(rel[k], DIST_RTOL[k]))
+              and all(math.isfinite(x) for _, x in rank["losses"]
+                      + rank["grad_norms"]))
+        if not ok:
+            fail(f"phase 21{key}: {rank['mesh']} ({rank['backend']}) against "
+                 f"the single process: relative {rel} (limits by step "
+                 f"{DIST_RTOL}); losses {rank['losses']} / {one['losses']}, "
+                 f"grad norms {rank['grad_norms']} / {one['grad_norms']}")
+        out[key] = dict(mesh=rank["mesh"], layers=layers or "all",
+                        losses=rank["losses"], grad_norms=rank["grad_norms"],
+                        single_losses=one["losses"],
+                        single_grad_norms=one["grad_norms"], rel_err=rel,
+                        step_ms=_steps(rank), single_step_ms=_steps(one),
+                        peak_bytes=rank["peak_bytes"],
+                        single_peak_bytes=one["peak_bytes"],
+                        init_peak_bytes=rank["init_peak_bytes"],
+                        main=_phases(rank), collective_s_mb=_collective_s(rank),
+                        collectives=rank["collectives"])
+        why = ("" if layers is None else f" ({layers} layers: two full-depth "
+               "replicas, about 30 GB of state each plus activations, do not "
+               "fit one 80 GB card)")
+        log(f"[phase 21{key}] {DIST_ARCH}{why}, batch 2 x 2048: two ranks on "
+            f"cuda:0 over gloo, a {tuple(want.values())} mesh: losses "
+            f"{[round(x, 6) for _, x in rank['losses']]} vs "
+            f"{[round(x, 6) for _, x in one['losses']]} (rel by step "
+            f"{[f'{e:.2e}' for e in rel['loss']]}), grad norms "
+            f"{[round(x, 6) for _, x in rank['grad_norms']]} vs "
+            f"{[round(x, 6) for _, x in one['grad_norms']]} (rel "
+            f"{[f'{e:.2e}' for e in rel['grad_norm']]}); step ms {_steps(rank)} "
+            f"(host-staged collectives: no interconnect measured; rank 0's "
+            f"collective s and MB a step {_collective_s(rank)}) vs "
+            f"{_steps(one)} alone; peak per rank {_gb(rank['peak_bytes'])} GB "
+            f"vs {_gb(one['peak_bytes'])} GB alone (drawing and placing the "
+            f"state {_gb(rank['init_peak_bytes'])} GB); main {_phases(rank)}; "
+            f"on {smi}")
+        for r in (rank, one):
+            if r["launches"] or r["plain_calls"]:
+                fail(f"phase 21{key}: the trainer launched {r['launches']}, "
+                     f"plain calls {r['plain_calls']}")
+    out["launch"] = dict(seconds=t_end - ranks["t_launch"],
+                         go_after_s=t_go - ranks["t_launch"],
+                         after_go_s=t_end - t_go,
+                         mains_s=[out[k]["main"]["main"] for k in DIST_CASES])
+    log(f"[phase 21] torchrun of 21b and 21c (started before phase 20): "
+        f"{out['launch']['seconds']:.1f} s in all, the go at "
+        f"{out['launch']['go_after_s']:.1f} s, then {t_end - t_go:.1f} s (main "
+        f"{out['launch']['mains_s']} s)")
+    if sum(prk.LAUNCHES.values()) or sum(prk.PLAIN_CALLS.values()):
+        fail(f"phase 21 launched {dict(prk.LAUNCHES)}, plain calls "
+             f"{dict(prk.PLAIN_CALLS)}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 21] {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train-ranks", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    t_run = time.perf_counter()
+
+    def clock(label):  # seconds since the start, at each phase's end
+        log(f"[clock] {label}: {time.perf_counter() - t_run:.1f} s")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3589,6 +3928,8 @@ def main(argv=None) -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    if args.train_ranks:  # a rank of phase 21's torchrun launch
+        return train_ranks(args.train_ranks)
     from repro_torch import testing
     from repro_torch.kernels import build, partial_reduce as prk
     from repro_torch.search import DISPATCH_COUNTS
@@ -3626,6 +3967,7 @@ def main(argv=None) -> int:
             f"{ks}) {prk.scan_smem(form, True, SIFT['d'], ks)}, two-pass "
             f"{prk.scan_smem(form, False, SIFT['d'])}")
 
+    clock("phases 1-2")
     lib = build.load_library()
     empty_ms = queued_ms(lambda: build.check(
         lib, lib.pr_empty(torch.cuda.current_stream().cuda_stream), "empty kernel"))
@@ -3639,6 +3981,7 @@ def main(argv=None) -> int:
     phase_kernels(prk, testing, args.seed, acc)
     phase_merge_ties(prk, testing, args.seed)
     phase_one_pass_kernels(prk, testing, args.seed, acc)
+    clock("phase 3")
 
     results = {"launches": {}, "plain_calls": {}}
     data = {cfg["name"]: make_data(cfg, args.seed + i)
@@ -3658,6 +4001,7 @@ def main(argv=None) -> int:
                                         storage)
         read_counts(prk, storage, (storage,), results)
     log(f"searches {dict(DISPATCH_COUNTS)}")
+    clock("phases 4-6")
 
     from repro_torch.search import Index
 
@@ -3672,6 +4016,7 @@ def main(argv=None) -> int:
     shapes.append(("glove1.2m int4 after updates", GLOVE, tiers["glove int4"],
                    glove_q[:2_000]))
     phase_main_shapes(prk, testing, shapes, acc)
+    clock("phase 7")
     del f32, tiers, shapes
     results["max_abs_err"] = acc["errs"]
     results["index_agreement"] = {k: acc["agree"][k] / max(acc["total"][k], 1)
@@ -3696,6 +4041,7 @@ def main(argv=None) -> int:
     if 2 * row_bytes["int4"] != row_bytes["int8"]:
         fail(f"int4 rows take {row_bytes['int4']} bytes, not half of int8's "
              f"{row_bytes['int8']}")
+    clock("phase 8")
     fused = {k["name"]: k for k in kernels}
     bounds = {}
     for form in FORMS:
@@ -3705,6 +4051,7 @@ def main(argv=None) -> int:
     planner = phase_planner(prk, testing, (db, q),
                             make_data(GLOVE, args.seed + 1)[:2], bounds, results,
                             args.seed)
+    clock("phase 9")
 
     # phase 10: the bf16 compute dtype, each path's counts from 0
     prk.reset_counts()
@@ -3713,28 +4060,46 @@ def main(argv=None) -> int:
     read_counts(prk, "bf16 compute", ONE_PASS_FORMS, results, qparts=1)
     for storage in ("f32", "int8", "int4"):
         kernels += time_one_pass(prk, db, q, storage, results, empty_ms)
+    clock("phase 10")
     # phases 11 and 12: cluster pruning
     clusters = {"gaussian": phase_clusters_gaussian(prk, sift, results)}
     del sift, db, q
     clusters["mixture"] = phase_clusters_mixture(prk, args.seed + 7, results)
+    clock("phases 11-12")
     # phase 13: serving, one CUDA graph per bucket; phase 14: snapshots
     serve = phase_serve(prk, testing, make_data(SIFT, args.seed), results,
                         args.seed, acc)
     snapshots = phase_snapshots(prk, args.seed + 9, results)
+    clock("phases 13-14")
     # phase 15: the host-RAM cold tier
     host_tier = phase_host_tier(prk, testing, make_data(SIFT, args.seed),
                                 results, acc)
+    clock("phase 15")
     # phase 16: kNN-LM serving at full width; phase 17: the other families
     knn_lm, knn_kernels = phase_knn_lm(prk, testing, args.seed, results, smi)
     families, family_kernels = phase_families(prk, testing, args.seed, results, smi)
+    clock("phases 16-17")
     # phase 18: stream=False, logical shards, the FLOP cross-check, the
     # sharded datastore and context-parallel attention
     sharding, shard_kernels = phase_sharding(prk, testing, args.seed, results,
                                              smi)
+    clock("phase 18")
     # phase 19: the kNN workload registry, then training on the card
     training = phase_training(prk, args.seed, results, smi)
-    # phase 20: the mesh rules and the dry run
-    mesh_dryrun = phase_mesh_and_dryrun(prk, args.seed, smi)
+    clock("phase 19")
+    with tempfile.TemporaryDirectory() as d21:
+        # phase 21's two ranks start Python, torch and their CUDA contexts
+        # while phase 20 runs, then wait
+        ranks = start_distributed(args.seed, d21)
+        try:
+            # phase 20: the mesh rules and the dry run
+            mesh_dryrun = phase_mesh_and_dryrun(prk, args.seed, smi)
+            clock("phase 20")
+            # phase 21: training across processes
+            distributed = phase_distributed(prk, args.seed, smi, ranks)
+            clock("phase 21")
+        finally:
+            stop_ranks(ranks["proc"])
     for k in kernels:
         for key in ("launches", "plain_calls"):
             k[key] = results[key].get(k["name"], 0)
@@ -3751,6 +4116,7 @@ def main(argv=None) -> int:
     log(json.dumps({"sharding": sharding}))
     log(json.dumps({"training": training}))
     log(json.dumps({"mesh_and_dryrun": mesh_dryrun}))
+    log(json.dumps({"distributed": distributed}))
     log(json.dumps({"kernels": kernels + knn_kernels + family_kernels
                     + shard_kernels}))
     log(smi)

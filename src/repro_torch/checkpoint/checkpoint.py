@@ -19,6 +19,14 @@ A state is written in the reference's layout: a port
 (``.params/['layers']/[0]/['attn']/['wq']``), dict keys in sorted order,
 as the reference flattens its pytree.
 
+Under a process mesh (``parallel.distributed``: one process a device)
+a state is a rank's shard.  Saving gathers every leaf whole over the
+``"model"`` groups (host tensors: gloo, also beside NCCL) and rank 0
+writes it; every rank calls the save.  Restoring reads the whole arrays
+on every rank and keeps each rank's shard, as the reference's restore
+with ``shardings=`` does, so a checkpoint written under one mesh resumes
+under another.
+
 Named snapshots (``save_snapshot``/``load_snapshot``) keep
 ``arrays.npz`` plus ``META.json`` (its ``array_dtypes`` names each
 array's logical dtype), bf16 stored as its 16-bit pattern (numpy has no
@@ -61,9 +69,30 @@ def _is_train_state(state) -> bool:
             and isinstance(state.params, Transformer))
 
 
+def _layout(state):
+    """A TrainState's shard layout (``Transformer.layout``), or None."""
+    return state.params.layout if _is_train_state(state) else None
+
+
+def _lead(state) -> bool:
+    """Whether this process writes ``state``: rank 0 of a process mesh,
+    or the only process."""
+    layout = _layout(state)
+    return layout is None or layout.mesh.rank == 0
+
+
+def _whole(tensors, layout):
+    """A dict of a shard's tensors gathered whole (on the host)."""
+    from repro_torch.parallel.distributed import gather_full
+
+    return {k: gather_full(t.detach().cpu(), layout.specs[k], layout.mesh)
+            for k, t in tensors.items()}
+
+
 def _reference_tree(state):
     """``state`` in the reference's layout: a port TrainState with its
-    model and moments restacked per run; any other tree as it is."""
+    model and moments restacked per run (a shard's gathered whole first:
+    a collective, every rank calls it); any other tree as it is."""
     if not _is_train_state(state):
         return state
     from repro_torch.models.params import to_reference
@@ -71,12 +100,14 @@ def _reference_tree(state):
 
     cfg = state.params.cfg
     params = {k: v.detach() for k, v in state.params.state_dict().items()}
-    opt = state.opt_state
+    m, v = state.opt_state.m, state.opt_state.v
+    layout = _layout(state)
+    if layout is not None:
+        params, m, v = (_whole(t, layout) for t in (params, m, v))
     return type(state)(
         step=state.step,
         params=to_reference(params, cfg),
-        opt_state=AdamWState(m=to_reference(opt.m, cfg),
-                             v=to_reference(opt.v, cfg)),
+        opt_state=AdamWState(m=to_reference(m, cfg), v=to_reference(v, cfg)),
     )
 
 
@@ -132,14 +163,18 @@ def _to_host(tree):
 def save_checkpoint(directory: str, step: int, state) -> str:
     """Synchronous atomic save of ``state`` (a port TrainState, or a tree
     of named tuples, dicts, lists and arrays/tensors) in the reference's
-    layout.  Returns the committed path."""
-    os.makedirs(directory, exist_ok=True)
+    layout.  Returns the committed path.  A shard on a process mesh is
+    gathered (every rank calls this) and rank 0 writes."""
     final = os.path.join(directory, f"step_{step:08d}")
+    tree = _reference_tree(state)
+    if not _lead(state):
+        return final
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    leaves = _flatten_with_paths(_reference_tree(state))
+    leaves = _flatten_with_paths(tree)
     arrays = {k: _host(v) for k, v in leaves}
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     with open(os.path.join(tmp, "META.json"), "w") as f:
@@ -193,11 +228,13 @@ def _join(prefix: str, part: str) -> str:
     return f"{prefix}/{part}" if prefix else part
 
 
-def _copy_in(target: torch.Tensor, arr: np.ndarray, path: str) -> None:
+def _copy_in(target: torch.Tensor, arr, path: str) -> None:
     if tuple(arr.shape) != tuple(target.shape):
         raise ValueError(f"{path}: checkpoint shape {tuple(arr.shape)} != "
                          f"{tuple(target.shape)}")
-    target.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(target.dtype))
+    if not isinstance(arr, torch.Tensor):
+        arr = torch.from_numpy(np.ascontiguousarray(arr))
+    target.copy_(arr.to(target.dtype))
 
 
 def _reference_paths(names, cfg):
@@ -233,11 +270,17 @@ def _restore_train_state(like, arrays):
     targets = [(".params", dict(model.named_parameters())),
                (".opt_state/.m", like.opt_state.m),
                (".opt_state/.v", like.opt_state.v)]
+    layout = model.layout
     for prefix, tensors in targets:
         for name, t in tensors.items():
             path, j = paths[name]
             key = f"{prefix}/{path}"
             arr = arrays[key] if j is None else arrays[key][j]
+            if layout is not None:  # the whole array: keep the rank's shard
+                from repro_torch.parallel.distributed import local_shard
+
+                arr = local_shard(torch.from_numpy(np.ascontiguousarray(arr)),
+                                  layout.specs[name], layout.mesh)
             _copy_in(t, arr, key)
     return like._replace(step=torch.as_tensor(arrays[".step"], dtype=torch.int32))
 
@@ -257,8 +300,9 @@ def restore_checkpoint(directory: str, like, step: Optional[int] = None,
     (``launch.shardspecs.train_state_shardings``).  ``like`` is placed on
     their devices first (``parallel.sharding.place``) and the arrays are
     copied there straight from the file: the elastic-restart path onto
-    another mesh."""
-    if shardings is not None:
+    another mesh.  On a process mesh every rank reads the whole arrays
+    and keeps its shard (a ``like`` placed already stays as it is)."""
+    if shardings is not None and _layout(like) is None:
         like = place(like, shardings)
     if step is None:
         step = latest_step(directory)
@@ -289,6 +333,8 @@ class AsyncCheckpointer:
 
     def save(self, step: int, state):
         host_state = _to_host(_reference_tree(state))
+        if not _lead(state):  # a shard: gathered to rank 0, which writes
+            return
         self.wait()
 
         def worker():

@@ -58,7 +58,15 @@ def remesh_state(state, axes_tree, new_mesh: Mesh):
     """``state`` (a ``TrainState`` or a tree of tensors) placed on
     ``new_mesh`` by ``axes_tree``, a tree of logical axes matching it (a
     model's: a dict by parameter name, ``transformer.model_axes``).  Every
-    leaf keeps its values bit for bit."""
+    leaf keeps its values bit for bit.  A process mesh
+    (``parallel.distributed``) raises: re-meshing across process counts
+    is ROADMAP item 14b (a checkpoint restored with ``shardings=``
+    crosses meshes)."""
+    if getattr(new_mesh, "is_process_mesh", False):
+        raise NotImplementedError(
+            "remesh_state over a process mesh (elastic re-meshing across "
+            "process counts) is ROADMAP item 14b; restore a checkpoint with "
+            "shardings= instead")
     with use_mesh(new_mesh):
         shardings = named_shardings(axes_tree, new_mesh)
     return place(state, shardings)

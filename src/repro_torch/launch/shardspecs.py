@@ -49,6 +49,7 @@ __all__ = [
     "cell_rules",
     "param_shardings",
     "train_state_shardings",
+    "train_state_specs",
     "batch_shardings",
     "cache_shardings",
     "decode_arg_shardings",
@@ -134,6 +135,18 @@ def train_state_shardings(cfg: ModelConfig, mesh: Mesh, shape=None) -> TrainStat
     p = param_shardings(cfg, mesh, shape)
     repl = NamedSharding(mesh, P())
     return TrainState(step=repl, params=p, opt_state=AdamWState(m=p, v=p))
+
+
+def train_state_specs(cfg: ModelConfig, mesh: Mesh, shape=None) -> TrainState:
+    """:func:`train_state_shardings` sanitized against the state's shapes
+    (a ``"meta"`` model and moments: nothing is allocated), as the
+    trainer places a state before drawing it."""
+    from repro_torch.optim.adamw import adamw_init
+
+    model = tfm.Transformer(cfg, device="meta")
+    abstract = TrainState(step=None, params=model,
+                          opt_state=adamw_init(dict(model.named_parameters())))
+    return sanitize_tree(train_state_shardings(cfg, mesh, shape), abstract, mesh)
 
 
 def batch_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh):

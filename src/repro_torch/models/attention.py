@@ -218,13 +218,21 @@ def attention_train(
     q_chunk: int = 512,
     return_cache: bool = False,
     scores_dtype: str = "float32",
+    kv_index: Optional[torch.Tensor] = None,
 ):
-    """Full-sequence self attention (prefill; forward only)."""
+    """Full-sequence self attention (prefill and training).  ``kv_index``
+    (H,) names each query head's kv head where the mapping is not GQA's
+    contiguous groups (a tensor-parallel shard whose kv heads are whole:
+    ``parallel.tensor_parallel.TensorParallel.kv_index``)."""
     q, k, v = _qkv(params, x, positions, rope_theta=rope_theta, mrope=mrope,
                    mrope_positions=mrope_positions)
-    groups = num_heads // num_kv_heads
+    if kv_index is None:
+        groups = num_heads // num_kv_heads
+        kk, vv = _repeat_kv(k, groups), _repeat_kv(v, groups)
+    else:
+        kk, vv = k.index_select(2, kv_index), v.index_select(2, kv_index)
     out = _attend_chunked(
-        q, _repeat_kv(k, groups), _repeat_kv(v, groups), positions, positions,
+        q, kk, vv, positions, positions,
         causal=causal, window=window, chunk=q_chunk, scores_dtype=scores_dtype,
     )
     y = _out(out, params["wo"])

@@ -32,6 +32,8 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.topk import approx_max_k
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
+from repro_torch.parallel import distributed as D
+from repro_torch.parallel import tensor_parallel as TP
 
 __all__ = [
     "loss_fn",
@@ -66,17 +68,36 @@ def _model_inputs(cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
 def loss_fn(model: tfm.Transformer, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Next-token cross entropy (labels provided explicitly; a label < 0
-    is masked), f32."""
+    is masked), f32: the masked mean over the batch.
+
+    A rank's shard under a process mesh (``model.layout``) takes its rows
+    of the global batch: the numerator is its own, the count of labels
+    is summed over ``("pod", "data")``, and the quotient is summed over
+    them with its gradient passed through, so every rank returns the
+    global mean and its backward yields its share of the gradient.
+    Under tensor parallelism (``model.tp``) the cross entropy runs over
+    the vocabulary's parts (``parallel.tensor_parallel``)."""
     main, kwargs = _model_inputs(cfg, batch)
     logits = tfm.forward_train(model, main, **kwargs).to(torch.float32)
     labels = batch["labels"].long()
-    if cfg.padded_vocab != cfg.vocab_size:
-        pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
-        logits = logits - 1e9 * pad_mask
-    logp = torch.log_softmax(logits, dim=-1)
-    take = torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    return -(take * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if model.tp is not None:
+        nll = TP.vocab_parallel_cross_entropy(logits, labels, model.tp)
+        num = (nll * mask).sum()
+    else:
+        if cfg.padded_vocab != cfg.vocab_size:
+            pad_mask = (torch.arange(cfg.padded_vocab, device=logits.device)
+                        >= cfg.vocab_size)
+            logits = logits - 1e9 * pad_mask
+        logp = torch.log_softmax(logits, dim=-1)
+        take = torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+        num = -(take * mask).sum()
+    layout = model.layout
+    if layout is None or layout.data_size == 1:
+        return num / torch.clamp(mask.sum(), min=1.0)
+    dp = ("pod", "data")
+    count = D.all_reduce(mask.sum().detach(), dp, mesh=layout.mesh)
+    return D.sum_forward(num / torch.clamp(count, min=1.0), dp, layout.mesh)
 
 
 def _split(batch: Dict[str, torch.Tensor], microbatches: int):
@@ -107,6 +128,13 @@ def make_train_step(cfg: ModelConfig, *, learning_rate=3e-4,
     ``learning_rate`` is a float or callable(step).  ``metrics`` holds
     ``loss``, ``grad_norm`` (before clipping; device tensors) and
     ``step``.
+
+    A rank's shard under a process mesh (``model.layout``, placed by
+    ``parallel.sharding.place``) steps on its rows of the global batch
+    (``parallel.distributed.local_batch``): the gradients are summed over
+    ``"model"`` where a whole leaf holds one rank's part and over
+    ``("pod", "data")`` (in buckets; in bf16 with ``grad_dtype``), the
+    norm counts each shard once, and AdamW updates the shards.
     """
 
     def train_step(state: TrainState, batch):
@@ -130,10 +158,16 @@ def make_train_step(cfg: ModelConfig, *, learning_rate=3e-4,
             inv = 1.0 / microbatches
             loss = loss * inv
             torch._foreach_mul_(grads, inv)
-        if grad_dtype == "bfloat16":
-            grads = [g.to(torch.bfloat16).to(torch.float32) for g in grads]
-        grads = [g.to(torch.float32) for g in grads]
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+        layout = model.layout
+        if layout is not None:
+            names = [n for n, _ in named]
+            grads = layout.reduce_gradients(names, grads, grad_dtype)
+            gnorm = layout.grad_norm(names, grads)
+        else:
+            if grad_dtype == "bfloat16":
+                grads = [g.to(torch.bfloat16).to(torch.float32) for g in grads]
+            grads = [g.to(torch.float32) for g in grads]
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
         scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
         torch._foreach_mul_(grads, scale)
         adamw_update(

@@ -53,6 +53,8 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import mlp_apply, mlp_defs, rms_norm
 from repro_torch.models.params import ParamDef, ParamTree, init_params, param_axes
+from repro_torch.parallel import distributed as D
+from repro_torch.parallel import tensor_parallel as TP
 
 __all__ = [
     "runs_of",
@@ -173,6 +175,22 @@ def model_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
     return out
 
 
+def _local_defs(defs: Dict[str, Any], prefix: str,
+                shapes: Optional[Dict[str, Tuple[int, ...]]]) -> Dict[str, Any]:
+    """``defs`` with each parameter named in ``shapes`` (by its full name,
+    ``prefix`` + its key) given that shape: a rank's shard."""
+    if not shapes:
+        return defs
+    out = {}
+    for name, d in defs.items():
+        if isinstance(d, ParamDef):
+            shape = shapes.get(prefix + name, d.shape)
+            out[name] = d if shape == d.shape else ParamDef(shape, d.axes, d.init)
+        else:
+            out[name] = _local_defs(d, f"{prefix}{name}.", shapes)
+    return out
+
+
 def resolve_device(device=None) -> torch.device:
     """``device``, default "cuda", which must exist ("cpu" runs the
     plain path)."""
@@ -193,19 +211,32 @@ class Transformer(ParamTree):
     for an encoder-decoder ``enc_final_norm`` and ``encoder.{i}.…``
     (``load_state_dict(params.from_reference(...))`` loads the
     reference's), allocated uninitialized on ``device`` (default "cuda",
-    which must exist; pass "cpu" for the CPU) in ``dtype``."""
+    which must exist; pass "cpu" for the CPU) in ``dtype``.
 
-    def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32):
+    ``shapes`` (parameter name -> shape) allocates those parameters at a
+    shard's shape: a rank's part of the model under a process mesh
+    (:meth:`shard`), which then sets ``layout`` (the mesh and each
+    parameter's spec) and, where the ``"model"`` axis splits it, ``tp``
+    (a ``parallel.tensor_parallel.TensorParallel``); both are None for a
+    whole model."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32,
+                 shapes: Optional[Dict[str, Tuple[int, ...]]] = None):
         device = resolve_device(device)
-        super().__init__(model_defs(cfg), device=device, dtype=dtype)
+        super().__init__(_local_defs(model_defs(cfg), "", shapes), device=device,
+                         dtype=dtype)
         self.cfg = cfg
+        self.layout = None
+        self.tp = None
         self.layers = nn.ModuleList(
-            ParamTree(layer_defs(cfg, kind), device=device, dtype=dtype)
-            for kind in cfg.layer_kinds()
+            ParamTree(_local_defs(layer_defs(cfg, kind), f"layers.{i}.", shapes),
+                      device=device, dtype=dtype)
+            for i, kind in enumerate(cfg.layer_kinds())
         )
         self.encoder = nn.ModuleList(
-            ParamTree(layer_defs(cfg, "enc"), device=device, dtype=dtype)
-            for _ in range(cfg.encoder_layers if cfg.is_encoder_decoder else 0)
+            ParamTree(_local_defs(layer_defs(cfg, "enc"), f"encoder.{i}.", shapes),
+                      device=device, dtype=dtype)
+            for i in range(cfg.encoder_layers if cfg.is_encoder_decoder else 0)
         )
 
     @property
@@ -220,6 +251,70 @@ class Transformer(ParamTree):
         if self.cfg.is_encoder_decoder:
             tree["encoder"] = [layer.tree() for layer in self.encoder]
         return tree
+
+    @torch.no_grad()
+    def shard(self, shardings: Dict) -> "Transformer":
+        """The calling rank's part of this whole model under
+        ``shardings`` (a sanitized ``parallel.sharding.NamedSharding`` a
+        parameter name, on a ``parallel.distributed.ProcessMesh``), on the
+        rank's device, with its ``layout`` set (and ``tp`` where
+        ``"model"`` cuts it).  Raises where the port has no path for the
+        layout: a ``("pod", "data")`` split (item 14b), or a ``"model"``
+        split of anything but a dense token-input decoder."""
+        from repro_torch.launch import shardspecs as SS
+
+        mesh = next(iter(shardings.values())).mesh
+        if self.layout is not None:
+            if self.layout.mesh is mesh:
+                return self
+            raise NotImplementedError(
+                "re-placing a shard onto another process mesh (elastic "
+                "re-meshing across process counts) is ROADMAP item 14b; "
+                "restore a checkpoint instead")
+        cfg = self.cfg
+        specs = {name: s.spec for name, s in shardings.items()}
+        params = dict(self.named_parameters())
+        shapes = {n: D.local_shape(p.shape, specs[n], mesh)  # raises for "data"
+                  for n, p in params.items()}
+        mp = mesh.shape.get("model", 1)
+        tp, split, partial = None, (), ()
+        if mp > 1:
+            if cfg.is_encoder_decoder or cfg.input_mode == "embeddings":
+                raise NotImplementedError(
+                    TP.unsupported_kind("enc") if cfg.is_encoder_decoder
+                    else TP.EMBEDDINGS_ITEM)
+            for kind in cfg.layer_kinds():
+                if kind != "dense":
+                    raise NotImplementedError(TP.unsupported_kind(kind))
+            for name, dim in (("embed.embedding", 0), ("layers.0.attn.wq", 1),
+                              ("layers.0.attn.wo", 0), ("layers.0.mlp.wi", 1),
+                              ("layers.0.mlp.wo", 0)):
+                if tuple(specs[name])[dim] != "model":
+                    raise ValueError(
+                        f"{cfg.name}: {name} is not split over a 'model' axis "
+                        f"of {mp} (spec {tuple(specs[name])}); tensor "
+                        f"parallelism needs heads, d_ff and the vocabulary "
+                        f"divisible by {mp}")
+            logical = SS.param_shardings(cfg, mesh)
+            split = [n for n, s in specs.items() if "model" in D.spec_axes(s)]
+            partial = [n for n, s in specs.items()
+                       if "model" not in D.spec_axes(s)
+                       and "model" in D.spec_axes(logical[n].spec)]
+            tp = TP.TensorParallel(mesh, cfg,
+                                   kv_sharded="layers.0.attn.wk" in split)
+        grad = any(p.requires_grad for p in params.values())
+        if split:
+            local = Transformer(cfg, device=mesh.device,
+                                dtype=next(iter(params.values())).dtype,
+                                shapes={n: shapes[n] for n in split})
+            for name, p in local.named_parameters():
+                p.copy_(D.local_shard(params[name], specs[name], mesh))
+        else:
+            local = self.to(mesh.device)
+        local.requires_grad_(grad)
+        local.layout = D.ShardLayout(mesh, specs, split, partial)
+        local.tp = tp
+        return local
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator, device=None,
@@ -294,8 +389,15 @@ def _moe(params, h, cfg: ModelConfig, group_size: int):
 
 
 def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
-                      return_cache: bool, enc_out=None, mrope_positions=None):
+                      return_cache: bool, enc_out=None, mrope_positions=None,
+                      tp=None):
+    """An attention layer over the full sequence.  Under tensor
+    parallelism (``tp``, a dense layer's shard) Megatron's operators
+    bracket each block: ``copy_to_model`` after its norm,
+    ``reduce_from_model`` after its ``wo``."""
     h = rms_norm(x, params["pre_norm"], cfg.norm_eps)
+    if tp is not None:
+        h = TP.copy_to_model(h, tp)
     cache = None
     if kind.startswith("mla"):
         out = attn.mla_train(
@@ -308,15 +410,19 @@ def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
     else:
         out = attn.attention_train(
             params["attn"], h, positions,
-            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            num_heads=cfg.num_heads if tp is None else tp.num_heads,
+            num_kv_heads=cfg.num_kv_heads if tp is None else tp.num_kv_heads,
             rope_theta=cfg.rope_theta, causal=(kind != "enc"),
             window=cfg.local_window if kind == "local_attn" else None,
             mrope=cfg.mrope, mrope_positions=mrope_positions,
             q_chunk=cfg.q_chunk, return_cache=return_cache,
             scores_dtype=cfg.attn_scores_dtype,
+            kv_index=None if tp is None else tp.kv_index(h.device),
         )
     if return_cache:
         out, cache = out
+    if tp is not None:
+        out = TP.reduce_from_model(out, tp)
     x = x + out
     if kind == "dec":
         h = rms_norm(x, params["cross_norm"], cfg.norm_eps)
@@ -325,19 +431,27 @@ def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
                                      num_heads=cfg.num_heads, q_chunk=cfg.q_chunk,
                                      scores_dtype=cfg.attn_scores_dtype)
     h = rms_norm(x, params["mlp_norm"], cfg.norm_eps)
+    if tp is not None:
+        h = TP.copy_to_model(h, tp)
     if kind.endswith("moe"):
         y = _moe(params, h, cfg, cfg.moe_group_size)
     else:
         y = mlp_apply(params["mlp"], h, act=cfg.act)
+    if tp is not None:
+        y = TP.reduce_from_model(y, tp)
     return x + y, cache
 
 
 def layer_train(params, x, positions, cfg: ModelConfig, kind: str = "dense",
-                return_cache: bool = False, enc_out=None, mrope_positions=None):
+                return_cache: bool = False, enc_out=None, mrope_positions=None,
+                tp=None):
     """One layer over the full sequence -> (output, cache): with
     ``return_cache`` the layer's decode cache for the sequence, else None.
     Differentiable in every input and parameter (the decode caches are
-    built from the forward's values, not written in place)."""
+    built from the forward's values, not written in place).  ``tp``: a
+    dense layer's tensor-parallel shard (``parallel.tensor_parallel``)."""
+    if tp is not None and kind != "dense":
+        raise NotImplementedError(TP.unsupported_kind(kind))
     if kind == "ssm":
         h = rms_norm(x, params["pre_norm"], cfg.norm_eps)
         y = ssm_lib.ssm_train(
@@ -359,7 +473,7 @@ def layer_train(params, x, positions, cfg: ModelConfig, kind: str = "dense",
         h = rms_norm(x, params["mlp_norm"], cfg.norm_eps)
         return x + mlp_apply(params["mlp"], h, act=cfg.act), cache
     x, cache = _apply_attn_train(params, x, positions, cfg, kind, return_cache,
-                                 enc_out, mrope_positions)
+                                 enc_out, mrope_positions, tp)
     if return_cache and kind == "local_attn":
         cache = _to_ring_cache(cache, positions, cfg)
     return x, cache
@@ -502,9 +616,15 @@ def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _embed_in(params, cfg: ModelConfig, tokens_or_embeds: torch.Tensor, positions):
+def _embed_in(params, cfg: ModelConfig, tokens_or_embeds: torch.Tensor, positions,
+              tp=None):
     if tokens_or_embeds.is_floating_point():
+        if tp is not None:
+            raise NotImplementedError(TP.EMBEDDINGS_ITEM)
         x = tokens_or_embeds  # stubbed modality frontend output
+    elif tp is not None:
+        x = TP.vocab_parallel_embed(params["embed"]["embedding"],
+                                    tokens_or_embeds.long(), tp)
     else:
         x = params["embed"]["embedding"][tokens_or_embeds.long()]
     x = x.to(_compute_dtype(cfg))
@@ -513,8 +633,12 @@ def _embed_in(params, cfg: ModelConfig, tokens_or_embeds: torch.Tensor, position
     return x
 
 
-def _unembed(params, cfg: ModelConfig, x):
+def _unembed(params, cfg: ModelConfig, x, tp=None):
+    """Logits (B, S, V); under tensor parallelism this rank's part of the
+    vocabulary (B, S, V / size)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if tp is not None:
+        x = TP.copy_to_model(x, tp)
     table = (params["embed"]["embedding"] if cfg.tie_embeddings
              else params["lm_head"]["embedding"])
     return x @ table.to(x.dtype).T
@@ -535,19 +659,19 @@ def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor):
 
 
 def _forward(params, cfg: ModelConfig, tokens_or_embeds, positions, *,
-             enc_out=None, mrope_positions=None, return_cache=False):
+             enc_out=None, mrope_positions=None, return_cache=False, tp=None):
     """The decoder stack over a full sequence -> (final hidden states,
     one cache a layer or None)."""
     s = tokens_or_embeds.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=tokens_or_embeds.device)
-    x = _embed_in(params, cfg, tokens_or_embeds, positions)
+    x = _embed_in(params, cfg, tokens_or_embeds, positions, tp)
     layer = _maybe_remat(layer_train, cfg)
     caches = []
     for kind, layer_params in zip(cfg.layer_kinds(), params["layers"]):
         h, cache = layer(layer_params, x, positions, cfg, kind,
                          return_cache=return_cache, enc_out=enc_out,
-                         mrope_positions=mrope_positions)
+                         mrope_positions=mrope_positions, tp=tp)
         x = h.to(x.dtype)
         caches.append(cache)
     return x, caches
@@ -559,13 +683,15 @@ def forward_train(model: Transformer, tokens_or_embeds: torch.Tensor, *,
     a stubbed frontend, float embeddings (B, S, d); ``mrope_positions``
     (3, S) the M-RoPE streams; ``enc_embeds`` whisper's frames.  Autograd
     records where the model's parameters require grad (the training
-    step), each layer under ``cfg.remat``; a serving model's do not."""
+    step), each layer under ``cfg.remat``; a serving model's do not.  A
+    tensor-parallel shard (``model.tp``) returns its part of the
+    vocabulary's logits (B, S, V / size)."""
     cfg = model.cfg
     params = _cast_params(model.params(), cfg)
     enc_out = _encode(params, cfg, enc_embeds) if cfg.is_encoder_decoder else None
     x, _ = _forward(params, cfg, tokens_or_embeds, positions, enc_out=enc_out,
-                    mrope_positions=mrope_positions)
-    return _unembed(params, cfg, x)
+                    mrope_positions=mrope_positions, tp=model.tp)
+    return _unembed(params, cfg, x, model.tp)
 
 
 def _prefill(params, cfg: ModelConfig, tokens_or_embeds, positions=None,
@@ -573,6 +699,13 @@ def _prefill(params, cfg: ModelConfig, tokens_or_embeds, positions=None,
     x, caches = _forward(params, cfg, tokens_or_embeds, positions,
                          enc_out=enc_out, return_cache=True)
     return _unembed(params, cfg, x[:, -1:]), caches
+
+
+def _refuse_shard(model: Transformer, what: str) -> None:
+    if model.tp is not None:
+        raise NotImplementedError(
+            f"{what} on a tensor-parallel shard: serving runs whole models "
+            "(the process mesh is the trainer's)")
 
 
 @torch.no_grad()
@@ -583,6 +716,7 @@ def forward_prefill(model: Transformer, tokens_or_embeds: torch.Tensor, *,
     its ring buffer of min(window, S) slots).  As the reference's, the
     M-RoPE streams are the 1-D positions stacked."""
     cfg = model.cfg
+    _refuse_shard(model, "prefill")
     params = _cast_params(model.params(), cfg)
     enc_out = _encode(params, cfg, enc_embeds) if cfg.is_encoder_decoder else None
     return _prefill(params, cfg, tokens_or_embeds, positions, enc_out)
@@ -600,6 +734,7 @@ def forward_decode(model: Transformer, tokens: torch.Tensor, caches,
     if cfg.is_encoder_decoder and cross_kv is None:
         raise ValueError("an encoder-decoder's decode step attends to the "
                          "cross_kv of its prefill step (make_prefill_step)")
+    _refuse_shard(model, "decode")
     params = _cast_params(model.params(), cfg)
     x = _embed_in(params, cfg, tokens, attn._position(cur_index, tokens.device))
     new_caches = []

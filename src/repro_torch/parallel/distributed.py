@@ -1,0 +1,504 @@
+"""One process a device: a ``torch.distributed`` process mesh under the
+port's mesh rules.
+
+The reference trains over a mesh by handing its state's shardings to
+``jax.jit(in_shardings=...)`` and letting GSPMD partition the step
+(``src/repro/launch/train.py``).  The port runs one process a device
+instead, started by ``torchrun``: :func:`init_process_mesh` starts the
+process group and lays the ranks out as a ``("data", "model")``
+``DeviceMesh`` of the shape ``ft.elastic.choose_mesh_shape`` picks,
+and returns a :class:`ProcessMesh`, a :class:`repro_torch.parallel.mesh.Mesh`
+whose every device is the calling rank's own.  The spec trees
+(``launch.shardspecs.train_state_shardings``, ``sanitize_tree``) read its
+shape and axis names as they read any mesh's; ``parallel.sharding.place``
+keeps the calling rank's shard of each leaf (:func:`local_shard`); the
+training step reduces over its axes (:func:`all_reduce`).
+
+Rank ``r`` sits at ``(r // model, r % model)``: the ranks of one
+``"model"`` group are consecutive.  A dim a spec maps to ``"model"`` is
+split into equal parts in rank order along that axis.  A spec that maps
+a dim to ``"pod"`` or ``"data"`` (the ``fsdp_params`` archs' embed dim,
+ZeRO-3) raises: ROADMAP item 14b ports it.
+
+Backends: NCCL for cards (with gloo beside it for host tensors, so a
+checkpoint gathers over the same groups), gloo for the CPU.  gloo on a
+card is for ranks that share one card, which NCCL refuses: a collective
+on a CUDA tensor then copies it through a pinned host buffer, reduces
+there and copies it back (gloo reduces host memory; the copies are the
+design of that path, not a fallback).  The training path uses two
+collectives, :func:`all_reduce` and :func:`broadcast`; a checkpoint
+also gathers (:func:`gather_full`).
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import time
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.ft.elastic import choose_mesh_shape
+from repro_torch.parallel.mesh import Mesh
+
+__all__ = [
+    "ProcessMesh",
+    "init_process_mesh",
+    "torchrun_env",
+    "local_shard",
+    "gather_full",
+    "all_reduce",
+    "all_reduce_coalesced",
+    "broadcast",
+    "barrier",
+    "local_shape",
+    "local_rows",
+    "local_batch",
+    "sum_forward",
+    "ShardLayout",
+    "spec_axes",
+    "is_process_mesh",
+    "ZERO3_ITEM",
+    "COLLECTIVES",
+    "reset_collectives",
+]
+
+# what a ("pod", "data") parameter shard waits for
+ZERO3_ITEM = ("the embed dim over (\"pod\", \"data\") (ZeRO-3, the fsdp_params "
+              "archs) is ROADMAP item 14b")
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+# a bucket of the data-parallel gradient reduction
+BUCKET_BYTES = 64 << 20
+# calls, bytes and host seconds of this process's collectives by
+# "op[axes]"; a host-staged collective's seconds hold its copies (NCCL's
+# count only the enqueue)
+COLLECTIVES: Dict[str, Dict[str, float]] = {}
+
+
+def reset_collectives() -> Dict[str, Dict[str, float]]:
+    """``COLLECTIVES`` as it stands, then cleared."""
+    out = {k: dict(v) for k, v in COLLECTIVES.items()}
+    COLLECTIVES.clear()
+    return out
+
+
+def _count(kind: str, t: torch.Tensor, t0: float) -> None:
+    entry = COLLECTIVES.setdefault(kind, {"calls": 0, "bytes": 0, "seconds": 0.0})
+    entry["calls"] += 1
+    entry["bytes"] += t.numel() * t.element_size()
+    entry["seconds"] += time.perf_counter() - t0
+
+
+def torchrun_env() -> Optional[Tuple[int, int, int]]:
+    """``(RANK, WORLD_SIZE, LOCAL_RANK)`` as torchrun sets them, or None
+    where ``WORLD_SIZE`` is unset (a single process)."""
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    return (int(os.environ.get("RANK", "0")), int(os.environ["WORLD_SIZE"]),
+            int(os.environ.get("LOCAL_RANK", "0")))
+
+
+class ProcessMesh(Mesh):
+    """The ranks of a process group as a mesh.  ``devices`` holds the
+    calling rank's device at every position (a process sees only its
+    own), so a :class:`~repro_torch.parallel.sharding.NamedSharding` on
+    it places on that device.  ``device_mesh`` is the
+    ``torch.distributed`` ``DeviceMesh`` whose groups the collectives
+    use; ``backend`` is ``"nccl"`` or ``"gloo"``."""
+
+    is_process_mesh = True
+
+    def __init__(self, device_mesh, device: torch.device, backend: str):
+        names = tuple(device_mesh.mesh_dim_names)
+        grid = np.empty(tuple(device_mesh.mesh.shape), dtype=object)
+        grid.fill(device)
+        super().__init__(grid, names)
+        self.device_mesh = device_mesh
+        self.device = self.devices.flat[0]
+        self.backend = backend
+        self.rank = dist.get_rank()
+        self._staging: Optional[torch.Tensor] = None
+
+    def axis_index(self, axis: str) -> int:
+        """The calling rank's coordinate along ``axis`` (0 for an axis
+        the mesh lacks)."""
+        if axis not in self.axis_names:
+            return 0
+        return self.device_mesh.get_local_rank(axis)
+
+    def axis_size(self, axis) -> int:
+        return int(np.prod([self.shape.get(a, 1) for a in _axes(axis)]))
+
+    def group(self, axis: str):
+        return self.device_mesh.get_group(axis)
+
+    def staging(self, nbytes: int) -> torch.Tensor:
+        """A pinned host buffer of at least ``nbytes`` bytes (uint8),
+        kept for the next collective."""
+        if self._staging is None or self._staging.numel() < nbytes:
+            self._staging = torch.empty(nbytes, dtype=torch.uint8,
+                                        pin_memory=True)
+        return self._staging[:nbytes]
+
+    def __repr__(self) -> str:
+        return (f"ProcessMesh({dict(self.shape)}, rank {self.rank}, "
+                f"{self.backend} on {self.device})")
+
+
+def _axes(axis) -> Tuple[str, ...]:
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
+def init_process_mesh(model_parallel: int = 1, *, device,
+                      backend: Optional[str] = None,
+                      init_method: Optional[str] = None) -> ProcessMesh:
+    """Start this process's process group (unless one is running) and
+    return the :class:`ProcessMesh` over its ranks.
+
+    ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` come from torchrun (or
+    the caller's environment; ``init_method`` defaults to ``env://``).
+    ``device`` is the rank's device: a card (``cuda:{LOCAL_RANK}`` under
+    torchrun) or ``"cpu"``.  ``backend`` defaults to NCCL for a card and
+    gloo for the CPU; ``backend="gloo"`` on a card lets ranks share one
+    card.  The mesh's shape is ``ft.elastic.choose_mesh_shape(world,
+    model_parallel=...)``: ``model_parallel`` halved until it divides
+    the world, the rest data-parallel.  One all-reduce over every rank,
+    on the device, checks the group before the mesh is returned."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"the rank's device is {device} and no CUDA "
+                               "device is available; pass device='cpu'")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend {backend!r}: 'nccl' or 'gloo'")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError("NCCL runs on cards; the CPU takes backend='gloo'")
+    if backend == "nccl":
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+        if local > torch.cuda.device_count():
+            raise RuntimeError(
+                f"{local} ranks on this host and {torch.cuda.device_count()} "
+                "cards: NCCL takes one card a rank; ranks share a card only "
+                "with backend='gloo'")
+    if not dist.is_initialized():
+        env = torchrun_env()
+        rank, world = (env[0], env[1]) if env else (0, 1)
+        if init_method is None and env is None:
+            raise RuntimeError("no process group and no torchrun environment "
+                               "(WORLD_SIZE); launch with torchrun or pass "
+                               "init_method=")
+        # NCCL for card tensors, gloo beside it for host tensors (a
+        # checkpoint's gather)
+        spec = "cpu:gloo,cuda:nccl" if backend == "nccl" else "gloo"
+        # no device_id: NCCL makes a group's communicator at its first
+        # collective, so the mesh's unused groups (size 1) cost nothing
+        dist.init_process_group(spec, init_method=init_method or "env://",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(minutes=10))
+    world = dist.get_world_size()
+    shape, names = choose_mesh_shape(world, model_parallel=model_parallel)
+    if "pod" in names:
+        raise NotImplementedError(
+            f"{world} ranks give a ('pod', 'data', 'model') mesh; the pod "
+            "axis is ROADMAP item 14b")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    # on the device first: the DeviceMesh keeps the device it finds set
+    one = torch.ones(1, device=device)
+    dm = init_device_mesh(device.type, shape, mesh_dim_names=names)
+    mesh = ProcessMesh(dm, device, backend)
+    if _staged(one, mesh):
+        _through_host(one, mesh, dist.all_reduce)
+    else:
+        dist.all_reduce(one)
+    if int(one.item()) != world:
+        raise RuntimeError(f"the process group counts {one.item()} ranks, "
+                           f"not {world}")
+    return mesh
+
+
+# -- collectives --------------------------------------------------------------
+
+
+def _mesh(mesh) -> ProcessMesh:
+    if mesh is None:
+        from repro_torch.parallel.sharding import current_mesh
+
+        mesh = current_mesh()
+    if not getattr(mesh, "is_process_mesh", False):
+        raise ValueError("a collective needs a ProcessMesh (init_process_mesh)")
+    return mesh
+
+
+def _staged(t: torch.Tensor, mesh: ProcessMesh) -> bool:
+    return t.is_cuda and mesh.backend == "gloo"
+
+
+def _through_host(t: torch.Tensor, mesh: ProcessMesh, fn) -> None:
+    """``fn`` on a host copy of ``t`` (a pinned buffer), copied back."""
+    flat = t.reshape(-1)
+    buf = mesh.staging(flat.numel() * flat.element_size()).view(t.dtype)
+    buf.copy_(flat)
+    fn(buf)
+    t.copy_(buf.view(t.shape))
+
+
+def all_reduce(t: torch.Tensor, axis, op: str = "sum", *,
+               mesh: Optional[ProcessMesh] = None) -> torch.Tensor:
+    """Reduce ``t`` in place over the mesh ``axis`` (a name or a tuple of
+    names; absent names and axes of size 1 are skipped) and return it.
+    ``op``: ``"sum"`` or ``"max"``.  Under gloo a CUDA tensor goes
+    through a pinned host buffer."""
+    mesh = _mesh(mesh)
+    axes = [a for a in _axes(axis) if mesh.shape.get(a, 1) > 1]
+    if not axes:
+        return t
+    if len(axes) > 1:
+        if tuple(axes) != tuple(a for a in mesh.axis_names if a in axes):
+            raise ValueError(f"axes {axes} out of the mesh's order")
+        if len(axes) != len(mesh.axis_names):
+            raise NotImplementedError(f"a reduction over {axes} of "
+                                      f"{mesh.axis_names}")
+        group = dist.group.WORLD
+    else:
+        group = mesh.group(axes[0])
+    if not t.is_contiguous():
+        raise ValueError("all_reduce reduces a contiguous tensor in place")
+
+    def reduce(x):
+        dist.all_reduce(x, op=_OPS[op], group=group)
+
+    t0 = time.perf_counter()
+    if _staged(t, mesh):
+        _through_host(t, mesh, reduce)
+    else:
+        reduce(t)
+    _count(f"all_reduce[{','.join(axes)}]", t, t0)
+    return t
+
+
+def all_reduce_coalesced(tensors: Sequence[torch.Tensor], axis, *,
+                         mesh: Optional[ProcessMesh] = None) -> None:
+    """Sum each tensor in place over ``axis``, packed into flat buckets
+    of at most ``BUCKET_BYTES`` (one tensor may exceed it) of one dtype:
+    one collective a bucket."""
+    mesh = _mesh(mesh)
+    if all(mesh.shape.get(a, 1) == 1 for a in _axes(axis)):
+        return
+    by_dtype: Dict[torch.dtype, list] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        bucket, size = [], 0
+        for t in group + [None]:
+            nbytes = 0 if t is None else t.numel() * t.element_size()
+            if bucket and (t is None or size + nbytes > BUCKET_BYTES):
+                flat = torch.cat([b.reshape(-1) for b in bucket])
+                all_reduce(flat, axis, mesh=mesh)
+                for b, part in zip(bucket, flat.split([b.numel() for b in bucket])):
+                    b.copy_(part.view(b.shape))
+                bucket, size = [], 0
+            if t is not None:
+                bucket.append(t)
+                size += nbytes
+
+
+def broadcast(t: torch.Tensor, src: int = 0, *,
+              mesh: Optional[ProcessMesh] = None) -> torch.Tensor:
+    """``t`` in place from global rank ``src`` to every rank."""
+    mesh = _mesh(mesh)
+    if mesh.size == 1:
+        return t
+
+    def send(x):
+        dist.broadcast(x, src=src)
+
+    t0 = time.perf_counter()
+    if _staged(t, mesh):
+        _through_host(t, mesh, send)
+    else:
+        send(t)
+    _count("broadcast", t, t0)
+    return t
+
+
+class _SumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        return all_reduce(x.contiguous().clone(), axis, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def sum_forward(x: torch.Tensor, axis, mesh: ProcessMesh) -> torch.Tensor:
+    """The sum of ``x`` over ``axis``, its gradient passed through as it
+    is (each rank's backward then yields its own part of the gradient):
+    Megatron's "g" over ``"model"``, the global loss over
+    ``("pod", "data")``."""
+    return _SumForward.apply(x, axis, mesh)
+
+
+def barrier(mesh: Optional[ProcessMesh] = None) -> None:
+    """Every rank waits for the others: an all-reduce of one value."""
+    mesh = _mesh(mesh)
+    all_reduce(torch.zeros((), device=mesh.device), mesh.axis_names, mesh=mesh)
+
+
+# -- shards --------------------------------------------------------------------
+
+
+def _split_axes(spec, ndim: int, mesh: Mesh):
+    """The dims ``spec`` cuts over ``"model"`` (axes of size 1 cut
+    nothing); raises for a dim it cuts over ``"pod"``/``"data"``."""
+    out = []
+    for dim, entry in enumerate(tuple(spec)[:ndim]):
+        axes = [a for a in (_axes(entry) if entry is not None else ())
+                if mesh.shape.get(a, 1) > 1]
+        if any(a in ("pod", "data") for a in axes):
+            raise NotImplementedError(f"spec {tuple(spec)} splits dim {dim} over "
+                                      f"{entry}: {ZERO3_ITEM}")
+        if axes == ["model"]:
+            out.append(dim)
+        elif axes:
+            raise ValueError(f"spec {tuple(spec)}: unknown axes {entry}")
+    return out
+
+
+def local_shard(tensor: torch.Tensor, spec, mesh: ProcessMesh) -> torch.Tensor:
+    """The calling rank's part of the full ``tensor`` under ``spec`` (a
+    sanitized ``PartitionSpec``): each dim mapped to ``"model"`` cut into
+    equal parts, the rank's by its index along ``"model"``.  A view
+    where nothing is cut; the caller copies."""
+    n, i = mesh.shape.get("model", 1), mesh.axis_index("model")
+    for dim in _split_axes(spec, tensor.ndim, mesh):
+        if tensor.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(tensor.shape)} does not "
+                             f"split into {n}")
+        tensor = tensor.chunk(n, dim=dim)[i]
+    return tensor
+
+
+def local_shape(shape: Sequence[int], spec, mesh: ProcessMesh) -> Tuple[int, ...]:
+    """The shape of the calling rank's part of a ``shape`` tensor under
+    ``spec`` (raises as :func:`local_shard` does for a data-axis cut)."""
+    out = list(shape)
+    for dim in _split_axes(spec, len(shape), mesh):
+        out[dim] //= mesh.shape.get("model", 1)
+    return tuple(out)
+
+
+def gather_full(shard: torch.Tensor, spec, mesh: ProcessMesh) -> torch.Tensor:
+    """The full tensor from each rank's ``shard`` under ``spec``: the
+    ``"model"`` group's shards gathered in rank order along each dim the
+    spec cuts (every group gathers its own).  On the shard's device;
+    under gloo a CUDA shard is gathered on the host."""
+    dims = _split_axes(spec, shard.ndim, mesh)
+    n = mesh.shape.get("model", 1)
+    if not dims or n == 1:
+        return shard
+    if len(dims) > 1:
+        raise NotImplementedError(f"spec {tuple(spec)} cuts {len(dims)} dims")
+    device = shard.device
+    if _staged(shard, mesh):
+        shard = shard.cpu()
+    shard = shard.contiguous()
+    parts = [torch.empty_like(shard) for _ in range(n)]
+    dist.all_gather(parts, shard, group=mesh.group("model"))
+    return torch.cat(parts, dim=dims[0]).to(device)
+
+
+# -- the batch -----------------------------------------------------------------
+
+
+def local_rows(batch_size: int, mesh: Mesh) -> np.ndarray:
+    """The global batch's rows the calling rank takes: its contiguous
+    part by its index over ``("pod", "data")`` (the reference's batch
+    sharding).  Every rank of a ``"model"`` group takes the same rows."""
+    dp = mesh.axis_size(("pod", "data"))
+    d = mesh.axis_index("data")
+    if batch_size % dp:
+        raise ValueError(f"batch {batch_size} does not split over {dp} data "
+                         "ranks")
+    part = batch_size // dp
+    return np.arange(d * part, (d + 1) * part)
+
+
+# batch entries every rank holds whole (the reference's replicated ones)
+_REPLICATED_INPUTS = ("mrope_positions",)
+
+
+def local_batch(batch: Dict, mesh: Mesh) -> Dict:
+    """``batch`` (the global batch: numpy arrays or tensors) with each
+    batch-sharded entry cut to :func:`local_rows`."""
+    n = batch["labels"].shape[0]
+    rows = local_rows(n, mesh)
+    if len(rows) == n:
+        return batch
+    return {k: v if k in _REPLICATED_INPUTS else v[rows]
+            for k, v in batch.items()}
+
+
+# -- a model's shard -------------------------------------------------------------
+
+
+class ShardLayout:
+    """How a rank's model shard sits on its :class:`ProcessMesh`:
+    ``specs`` (each parameter's sanitized spec, by name), ``split`` (the
+    names the ``"model"`` axis cuts) and ``partial`` (the names it leaves
+    whole although their logical axes map to it: kv heads that do not
+    divide the group, whose gradients hold one rank's heads' part).  The
+    training step reduces gradients and their norm through it."""
+
+    def __init__(self, mesh: ProcessMesh, specs: Dict, split, partial):
+        self.mesh = mesh
+        self.specs = dict(specs)
+        self.split = frozenset(split)
+        self.partial = frozenset(partial)
+        self.model_size = mesh.shape.get("model", 1)
+        self.data_size = mesh.axis_size(("pod", "data"))
+
+    def reduce_gradients(self, names, grads, grad_dtype=None):
+        """The step's f32 gradients: the partial ones summed over
+        ``"model"``, then every one summed over ``("pod", "data")`` in
+        buckets (each rank's loss is its share of the global mean), in
+        bf16 under ``grad_dtype="bfloat16"`` (the compressed reduction)."""
+        partial = [g for n, g in zip(names, grads) if n in self.partial]
+        all_reduce_coalesced(partial, "model", mesh=self.mesh)
+        if grad_dtype == "bfloat16":
+            grads = [g.to(torch.bfloat16) for g in grads]
+        all_reduce_coalesced(grads, ("pod", "data"), mesh=self.mesh)
+        return [g.to(torch.float32) for g in grads]
+
+    def grad_norm(self, names, grads) -> torch.Tensor:
+        """The global norm: the squares of the leaves ``"model"`` cuts
+        summed over the group, those it keeps whole counted once."""
+        if self.model_size == 1:
+            return torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+        split = sum(torch.sum(torch.square(g)) for n, g in zip(names, grads)
+                    if n in self.split)
+        whole = sum(torch.sum(torch.square(g)) for n, g in zip(names, grads)
+                    if n not in self.split)
+        return torch.sqrt(all_reduce(split, "model", mesh=self.mesh) + whole)
+
+
+def is_process_mesh(mesh) -> bool:
+    return bool(getattr(mesh, "is_process_mesh", False))
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis name ``spec`` mentions."""
+    out = []
+    for entry in tuple(spec):
+        if entry is not None:
+            out += list(_axes(entry))
+    return tuple(out)
+

@@ -13,7 +13,9 @@ layout by itself.  Three things read it: the spec trees of
 ``repro_torch.launch.shardspecs`` (and the dry run's layout), the
 context-parallel kNN attention (``models.attention.knn_decode_attention``
 takes the §7 path where ``"cp_seq"`` maps to axes of the active mesh),
-and :func:`place`, which puts a leaf whole on its mesh's first device.
+and :func:`place`, which puts a leaf whole on its mesh's first device,
+or, on a process mesh (``parallel.distributed``: one process a device,
+the trainer's), keeps the calling rank's shard of it.
 :func:`shard` (the reference's ``with_sharding_constraint``) returns its
 input: a constraint changes a layout and never a value.
 
@@ -184,9 +186,17 @@ def place(tree, shardings):
     device (``jax.device_put`` over a matching tree).  A module (a
     model) pairs with a dict of shardings by parameter name and moves in
     place; a tensor already on its device is returned as it is; a CPU
-    scalar (a ``TrainState``'s step) stays on the host."""
+    scalar (a ``TrainState``'s step) stays on the host.
+
+    On a process mesh each leaf becomes the calling rank's shard
+    (``parallel.distributed.local_shard``, a copy on the rank's device)
+    and a model the rank's part of it, which the model makes (its
+    ``shard(shardings)``, ``models.transformer.Transformer.shard``): the
+    leaves must be whole, as a state drawn or restored whole is."""
     if shardings is None or tree is None:
         return tree
+    if isinstance(tree, nn.Module) and _on_processes(shardings):
+        return tree.shard(shardings)
     if isinstance(tree, nn.Module):
         devices = {s.device for s in shardings.values()}
         if len(devices) != 1:
@@ -201,5 +211,18 @@ def place(tree, shardings):
         return type(tree)(place(v, s) for v, s in zip(tree, shardings))
     if isinstance(tree, torch.Tensor) and not (tree.device.type == "cpu"
                                                and tree.ndim == 0):
+        if _on_processes(shardings):
+            from repro_torch.parallel.distributed import local_shard
+
+            return local_shard(tree, shardings.spec, shardings.mesh).to(
+                shardings.device, copy=True).contiguous()
         return tree.to(shardings.device)
     return tree
+
+
+def _on_processes(shardings) -> bool:
+    """Whether ``shardings`` (one, or a dict of them) lie on a process
+    mesh."""
+    if isinstance(shardings, dict):
+        shardings = next(iter(shardings.values()), None)
+    return bool(getattr(getattr(shardings, "mesh", None), "is_process_mesh", False))

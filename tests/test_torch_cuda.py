@@ -1593,3 +1593,67 @@ def test_restore_checkpoint_with_shardings_onto_the_card(cuda_device, tmp_path):
         for n, p in s.params.named_parameters():
             assert p.device == torch.device("cuda", 0) and torch.equal(p.cpu(), want[n])
             assert s.opt_state.m[n].device.type == "cuda"
+
+
+# -- training across processes (parallel.distributed) --------------------------
+
+_DIST_ARGS = ["--arch", "internlm2-1.8b-smoke", "--seq", "32", "--global-batch",
+              "4", "--lr", "3e-3", "--log-every", "1", "--steps", "3",
+              "--deterministic"]
+
+
+def _dist_trainer(rank, argv):
+    from repro_torch.launch import train
+
+    out = train.main(argv)
+    return dict(losses=out["losses"], grad_norms=out["grad_norms"],
+                mesh=tuple(out["mesh"].shape.values()),
+                params={n: p.detach().cpu().numpy()
+                        for n, p in out["state"].params.named_parameters()})
+
+
+def test_nccl_world_of_one_is_bit_equal_to_the_single_process(cuda_device,
+                                                              tmp_path,
+                                                              monkeypatch):
+    """One NCCL rank (a (1, 1) process mesh) steps the trainer as the
+    single process does, bit for bit (deterministic algorithms on)."""
+    import torch_dist_parity as P
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    try:
+        one = _dist_trainer(0, _DIST_ARGS + ["--device", "cuda"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rank = P.spawn(1, _dist_trainer, _DIST_ARGS + ["--dist-backend", "nccl"],
+                   str(tmp_path), backend="nccl")
+    assert rank["mesh"] == (1, 1)
+    assert rank["losses"] == one["losses"] and rank["grad_norms"] == one["grad_norms"]
+    for name, p in one["params"].items():
+        assert np.array_equal(rank["params"][name], p), name
+
+
+def test_two_gloo_ranks_on_one_card_match_the_cpu(cuda_device, tmp_path):
+    """Two ranks sharing the card over gloo (collectives staged through
+    pinned host memory), on a (1, 2) tensor-parallel and a (2, 1)
+    data-parallel mesh, internlm2-1.8b-smoke at f32, agree with the same
+    two meshes on the CPU: losses and grad norms within rtol 1e-5, the
+    parameters within rtol 1e-5 / atol 1e-6 where no step's gradient fell
+    below 1e-6."""
+    import torch_dist_parity as P
+
+    cases = {m: P.case("internlm2-1.8b-smoke", m) for m in ("tp2", "dp2")}
+    cpu = P.spawn(2, P.port_cases, {k: (c, None) for k, c in cases.items()},
+                  str(tmp_path))
+    card = P.spawn(2, P.port_cases, {k: (dict(c, device="cuda:0"), None)
+                                     for k, c in cases.items()}, str(tmp_path))
+    for key, c in cases.items():
+        got, want = card[key], cpu[key]
+        assert not got["bad_shapes"]
+        for name in ("losses", "grad_norms"):
+            np.testing.assert_allclose(got[name], want[name], rtol=P.F32_RTOL,
+                                       err_msg=f"{key} {name}")
+        for name, p in got["final"].items():
+            keep = ~(want["small"][name] | got["small"][name])
+            np.testing.assert_allclose(p[keep], want["final"][name][keep],
+                                       rtol=P.F32_RTOL, atol=P.F32_ATOL,
+                                       err_msg=f"{key} {name}")

@@ -1,0 +1,262 @@
+"""The trainer and its checkpoints across processes (ROADMAP item 14a).
+
+``repro_torch.launch.train.main`` in ranks spawned over gloo
+(``tests/torch_dist_parity.py``), with internlm2-1.8b-smoke as shipped:
+a world of one process is bit-equal to the single-process trainer; a run
+on a (2, 2) mesh checkpoints (rank 0 writes the gathered state in the
+reference's format), a restart on (2, 2) replays the last step bit for
+bit, one on (4, 1) restores the same values bit for bit and steps on; the
+reference's ``restore_checkpoint`` reads the checkpoint as the gathered
+state; ``torchrun`` runs the trainer as its command; and every case
+without a path across processes raises under a process mesh.
+"""
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import torch
+
+import torch_dist_parity as P
+from repro.checkpoint import checkpoint as ref_ck
+from repro.models import model as ref_model
+import repro.configs as ref_configs
+from repro_torch.launch import train
+
+from torch_train_parity import few_threads  # noqa: F401 (a fixture)
+
+ARCH = "internlm2-1.8b-smoke"
+ARGS = ["--arch", ARCH, "--seq", "32", "--global-batch", "4", "--lr", "3e-3",
+        "--log-every", "1", "--device", "cpu"]
+
+
+def _numpy(state):
+    """A trainer state's parameters and moments whole, on rank 0 (numpy)."""
+    from repro_torch.parallel import distributed as D
+
+    layout = state.params.layout
+    out = {}
+    for prefix, tensors in (("p", dict(state.params.named_parameters())),
+                            ("m", state.opt_state.m), ("v", state.opt_state.v)):
+        for name, t in tensors.items():
+            t = t.detach()
+            if layout is not None:
+                t = D.gather_full(t, layout.specs[name], layout.mesh)
+            out[f"{prefix}:{name}"] = t.numpy().copy()
+    return out
+
+
+def _run(argv):
+    out = train.main(ARGS + argv)
+    return dict(losses=out["losses"], grad_norms=out["grad_norms"],
+                mesh=tuple(out["mesh"].shape.values()), state=_numpy(out["state"]),
+                step=int(out["state"].step), start=out["start"])
+
+
+def _world_of_one(rank, payload):
+    return _run(["--steps", "3"])
+
+
+def test_world_of_one_is_bit_equal_to_the_single_process(tmp_path, monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    one = _run(["--steps", "3"])
+    proc = P.spawn(1, _world_of_one, None, str(tmp_path))
+    assert proc["mesh"] == (1, 1) and one["mesh"] == (1, 1)
+    assert proc["losses"] == one["losses"] and len(one["losses"]) == 3
+    assert proc["grad_norms"] == one["grad_norms"]
+    assert proc["state"].keys() == one["state"].keys()
+    for k, v in one["state"].items():
+        assert np.array_equal(proc["state"][k], v), k
+
+
+def _meshes(rank, root):
+    """A on (2, 2) to step 3, checkpoints at 2 and 3; B resumes a copy
+    without step 3 on (2, 2), C on (4, 1), after C's restore is held to
+    the step-2 arrays."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardspecs as SS
+    from repro_torch.models import model as M
+    from repro_torch.parallel import distributed as D
+    from repro_torch.parallel.sharding import place, use_mesh
+
+    a_dir, b_dir, c_dir = (os.path.join(root, x) for x in "abc")
+    flags = ["--steps", "3", "--ckpt-every", "2"]
+    a = _run(flags + ["--model-parallel", "2", "--ckpt-dir", a_dir])
+    if rank == 0:
+        for d in (b_dir, c_dir):
+            shutil.copytree(a_dir, d)
+            shutil.rmtree(os.path.join(d, "step_00000003"))
+    dist.barrier()
+    b = _run(flags + ["--model-parallel", "2", "--ckpt-dir", b_dir])
+    # the (4, 1) restore of the step-2 checkpoint, gathered
+    pm = D.init_process_mesh(1, device="cpu")
+    cfg = get_config(ARCH)
+    with use_mesh(pm):
+        sh = SS.train_state_specs(cfg, pm)
+        like = place(M.init_train_state(torch.Generator().manual_seed(9), cfg,
+                                        device="cpu"), sh)
+        restored, at = restore_checkpoint(c_dir, like, shardings=sh)
+    restored_c = dict(at=at, state=_numpy(restored), step=int(restored.step))
+    c = _run(flags + ["--model-parallel", "1", "--ckpt-dir", c_dir])
+    return dict(a=a, b=b, c=c, restored_c=restored_c)
+
+
+def test_checkpoints_resume_across_meshes(tmp_path):
+    root = str(tmp_path)
+    out = P.spawn(4, _meshes, root, root)
+    a, b, c = out["a"], out["b"], out["c"]
+    assert a["mesh"] == (2, 2) and b["mesh"] == (2, 2) and c["mesh"] == (4, 1)
+    assert a["start"] == 0 and b["start"] == 2 and c["start"] == 2
+    # (2, 2) -> (2, 2): the last step replayed bit for bit
+    assert b["losses"] == a["losses"][2:] and b["grad_norms"] == a["grad_norms"][2:]
+    for k, v in a["state"].items():
+        assert np.array_equal(b["state"][k], v), k
+    # (2, 2) -> (4, 1): the step-2 values restored bit for bit, then a step
+    # on the other mesh (bf16 compute: check_bf16_step's tolerance)
+    restored = out["restored_c"]
+    assert restored["at"] == 2 and restored["step"] == 2
+    with np.load(os.path.join(root, "a", "step_00000002", "arrays.npz")) as f:
+        saved = {k: f[k] for k in f.files}
+    want = _by_port_name(saved)
+    assert want.keys() == restored["state"].keys()
+    for k, v in want.items():
+        assert np.array_equal(restored["state"][k], v), k
+    np.testing.assert_allclose([x for _, x in c["losses"]],
+                               [x for _, x in a["losses"][2:]], rtol=P.BF16_RTOL)
+    # the reference reads the (2, 2) run's last checkpoint as its state
+    cfg = ref_configs.get_config(ARCH)
+    like = jax.eval_shape(lambda: ref_model.init_train_state(
+        jax.random.PRNGKey(0), cfg))
+    ref_state, at = ref_ck.restore_checkpoint(os.path.join(root, "a"), like)
+    assert at == 3 and int(ref_state.step) == 3
+    from repro_torch.models import params
+    from repro_torch.configs import get_config
+
+    pcfg = get_config(ARCH)
+    got = {}
+    for prefix, tree in (("p", ref_state.params), ("m", ref_state.opt_state.m),
+                         ("v", ref_state.opt_state.v)):
+        for name, t in params.from_reference(
+                jax.tree.map(np.asarray, tree), pcfg).items():
+            got[f"{prefix}:{name}"] = t.numpy()
+    assert got.keys() == a["state"].keys()
+    for k, v in a["state"].items():
+        assert np.array_equal(got[k], v), k
+
+
+def _by_port_name(arrays):
+    """A checkpoint's arrays (the reference's paths) by ``_numpy``'s keys."""
+    from repro_torch.checkpoint.checkpoint import _reference_paths
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config(ARCH)
+    names = list(tfm.model_axes(cfg))
+    paths = _reference_paths(names, cfg)
+    out = {}
+    for prefix, tag in ((".params", "p"), (".opt_state/.m", "m"),
+                        (".opt_state/.v", "v")):
+        for name in names:
+            path, j = paths[name]
+            arr = arrays[f"{prefix}/{path}"]
+            out[f"{tag}:{name}"] = arr if j is None else arr[j]
+    return out
+
+
+def test_torchrun_runs_the_trainer(tmp_path):
+    """``torchrun --nproc-per-node 2 -m repro_torch.launch.train
+    --model-parallel 2 --device cpu``: gloo on the CPU, a (1, 2) mesh,
+    rank 0 alone logs and writes the report."""
+    report = tmp_path / "report.json"
+    env = dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train", *ARGS,
+         "--steps", "2", "--model-parallel", "2", "--report", str(report)],
+        capture_output=True, text=True, timeout=300, env=env,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("[train] step=2 loss=") == 1, out.stdout
+    rep = json.loads(report.read_text())
+    assert rep["mesh"] == {"data": 1, "model": 2} and rep["world"] == 2
+    assert rep["backend"] == "gloo" and len(rep["losses"]) == 2
+    assert not rep["launches"] and not rep["plain_calls"]
+    assert all(np.isfinite(x) for _, x in rep["losses"] + rep["grad_norms"])
+
+
+def _refusals(rank, payload):
+    """Each case the port has no path for, on a (1, 2) or (2, 1) process
+    mesh of the CPU: the exception's type and message."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.ft import elastic
+    from repro_torch.launch import shardspecs as SS
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import distributed as D
+    from repro_torch.parallel.sharding import place, use_mesh
+
+    def attempt(fn):
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 (the refusal is the result)
+            return type(e).__name__, str(e)
+        return None
+
+    def init(cfg, pm):
+        with use_mesh(pm):
+            return place(M.init_train_state(torch.Generator().manual_seed(0),
+                                            cfg, device="cpu"),
+                         SS.train_state_specs(cfg, pm))
+
+    out = {}
+    tp = D.init_process_mesh(2, device="cpu")
+    for arch in ("granite-moe-3b-a800m-smoke", "deepseek-v2-236b-smoke",
+                 "mamba2-2.7b-smoke", "recurrentgemma-9b-smoke",
+                 "whisper-medium-smoke", "qwen2-vl-2b-smoke"):
+        out[arch] = attempt(lambda: init(get_config(arch), tp))
+    dense = init(get_config("internlm2-1.8b-smoke"), tp)
+    tokens = torch.zeros((1, 8), dtype=torch.int64)
+    out["prefill"] = attempt(lambda: tfm.forward_prefill(dense.params, tokens))
+    out["remesh"] = attempt(lambda: elastic.remesh_state(
+        dense, tfm.model_axes(dense.params.cfg), tp))
+    dp = D.init_process_mesh(1, device="cpu")
+    fsdp = dataclasses.replace(get_config("granite-20b-smoke"), fsdp_params=True)
+    out["fsdp"] = attempt(lambda: init(fsdp, dp))
+    out["fsdp_model_only"] = attempt(lambda: init(fsdp, tp))
+    return out
+
+
+def test_cases_without_a_path_raise(tmp_path):
+    """TP for MoE, MLA, SSD, RG-LRU with local attention, whisper and
+    embeddings input raise naming item 14b, as does a ("pod", "data")
+    parameter split (granite-20b with ``fsdp_params`` on (2, 1)), serving
+    a shard and re-meshing one; nothing runs whole on one rank instead.
+    ``fsdp_params`` with a data axis of 1 places (the split drops)."""
+    out = P.spawn(2, _refusals, None, str(tmp_path))
+    for key in ("granite-moe-3b-a800m-smoke", "deepseek-v2-236b-smoke",
+                "mamba2-2.7b-smoke", "recurrentgemma-9b-smoke",
+                "whisper-medium-smoke", "qwen2-vl-2b-smoke", "fsdp", "remesh",
+                "prefill"):
+        assert out[key] is not None, key
+        kind, msg = out[key]
+        assert kind == "NotImplementedError", (key, kind, msg)
+        if key != "prefill":
+            assert "14b" in msg, (key, msg)
+    assert "MoE" in out["granite-moe-3b-a800m-smoke"][1]
+    assert "MLA" in out["deepseek-v2-236b-smoke"][1]
+    assert "SSD" in out["mamba2-2.7b-smoke"][1]
+    assert "RG-LRU" in out["recurrentgemma-9b-smoke"][1]
+    assert "whisper" in out["whisper-medium-smoke"][1]
+    assert "embeddings" in out["qwen2-vl-2b-smoke"][1]
+    assert "ZeRO-3" in out["fsdp"][1]
+    assert out["fsdp_model_only"] is None

@@ -1,0 +1,303 @@
+"""Training across processes against the reference's GSPMD partition.
+
+The helpers of ``tests/test_torch_distributed*.py``.  A case is a smoke
+config (an f32 variant by default), a ``(data, model)`` mesh and a few
+steps over ``SyntheticTokenSource``'s global batches (seed 1), possibly
+with a label mask that differs across the batch's rows (so across the
+data ranks).  Its reference runs in one subprocess on 4 fake host
+devices (:func:`reference`): ``init_train_state`` from
+``PRNGKey(seed)``, the state placed by the sanitized
+``train_state_shardings`` and the step jitted with
+``in_shardings=(state_sh, None)`` under ``use_mesh``, as
+``src/repro/launch/train.py`` steps; it publishes every case's initial
+parameters, losses, grad norms and final parameters at once.  The port
+runs the same cases in processes spawned over gloo with a ``file://``
+store, one thread a rank (:func:`spawn`): each rank loads the
+reference's initial parameters into a whole state, places it
+(``parallel.sharding.place``: its shard), steps on its rows of each
+batch and gathers the final parameters to rank 0.
+
+Nothing here imports JAX at module level: the spawned ranks import this
+module.
+"""
+import dataclasses
+import os
+import pickle
+
+import numpy as np
+
+MESHES = {"dp": (4, 1), "dp2": (2, 1), "tp2": (1, 2), "tp22": (2, 2),
+          "tp4": (1, 4)}
+LR = 1e-3
+STEPS = 3
+# f32 cases: the tolerances of tests/torch_train_parity.py::check_f32_step;
+# the config's own dtype (bf16 compute): check_bf16_step's
+F32_RTOL, F32_ATOL = 1e-5, 1e-6
+# parameters whose gradient fell below this (and was not 0) at some step
+# are left out (check_f32_step's floor: AdamW's update there follows
+# rounding error)
+GRAD_FLOOR = 1e-6
+BF16_RTOL = 2e-2
+
+
+def case(arch, mesh, *, dtype="float32", seq=32, batch=4, grad_dtype=None,
+         mask=False, seed=3, device="cpu"):
+    """One run: ``arch`` at ``dtype`` (None: the config's own) on a
+    ``mesh`` of ``MESHES`` of ranks on ``device``, ``batch`` x ``seq``
+    tokens a step."""
+    return dict(arch=arch, mesh=MESHES[mesh], dtype=dtype, seq=seq, batch=batch,
+                grad_dtype=grad_dtype, mask=mask, seed=seed, device=device)
+
+
+def config(module, c):
+    cfg = module.get_config(c["arch"])
+    return dataclasses.replace(cfg, dtype=c["dtype"]) if c["dtype"] else cfg
+
+
+def batch_of(source_cls, cfg, c, step):
+    """The global batch of ``step``; with ``mask``, row r's first
+    ``r * seq // batch`` labels are -1 (every data rank a different
+    count)."""
+    src = source_cls(cfg.vocab_size, c["seq"], c["batch"], seed=1,
+                     input_mode=cfg.input_mode if not cfg.is_encoder_decoder
+                     else "tokens",
+                     d_model=cfg.d_model,
+                     enc_seq=cfg.encoder_seq if cfg.is_encoder_decoder else 0,
+                     mrope=cfg.mrope)
+    b = src.batch(step)
+    if c["mask"]:
+        labels = b["labels"].copy()
+        for r in range(labels.shape[0]):
+            labels[r, : r * c["seq"] // c["batch"]] = -1
+        b["labels"] = labels
+    return b
+
+
+# -- the reference, in a subprocess on 4 fake devices -------------------------
+
+
+def _reference_case(c):
+    import jax
+    import jax.numpy as jnp
+
+    import repro.configs as rc
+    from repro.data.pipeline import SyntheticTokenSource
+    from repro.launch import shardspecs as SS
+    from repro.models import model as M
+    from repro.parallel.sharding import use_mesh
+
+    cfg = config(rc, c)
+    shape = c["mesh"]
+    devices = np.array(jax.devices()[: shape[0] * shape[1]]).reshape(shape)
+    mesh = jax.sharding.Mesh(devices, ("data", "model"),
+                             axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    with use_mesh(mesh):
+        state = jax.jit(M.init_train_state, static_argnums=1)(
+            jax.random.PRNGKey(c["seed"]), cfg)
+        init = jax.tree.map(np.asarray, state.params)
+        sh = SS.sanitize_tree(SS.train_state_shardings(cfg, mesh),
+                              jax.eval_shape(lambda: state), mesh)
+        state = jax.tree.map(jax.device_put, state, sh)
+        step = jax.jit(M.make_train_step(cfg, learning_rate=LR,
+                                         grad_dtype=c["grad_dtype"]),
+                       in_shardings=(sh, None), out_shardings=(sh, None),
+                       donate_argnums=(0,))
+        losses, norms = [], []
+        for i in range(STEPS):
+            b = {k: jnp.asarray(v)
+                 for k, v in batch_of(SyntheticTokenSource, cfg, c, i).items()}
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    return dict(init=init, losses=losses, grad_norms=norms,
+                final=jax.tree.map(np.asarray, state.params))
+
+
+def reference_run(cases):
+    """Every case's reference results, by key (run in the child)."""
+    return {key: _reference_case(c) for key, c in cases.items()}
+
+
+_CHILD = """
+import sys
+sys.path.insert(0, "tests")
+import torch_dist_parity
+publish(torch_dist_parity.reference_run(@CASES@))
+"""
+
+
+def reference(cases):
+    """:func:`reference_run` in one subprocess on 4 fake host devices."""
+    from conftest import FakeDeviceRunner
+
+    return FakeDeviceRunner()(_CHILD.replace("@CASES@", repr(cases)), n=4,
+                              timeout=900)
+
+
+# -- the port, in spawned ranks ------------------------------------------------
+
+
+def _rank_main(rank, world, store, fn, payload, out, backend):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    if backend == "nccl":  # a card a rank, gloo beside it for host tensors
+        backend = "cpu:gloo,cuda:nccl"
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        result = fn(rank, payload)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out, "wb") as f:
+            pickle.dump(result, f)
+
+
+def spawn(world, fn, payload, tmp, backend="gloo"):
+    """``fn(rank, payload)`` on ``world`` spawned ranks under a process
+    group of ``backend`` (a ``file://`` store in ``tmp``); returns rank
+    0's result."""
+    import torch.multiprocessing as mp
+
+    store = os.path.join(tmp, f"store{world}")
+    out = os.path.join(tmp, f"rank0_{world}.pkl")
+    for path in (store, out):
+        if os.path.exists(path):
+            os.remove(path)
+    mp.spawn(_rank_main, args=(world, store, fn, payload, out, backend),
+             nprocs=world)
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+def _gradients(state, cfg, batch, specs, pm):
+    """The step's reduced gradients, gathered whole (numpy, by name)."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.parallel import distributed as D
+
+    model = state.params
+    named = list(model.named_parameters())
+    M.loss_fn(model, cfg, batch).backward()
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+             for _, p in named]
+    for _, p in named:
+        p.grad = None
+    grads = model.layout.reduce_gradients([n for n, _ in named], grads)
+    return {n: D.gather_full(g, specs[n].spec, pm).cpu().numpy()
+            for (n, _), g in zip(named, grads)}
+
+
+def _port_case(c, init):
+    """One case on this rank: the reference's initial parameters (or,
+    with ``init`` None, the port's from a CPU generator seeded with the
+    case's seed) placed by the sanitized specs, ``STEPS`` steps; the
+    losses, grad norms and the final parameters gathered whole, and
+    where a parameter's or a moment's local shape differs from its
+    spec's."""
+    import torch
+
+    import repro_torch.configs as pc
+    from repro_torch.data.pipeline import SyntheticTokenSource
+    from repro_torch.launch import shardspecs as SS
+    from repro_torch.models import model as M
+    from repro_torch.models import params
+    from repro_torch.parallel import distributed as D
+    from repro_torch.parallel.sharding import place, use_mesh
+
+    cfg = config(pc, c)
+    pm = D.init_process_mesh(c["mesh"][1], device=c["device"], backend="gloo")
+    assert tuple(pm.shape.values()) == c["mesh"], (pm.shape, c["mesh"])
+    with use_mesh(pm):
+        sh = SS.train_state_specs(cfg, pm)
+        state = M.init_train_state(torch.Generator().manual_seed(c["seed"]), cfg,
+                                   device="cpu")
+        if init is None:
+            whole = {n: p.detach().clone()
+                     for n, p in state.params.named_parameters()}
+        else:
+            whole = params.from_reference(init, cfg)
+        with torch.no_grad():
+            for name, p in state.params.named_parameters():
+                p.copy_(whole[name])
+        state = place(state, sh)
+        bad = []
+        for tree, specs in ((dict(state.params.named_parameters()), sh.params),
+                            (state.opt_state.m, sh.opt_state.m),
+                            (state.opt_state.v, sh.opt_state.v)):
+            for name, t in tree.items():
+                want = D.local_shape(whole[name].shape, specs[name].spec, pm)
+                if tuple(t.shape) != want:
+                    bad.append((name, tuple(t.shape), want))
+        step = M.make_train_step(cfg, learning_rate=LR, grad_dtype=c["grad_dtype"])
+        losses, norms, small = [], [], None
+        for i in range(STEPS):
+            b = D.local_batch(batch_of(SyntheticTokenSource, cfg, c, i), pm)
+            b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(pm.device)
+                 for k, v in b.items()}
+            grads = _gradients(state, cfg, b, sh.params, pm)
+            small = {n: ((np.abs(g) < GRAD_FLOOR) & (g != 0))
+                     | (small[n] if small else False) for n, g in grads.items()}
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        final = {n: D.gather_full(p.detach(), sh.params[n].spec, pm).cpu().numpy()
+                 for n, p in state.params.named_parameters()}
+    return dict(losses=losses, grad_norms=norms, final=final, small=small,
+                bad_shapes=bad,
+                tp=repr(state.params.tp), split=sorted(state.params.layout.split),
+                partial=sorted(state.params.layout.partial))
+
+
+def port_cases(rank, payload):
+    """Every case of ``payload`` (key -> (case, initial parameters)) on
+    this rank, in order."""
+    return {key: _port_case(c, init) for key, (c, init) in payload.items()}
+
+
+def port(cases, ref, tmp):
+    """Each case's port results: the cases grouped by their world size,
+    one spawn a world size."""
+    out = {}
+    worlds = sorted({c["mesh"][0] * c["mesh"][1] for c in cases.values()})
+    for world in worlds:
+        payload = {k: (c, ref[k]["init"]) for k, c in cases.items()
+                   if c["mesh"][0] * c["mesh"][1] == world}
+        out.update(spawn(world, port_cases, payload, tmp))
+    return out
+
+
+def check(key, c, got, want):
+    """The port's run against the reference's: every step's loss and grad
+    norm, and the final parameters where every step's gradient is at
+    least ``GRAD_FLOOR`` (f32; the bf16 config at its loss and grad-norm
+    tolerance only, as ``check_bf16_step``)."""
+    import repro_torch.configs as pc
+    from repro_torch.models import params
+
+    assert not got["bad_shapes"], got["bad_shapes"]
+    rtol = F32_RTOL if c["dtype"] == "float32" else BF16_RTOL
+    for name in ("losses", "grad_norms"):
+        assert np.all(np.isfinite(got[name])), (key, name, got[name])
+        np.testing.assert_allclose(got[name], want[name], rtol=rtol,
+                                   err_msg=f"{key} {name}")
+    if c["dtype"] != "float32":
+        return
+    ref = params.from_reference(want["final"], config(pc, c))
+    assert set(ref) == set(got["final"])
+    left_out, total = 0, 0
+    for name, p in got["final"].items():
+        keep = ~got["small"][name]
+        left_out += int((~keep).sum())
+        total += keep.size
+        np.testing.assert_allclose(p[keep], ref[name].numpy()[keep],
+                                   rtol=F32_RTOL, atol=F32_ATOL,
+                                   err_msg=f"{key} {name}")
+    print(f"{key}: {left_out} of {total} entries with 0 < |grad| < "
+          f"{GRAD_FLOOR} at some step left out")
