@@ -20,12 +20,15 @@ A state is written in the reference's layout: a port
 as the reference flattens its pytree.
 
 Under a process mesh (``parallel.distributed``: one process a device)
-a state is a rank's shard.  Saving gathers every leaf whole over the
-``"model"`` groups (host tensors: gloo, also beside NCCL) and rank 0
-writes it; every rank calls the save.  Restoring reads the whole arrays
-on every rank and keeps each rank's shard, as the reference's restore
-with ``shardings=`` does, so a checkpoint written under one mesh resumes
-under another.
+a state is a rank's shard.  Saving gathers every leaf whole over each
+axis that cuts it, ``"model"`` and, for a ZeRO-3 state, the data axis
+(host tensors: gloo, also beside NCCL), and rank 0 writes it; every rank
+calls the save.  Restoring reads the whole arrays on every rank and
+keeps each rank's shard, as the reference's restore with ``shardings=``
+does, so a checkpoint written under one mesh resumes under another, in
+a single process, or as ZeRO-3 shards (a rank then holds the whole
+arrays on the host for a moment: the limit for a model whose state
+does not fit one host).
 
 Named snapshots (``save_snapshot``/``load_snapshot``) keep
 ``arrays.npz`` plus ``META.json`` (its ``array_dtypes`` names each
@@ -82,7 +85,8 @@ def _lead(state) -> bool:
 
 
 def _whole(tensors, layout):
-    """A dict of a shard's tensors gathered whole (on the host)."""
+    """A dict of a shard's tensors gathered whole (on the host) over
+    every axis that cuts each."""
     from repro_torch.parallel.distributed import gather_full
 
     return {k: gather_full(t.detach().cpu(), layout.specs[k], layout.mesh)

@@ -60,12 +60,12 @@ def remesh_state(state, axes_tree, new_mesh: Mesh):
     model's: a dict by parameter name, ``transformer.model_axes``).  Every
     leaf keeps its values bit for bit.  A process mesh
     (``parallel.distributed``) raises: re-meshing across process counts
-    is ROADMAP item 14b (a checkpoint restored with ``shardings=``
+    is ROADMAP item 14b.3 (a checkpoint restored with ``shardings=``
     crosses meshes)."""
     if getattr(new_mesh, "is_process_mesh", False):
         raise NotImplementedError(
             "remesh_state over a process mesh (elastic re-meshing across "
-            "process counts) is ROADMAP item 14b; restore a checkpoint with "
+            "process counts) is ROADMAP item 14b.3; restore a checkpoint with "
             "shardings= instead")
     with use_mesh(new_mesh):
         shardings = named_shardings(axes_tree, new_mesh)

@@ -21,12 +21,15 @@ for bit.
 
 Under torchrun (``WORLD_SIZE`` set) the run is one process a device:
 ``parallel.distributed.init_process_mesh(--model-parallel)`` lays the
-ranks out as a ("data", "model") mesh, every rank draws the whole state
-from ``--seed`` on its device, keeps its shard (the same placing, by
-``parallel.sharding.place``; the whole state is then freed), takes its rows of
-each global batch (``distributed.local_batch``) and steps; the
-gradients are reduced over the mesh, tensor parallelism (Megatron's,
-over "model") runs for the dense token-input archs.  The default device
+ranks out as a ("data", "model") mesh, every rank draws the state from
+``--seed`` on its device by shards (``models.model.init_train_state(...,
+shardings=)``: each leaf whole in turn, its shard kept; the values of
+placing the whole draw), takes its rows of each global batch
+(``distributed.local_batch``) and steps; the gradients are reduced over
+the mesh, tensor parallelism (Megatron's, over "model") runs for the
+dense token-input archs, and the ``fsdp_params`` archs' parameters are
+split over the data axis too (ZeRO-3, ``parallel.zero3``: gathered a
+layer at a time, their gradients reduce-scattered).  The default device
 is ``cuda:{LOCAL_RANK}`` (it must exist); ``--dist-backend gloo`` lets
 ranks share one card (``--device cuda:0``) or run on the CPU
 (``--device cpu``, where gloo is the default).  Rank 0 logs, checkpoints
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 from typing import Dict
 
@@ -143,7 +147,10 @@ def main(argv=None) -> dict:
     with use_mesh(mesh):
         gen = torch.Generator(device=device).manual_seed(args.seed)
         state_sh = SS.train_state_specs(cfg, mesh)
-        state = place(M.init_train_state(gen, cfg, device=device), state_sh)
+        if D.is_process_mesh(mesh):  # drawn by shards
+            state = M.init_train_state(gen, cfg, shardings=state_sh)
+        else:
+            state = place(M.init_train_state(gen, cfg, device=device), state_sh)
         device = state.params.device
 
         start = 0
@@ -224,16 +231,23 @@ def _report(path: str, out: dict, mesh, device, step_s, collectives, phases,
             init_peak: int, lead: bool) -> None:
     """``--report``: the run's logged losses, grad norms and step seconds
     (host clock, the step's result read), rank 0's collectives in each
-    logged step (``parallel.distributed.COLLECTIVES``), the seconds to
-    the mesh, to the state and in all, the mesh, and each rank's peak
-    device memory in the steps and, before them, in drawing and placing
-    the state (``init_peak_bytes``; vectors over the ranks), as JSON by
-    rank 0."""
+    logged step (``parallel.distributed.COLLECTIVES``; ZeRO-3's under
+    ``all_gather[...]`` and ``reduce_scatter[...]``), the seconds to the
+    mesh, to the state and in all, the mesh, and each rank's peak device
+    memory in the steps and, before them, in drawing
+    and placing the state (``init_peak_bytes``), beside the bytes of its
+    parameters and moments (``state_bytes``; vectors over the ranks) and
+    the largest whole parameter's f32 bytes (``largest_leaf_bytes``), as
+    JSON by rank 0."""
     from repro_torch.kernels import partial_reduce as prk
 
     world = mesh.size if D.is_process_mesh(mesh) else 1
     rank = mesh.rank if D.is_process_mesh(mesh) else 0
-    peaks = torch.zeros(2, world, dtype=torch.float64, device=device)
+    state = out["state"]
+    tensors = [*state.params.parameters(), *state.opt_state.m.values(),
+               *state.opt_state.v.values()]
+    peaks = torch.zeros(3, world, dtype=torch.float64, device=device)
+    peaks[2, rank] = sum(t.numel() * t.element_size() for t in tensors)
     if device.type == "cuda":
         peaks[0, rank] = torch.cuda.max_memory_allocated(device)
         peaks[1, rank] = init_peak
@@ -248,6 +262,10 @@ def _report(path: str, out: dict, mesh, device, step_s, collectives, phases,
         "step_s": step_s, "collectives": collectives, "seconds": phases,
         "peak_bytes": [int(x) for x in peaks[0].tolist()],
         "init_peak_bytes": [int(x) for x in peaks[1].tolist()],
+        "state_bytes": [int(x) for x in peaks[2].tolist()],
+        "largest_leaf_bytes": 4 * max(
+            math.prod(p.shape)
+            for p in tfm.Transformer(state.params.cfg, device="meta").parameters()),
         "launches": dict(prk.LAUNCHES), "plain_calls": dict(prk.PLAIN_CALLS),
     }
     with open(path, "w") as f:

@@ -7,7 +7,8 @@ masters, requiring grad) and AdamW's f32 moments keyed by the model's
 parameter names; :func:`make_train_step` updates the model and the
 moments in place and returns the next state (the reference returns new
 arrays).  Each step casts the masters to the compute dtype inside the
-forward (``transformer._cast_params``).  :func:`input_specs` returns
+forward (``transformer._cast_params``; on a ZeRO-3 shard each shard just
+before its gather).  :func:`input_specs` returns
 ``device="meta"`` tensors where the reference returns
 ``ShapeDtypeStruct`` stand-ins.
 
@@ -66,7 +67,8 @@ def _model_inputs(cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
 
 
 def loss_fn(model: tfm.Transformer, cfg: ModelConfig,
-            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+            batch: Dict[str, torch.Tensor], *,
+            grad_dtype: Optional[str] = None) -> torch.Tensor:
     """Next-token cross entropy (labels provided explicitly; a label < 0
     is masked), f32: the masked mean over the batch.
 
@@ -76,9 +78,13 @@ def loss_fn(model: tfm.Transformer, cfg: ModelConfig,
     them with its gradient passed through, so every rank returns the
     global mean and its backward yields its share of the gradient.
     Under tensor parallelism (``model.tp``) the cross entropy runs over
-    the vocabulary's parts (``parallel.tensor_parallel``)."""
+    the vocabulary's parts (``parallel.tensor_parallel``).  On a ZeRO-3
+    shard the backward reduce-scatters each gathered parameter's
+    gradient into its shard, in bf16 under ``grad_dtype="bfloat16"``
+    (``transformer.forward_train``)."""
     main, kwargs = _model_inputs(cfg, batch)
-    logits = tfm.forward_train(model, main, **kwargs).to(torch.float32)
+    logits = tfm.forward_train(model, main, grad_dtype=grad_dtype,
+                               **kwargs).to(torch.float32)
     labels = batch["labels"].long()
     mask = (labels >= 0).to(torch.float32)
     if model.tp is not None:
@@ -134,7 +140,11 @@ def make_train_step(cfg: ModelConfig, *, learning_rate=3e-4,
     (``parallel.distributed.local_batch``): the gradients are summed over
     ``"model"`` where a whole leaf holds one rank's part and over
     ``("pod", "data")`` (in buckets; in bf16 with ``grad_dtype``), the
-    norm counts each shard once, and AdamW updates the shards.
+    norm counts each shard once, and AdamW updates the shards.  On a
+    ZeRO-3 shard (the ``fsdp_params`` archs' embed dim cut over the data
+    axis, ``parallel.zero3``) each microbatch's backward reduce-scatters
+    the gathered parameters' gradients into their shards' ``.grad``,
+    which accumulate there; those leaves skip the data all-reduce.
     """
 
     def train_step(state: TrainState, batch):
@@ -145,7 +155,7 @@ def make_train_step(cfg: ModelConfig, *, learning_rate=3e-4,
         parts = [batch] if microbatches <= 1 else _split(batch, microbatches)
         loss = None
         for part in parts:
-            part_loss = loss_fn(model, cfg, part)
+            part_loss = loss_fn(model, cfg, part, grad_dtype=grad_dtype)
             part_loss.backward()
             part_loss = part_loss.detach()
             loss = part_loss if loss is None else loss + part_loss
@@ -183,11 +193,24 @@ def make_train_step(cfg: ModelConfig, *, learning_rate=3e-4,
 
 
 def init_train_state(generator: torch.Generator, cfg: ModelConfig, *,
-                     device=None) -> TrainState:
+                     device=None, shardings=None) -> TrainState:
     """Step 0, a model of f32 master parameters drawn from ``generator``
     (a generator of ``device``, default "cuda"), requiring grad, and
-    AdamW's zero moments."""
-    model = tfm.init_model(cfg, generator, device=device)
+    AdamW's zero moments.
+
+    ``shardings`` (a sanitized ``TrainState`` of shardings on a process
+    mesh, ``launch.shardspecs.train_state_specs``) draws the calling
+    rank's shard of the state instead, by shards
+    (``transformer.init_shard``: each leaf whole in turn on the rank's
+    device, the rank's shard kept; the moments zeros of the shards'
+    shapes), so a rank never holds the whole state: the values of
+    ``parallel.sharding.place(init_train_state(...), shardings)``.
+    ``generator`` is then a generator of the rank's device, where the
+    state lies."""
+    if shardings is not None:
+        model = tfm.init_shard(cfg, generator, shardings.params)
+    else:
+        model = tfm.init_model(cfg, generator, device=device)
     model.requires_grad_(True)
     return TrainState(step=torch.zeros((), dtype=torch.int32), params=model,
                       opt_state=adamw_init(dict(model.named_parameters())))
@@ -202,6 +225,7 @@ def make_prefill_step(cfg: ModelConfig):
     @torch.no_grad()
     def prefill_step(model, batch):
         if cfg.is_encoder_decoder:
+            tfm._refuse_shard(model, "prefill")
             params = tfm._cast_params(model.params(), cfg)
             enc_out = tfm._encode(params, cfg, batch["enc_embeds"])
             logits, caches = tfm._prefill(params, cfg, batch["tokens"], enc_out=enc_out)

@@ -65,21 +65,36 @@ class ParamTree(nn.Module):
 
 
 @torch.no_grad()
-def init_params(tree: ParamTree, generator: torch.Generator) -> ParamTree:
+def init_params(tree: ParamTree, generator: torch.Generator, *,
+                whole: Optional[Dict[str, Tuple[int, ...]]] = None,
+                part=None, prefix: str = "") -> ParamTree:
     """Fill ``tree`` in place: normal draws from ``generator`` (on the
     parameters' device) scaled as each ``ParamDef`` says, zeros or ones.
-    The values are the port's own, not ``jax.random``'s."""
+    The values are the port's own, not ``jax.random``'s.
+
+    A shard (``whole``: each parameter's whole shape by its name,
+    ``prefix`` + its key joined by dots) draws each leaf at its whole
+    shape, in the same order, and keeps ``part(name, drawn)``: the same
+    values as drawing the whole tree and cutting it."""
     for name, d in tree.defs.items():
         p = getattr(tree, name)
         if not isinstance(d, ParamDef):
-            init_params(p, generator)
+            init_params(p, generator, whole=whole, part=part,
+                        prefix=f"{prefix}{name}.")
         elif d.init == "zeros":
             p.zero_()
         elif d.init == "ones":
             p.fill_(1.0)
-        else:
+        elif whole is None:
             std = d.init if isinstance(d.init, float) else _stddev(d.shape)
             p.normal_(0.0, std, generator=generator)
+        else:
+            shape = whole[prefix + name]
+            std = d.init if isinstance(d.init, float) else _stddev(shape)
+            drawn = torch.empty(shape, dtype=p.dtype, device=p.device)
+            drawn.normal_(0.0, std, generator=generator)
+            p.copy_(part(prefix + name, drawn))
+            del drawn
     return tree
 
 

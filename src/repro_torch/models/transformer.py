@@ -27,7 +27,9 @@ activation, ``"full"`` recomputes the layer in the backward
 (``torch.utils.checkpoint``), ``"dots"`` saves the outputs of the
 matmuls without batch dims (``aten.mm``/``aten.addmm``, the counterpart
 of ``dots_with_no_batch_dims_saveable``) and recomputes the rest.  The
-prefill and decode forwards run without autograd.
+prefill and decode forwards run without autograd.  On a ZeRO-3 shard
+(``parallel.zero3``) each layer gathers its parameters inside the
+function remat wraps, and the tables are gathered where they are read.
 
 Decode writes every cache in place: the KV rows and MLA latent rows at
 the position, the ring slot ``position % window`` of a local-attention
@@ -39,6 +41,7 @@ nothing in the step reads it on the host.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -55,6 +58,7 @@ from repro_torch.models.layers import mlp_apply, mlp_defs, rms_norm
 from repro_torch.models.params import ParamDef, ParamTree, init_params, param_axes
 from repro_torch.parallel import distributed as D
 from repro_torch.parallel import tensor_parallel as TP
+from repro_torch.parallel import zero3 as Z
 
 __all__ = [
     "runs_of",
@@ -64,6 +68,7 @@ __all__ = [
     "Transformer",
     "resolve_device",
     "init_model",
+    "init_shard",
     "init_layer_cache",
     "init_caches",
     "layer_train",
@@ -215,10 +220,11 @@ class Transformer(ParamTree):
 
     ``shapes`` (parameter name -> shape) allocates those parameters at a
     shard's shape: a rank's part of the model under a process mesh
-    (:meth:`shard`), which then sets ``layout`` (the mesh and each
-    parameter's spec) and, where the ``"model"`` axis splits it, ``tp``
-    (a ``parallel.tensor_parallel.TensorParallel``); both are None for a
-    whole model."""
+    (:meth:`shard`, :func:`init_shard`), which then sets ``layout`` (a
+    ``parallel.distributed.ShardLayout``: the mesh, each parameter's
+    spec, the names each axis cuts) and, where the ``"model"`` axis
+    splits it, ``tp`` (a ``parallel.tensor_parallel.TensorParallel``);
+    both are None for a whole model."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=torch.float32,
                  shapes: Optional[Dict[str, Tuple[int, ...]]] = None):
@@ -259,62 +265,78 @@ class Transformer(ParamTree):
         parameter name, on a ``parallel.distributed.ProcessMesh``), on the
         rank's device, with its ``layout`` set (and ``tp`` where
         ``"model"`` cuts it).  Raises where the port has no path for the
-        layout: a ``("pod", "data")`` split (item 14b), or a ``"model"``
-        split of anything but a dense token-input decoder."""
-        from repro_torch.launch import shardspecs as SS
-
+        layout (:func:`_shard_plan`)."""
         mesh = next(iter(shardings.values())).mesh
         if self.layout is not None:
             if self.layout.mesh is mesh:
                 return self
             raise NotImplementedError(
                 "re-placing a shard onto another process mesh (elastic "
-                "re-meshing across process counts) is ROADMAP item 14b; "
+                "re-meshing across process counts) is ROADMAP item 14b.3; "
                 "restore a checkpoint instead")
-        cfg = self.cfg
-        specs = {name: s.spec for name, s in shardings.items()}
         params = dict(self.named_parameters())
-        shapes = {n: D.local_shape(p.shape, specs[n], mesh)  # raises for "data"
-                  for n, p in params.items()}
-        mp = mesh.shape.get("model", 1)
-        tp, split, partial = None, (), ()
-        if mp > 1:
-            if cfg.is_encoder_decoder or cfg.input_mode == "embeddings":
-                raise NotImplementedError(
-                    TP.unsupported_kind("enc") if cfg.is_encoder_decoder
-                    else TP.EMBEDDINGS_ITEM)
-            for kind in cfg.layer_kinds():
-                if kind != "dense":
-                    raise NotImplementedError(TP.unsupported_kind(kind))
-            for name, dim in (("embed.embedding", 0), ("layers.0.attn.wq", 1),
-                              ("layers.0.attn.wo", 0), ("layers.0.mlp.wi", 1),
-                              ("layers.0.mlp.wo", 0)):
-                if tuple(specs[name])[dim] != "model":
-                    raise ValueError(
-                        f"{cfg.name}: {name} is not split over a 'model' axis "
-                        f"of {mp} (spec {tuple(specs[name])}); tensor "
-                        f"parallelism needs heads, d_ff and the vocabulary "
-                        f"divisible by {mp}")
-            logical = SS.param_shardings(cfg, mesh)
-            split = [n for n, s in specs.items() if "model" in D.spec_axes(s)]
-            partial = [n for n, s in specs.items()
-                       if "model" not in D.spec_axes(s)
-                       and "model" in D.spec_axes(logical[n].spec)]
-            tp = TP.TensorParallel(mesh, cfg,
-                                   kv_sharded="layers.0.attn.wk" in split)
+        cut, layout, tp = _shard_plan(
+            self.cfg, shardings, {n: tuple(p.shape) for n, p in params.items()})
         grad = any(p.requires_grad for p in params.values())
-        if split:
-            local = Transformer(cfg, device=mesh.device,
+        if cut:
+            local = Transformer(self.cfg, device=mesh.device,
                                 dtype=next(iter(params.values())).dtype,
-                                shapes={n: shapes[n] for n in split})
+                                shapes=cut)
             for name, p in local.named_parameters():
-                p.copy_(D.local_shard(params[name], specs[name], mesh))
+                p.copy_(D.local_shard(params[name], layout.specs[name], mesh))
         else:
             local = self.to(mesh.device)
         local.requires_grad_(grad)
-        local.layout = D.ShardLayout(mesh, specs, split, partial)
+        local.layout = layout
         local.tp = tp
         return local
+
+
+def _shard_plan(cfg: ModelConfig, shardings: Dict, shapes: Dict[str, Tuple[int, ...]]):
+    """How a rank holds a model of ``cfg`` (whole parameter ``shapes`` by
+    name) under ``shardings`` (sanitized, on a process mesh):
+    ``(cut, layout, tp)`` — the local shape of each parameter an axis
+    cuts, the ``parallel.distributed.ShardLayout`` and the
+    ``TensorParallel`` (None without a ``"model"`` axis > 1).  The data
+    axis may cut any family (ZeRO-3, ``parallel.zero3``); a ``"model"``
+    axis > 1 raises for anything but a dense token-input decoder (ROADMAP
+    item 14b.2), and a ``"pod"`` axis > 1 raises (14b.4)."""
+    from repro_torch.launch import shardspecs as SS
+
+    mesh = next(iter(shardings.values())).mesh
+    specs = {name: s.spec for name, s in shardings.items()}
+    local = {n: D.local_shape(shape, specs[n], mesh) for n, shape in shapes.items()}
+    mp = mesh.shape.get("model", 1)
+    tp, split, partial = None, (), ()
+    if mp > 1:
+        if cfg.is_encoder_decoder or cfg.input_mode == "embeddings":
+            raise NotImplementedError(
+                TP.unsupported_kind("enc") if cfg.is_encoder_decoder
+                else TP.EMBEDDINGS_ITEM)
+        for kind in cfg.layer_kinds():
+            if kind != "dense":
+                raise NotImplementedError(TP.unsupported_kind(kind))
+        for name, dim in (("embed.embedding", 0), ("layers.0.attn.wq", 1),
+                          ("layers.0.attn.wo", 0), ("layers.0.mlp.wi", 1),
+                          ("layers.0.mlp.wo", 0)):
+            if tuple(specs[name])[dim] != "model":
+                raise ValueError(
+                    f"{cfg.name}: {name} is not split over a 'model' axis "
+                    f"of {mp} (spec {tuple(specs[name])}); tensor "
+                    f"parallelism needs heads, d_ff and the vocabulary "
+                    f"divisible by {mp}")
+        logical = SS.param_shardings(cfg, mesh)
+        split = [n for n, s in specs.items() if "model" in D.spec_axes(s)]
+        partial = [n for n, s in specs.items()
+                   if "model" not in D.spec_axes(s)
+                   and "model" in D.spec_axes(logical[n].spec)]
+        tp = TP.TensorParallel(mesh, cfg,
+                               kv_sharded="layers.0.attn.wk" in split)
+    data_dims = {n: dim for n in shapes
+                 if (dim := D.data_dim(specs[n], len(shapes[n]), mesh)) is not None}
+    layout = D.ShardLayout(mesh, specs, split, partial, data_dims)
+    cut = {n: local[n] for n in shapes if local[n] != tuple(shapes[n])}
+    return cut, layout, tp
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator, device=None,
@@ -328,6 +350,37 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device=None,
     init_params(model, generator)
     for layer in (*model.layers, *model.encoder):
         init_params(layer, generator)
+    return model
+
+
+@torch.no_grad()
+def init_shard(cfg: ModelConfig, generator: torch.Generator,
+               shardings: Dict) -> Transformer:
+    """The calling rank's part of :func:`init_model`'s f32 model under
+    ``shardings`` (sanitized, on a process mesh), drawn by shards: each
+    leaf is drawn whole on the rank's device from ``generator`` in
+    :func:`init_model`'s order, the rank's shard kept and the leaf freed
+    before the next, so the values equal ``init_model(...).shard(
+    shardings)``'s bit for bit while the rank holds its shard and one
+    whole leaf at a time."""
+    if not D.is_process_mesh(next(iter(shardings.values())).mesh):
+        raise ValueError("a draw by shards takes shardings on a process mesh; "
+                         "place a whole model (parallel.sharding.place) "
+                         "on any other mesh")
+    whole = {n: tuple(p.shape)
+             for n, p in Transformer(cfg, device="meta").named_parameters()}
+    cut, layout, tp = _shard_plan(cfg, shardings, whole)
+    model = Transformer(cfg, device=layout.mesh.device, shapes=cut)
+
+    def part(name, t):
+        return D.local_shard(t, layout.specs[name], layout.mesh)
+
+    init_params(model, generator, whole=whole, part=part)
+    for stack, layers in (("layers", model.layers), ("encoder", model.encoder)):
+        for i, layer in enumerate(layers):
+            init_params(layer, generator, whole=whole, part=part,
+                        prefix=f"{stack}.{i}.")
+    model.layout, model.tp = layout, tp
     return model
 
 
@@ -616,60 +669,101 @@ def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+def _take(zero3, p: torch.Tensor, name: str) -> torch.Tensor:
+    """Parameter ``name`` as a forward reads it: ``p`` (cast already), or
+    gathered and cast on a ZeRO-3 shard."""
+    return p if zero3 is None else zero3.leaf(p, name)
+
+
+def _regathering(zero3):
+    """Around a table's read on a ZeRO-3 shard: what the backward needs
+    of the gathered table is gathered again."""
+    return contextlib.nullcontext() if zero3 is None else zero3.regather_saved()
+
+
 def _embed_in(params, cfg: ModelConfig, tokens_or_embeds: torch.Tensor, positions,
-              tp=None):
+              tp=None, zero3=None):
     if tokens_or_embeds.is_floating_point():
         if tp is not None:
             raise NotImplementedError(TP.EMBEDDINGS_ITEM)
         x = tokens_or_embeds  # stubbed modality frontend output
-    elif tp is not None:
-        x = TP.vocab_parallel_embed(params["embed"]["embedding"],
-                                    tokens_or_embeds.long(), tp)
     else:
-        x = params["embed"]["embedding"][tokens_or_embeds.long()]
+        with _regathering(zero3):
+            table = _take(zero3, params["embed"]["embedding"], "embed.embedding")
+            if tp is not None:
+                x = TP.vocab_parallel_embed(table, tokens_or_embeds.long(), tp)
+            else:
+                x = table[tokens_or_embeds.long()]
     x = x.to(_compute_dtype(cfg))
     if cfg.rope_theta == 0:  # absolute sinusoidal (whisper-style)
         x = x + _sinusoid(positions, cfg.d_model)[None].to(x.dtype)
     return x
 
 
-def _unembed(params, cfg: ModelConfig, x, tp=None):
+def _unembed(params, cfg: ModelConfig, x, tp=None, zero3=None):
     """Logits (B, S, V); under tensor parallelism this rank's part of the
     vocabulary (B, S, V / size)."""
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if tp is not None:
-        x = TP.copy_to_model(x, tp)
-    table = (params["embed"]["embedding"] if cfg.tie_embeddings
-             else params["lm_head"]["embedding"])
-    return x @ table.to(x.dtype).T
+    with _regathering(zero3):
+        x = rms_norm(x, _take(zero3, params["final_norm"], "final_norm"),
+                     cfg.norm_eps)
+        if tp is not None:
+            x = TP.copy_to_model(x, tp)
+        name = "embed" if cfg.tie_embeddings else "lm_head"
+        table = _take(zero3, params[name]["embedding"], f"{name}.embedding")
+        return x @ table.to(x.dtype).T
 
 
-def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor):
+def _stack_layer(cfg: ModelConfig, stack: str, zero3=None):
+    """``run(i, layer_params, *args, **kwargs)``: :func:`layer_train` for
+    layer ``i`` of ``stack`` (``"layers"`` or ``"encoder"``) under
+    ``cfg.remat``.  On a ZeRO-3 shard the layer's parameters are gathered
+    inside the function remat wraps, so the backward's recompute gathers
+    them again; with ``remat="none"`` the saved gathered weights are
+    dropped and gathered again (``Zero3.regather_saved``)."""
+    if zero3 is None:
+        plain = _maybe_remat(layer_train, cfg)
+        return lambda i, params, *args, **kw: plain(params, *args, **kw)
+
+    def gathered(prefix, params, *args, **kw):
+        return layer_train(zero3.tree(params, prefix), *args, **kw)
+
+    run = _maybe_remat(gathered, cfg)
+    if run is gathered:
+        def run(prefix, params, *args, **kw):
+            with zero3.regather_saved():
+                return gathered(prefix, params, *args, **kw)
+    return lambda i, params, *args, **kw: run(f"{stack}.{i}.", params, *args, **kw)
+
+
+def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor, zero3=None):
     """Whisper's encoder: the bidirectional ``enc`` layers over the frame
     embeddings plus sinusoidal positions, then ``enc_final_norm``."""
     s = enc_embeds.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=enc_embeds.device)
     x = enc_embeds.to(_compute_dtype(cfg))
     x = x + _sinusoid(positions, cfg.d_model)[None].to(x.dtype)
-    layer = _maybe_remat(layer_train, cfg)
-    for layer_params in params["encoder"]:
-        h, _ = layer(layer_params, x, positions, cfg, "enc")
+    layer = _stack_layer(cfg, "encoder", zero3)
+    for i, layer_params in enumerate(params["encoder"]):
+        h, _ = layer(i, layer_params, x, positions, cfg, "enc")
         x = h.to(x.dtype)
-    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+    with _regathering(zero3):
+        return rms_norm(x, _take(zero3, params["enc_final_norm"], "enc_final_norm"),
+                        cfg.norm_eps)
 
 
 def _forward(params, cfg: ModelConfig, tokens_or_embeds, positions, *,
-             enc_out=None, mrope_positions=None, return_cache=False, tp=None):
+             enc_out=None, mrope_positions=None, return_cache=False, tp=None,
+             zero3=None):
     """The decoder stack over a full sequence -> (final hidden states,
     one cache a layer or None)."""
     s = tokens_or_embeds.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=tokens_or_embeds.device)
-    x = _embed_in(params, cfg, tokens_or_embeds, positions, tp)
-    layer = _maybe_remat(layer_train, cfg)
+    x = _embed_in(params, cfg, tokens_or_embeds, positions, tp, zero3)
+    layer = _stack_layer(cfg, "layers", zero3)
     caches = []
-    for kind, layer_params in zip(cfg.layer_kinds(), params["layers"]):
-        h, cache = layer(layer_params, x, positions, cfg, kind,
+    for i, (kind, layer_params) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
+        h, cache = layer(i, layer_params, x, positions, cfg, kind,
                          return_cache=return_cache, enc_out=enc_out,
                          mrope_positions=mrope_positions, tp=tp)
         x = h.to(x.dtype)
@@ -678,20 +772,30 @@ def _forward(params, cfg: ModelConfig, tokens_or_embeds, positions, *,
 
 
 def forward_train(model: Transformer, tokens_or_embeds: torch.Tensor, *,
-                  enc_embeds=None, positions=None, mrope_positions=None):
+                  enc_embeds=None, positions=None, mrope_positions=None,
+                  grad_dtype: Optional[str] = None):
     """Full-sequence forward -> logits (B, S, V): token ids (B, S) or, for
     a stubbed frontend, float embeddings (B, S, d); ``mrope_positions``
     (3, S) the M-RoPE streams; ``enc_embeds`` whisper's frames.  Autograd
     records where the model's parameters require grad (the training
     step), each layer under ``cfg.remat``; a serving model's do not.  A
     tensor-parallel shard (``model.tp``) returns its part of the
-    vocabulary's logits (B, S, V / size)."""
+    vocabulary's logits (B, S, V / size).  A ZeRO-3 shard (its layout
+    cuts leaves over the data axis) gathers each layer's parameters as
+    the layer runs and the tables where they are read, casting each
+    shard to the compute dtype before its gather; ``grad_dtype=
+    "bfloat16"`` reduce-scatters their gradients in bf16 (the compressed
+    reduction), else in f32."""
     cfg = model.cfg
-    params = _cast_params(model.params(), cfg)
-    enc_out = _encode(params, cfg, enc_embeds) if cfg.is_encoder_decoder else None
+    zero3 = Z.Zero3.of(model, _compute_dtype(cfg), grad_dtype)
+    params = model.params()
+    if zero3 is None:
+        params = _cast_params(params, cfg)
+    enc_out = (_encode(params, cfg, enc_embeds, zero3) if cfg.is_encoder_decoder
+               else None)
     x, _ = _forward(params, cfg, tokens_or_embeds, positions, enc_out=enc_out,
-                    mrope_positions=mrope_positions, tp=model.tp)
-    return _unembed(params, cfg, x, model.tp)
+                    mrope_positions=mrope_positions, tp=model.tp, zero3=zero3)
+    return _unembed(params, cfg, x, model.tp, zero3)
 
 
 def _prefill(params, cfg: ModelConfig, tokens_or_embeds, positions=None,
@@ -702,9 +806,11 @@ def _prefill(params, cfg: ModelConfig, tokens_or_embeds, positions=None,
 
 
 def _refuse_shard(model: Transformer, what: str) -> None:
-    if model.tp is not None:
+    split = model.layout is not None and model.layout.data_split
+    if model.tp is not None or split:
+        kind = "a tensor-parallel" if model.tp is not None else "a ZeRO-3"
         raise NotImplementedError(
-            f"{what} on a tensor-parallel shard: serving runs whole models "
+            f"{what} on {kind} shard: serving runs whole models "
             "(the process mesh is the trainer's)")
 
 

@@ -16,18 +16,22 @@ training step reduces over its axes (:func:`all_reduce`).
 
 Rank ``r`` sits at ``(r // model, r % model)``: the ranks of one
 ``"model"`` group are consecutive.  A dim a spec maps to ``"model"`` is
-split into equal parts in rank order along that axis.  A spec that maps
-a dim to ``"pod"`` or ``"data"`` (the ``fsdp_params`` archs' embed dim,
-ZeRO-3) raises: ROADMAP item 14b ports it.
+split into equal parts in rank order along that axis; a dim it maps to
+``("pod", "data")`` (the ``fsdp_params`` archs' embed dim, ZeRO-3) is
+split the same way over the data axis, read as one data group, so a
+leaf may be cut along two dims.  A ``"pod"`` axis of size > 1 raises:
+ROADMAP item 14b.4.
 
 Backends: NCCL for cards (with gloo beside it for host tensors, so a
 checkpoint gathers over the same groups), gloo for the CPU.  gloo on a
 card is for ranks that share one card, which NCCL refuses: a collective
 on a CUDA tensor then copies it through a pinned host buffer, reduces
 there and copies it back (gloo reduces host memory; the copies are the
-design of that path, not a fallback).  The training path uses two
-collectives, :func:`all_reduce` and :func:`broadcast`; a checkpoint
-also gathers (:func:`gather_full`).
+design of that path, not a fallback).  The training path uses
+:func:`all_reduce` and :func:`broadcast`, and under ZeRO-3
+:func:`all_gather` and :func:`reduce_scatter` along a dim (the
+parameters gathered a layer at a time, their gradients scattered back:
+``parallel.zero3``); a checkpoint also gathers (:func:`gather_full`).
 """
 from __future__ import annotations
 
@@ -51,6 +55,8 @@ __all__ = [
     "gather_full",
     "all_reduce",
     "all_reduce_coalesced",
+    "all_gather",
+    "reduce_scatter",
     "broadcast",
     "barrier",
     "local_shape",
@@ -60,15 +66,25 @@ __all__ = [
     "ShardLayout",
     "spec_axes",
     "is_process_mesh",
-    "ZERO3_ITEM",
+    "DATA",
+    "POD_ITEM",
+    "data_dim",
     "COLLECTIVES",
     "reset_collectives",
 ]
 
-# what a ("pod", "data") parameter shard waits for
-ZERO3_ITEM = ("the embed dim over (\"pod\", \"data\") (ZeRO-3, the fsdp_params "
-              "archs) is ROADMAP item 14b")
+# the data group: the batch's axes, and ZeRO-3's parameter split
+DATA = ("pod", "data")
+# what a "pod" axis waits for
+POD_ITEM = ("the \"pod\" axis (a ('pod', 'data', 'model') mesh of 512 ranks "
+            "and more) is ROADMAP item 14b.4")
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+# the one-tensor gather and scatter (named *_single from torch 2.13 on,
+# where the *_tensor names warn)
+_all_gather_single = (getattr(dist, "all_gather_single", None)
+                      or dist.all_gather_into_tensor)
+_reduce_scatter_single = (getattr(dist, "reduce_scatter_single", None)
+                          or dist.reduce_scatter_tensor)
 # a bucket of the data-parallel gradient reduction
 BUCKET_BYTES = 64 << 20
 # calls, bytes and host seconds of this process's collectives by
@@ -205,9 +221,8 @@ def init_process_mesh(model_parallel: int = 1, *, device,
     world = dist.get_world_size()
     shape, names = choose_mesh_shape(world, model_parallel=model_parallel)
     if "pod" in names:
-        raise NotImplementedError(
-            f"{world} ranks give a ('pod', 'data', 'model') mesh; the pod "
-            "axis is ROADMAP item 14b")
+        raise NotImplementedError(f"{world} ranks give a ('pod', 'data', "
+                                  f"'model') mesh: {POD_ITEM}")
     from torch.distributed.device_mesh import init_device_mesh
 
     # on the device first: the DeviceMesh keeps the device it finds set
@@ -329,6 +344,92 @@ def broadcast(t: torch.Tensor, src: int = 0, *,
     return t
 
 
+def _data_axis(axis, mesh: ProcessMesh) -> Optional[str]:
+    """The one axis of ``axis`` (a name or a tuple read as one group) of
+    size > 1, or None; raises for a ``"pod"`` axis of size > 1 and for
+    two axes."""
+    axes = [a for a in _axes(axis) if mesh.shape.get(a, 1) > 1]
+    if "pod" in axes:
+        raise NotImplementedError(f"a collective over {axes}: {POD_ITEM}")
+    if len(axes) > 1:
+        raise NotImplementedError(f"a gather or scatter over {axes}")
+    return axes[0] if axes else None
+
+
+def _stage_pair(src: torch.Tensor, out_shape, mesh: ProcessMesh):
+    """Host views for a collective whose input (``src``'s bytes) and
+    output (``out_shape``) differ in size: both in the pinned buffer,
+    the input first, ``src`` copied in."""
+    nin = src.numel() * src.element_size()
+    nout = int(np.prod(out_shape)) * src.element_size()
+    buf = mesh.staging(nin + nout)
+    host_in = buf[:nin].view(src.dtype).view(src.shape)
+    host_out = buf[nin:].view(src.dtype).view(out_shape)
+    host_in.copy_(src)
+    return host_in, host_out
+
+
+def all_gather(t: torch.Tensor, axis, dim: int = 0, *,
+               mesh: Optional[ProcessMesh] = None) -> torch.Tensor:
+    """Every rank's ``t`` of the ``axis`` group concatenated along
+    ``dim`` in rank order: a new contiguous tensor (``t`` itself where
+    the axis has size 1).  Under gloo a CUDA tensor goes through the
+    pinned host buffer, input and output side by side.  Counted with
+    the gathered tensor's bytes."""
+    mesh = _mesh(mesh)
+    axis = _data_axis(axis, mesh)
+    if axis is None:
+        return t
+    n = mesh.shape[axis]
+    group = mesh.group(axis)
+    t0 = time.perf_counter()
+    src = t.movedim(dim, 0).contiguous()
+    shape = (n * src.shape[0],) + tuple(src.shape[1:])
+    out = torch.empty(shape, dtype=t.dtype, device=t.device)
+    if _staged(t, mesh):
+        host_in, host_out = _stage_pair(src, shape, mesh)
+        _all_gather_single(host_out, host_in, group=group)
+        out.copy_(host_out)
+    else:
+        _all_gather_single(out, src, group=group)
+    if dim:
+        out = out.movedim(0, dim).contiguous()
+    _count(f"all_gather[{axis}]", out, t0)
+    return out
+
+
+def reduce_scatter(t: torch.Tensor, axis, dim: int = 0, *,
+                   mesh: Optional[ProcessMesh] = None) -> torch.Tensor:
+    """The sum of every rank's ``t`` over the ``axis`` group, cut into
+    equal parts along ``dim``: the calling rank's part by its index (a
+    new contiguous tensor; ``t`` itself where the axis has size 1).
+    Under gloo a CUDA tensor goes through the pinned host buffer.
+    Counted with ``t``'s bytes."""
+    mesh = _mesh(mesh)
+    axis = _data_axis(axis, mesh)
+    if axis is None:
+        return t
+    n = mesh.shape[axis]
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"into {n}")
+    group = mesh.group(axis)
+    t0 = time.perf_counter()
+    src = t.movedim(dim, 0).contiguous()
+    shape = (src.shape[0] // n,) + tuple(src.shape[1:])
+    out = torch.empty(shape, dtype=t.dtype, device=t.device)
+    if _staged(t, mesh):
+        host_in, host_out = _stage_pair(src, shape, mesh)
+        _reduce_scatter_single(host_out, host_in, group=group)
+        out.copy_(host_out)
+    else:
+        _reduce_scatter_single(out, src, group=group)
+    if dim:
+        out = out.movedim(0, dim).contiguous()
+    _count(f"reduce_scatter[{axis}]", t, t0)
+    return out
+
+
 class _SumForward(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, mesh):
@@ -356,64 +457,74 @@ def barrier(mesh: Optional[ProcessMesh] = None) -> None:
 # -- shards --------------------------------------------------------------------
 
 
-def _split_axes(spec, ndim: int, mesh: Mesh):
-    """The dims ``spec`` cuts over ``"model"`` (axes of size 1 cut
-    nothing); raises for a dim it cuts over ``"pod"``/``"data"``."""
+def _cuts(spec, ndim: int, mesh: Mesh):
+    """``(dim, axis)`` for each dim ``spec`` cuts: ``axis`` is
+    ``"model"`` or ``"data"`` (``("pod", "data")`` read as one group;
+    axes of size 1 cut nothing)."""
     out = []
     for dim, entry in enumerate(tuple(spec)[:ndim]):
         axes = [a for a in (_axes(entry) if entry is not None else ())
                 if mesh.shape.get(a, 1) > 1]
-        if any(a in ("pod", "data") for a in axes):
-            raise NotImplementedError(f"spec {tuple(spec)} splits dim {dim} over "
-                                      f"{entry}: {ZERO3_ITEM}")
+        if not axes:
+            continue
         if axes == ["model"]:
-            out.append(dim)
-        elif axes:
+            out.append((dim, "model"))
+        elif set(axes) <= set(DATA):
+            if "pod" in axes:
+                raise NotImplementedError(f"spec {tuple(spec)} splits dim {dim} "
+                                          f"over {entry}: {POD_ITEM}")
+            out.append((dim, "data"))
+        else:
             raise ValueError(f"spec {tuple(spec)}: unknown axes {entry}")
     return out
 
 
+def data_dim(spec, ndim: int, mesh: Mesh) -> Optional[int]:
+    """The dim ``spec`` cuts over the data axis (ZeRO-3's), or None."""
+    return next((dim for dim, axis in _cuts(spec, ndim, mesh)
+                 if axis == "data"), None)
+
+
 def local_shard(tensor: torch.Tensor, spec, mesh: ProcessMesh) -> torch.Tensor:
     """The calling rank's part of the full ``tensor`` under ``spec`` (a
-    sanitized ``PartitionSpec``): each dim mapped to ``"model"`` cut into
-    equal parts, the rank's by its index along ``"model"``.  A view
-    where nothing is cut; the caller copies."""
-    n, i = mesh.shape.get("model", 1), mesh.axis_index("model")
-    for dim in _split_axes(spec, tensor.ndim, mesh):
+    sanitized ``PartitionSpec``): each dim mapped to ``"model"`` or to
+    ``("pod", "data")`` cut into equal parts, the rank's by its index
+    along that axis.  A view; the caller copies."""
+    for dim, axis in _cuts(spec, tensor.ndim, mesh):
+        n = mesh.shape[axis]
         if tensor.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(tensor.shape)} does not "
                              f"split into {n}")
-        tensor = tensor.chunk(n, dim=dim)[i]
+        tensor = tensor.chunk(n, dim=dim)[mesh.axis_index(axis)]
     return tensor
 
 
 def local_shape(shape: Sequence[int], spec, mesh: ProcessMesh) -> Tuple[int, ...]:
     """The shape of the calling rank's part of a ``shape`` tensor under
-    ``spec`` (raises as :func:`local_shard` does for a data-axis cut)."""
+    ``spec``."""
     out = list(shape)
-    for dim in _split_axes(spec, len(shape), mesh):
-        out[dim] //= mesh.shape.get("model", 1)
+    for dim, axis in _cuts(spec, len(shape), mesh):
+        out[dim] //= mesh.shape[axis]
     return tuple(out)
 
 
 def gather_full(shard: torch.Tensor, spec, mesh: ProcessMesh) -> torch.Tensor:
     """The full tensor from each rank's ``shard`` under ``spec``: the
-    ``"model"`` group's shards gathered in rank order along each dim the
-    spec cuts (every group gathers its own).  On the shard's device;
-    under gloo a CUDA shard is gathered on the host."""
-    dims = _split_axes(spec, shard.ndim, mesh)
-    n = mesh.shape.get("model", 1)
-    if not dims or n == 1:
+    shards gathered in rank order over each axis that cuts a dim (every
+    group gathers its own).  On the shard's device; under gloo a CUDA
+    shard is gathered on the host."""
+    cuts = _cuts(spec, shard.ndim, mesh)
+    if not cuts:
         return shard
-    if len(dims) > 1:
-        raise NotImplementedError(f"spec {tuple(spec)} cuts {len(dims)} dims")
     device = shard.device
     if _staged(shard, mesh):
         shard = shard.cpu()
-    shard = shard.contiguous()
-    parts = [torch.empty_like(shard) for _ in range(n)]
-    dist.all_gather(parts, shard, group=mesh.group("model"))
-    return torch.cat(parts, dim=dims[0]).to(device)
+    for dim, axis in cuts:
+        shard = shard.contiguous()
+        parts = [torch.empty_like(shard) for _ in range(mesh.shape[axis])]
+        dist.all_gather(parts, shard, group=mesh.group(axis))
+        shard = torch.cat(parts, dim=dim)
+    return shard.to(device)
 
 
 # -- the batch -----------------------------------------------------------------
@@ -453,41 +564,62 @@ def local_batch(batch: Dict, mesh: Mesh) -> Dict:
 class ShardLayout:
     """How a rank's model shard sits on its :class:`ProcessMesh`:
     ``specs`` (each parameter's sanitized spec, by name), ``split`` (the
-    names the ``"model"`` axis cuts) and ``partial`` (the names it leaves
+    names the ``"model"`` axis cuts), ``partial`` (the names it leaves
     whole although their logical axes map to it: kv heads that do not
-    divide the group, whose gradients hold one rank's heads' part).  The
-    training step reduces gradients and their norm through it."""
+    divide the group, whose gradients hold one rank's heads' part) and
+    ``data_split`` (the names the data axis cuts, ZeRO-3's; ``data_dims``
+    maps each to its dim).  The training step reduces gradients and
+    their norm through it."""
 
-    def __init__(self, mesh: ProcessMesh, specs: Dict, split, partial):
+    def __init__(self, mesh: ProcessMesh, specs: Dict, split, partial,
+                 data_dims: Optional[Dict[str, int]] = None):
         self.mesh = mesh
         self.specs = dict(specs)
         self.split = frozenset(split)
         self.partial = frozenset(partial)
+        self.data_dims = dict(data_dims or {})
+        self.data_split = frozenset(self.data_dims)
         self.model_size = mesh.shape.get("model", 1)
-        self.data_size = mesh.axis_size(("pod", "data"))
+        self.data_size = mesh.axis_size(DATA)
 
     def reduce_gradients(self, names, grads, grad_dtype=None):
         """The step's f32 gradients: the partial ones summed over
-        ``"model"``, then every one summed over ``("pod", "data")`` in
-        buckets (each rank's loss is its share of the global mean), in
-        bf16 under ``grad_dtype="bfloat16"`` (the compressed reduction)."""
+        ``"model"``, then every one the data axis leaves whole summed
+        over ``("pod", "data")`` in buckets (each rank's loss is its share
+        of the global mean), in bf16 under ``grad_dtype="bfloat16"`` (the
+        compressed reduction).  A ZeRO-3 leaf's gradient was
+        reduce-scattered into its shard in the backward."""
         partial = [g for n, g in zip(names, grads) if n in self.partial]
         all_reduce_coalesced(partial, "model", mesh=self.mesh)
+        out = list(grads)
+        whole = [i for i, n in enumerate(names) if n not in self.data_split]
+        reduce = [grads[i] for i in whole]
         if grad_dtype == "bfloat16":
-            grads = [g.to(torch.bfloat16) for g in grads]
-        all_reduce_coalesced(grads, ("pod", "data"), mesh=self.mesh)
-        return [g.to(torch.float32) for g in grads]
+            reduce = [g.to(torch.bfloat16) for g in reduce]
+        all_reduce_coalesced(reduce, DATA, mesh=self.mesh)
+        for i, g in zip(whole, reduce):
+            out[i] = g
+        return [g.to(torch.float32) for g in out]
 
     def grad_norm(self, names, grads) -> torch.Tensor:
-        """The global norm: the squares of the leaves ``"model"`` cuts
-        summed over the group, those it keeps whole counted once."""
-        if self.model_size == 1:
-            return torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
-        split = sum(torch.sum(torch.square(g)) for n, g in zip(names, grads)
-                    if n in self.split)
-        whole = sum(torch.sum(torch.square(g)) for n, g in zip(names, grads)
-                    if n not in self.split)
-        return torch.sqrt(all_reduce(split, "model", mesh=self.mesh) + whole)
+        """The global norm: each leaf's squares summed over every axis
+        that cuts it (``"model"``, the data axis, or both), the leaves
+        nothing cuts counted once.  The data axis is summed over only
+        where it cuts a leaf (ZeRO-3): the other gradients are already
+        summed over it."""
+        # by (cut over "model", cut over the data axis)
+        sums = {key: torch.zeros((), dtype=torch.float32, device=self.mesh.device)
+                for key in ((False, False), (True, False), (False, True),
+                            (True, True))}
+        for n, g in zip(names, grads):
+            key = (n in self.split, n in self.data_split)
+            sums[key] = sums[key] + torch.sum(torch.square(g))
+        model = all_reduce(torch.stack([sums[True, False], sums[True, True]]),
+                           "model", mesh=self.mesh)
+        data = sums[False, True] + model[1]
+        if self.data_split:
+            data = all_reduce(data, DATA, mesh=self.mesh)
+        return torch.sqrt(sums[False, False] + model[0] + data)
 
 
 def is_process_mesh(mesh) -> bool:

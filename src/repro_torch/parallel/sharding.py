@@ -189,10 +189,13 @@ def place(tree, shardings):
     scalar (a ``TrainState``'s step) stays on the host.
 
     On a process mesh each leaf becomes the calling rank's shard
-    (``parallel.distributed.local_shard``, a copy on the rank's device)
-    and a model the rank's part of it, which the model makes (its
+    (``parallel.distributed.local_shard``, a copy on the rank's device:
+    a dim cut over ``"model"``, one cut over the data axis (ZeRO-3), or
+    both) and a model the rank's part of it, which the model makes (its
     ``shard(shardings)``, ``models.transformer.Transformer.shard``): the
-    leaves must be whole, as a state drawn or restored whole is."""
+    leaves must be whole, as a state drawn or restored whole is
+    (``models.model.init_train_state(..., shardings=)`` draws a state
+    by shards and places it itself)."""
     if shardings is None or tree is None:
         return tree
     if isinstance(tree, nn.Module) and _on_processes(shardings):

@@ -45,9 +45,9 @@ __all__ = [
 ]
 
 
-# what each missing tensor-parallel case waits for (ROADMAP item 14b)
+# what each missing tensor-parallel case waits for (ROADMAP item 14b.2)
 EMBEDDINGS_ITEM = ("tensor parallelism over embeddings input (M-RoPE, a stubbed "
-                   "frontend) is ROADMAP item 14b")
+                   "frontend) is ROADMAP item 14b.2")
 _KIND_ITEMS = {"moe": "MoE (experts over \"model\")", "mla": "MLA",
                "ssm": "the Mamba-2 SSD block", "rglru": "RG-LRU",
                "local_attn": "local attention", "enc": "whisper's encoder",
@@ -59,7 +59,7 @@ def unsupported_kind(kind: str) -> str:
     what = next((v for k, v in _KIND_ITEMS.items() if kind.startswith(k)
                  or kind.endswith(k)), kind)
     return (f"tensor parallelism for {kind} layers ({what}) is ROADMAP item "
-            "14b; the dense layer is the one with a tensor-parallel path")
+            "14b.2; the dense layer is the one with a tensor-parallel path")
 
 
 class TensorParallel:

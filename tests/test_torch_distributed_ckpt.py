@@ -150,13 +150,13 @@ def test_checkpoints_resume_across_meshes(tmp_path):
         assert np.array_equal(got[k], v), k
 
 
-def _by_port_name(arrays):
+def _by_port_name(arrays, arch=ARCH):
     """A checkpoint's arrays (the reference's paths) by ``_numpy``'s keys."""
     from repro_torch.checkpoint.checkpoint import _reference_paths
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     names = list(tfm.model_axes(cfg))
     paths = _reference_paths(names, cfg)
     out = {}
@@ -191,8 +191,9 @@ def test_torchrun_runs_the_trainer(tmp_path):
 
 
 def _refusals(rank, payload):
-    """Each case the port has no path for, on a (1, 2) or (2, 1) process
-    mesh of the CPU: the exception's type and message."""
+    """Each case the port has no path for, on a (2, 2) process mesh of the
+    CPU (or (4, 1), (1, 4)): the exception's type and message, or for a
+    case that places, the local shapes of its parameters."""
     import dataclasses
 
     import torch
@@ -218,6 +219,9 @@ def _refusals(rank, payload):
                                             cfg, device="cpu"),
                          SS.train_state_specs(cfg, pm))
 
+    def shapes(state):
+        return {n: tuple(p.shape) for n, p in state.params.named_parameters()}
+
     out = {}
     tp = D.init_process_mesh(2, device="cpu")
     for arch in ("granite-moe-3b-a800m-smoke", "deepseek-v2-236b-smoke",
@@ -231,32 +235,190 @@ def _refusals(rank, payload):
         dense, tfm.model_axes(dense.params.cfg), tp))
     dp = D.init_process_mesh(1, device="cpu")
     fsdp = dataclasses.replace(get_config("granite-20b-smoke"), fsdp_params=True)
-    out["fsdp"] = attempt(lambda: init(fsdp, dp))
-    out["fsdp_model_only"] = attempt(lambda: init(fsdp, tp))
+    zero3 = init(fsdp, dp)
+    out["fsdp"] = (tuple(dp.shape.values()), shapes(zero3))
+    out["prefill_zero3"] = attempt(lambda: tfm.forward_prefill(zero3.params, tokens))
+    out["fsdp_model_only"] = attempt(lambda: init(fsdp, D.init_process_mesh(
+        4, device="cpu")))
+    rg = dataclasses.replace(get_config("recurrentgemma-9b-smoke"), fsdp_params=True)
+    out["recurrentgemma_fsdp"] = attempt(lambda: init(rg, tp))
     return out
 
 
 def test_cases_without_a_path_raise(tmp_path):
     """TP for MoE, MLA, SSD, RG-LRU with local attention, whisper and
-    embeddings input raise naming item 14b, as does a ("pod", "data")
-    parameter split (granite-20b with ``fsdp_params`` on (2, 1)), serving
-    a shard and re-meshing one; nothing runs whole on one rank instead.
-    ``fsdp_params`` with a data axis of 1 places (the split drops)."""
-    out = P.spawn(2, _refusals, None, str(tmp_path))
+    embeddings input raise naming item 14b on a (2, 2) mesh, with or
+    without ``fsdp_params`` (recurrentgemma-9b with it: ZeRO-3 has a path,
+    its tensor parallelism has none), as do serving a shard (tensor-
+    parallel or ZeRO-3) and re-meshing one; nothing runs whole on one rank
+    instead.  granite-20b with ``fsdp_params`` on (4, 1) places (ZeRO-3:
+    every parameter's embed dim a quarter), and on (1, 4), a data axis of
+    1, places too (the split drops)."""
+    out = P.spawn(4, _refusals, None, str(tmp_path))
     for key in ("granite-moe-3b-a800m-smoke", "deepseek-v2-236b-smoke",
                 "mamba2-2.7b-smoke", "recurrentgemma-9b-smoke",
-                "whisper-medium-smoke", "qwen2-vl-2b-smoke", "fsdp", "remesh",
-                "prefill"):
+                "whisper-medium-smoke", "qwen2-vl-2b-smoke", "remesh",
+                "prefill", "prefill_zero3", "recurrentgemma_fsdp"):
         assert out[key] is not None, key
         kind, msg = out[key]
         assert kind == "NotImplementedError", (key, kind, msg)
-        if key != "prefill":
+        if not key.startswith("prefill"):
             assert "14b" in msg, (key, msg)
     assert "MoE" in out["granite-moe-3b-a800m-smoke"][1]
     assert "MLA" in out["deepseek-v2-236b-smoke"][1]
     assert "SSD" in out["mamba2-2.7b-smoke"][1]
     assert "RG-LRU" in out["recurrentgemma-9b-smoke"][1]
+    assert "RG-LRU" in out["recurrentgemma_fsdp"][1]
     assert "whisper" in out["whisper-medium-smoke"][1]
     assert "embeddings" in out["qwen2-vl-2b-smoke"][1]
-    assert "ZeRO-3" in out["fsdp"][1]
+    assert "ZeRO-3" in out["prefill_zero3"][1]
+    mesh, shapes = out["fsdp"]
+    assert mesh == (4, 1)
+    assert shapes["embed.embedding"] == (256, 16)
+    assert shapes["layers.0.attn.wq"] == (16, 4, 16)
+    assert shapes["layers.1.mlp.wo"] == (128, 16)
+    assert shapes["final_norm"] == (16,)
     assert out["fsdp_model_only"] is None
+
+
+# -- ZeRO-3 checkpoints -----------------------------------------------------------
+
+ZERO3_ARCH = "granite-20b-smoke-zero3"  # granite-20b-smoke, fsdp_params, f32
+ZERO3_ARGS = ["--arch", ZERO3_ARCH, "--seq", "32", "--global-batch", "4",
+              "--lr", "3e-3", "--log-every", "1", "--device", "cpu",
+              "--steps", "2", "--ckpt-every", "1"]
+
+
+def _register_zero3():
+    import dataclasses
+
+    from repro_torch.configs import get_config, register
+
+    register(dataclasses.replace(get_config("granite-20b-smoke"), name=ZERO3_ARCH,
+                                 fsdp_params=True, dtype="float32"))
+
+
+def _zero3_meshes(rank, root):
+    """A: ZeRO-3 on (4, 1), 2 steps, checkpoints at 1 and 2.  The
+    single process's step-1 checkpoint (``single``) restored as ZeRO-3
+    (4, 1) shards, gathered; B resumes a copy of A without step 2 on
+    (2, 2) (ZeRO-3 with tensor parallelism), its restored state
+    gathered too."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardspecs as SS
+    from repro_torch.models import model as M
+    from repro_torch.parallel import distributed as D
+    from repro_torch.parallel.sharding import use_mesh
+
+    _register_zero3()
+    a_dir, b_dir, c_dir = (os.path.join(root, x) for x in "abc")
+
+    def restored(directory, model_parallel):
+        pm = D.init_process_mesh(model_parallel, device="cpu")
+        cfg = get_config(ZERO3_ARCH)
+        with use_mesh(pm):
+            sh = SS.train_state_specs(cfg, pm)
+            like = M.init_train_state(torch.Generator().manual_seed(9), cfg,
+                                      shardings=sh)
+            state, at = restore_checkpoint(directory, like, step=1, shardings=sh)
+        layout = state.params.layout
+        return dict(at=at, state=_numpy(state), mesh=tuple(pm.shape.values()),
+                    data_split=len(layout.data_split))
+
+    from_single = restored(os.path.join(root, "single"), 1)
+    a = train.main(ZERO3_ARGS + ["--ckpt-dir", a_dir])
+    a = dict(losses=a["losses"], grad_norms=a["grad_norms"],
+             mesh=tuple(a["mesh"].shape.values()), state=_numpy(a["state"]),
+             data_split=len(a["state"].params.layout.data_split))
+    if rank == 0:
+        for d in (b_dir, c_dir):
+            shutil.copytree(a_dir, d)
+            shutil.rmtree(os.path.join(d, "step_00000002"))
+    dist.barrier()
+    on_22 = restored(b_dir, 2)
+    b = train.main(ZERO3_ARGS + ["--model-parallel", "2", "--ckpt-dir", b_dir])
+    b = dict(losses=b["losses"], grad_norms=b["grad_norms"], start=b["start"],
+             mesh=tuple(b["mesh"].shape.values()))
+    return dict(a=a, b=b, on_22=on_22, from_single=from_single)
+
+
+def _saved(directory, step):
+    with np.load(os.path.join(directory, f"step_{step:08d}", "arrays.npz")) as f:
+        return _by_port_name({k: f[k] for k in f.files}, ZERO3_ARCH)
+
+
+def _reference_step(directory, step):
+    """The reference's trainer step ``step + 1`` from the checkpoint of
+    ``step``: its loss and grad norm, with the port trainer's schedule and
+    batch."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from repro.data.pipeline import SyntheticTokenSource
+    from repro.optim.adamw import cosine_schedule
+
+    cfg = dataclasses.replace(ref_configs.get_config("granite-20b-smoke"),
+                              fsdp_params=True, dtype="float32")
+    like = jax.eval_shape(lambda: ref_model.init_train_state(
+        jax.random.PRNGKey(0), cfg))
+    state, at = ref_ck.restore_checkpoint(directory, like, step=step)
+    fn = jax.jit(ref_model.make_train_step(
+        cfg, learning_rate=cosine_schedule(3e-3, 20, 2)))
+    batch = SyntheticTokenSource(cfg.vocab_size, 32, 4, seed=0).batch(at)
+    _, m = fn(state, {k: jnp.asarray(v) for k, v in batch.items()})
+    return float(m["loss"]), float(m["grad_norm"])
+
+
+def test_zero3_checkpoints_cross_meshes_and_the_single_process(tmp_path, monkeypatch):
+    """A ZeRO-3 (4, 1) run of granite-20b-smoke (f32) checkpoints in the
+    reference's format; its step-1 checkpoint restores bit for bit on
+    (2, 2) and in a single process, and each resumes step 2 within rtol
+    1e-5 of the (4, 1) run's and of the reference's step from the same
+    checkpoint.  A single process's checkpoint restores as ZeRO-3 (4, 1)
+    shards bit for bit."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    root = str(tmp_path)
+    _register_zero3()
+    single_dir = os.path.join(root, "single")
+    single = train.main(ZERO3_ARGS + ["--steps", "1", "--ckpt-dir", single_dir])
+    assert single["mesh"].shape["data"] == 1 and single["state"].params.layout is None
+    out = P.spawn(4, _zero3_meshes, root, root)
+    a, b = out["a"], out["b"]
+    assert a["mesh"] == (4, 1) and b["mesh"] == (2, 2) and b["start"] == 1
+    assert a["data_split"] > 0
+    # restored bit for bit: the single process's checkpoint as (4, 1) shards,
+    # A's on (2, 2) and in this process
+    for got, directory in ((out["from_single"], single_dir),
+                           (out["on_22"], os.path.join(root, "b"))):
+        assert got["at"] == 1 and got["data_split"] > 0
+        want = _saved(directory, 1)
+        assert want.keys() == got["state"].keys()
+        for k, v in want.items():
+            assert np.array_equal(got["state"][k], v), k
+    cfg = get_config(ZERO3_ARCH)
+    like = M.init_train_state(torch.Generator().manual_seed(9), cfg, device="cpu")
+    state, at = restore_checkpoint(os.path.join(root, "c"), like)
+    here = _numpy(state)
+    for k, v in _saved(os.path.join(root, "c"), 1).items():
+        assert np.array_equal(here[k], v), k
+    c = train.main(ZERO3_ARGS + ["--ckpt-dir", os.path.join(root, "c")])
+    assert c["start"] == 1 and c["state"].params.layout is None
+    # step 2 resumed on (2, 2) and in one process, against (4, 1)'s and
+    # the reference's step from the step-1 checkpoint
+    loss, gnorm = _reference_step(os.path.join(root, "c"), 1)
+    for run in (b, c):
+        (step, got_loss), = run["losses"]
+        (_, got_norm), = run["grad_norms"]
+        assert step == 2
+        np.testing.assert_allclose(got_loss, a["losses"][1][1], rtol=P.F32_RTOL)
+        np.testing.assert_allclose(got_norm, a["grad_norms"][1][1], rtol=P.F32_RTOL)
+        np.testing.assert_allclose(got_loss, loss, rtol=P.F32_RTOL)
+        np.testing.assert_allclose(got_norm, gnorm, rtol=P.F32_RTOL)

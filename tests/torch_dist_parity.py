@@ -27,7 +27,7 @@ import pickle
 import numpy as np
 
 MESHES = {"dp": (4, 1), "dp2": (2, 1), "tp2": (1, 2), "tp22": (2, 2),
-          "tp4": (1, 4)}
+          "tp4": (1, 4), "one": (1, 1)}
 LR = 1e-3
 STEPS = 3
 # f32 cases: the tolerances of tests/torch_train_parity.py::check_f32_step;
@@ -41,17 +41,29 @@ BF16_RTOL = 2e-2
 
 
 def case(arch, mesh, *, dtype="float32", seq=32, batch=4, grad_dtype=None,
-         mask=False, seed=3, device="cpu"):
+         mask=False, seed=3, device="cpu", fsdp=False, remat=None,
+         microbatches=1):
     """One run: ``arch`` at ``dtype`` (None: the config's own) on a
     ``mesh`` of ``MESHES`` of ranks on ``device``, ``batch`` x ``seq``
-    tokens a step."""
+    tokens a step in ``microbatches`` parts; ``fsdp`` sets the config's
+    ``fsdp_params`` (the embed dim over the data axis: ZeRO-3), ``remat``
+    its remat policy (None: the config's own)."""
     return dict(arch=arch, mesh=MESHES[mesh], dtype=dtype, seq=seq, batch=batch,
-                grad_dtype=grad_dtype, mask=mask, seed=seed, device=device)
+                grad_dtype=grad_dtype, mask=mask, seed=seed, device=device,
+                fsdp=fsdp, remat=remat, microbatches=microbatches)
 
 
 def config(module, c):
+    """The case's config of ``module``'s registry (the reference's or the
+    port's), with the case's dtype, ``fsdp_params`` and remat."""
     cfg = module.get_config(c["arch"])
-    return dataclasses.replace(cfg, dtype=c["dtype"]) if c["dtype"] else cfg
+    if c["dtype"]:
+        cfg = dataclasses.replace(cfg, dtype=c["dtype"])
+    if c.get("fsdp"):
+        cfg = dataclasses.replace(cfg, fsdp_params=True)
+    if c.get("remat"):
+        cfg = dataclasses.replace(cfg, remat=c["remat"])
+    return cfg
 
 
 def batch_of(source_cls, cfg, c, step):
@@ -99,7 +111,8 @@ def _reference_case(c):
                               jax.eval_shape(lambda: state), mesh)
         state = jax.tree.map(jax.device_put, state, sh)
         step = jax.jit(M.make_train_step(cfg, learning_rate=LR,
-                                         grad_dtype=c["grad_dtype"]),
+                                         grad_dtype=c["grad_dtype"],
+                                         microbatches=c.get("microbatches", 1)),
                        in_shardings=(sh, None), out_shardings=(sh, None),
                        donate_argnums=(0,))
         losses, norms = [], []
@@ -235,8 +248,9 @@ def _port_case(c, init):
                 want = D.local_shape(whole[name].shape, specs[name].spec, pm)
                 if tuple(t.shape) != want:
                     bad.append((name, tuple(t.shape), want))
-        step = M.make_train_step(cfg, learning_rate=LR, grad_dtype=c["grad_dtype"])
-        losses, norms, small = [], [], None
+        step = M.make_train_step(cfg, learning_rate=LR, grad_dtype=c["grad_dtype"],
+                                 microbatches=c.get("microbatches", 1))
+        losses, norms, small, collectives = [], [], None, []
         for i in range(STEPS):
             b = D.local_batch(batch_of(SyntheticTokenSource, cfg, c, i), pm)
             b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(pm.device)
@@ -244,21 +258,61 @@ def _port_case(c, init):
             grads = _gradients(state, cfg, b, sh.params, pm)
             small = {n: ((np.abs(g) < GRAD_FLOOR) & (g != 0))
                      | (small[n] if small else False) for n, g in grads.items()}
+            D.reset_collectives()
             state, m = step(state, b)
+            collectives.append({k: v["calls"] for k, v in D.reset_collectives().items()})
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
         final = {n: D.gather_full(p.detach(), sh.params[n].spec, pm).cpu().numpy()
                  for n, p in state.params.named_parameters()}
+    layout = state.params.layout
     return dict(losses=losses, grad_norms=norms, final=final, small=small,
-                bad_shapes=bad,
-                tp=repr(state.params.tp), split=sorted(state.params.layout.split),
-                partial=sorted(state.params.layout.partial))
+                bad_shapes=bad, collectives=collectives,
+                shapes={n: tuple(p.shape) for n, p in state.params.named_parameters()},
+                tp=repr(state.params.tp), split=sorted(layout.split),
+                partial=sorted(layout.partial), data_split=sorted(layout.data_split))
+
+
+def _draw_case(c):
+    """The state drawn by shards (``init_train_state(..., shardings=)``)
+    against the whole draw placed (``place``), from one CPU generator
+    seed: whether every parameter and moment is equal bit for bit, at
+    the same local shape, and the names the data axis cuts."""
+    import torch
+
+    import repro_torch.configs as pc
+    from repro_torch.launch import shardspecs as SS
+    from repro_torch.models import model as M
+    from repro_torch.parallel import distributed as D
+    from repro_torch.parallel.sharding import place, use_mesh
+
+    cfg = config(pc, c)
+    pm = D.init_process_mesh(c["mesh"][1], device=c["device"], backend="gloo")
+    with use_mesh(pm):
+        sh = SS.train_state_specs(cfg, pm)
+        drawn = M.init_train_state(torch.Generator().manual_seed(c["seed"]), cfg,
+                                   shardings=sh)
+        placed = place(M.init_train_state(torch.Generator().manual_seed(c["seed"]),
+                                          cfg, device="cpu"), sh)
+    unequal = []
+    for tree in ("params", "m", "v"):
+        a, b = ((dict(s.params.named_parameters()) if tree == "params"
+                 else getattr(s.opt_state, tree)) for s in (drawn, placed))
+        assert a.keys() == b.keys()
+        unequal += [(tree, n) for n in a if a[n].shape != b[n].shape
+                    or not torch.equal(a[n], b[n])]
+    layout = drawn.params.layout
+    return dict(unequal=unequal, count=len(sh.params),
+                shapes={n: tuple(p.shape) for n, p in drawn.params.named_parameters()},
+                split=sorted(layout.split), data_split=sorted(layout.data_split),
+                tp=repr(drawn.params.tp))
 
 
 def port_cases(rank, payload):
     """Every case of ``payload`` (key -> (case, initial parameters)) on
     this rank, in order."""
-    return {key: _port_case(c, init) for key, (c, init) in payload.items()}
+    return {key: _draw_case(c) if c.get("check") == "draw" else _port_case(c, init)
+            for key, (c, init) in payload.items()}
 
 
 def port(cases, ref, tmp):
@@ -267,17 +321,29 @@ def port(cases, ref, tmp):
     out = {}
     worlds = sorted({c["mesh"][0] * c["mesh"][1] for c in cases.values()})
     for world in worlds:
-        payload = {k: (c, ref[k]["init"]) for k, c in cases.items()
+        payload = {k: (c, ref[k]["init"] if k in ref else None)
+                   for k, c in cases.items()
                    if c["mesh"][0] * c["mesh"][1] == world}
         out.update(spawn(world, port_cases, payload, tmp))
     return out
 
 
-def check(key, c, got, want):
+def _close(a, b):
+    """Where ``a`` is within the f32 tolerances of ``b``."""
+    return np.abs(a - b) <= F32_ATOL + F32_RTOL * np.abs(b)
+
+
+def check(key, c, got, want, witness=None):
     """The port's run against the reference's: every step's loss and grad
     norm, and the final parameters where every step's gradient is at
     least ``GRAD_FLOOR`` (f32; the bf16 config at its loss and grad-norm
-    tolerance only, as ``check_bf16_step``)."""
+    tolerance only, as ``check_bf16_step``).
+
+    ``witness``: the reference's run of the same case on another number
+    of devices.  An entry outside the tolerance of ``want`` where the two
+    reference runs differ is held to the witness instead (the reference's
+    own f32 rounding moves it).  Returns those entries, as
+    ``(name, index)``."""
     import repro_torch.configs as pc
     from repro_torch.models import params
 
@@ -288,16 +354,25 @@ def check(key, c, got, want):
         np.testing.assert_allclose(got[name], want[name], rtol=rtol,
                                    err_msg=f"{key} {name}")
     if c["dtype"] != "float32":
-        return
+        return []
     ref = params.from_reference(want["final"], config(pc, c))
+    other = (None if witness is None
+             else params.from_reference(witness["final"], config(pc, c)))
     assert set(ref) == set(got["final"])
-    left_out, total = 0, 0
+    left_out, total, held = 0, 0, []
     for name, p in got["final"].items():
         keep = ~got["small"][name]
         left_out += int((~keep).sum())
         total += keep.size
-        np.testing.assert_allclose(p[keep], ref[name].numpy()[keep],
+        target = ref[name].numpy()
+        if other is not None:
+            second = other[name].numpy()
+            apart = keep & ~_close(p, target) & (second != target)
+            held += [(name, tuple(int(i) for i in at)) for at in np.argwhere(apart)]
+            target = np.where(apart, second, target)
+        np.testing.assert_allclose(p[keep], target[keep],
                                    rtol=F32_RTOL, atol=F32_ATOL,
                                    err_msg=f"{key} {name}")
     print(f"{key}: {left_out} of {total} entries with 0 < |grad| < "
-          f"{GRAD_FLOOR} at some step left out")
+          f"{GRAD_FLOOR} at some step left out; held to the witness: {held}")
+    return held
