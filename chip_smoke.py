@@ -214,7 +214,7 @@ run in order and the first failure exits non-zero:
      the single process's, rank 0's seconds in collectives, and where
      each run's seconds went; no kernel of the port and no plain version
      runs (training reaches none);
- 22. ZeRO-3 across processes, the same launch's last run: granite-20b at
+ 22. ZeRO-3 across processes, the same launch's next run: granite-20b at
      full width (d_model 6,144, a single kv head, bf16 compute, ``"dots"``
      remat, its ``fsdp_params``) cut to 2 layers, two ranks sharing
      ``cuda:0`` over gloo on a (2, 1) mesh, so every parameter's embed dim
@@ -226,7 +226,20 @@ run in order and the first failure exits non-zero:
      leaf; each rank's step peak below the single process's; rank 0's
      all-gather and reduce-scatter calls, GB and seconds a step; no kernel
      or plain version runs.  recurrentgemma-9b and deepseek-v2-236b are
-     held to the reference on the CPU only.
+     held to the reference on the CPU only;
+ 23. tensor parallelism for the dense layer's other inputs, the same
+     launch's last two runs, two ranks sharing ``cuda:0`` over gloo on a
+     (1, 2) mesh, batch 2, 2 steps, each against its single process (run
+     before the go): (q) qwen2-vl-2b at full width cut to 4 of its 28
+     layers, 2,048 positions of float patch embeddings with M-RoPE (its
+     embedding table never read), and (w) whisper-medium at full width
+     cut to 4 encoder and 4 decoder layers, its decoder over 448 tokens
+     (its text context) and its encoder over the 1,500 frames: both
+     steps' losses and grad norms within ``TP_INPUTS_RTOL``; rank 0's
+     all-reduces over "model" a step exactly those of the brackets
+     (``tp_all_reduces``), with their MB and host seconds; each rank's
+     step peak below the single process's; no kernel or plain version
+     runs.
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
@@ -3623,14 +3636,18 @@ DIST_DP_LAYERS = 8  # two full-depth replicas (30 GB of state each) won't fit
 
 
 def cut_config(arch: str, layers: Optional[int]) -> str:
-    """The name of ``arch`` cut to ``layers`` layers, registered in this
-    process (``arch`` itself where ``layers`` is None)."""
+    """The name of ``arch`` cut to ``layers`` layers (an encoder-decoder's
+    encoder too), registered in this process (``arch`` itself where
+    ``layers`` is None)."""
     from repro_torch.configs import get_config, register
 
     if layers is None:
         return arch
+    cfg = get_config(arch)
     name = f"{arch}-{layers}-layers"
-    register(dataclasses.replace(get_config(arch), name=name, num_layers=layers))
+    register(dataclasses.replace(
+        cfg, name=name, num_layers=layers,
+        encoder_layers=layers if cfg.is_encoder_decoder else cfg.encoder_layers))
     return name
 
 
@@ -3812,17 +3829,22 @@ def _rel(rank, one):
 # 2 reads, at the full rate)
 DIST_COMMON = ["--seq", "2048", "--log-every", "1", "--lr", "3e-4",
                "--warmup", "1", "--deterministic"]
-# the launch's runs: arch, model-parallel, layers; 21b and 21c, then 22
+# the launch's runs: arch, model-parallel, layers; 21b and 21c, then 22,
+# then 23's two
 DIST_CASES = {"b": (DIST_ARCH, 2, None), "c": (DIST_ARCH, 1, DIST_DP_LAYERS),
-              "z": ("granite-20b", 1, 2)}
+              "z": ("granite-20b", 1, 2), "q": ("qwen2-vl-2b", 2, 4),
+              "w": ("whisper-medium", 2, 4)}
+# a run's arguments beyond DIST_COMMON's: whisper's decoder over its text
+# context of 448 tokens (its encoder over the config's 1,500 frames)
+DIST_EXTRA = {"w": ["--seq", "448"]}
 
 
 def start_distributed(seed, d):
-    """Starts the torchrun launch of two ranks for 21b, 21c and 22,
+    """Starts the torchrun launch of two ranks for 21b, 21c, 22 and 23,
     reporting into ``d``; they wait for :func:`phase_distributed`."""
     common = DIST_COMMON + ["--seed", str(seed)]
     runs = {key: common + ["--arch", arch, "--global-batch", "2", "--steps", "2"]
-            for key, (arch, _, _) in DIST_CASES.items()}
+            + DIST_EXTRA.get(key, []) for key, (arch, _, _) in DIST_CASES.items()}
     spec = dict(go=os.path.join(d, "go"), device="cuda:0", runs=[dict(
         layers=layers, done=f"{d}/{key}.done", argv=runs[key] + [
             "--model-parallel", str(mp), "--device", "cuda:0",
@@ -3869,7 +3891,8 @@ def phase_distributed(prk, seed, smi, ranks):
         f"grad norms {[round(x, 4) for _, x in rank['grad_norms']]}); step ms "
         f"{_steps(rank)} vs {_steps(one)}; peak {_gb(rank['peak_bytes'])} vs "
         f"{_gb(one['peak_bytes'])} GB; main {_phases(rank)}; on {smi}")
-    # the single-process references of (b), (c) and phase 22, two steps each
+    # the single-process references of (b), (c) and phases 22 and 23, two
+    # steps each
     singles = ranks["singles"] = {}
     for key, (arch, _, layers) in DIST_CASES.items():
         argv = list(runs[key])
@@ -3965,13 +3988,13 @@ def _per_step(rep, op):
 
 
 def phase_zero3(prk, smi, ranks):
-    """Phase 22 (see the module docstring): the launch's last run, ZeRO-3,
-    against the single process :func:`phase_distributed` ran before the
-    go; returns its report."""
+    """Phase 22 (see the module docstring): the launch's run after 21c,
+    ZeRO-3, against the single process :func:`phase_distributed` ran
+    before the go; returns its report."""
     t0 = time.perf_counter()
     d, proc = ranks["d"], ranks["proc"]
     arch, _, layers = DIST_CASES["z"]
-    wait_ranks(proc, d)
+    wait_done(proc, d, [f"{d}/z.done"])
     t_end = time.perf_counter()
     with open(f"{d}/z.json") as f:
         rank = json.load(f)
@@ -4039,6 +4062,120 @@ def phase_zero3(prk, smi, ranks):
     out["seconds"] = time.perf_counter() - t0
     log(f"[phase 22] {out['seconds']:.1f} s (the ranks' run after 21c: "
         f"main {out['main']['main']} s)")
+    return out
+
+
+# --- phase 23: tensor parallelism for embeddings input and whisper -------------
+
+# Phase 23's ranks against one process, relative, at steps 1 and 2, by
+# run: about ten times the errors of the first run on the card (qwen2-vl
+# 7.99e-7 and 7.99e-7 for the loss, 2.52e-6 and 1.01e-5 for the grad
+# norm; whisper 8.78e-7 and 3.44e-6, 1.99e-5 and 1.69e-5; deterministic
+# algorithms on; PERF.md section 6).
+TP_INPUTS_RTOL = {"q": {"loss": (8e-6, 8e-6), "grad_norm": (2.5e-5, 1e-4)},
+                  "w": {"loss": (9e-6, 3.5e-5), "grad_norm": (2e-4, 1.7e-4)}}
+
+
+def tp_all_reduces(cfg) -> int:
+    """The all-reduces over "model" of one training step of ``cfg`` on a
+    tensor-parallel mesh whose kv heads split, under ``remat="dots"``:
+    per layer a "g" after each block's wo, an "f" after each norm that
+    feeds a column-parallel matmul, and the attention "g"s the backward
+    recomputes (2 + 2 + 1 in a dense or encoder layer, 3 + 3 + 2 in a
+    decoder layer with cross-attention); the vocabulary-parallel lookup
+    of token ids (one "g"), the encoder output's "f", the final norm's
+    "f", the cross entropy's max, sum and target, and the grad norm."""
+    dec = 8 if cfg.is_encoder_decoder else 5
+    enc = cfg.encoder_layers if cfg.is_encoder_decoder else 0
+    tokens = cfg.input_mode != "embeddings" or cfg.is_encoder_decoder
+    return (dec * cfg.num_layers + 5 * enc + int(tokens)
+            + int(cfg.is_encoder_decoder) + 1 + 3 + 1)
+
+
+def phase_tp_inputs(prk, smi, ranks):
+    """Phase 23 (see the module docstring): the launch's last two runs,
+    tensor parallelism over "model" for qwen2-vl-2b (embeddings input,
+    M-RoPE) and whisper-medium (encoder-decoder), against the single
+    processes :func:`phase_distributed` ran before the go; returns its
+    report."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    d, proc = ranks["d"], ranks["proc"]
+    wait_ranks(proc, d)
+    t_end = time.perf_counter()
+    out = {}
+    for key in ("q", "w"):
+        arch, mp, layers = DIST_CASES[key]
+        cfg = get_config(cut_config(arch, layers))
+        with open(f"{d}/{key}.json") as f:
+            rank = json.load(f)
+        one = ranks["singles"][key]
+        rel = _rel(rank, one)
+        limits = TP_INPUTS_RTOL[key]
+        reduces = [(n, round(gb * 1e3, 1), sec)
+                   for n, gb, sec in _per_step(rank, "all_reduce")]
+        want = tp_all_reduces(cfg)
+        seq = DIST_EXTRA.get(key, ["--seq", "2048"])[1]
+        what = (f"{layers} + {layers} layers, decoder 2 x {seq} over "
+                f"{cfg.encoder_seq} frames" if cfg.is_encoder_decoder
+                else f"{layers} layers, batch 2 x {seq} of embeddings, M-RoPE")
+        out[key] = dict(arch=arch, layers=layers, mesh=rank["mesh"],
+                        losses=rank["losses"], grad_norms=rank["grad_norms"],
+                        single_losses=one["losses"],
+                        single_grad_norms=one["grad_norms"], rel_err=rel,
+                        limits=limits, step_ms=_steps(rank),
+                        single_step_ms=_steps(one), peak_bytes=rank["peak_bytes"],
+                        single_peak_bytes=one["peak_bytes"],
+                        init_peak_bytes=rank["init_peak_bytes"],
+                        state_bytes=rank["state_bytes"],
+                        single_state_bytes=one["state_bytes"],
+                        all_reduce_calls_mb_s=reduces, all_reduces_predicted=want,
+                        collectives=rank["collectives"], main=_phases(rank),
+                        single_main=_phases(one))
+        log(f"[phase 23{key}] {arch} at full width, {what}: two ranks on cuda:0 "
+            f"over gloo, a (1, {mp}) tensor-parallel mesh: losses "
+            f"{[round(x, 6) for _, x in rank['losses']]} vs "
+            f"{[round(x, 6) for _, x in one['losses']]} (rel by step "
+            f"{[f'{e:.2e}' for e in rel['loss']]}), grad norms "
+            f"{[round(x, 6) for _, x in rank['grad_norms']]} vs "
+            f"{[round(x, 6) for _, x in one['grad_norms']]} (rel "
+            f"{[f'{e:.2e}' for e in rel['grad_norm']]}; limits {limits}); step "
+            f"ms {_steps(rank)} vs {_steps(one)} alone; rank 0's all-reduces "
+            f"(calls, MB, s) a step {reduces} (predicted {want} calls; "
+            f"host-staged: no interconnect measured); peak per rank "
+            f"{_gb(rank['peak_bytes'])} GB vs {_gb(one['peak_bytes'])} GB alone "
+            f"(state {_gb(rank['state_bytes'])} vs {_gb(one['state_bytes'])}); "
+            f"main {_phases(rank)}; on {smi}")
+        ok = (rank["mesh"] == {"data": 1, "model": mp} and rank["backend"] == "gloo"
+              and len(rank["losses"]) == len(one["losses"]) == 2
+              and all(e <= lim for k in rel for e, lim in zip(rel[k], limits[k]))
+              and all(math.isfinite(x) for _, x in rank["losses"]
+                      + rank["grad_norms"]))
+        if not ok:
+            fail(f"phase 23{key}: {rank['mesh']} ({rank['backend']}) against the "
+                 f"single process: relative {rel} (limits by step {limits}); "
+                 f"losses {rank['losses']} / {one['losses']}, grad norms "
+                 f"{rank['grad_norms']} / {one['grad_norms']}")
+        counts = [step.get("all_reduce[model]", {}).get("calls", 0)
+                  for step in rank["collectives"]]
+        if counts != [want] * 2:
+            fail(f"phase 23{key}: all-reduces over 'model' a step {counts}, "
+                 f"not the {want} of the tensor-parallel brackets")
+        if not all(p < one["peak_bytes"][0] for p in rank["peak_bytes"]):
+            fail(f"phase 23{key}: a rank's step peak {rank['peak_bytes']} is not "
+                 f"below the single process's {one['peak_bytes']}")
+        for r in (rank, one):
+            if r["launches"] or r["plain_calls"]:
+                fail(f"phase 23{key}: the trainer launched {r['launches']}, "
+                     f"plain calls {r['plain_calls']}")
+    if sum(prk.LAUNCHES.values()) or sum(prk.PLAIN_CALLS.values()):
+        fail(f"phase 23 launched {dict(prk.LAUNCHES)}, plain calls "
+             f"{dict(prk.PLAIN_CALLS)}")
+    out["after_z_s"] = t_end - t0
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 23] {out['seconds']:.1f} s (the ranks' runs after 22: main "
+        f"{[out[k]['main']['main'] for k in ('q', 'w')]} s)")
     return out
 
 
@@ -4222,7 +4359,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as d21:
         # phase 21's two ranks start Python, torch and their CUDA contexts
         # while phase 20 runs, then wait
-        ranks = start_distributed(args.seed, d21)  # 21b, 21c and 22
+        ranks = start_distributed(args.seed, d21)  # 21b, 21c, 22 and 23
         try:
             # phase 20: the mesh rules and the dry run
             mesh_dryrun = phase_mesh_and_dryrun(prk, args.seed, smi)
@@ -4233,6 +4370,9 @@ def main(argv=None) -> int:
             # phase 22: ZeRO-3 across processes
             zero3 = phase_zero3(prk, smi, ranks)
             clock("phase 22")
+            # phase 23: tensor parallelism for embeddings input and whisper
+            tp_inputs = phase_tp_inputs(prk, smi, ranks)
+            clock("phase 23")
         finally:
             stop_ranks(ranks["proc"])
     for k in kernels:
@@ -4253,6 +4393,7 @@ def main(argv=None) -> int:
     log(json.dumps({"mesh_and_dryrun": mesh_dryrun}))
     log(json.dumps({"distributed": distributed}))
     log(json.dumps({"zero3": zero3}))
+    log(json.dumps({"tp_inputs": tp_inputs}))
     log(json.dumps({"kernels": kernels + knn_kernels + family_kernels
                     + shard_kernels}))
     log(smi)

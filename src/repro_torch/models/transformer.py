@@ -299,8 +299,12 @@ def _shard_plan(cfg: ModelConfig, shardings: Dict, shapes: Dict[str, Tuple[int, 
     cuts, the ``parallel.distributed.ShardLayout`` and the
     ``TensorParallel`` (None without a ``"model"`` axis > 1).  The data
     axis may cut any family (ZeRO-3, ``parallel.zero3``); a ``"model"``
-    axis > 1 raises for anything but a dense token-input decoder (ROADMAP
-    item 14b.2), and a ``"pod"`` axis > 1 raises (14b.4)."""
+    axis > 1 raises for any layer kind but the dense decoder's and
+    whisper's encoder's and decoder's (ROADMAP items 14b.2b and 14b.2c),
+    and a ``"pod"`` axis > 1 raises (14b.4).  Under tensor parallelism
+    every block the model runs must be split over ``"model"``: a spec
+    that left the encoder or the cross-attention whole would run each
+    rank's part at full heads."""
     from repro_torch.launch import shardspecs as SS
 
     mesh = next(iter(shardings.values())).mesh
@@ -309,16 +313,16 @@ def _shard_plan(cfg: ModelConfig, shardings: Dict, shapes: Dict[str, Tuple[int, 
     mp = mesh.shape.get("model", 1)
     tp, split, partial = None, (), ()
     if mp > 1:
-        if cfg.is_encoder_decoder or cfg.input_mode == "embeddings":
-            raise NotImplementedError(
-                TP.unsupported_kind("enc") if cfg.is_encoder_decoder
-                else TP.EMBEDDINGS_ITEM)
         for kind in cfg.layer_kinds():
-            if kind != "dense":
+            if kind not in TP.TP_KINDS:
                 raise NotImplementedError(TP.unsupported_kind(kind))
-        for name, dim in (("embed.embedding", 0), ("layers.0.attn.wq", 1),
-                          ("layers.0.attn.wo", 0), ("layers.0.mlp.wi", 1),
-                          ("layers.0.mlp.wo", 0)):
+        must = [("embed.embedding", 0), ("layers.0.attn.wq", 1),
+                ("layers.0.attn.wo", 0), ("layers.0.mlp.wi", 1),
+                ("layers.0.mlp.wo", 0)]
+        if cfg.is_encoder_decoder:
+            must += [("encoder.0.attn.wq", 1), ("encoder.0.mlp.wi", 1),
+                     ("layers.0.cross.wq", 1)]
+        for name, dim in must:
             if tuple(specs[name])[dim] != "model":
                 raise ValueError(
                     f"{cfg.name}: {name} is not split over a 'model' axis "
@@ -445,9 +449,10 @@ def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
                       return_cache: bool, enc_out=None, mrope_positions=None,
                       tp=None):
     """An attention layer over the full sequence.  Under tensor
-    parallelism (``tp``, a dense layer's shard) Megatron's operators
-    bracket each block: ``copy_to_model`` after its norm,
-    ``reduce_from_model`` after its ``wo``."""
+    parallelism (``tp``, a dense, enc or dec layer's shard) Megatron's
+    operators bracket each block, the decoder's cross-attention too:
+    ``copy_to_model`` after its norm, ``reduce_from_model`` after its
+    ``wo``."""
     h = rms_norm(x, params["pre_norm"], cfg.norm_eps)
     if tp is not None:
         h = TP.copy_to_model(h, tp)
@@ -479,10 +484,16 @@ def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
     x = x + out
     if kind == "dec":
         h = rms_norm(x, params["cross_norm"], cfg.norm_eps)
+        if tp is not None:
+            h = TP.copy_to_model(h, tp)
         enc_kv = attn.encode_cross_kv(params["cross"], enc_out)
-        x = x + attn.cross_attention(params["cross"], h, enc_kv,
-                                     num_heads=cfg.num_heads, q_chunk=cfg.q_chunk,
-                                     scores_dtype=cfg.attn_scores_dtype)
+        out = attn.cross_attention(
+            params["cross"], h, enc_kv,
+            num_heads=cfg.num_heads if tp is None else tp.num_heads,
+            q_chunk=cfg.q_chunk, scores_dtype=cfg.attn_scores_dtype)
+        if tp is not None:
+            out = TP.reduce_from_model(out, tp)
+        x = x + out
     h = rms_norm(x, params["mlp_norm"], cfg.norm_eps)
     if tp is not None:
         h = TP.copy_to_model(h, tp)
@@ -502,8 +513,10 @@ def layer_train(params, x, positions, cfg: ModelConfig, kind: str = "dense",
     ``return_cache`` the layer's decode cache for the sequence, else None.
     Differentiable in every input and parameter (the decode caches are
     built from the forward's values, not written in place).  ``tp``: a
-    dense layer's tensor-parallel shard (``parallel.tensor_parallel``)."""
-    if tp is not None and kind != "dense":
+    dense, enc or dec layer's tensor-parallel shard
+    (``parallel.tensor_parallel``); a dec layer's ``enc_out`` has passed
+    ``copy_to_model`` already (:func:`forward_train`)."""
+    if tp is not None and kind not in TP.TP_KINDS:
         raise NotImplementedError(TP.unsupported_kind(kind))
     if kind == "ssm":
         h = rms_norm(x, params["pre_norm"], cfg.norm_eps)
@@ -683,9 +696,11 @@ def _regathering(zero3):
 
 def _embed_in(params, cfg: ModelConfig, tokens_or_embeds: torch.Tensor, positions,
               tp=None, zero3=None):
+    """The decoder's input: token ids looked up in the table (vocabulary-
+    parallel under ``tp``), or float embeddings taken as they are (a
+    stubbed frontend's; under ``tp`` each rank's replicated copy: no
+    collective, and the table is not read, so its gradient is zeros)."""
     if tokens_or_embeds.is_floating_point():
-        if tp is not None:
-            raise NotImplementedError(TP.EMBEDDINGS_ITEM)
         x = tokens_or_embeds  # stubbed modality frontend output
     else:
         with _regathering(zero3):
@@ -735,20 +750,26 @@ def _stack_layer(cfg: ModelConfig, stack: str, zero3=None):
     return lambda i, params, *args, **kw: run(f"{stack}.{i}.", params, *args, **kw)
 
 
-def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor, zero3=None):
+def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor, zero3=None,
+            tp=None):
     """Whisper's encoder: the bidirectional ``enc`` layers over the frame
-    embeddings plus sinusoidal positions, then ``enc_final_norm``."""
+    embeddings plus sinusoidal positions, then ``enc_final_norm``
+    (replicated).  Under ``tp`` each layer is split as the decoder's;
+    the output is then ``copy_to_model``'s: every decoder layer's
+    column-parallel cross wk/wv reads it, so its gradient, summed over
+    the decoder layers, is all-reduced over ``"model"`` once."""
     s = enc_embeds.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=enc_embeds.device)
     x = enc_embeds.to(_compute_dtype(cfg))
     x = x + _sinusoid(positions, cfg.d_model)[None].to(x.dtype)
     layer = _stack_layer(cfg, "encoder", zero3)
     for i, layer_params in enumerate(params["encoder"]):
-        h, _ = layer(i, layer_params, x, positions, cfg, "enc")
+        h, _ = layer(i, layer_params, x, positions, cfg, "enc", tp=tp)
         x = h.to(x.dtype)
     with _regathering(zero3):
-        return rms_norm(x, _take(zero3, params["enc_final_norm"], "enc_final_norm"),
-                        cfg.norm_eps)
+        x = rms_norm(x, _take(zero3, params["enc_final_norm"], "enc_final_norm"),
+                     cfg.norm_eps)
+    return x if tp is None else TP.copy_to_model(x, tp)
 
 
 def _forward(params, cfg: ModelConfig, tokens_or_embeds, positions, *,
@@ -791,8 +812,8 @@ def forward_train(model: Transformer, tokens_or_embeds: torch.Tensor, *,
     params = model.params()
     if zero3 is None:
         params = _cast_params(params, cfg)
-    enc_out = (_encode(params, cfg, enc_embeds, zero3) if cfg.is_encoder_decoder
-               else None)
+    enc_out = (_encode(params, cfg, enc_embeds, zero3, model.tp)
+               if cfg.is_encoder_decoder else None)
     x, _ = _forward(params, cfg, tokens_or_embeds, positions, enc_out=enc_out,
                     mrope_positions=mrope_positions, tp=model.tp, zero3=zero3)
     return _unembed(params, cfg, x, model.tp, zero3)

@@ -8,7 +8,9 @@ out as Megatron-LM's operators (Shoeybi et al., 2019), each a
 
   * :func:`copy_to_model` ("f"): identity forward, all-reduce of the
     gradient backward.  It sits after each norm whose output feeds a
-    column-parallel matmul (wq/wk/wv, wi/wg, the unembedding).
+    column-parallel matmul (wq/wk/wv, wi/wg, a cross-attention's wq, the
+    unembedding), and once on an encoder-decoder's encoder output, which
+    feeds every decoder layer's column-parallel cross wk/wv.
   * :func:`reduce_from_model` ("g"): all-reduce forward, identity
     backward, after each row-parallel matmul (attention's and the MLP's
     ``wo``).
@@ -37,7 +39,7 @@ from repro_torch.parallel import distributed as D
 __all__ = [
     "TensorParallel",
     "unsupported_kind",
-    "EMBEDDINGS_ITEM",
+    "TP_KINDS",
     "copy_to_model",
     "reduce_from_model",
     "vocab_parallel_embed",
@@ -45,29 +47,35 @@ __all__ = [
 ]
 
 
-# what each missing tensor-parallel case waits for (ROADMAP item 14b.2)
-EMBEDDINGS_ITEM = ("tensor parallelism over embeddings input (M-RoPE, a stubbed "
-                   "frontend) is ROADMAP item 14b.2")
-_KIND_ITEMS = {"moe": "MoE (experts over \"model\")", "mla": "MLA",
-               "ssm": "the Mamba-2 SSD block", "rglru": "RG-LRU",
-               "local_attn": "local attention", "enc": "whisper's encoder",
-               "dec": "whisper's decoder"}
+# what each missing tensor-parallel case waits for (ROADMAP items 14b.2b and
+# 14b.2c)
+_KIND_ITEMS = {"moe": ("MoE (experts over \"model\")", "14b.2b"),
+               "mla": ("MLA", "14b.2b"),
+               "ssm": ("the Mamba-2 SSD block", "14b.2c"),
+               "rglru": ("RG-LRU", "14b.2c"),
+               "local_attn": ("local attention", "14b.2c")}
+# the layer kinds with a tensor-parallel path: the dense decoder layer and
+# whisper's encoder and decoder layers (the same blocks, split the same way)
+TP_KINDS = frozenset({"dense", "enc", "dec"})
 
 
 def unsupported_kind(kind: str) -> str:
     """Why a layer of ``kind`` has no tensor-parallel path yet."""
-    what = next((v for k, v in _KIND_ITEMS.items() if kind.startswith(k)
-                 or kind.endswith(k)), kind)
+    what, item = next((v for k, v in _KIND_ITEMS.items() if kind.startswith(k)
+                       or kind.endswith(k)), (kind, "14b.2"))
     return (f"tensor parallelism for {kind} layers ({what}) is ROADMAP item "
-            "14b.2; the dense layer is the one with a tensor-parallel path")
+            f"{item}; the dense, enc and dec layers have a tensor-parallel path")
 
 
 class TensorParallel:
     """The calling rank's part of the ``"model"`` axis of ``mesh`` for a
-    dense model of ``cfg`` (global sizes): ``num_heads`` query heads from
+    model of ``cfg`` (global sizes): ``num_heads`` query heads from
     head ``rank * num_heads``, ``num_kv_heads`` kv heads (all of them
     where they do not divide the group, ``kv_sharded`` False) and
-    ``vocab_size`` rows of the (padded) vocabulary from ``vocab_start``."""
+    ``vocab_size`` rows of the (padded) vocabulary from ``vocab_start``.
+    A cross-attention's kv heads are its query heads
+    (``attention.cross_attn_defs``), so they split with them: its local
+    heads are ``num_heads``."""
 
     def __init__(self, mesh, cfg, *, kv_sharded: bool):
         self.mesh = mesh

@@ -1659,6 +1659,35 @@ def test_two_gloo_ranks_on_one_card_match_the_cpu(cuda_device, tmp_path):
                                        err_msg=f"{key} {name}")
 
 
+def test_two_gloo_ranks_on_one_card_tp_inputs_match_the_cpu(cuda_device, tmp_path):
+    """Tensor parallelism for an encoder-decoder with two ranks sharing the
+    card over gloo: whisper-medium-smoke at f32 on a (1, 2) mesh (the
+    encoder's layers, the decoder's self- and cross-attention and the
+    MLPs split by heads and d_ff, the encoder output's gradient summed
+    over "model" once), agrees with the same ranks on the CPU: losses and
+    grad norms within rtol 1e-5, the parameters within rtol 1e-5 / atol
+    1e-6 where no step's gradient fell below 1e-6, and the same
+    collectives a step."""
+    import torch_dist_parity as P
+
+    cases = {"whisper": P.case("whisper-medium-smoke", "tp2")}
+    cpu = P.spawn(2, P.port_cases, {k: (c, None) for k, c in cases.items()},
+                  str(tmp_path))
+    card = P.spawn(2, P.port_cases, {k: (dict(c, device="cuda:0"), None)
+                                     for k, c in cases.items()}, str(tmp_path))
+    got, want = card["whisper"], cpu["whisper"]
+    assert not got["bad_shapes"] and got["split"] == want["split"]
+    assert {"encoder.0.attn.wq", "layers.0.cross.wk"} <= set(got["split"])
+    assert got["collectives"] == want["collectives"]
+    for name in ("losses", "grad_norms"):
+        np.testing.assert_allclose(got[name], want[name], rtol=P.F32_RTOL,
+                                   err_msg=name)
+    for name, p in got["final"].items():
+        keep = ~(want["small"][name] | got["small"][name])
+        np.testing.assert_allclose(p[keep], want["final"][name][keep],
+                                   rtol=P.F32_RTOL, atol=P.F32_ATOL, err_msg=name)
+
+
 def test_two_gloo_ranks_on_one_card_zero3_match_the_cpu(cuda_device, tmp_path):
     """ZeRO-3 with two ranks sharing the card over gloo: granite-20b-smoke
     with ``fsdp_params`` at f32 on a (2, 1) mesh, each layer's parameters

@@ -33,26 +33,11 @@ ARGS = ["--arch", ARCH, "--seq", "32", "--global-batch", "4", "--lr", "3e-3",
         "--log-every", "1", "--device", "cpu"]
 
 
-def _numpy(state):
-    """A trainer state's parameters and moments whole, on rank 0 (numpy)."""
-    from repro_torch.parallel import distributed as D
-
-    layout = state.params.layout
-    out = {}
-    for prefix, tensors in (("p", dict(state.params.named_parameters())),
-                            ("m", state.opt_state.m), ("v", state.opt_state.v)):
-        for name, t in tensors.items():
-            t = t.detach()
-            if layout is not None:
-                t = D.gather_full(t, layout.specs[name], layout.mesh)
-            out[f"{prefix}:{name}"] = t.numpy().copy()
-    return out
-
-
 def _run(argv):
     out = train.main(ARGS + argv)
     return dict(losses=out["losses"], grad_norms=out["grad_norms"],
-                mesh=tuple(out["mesh"].shape.values()), state=_numpy(out["state"]),
+                mesh=tuple(out["mesh"].shape.values()),
+                state=P.state_numpy(out["state"]),
                 step=int(out["state"].step), start=out["start"])
 
 
@@ -102,7 +87,7 @@ def _meshes(rank, root):
         like = place(M.init_train_state(torch.Generator().manual_seed(9), cfg,
                                         device="cpu"), sh)
         restored, at = restore_checkpoint(c_dir, like, shardings=sh)
-    restored_c = dict(at=at, state=_numpy(restored), step=int(restored.step))
+    restored_c = dict(at=at, state=P.state_numpy(restored), step=int(restored.step))
     c = _run(flags + ["--model-parallel", "1", "--ckpt-dir", c_dir])
     return dict(a=a, b=b, c=c, restored_c=restored_c)
 
@@ -121,52 +106,18 @@ def test_checkpoints_resume_across_meshes(tmp_path):
     # on the other mesh (bf16 compute: check_bf16_step's tolerance)
     restored = out["restored_c"]
     assert restored["at"] == 2 and restored["step"] == 2
-    with np.load(os.path.join(root, "a", "step_00000002", "arrays.npz")) as f:
-        saved = {k: f[k] for k in f.files}
-    want = _by_port_name(saved)
+    want = P.saved_state(os.path.join(root, "a"), 2, ARCH)
     assert want.keys() == restored["state"].keys()
     for k, v in want.items():
         assert np.array_equal(restored["state"][k], v), k
     np.testing.assert_allclose([x for _, x in c["losses"]],
                                [x for _, x in a["losses"][2:]], rtol=P.BF16_RTOL)
     # the reference reads the (2, 2) run's last checkpoint as its state
-    cfg = ref_configs.get_config(ARCH)
-    like = jax.eval_shape(lambda: ref_model.init_train_state(
-        jax.random.PRNGKey(0), cfg))
-    ref_state, at = ref_ck.restore_checkpoint(os.path.join(root, "a"), like)
-    assert at == 3 and int(ref_state.step) == 3
-    from repro_torch.models import params
-    from repro_torch.configs import get_config
-
-    pcfg = get_config(ARCH)
-    got = {}
-    for prefix, tree in (("p", ref_state.params), ("m", ref_state.opt_state.m),
-                         ("v", ref_state.opt_state.v)):
-        for name, t in params.from_reference(
-                jax.tree.map(np.asarray, tree), pcfg).items():
-            got[f"{prefix}:{name}"] = t.numpy()
+    at, got = P.reference_checkpoint(os.path.join(root, "a"), ARCH)
+    assert at == 3
     assert got.keys() == a["state"].keys()
     for k, v in a["state"].items():
         assert np.array_equal(got[k], v), k
-
-
-def _by_port_name(arrays, arch=ARCH):
-    """A checkpoint's arrays (the reference's paths) by ``_numpy``'s keys."""
-    from repro_torch.checkpoint.checkpoint import _reference_paths
-    from repro_torch.configs import get_config
-    from repro_torch.models import transformer as tfm
-
-    cfg = get_config(arch)
-    names = list(tfm.model_axes(cfg))
-    paths = _reference_paths(names, cfg)
-    out = {}
-    for prefix, tag in ((".params", "p"), (".opt_state/.m", "m"),
-                        (".opt_state/.v", "v")):
-        for name in names:
-            path, j = paths[name]
-            arr = arrays[f"{prefix}/{path}"]
-            out[f"{tag}:{name}"] = arr if j is None else arr[j]
-    return out
 
 
 def test_torchrun_runs_the_trainer(tmp_path):
@@ -225,9 +176,13 @@ def _refusals(rank, payload):
     out = {}
     tp = D.init_process_mesh(2, device="cpu")
     for arch in ("granite-moe-3b-a800m-smoke", "deepseek-v2-236b-smoke",
-                 "mamba2-2.7b-smoke", "recurrentgemma-9b-smoke",
-                 "whisper-medium-smoke", "qwen2-vl-2b-smoke"):
+                 "mamba2-2.7b-smoke", "recurrentgemma-9b-smoke"):
         out[arch] = attempt(lambda: init(get_config(arch), tp))
+        out[f"{arch}+fsdp"] = attempt(lambda: init(dataclasses.replace(
+            get_config(arch), fsdp_params=True), tp))
+    # the dense layer's other inputs have a path (item 14b.2a): they place
+    for arch in ("whisper-medium-smoke", "qwen2-vl-2b-smoke"):
+        out[arch] = shapes(init(get_config(arch), tp))
     dense = init(get_config("internlm2-1.8b-smoke"), tp)
     tokens = torch.zeros((1, 8), dtype=torch.int64)
     out["prefill"] = attempt(lambda: tfm.forward_prefill(dense.params, tokens))
@@ -240,37 +195,43 @@ def _refusals(rank, payload):
     out["prefill_zero3"] = attempt(lambda: tfm.forward_prefill(zero3.params, tokens))
     out["fsdp_model_only"] = attempt(lambda: init(fsdp, D.init_process_mesh(
         4, device="cpu")))
-    rg = dataclasses.replace(get_config("recurrentgemma-9b-smoke"), fsdp_params=True)
-    out["recurrentgemma_fsdp"] = attempt(lambda: init(rg, tp))
     return out
 
 
 def test_cases_without_a_path_raise(tmp_path):
-    """TP for MoE, MLA, SSD, RG-LRU with local attention, whisper and
-    embeddings input raise naming item 14b on a (2, 2) mesh, with or
-    without ``fsdp_params`` (recurrentgemma-9b with it: ZeRO-3 has a path,
-    its tensor parallelism has none), as do serving a shard (tensor-
-    parallel or ZeRO-3) and re-meshing one; nothing runs whole on one rank
-    instead.  granite-20b with ``fsdp_params`` on (4, 1) places (ZeRO-3:
-    every parameter's embed dim a quarter), and on (1, 4), a data axis of
-    1, places too (the split drops)."""
+    """TP for MoE, MLA, SSD and RG-LRU with local attention raises naming
+    item 14b (14b.2b or 14b.2c) on a (2, 2) mesh, with or without
+    ``fsdp_params`` (ZeRO-3 has a path, their tensor parallelism has
+    none), as do serving a shard (tensor-parallel or ZeRO-3) and
+    re-meshing one; nothing runs whole on one rank instead.  whisper and
+    embeddings input (qwen2-vl) place on (2, 2), their heads halved (their
+    parity is ``test_torch_distributed_tp_inputs.py``'s).  granite-20b
+    with ``fsdp_params`` on (4, 1) places (ZeRO-3: every parameter's
+    embed dim a quarter), and on (1, 4), a data axis of 1, places too
+    (the split drops)."""
     out = P.spawn(4, _refusals, None, str(tmp_path))
-    for key in ("granite-moe-3b-a800m-smoke", "deepseek-v2-236b-smoke",
-                "mamba2-2.7b-smoke", "recurrentgemma-9b-smoke",
-                "whisper-medium-smoke", "qwen2-vl-2b-smoke", "remesh",
-                "prefill", "prefill_zero3", "recurrentgemma_fsdp"):
+    families = ("granite-moe-3b-a800m-smoke", "deepseek-v2-236b-smoke",
+                "mamba2-2.7b-smoke", "recurrentgemma-9b-smoke")
+    for key in (*families, *(f"{a}+fsdp" for a in families), "remesh",
+                "prefill", "prefill_zero3"):
         assert out[key] is not None, key
         kind, msg = out[key]
         assert kind == "NotImplementedError", (key, kind, msg)
         if not key.startswith("prefill"):
             assert "14b" in msg, (key, msg)
-    assert "MoE" in out["granite-moe-3b-a800m-smoke"][1]
-    assert "MLA" in out["deepseek-v2-236b-smoke"][1]
-    assert "SSD" in out["mamba2-2.7b-smoke"][1]
-    assert "RG-LRU" in out["recurrentgemma-9b-smoke"][1]
-    assert "RG-LRU" in out["recurrentgemma_fsdp"][1]
-    assert "whisper" in out["whisper-medium-smoke"][1]
-    assert "embeddings" in out["qwen2-vl-2b-smoke"][1]
+    for arch, what, item in (("granite-moe-3b-a800m-smoke", "MoE", "14b.2b"),
+                             ("deepseek-v2-236b-smoke", "MLA", "14b.2b"),
+                             ("mamba2-2.7b-smoke", "SSD", "14b.2c"),
+                             ("recurrentgemma-9b-smoke", "RG-LRU", "14b.2c")):
+        for key in (arch, f"{arch}+fsdp"):
+            assert what in out[key][1] and item in out[key][1], (key, out[key])
+    whisper, qwen = out["whisper-medium-smoke"], out["qwen2-vl-2b-smoke"]
+    assert whisper["encoder.0.attn.wq"] == (64, 2, 16)
+    assert whisper["layers.1.cross.wk"] == (64, 2, 16)
+    assert whisper["encoder.1.mlp.wi"] == (64, 64)
+    assert whisper["enc_final_norm"] == (64,)
+    assert qwen["layers.0.attn.wk"] == (64, 1, 16)
+    assert qwen["embed.embedding"] == (128, 64)
     assert "ZeRO-3" in out["prefill_zero3"][1]
     mesh, shapes = out["fsdp"]
     assert mesh == (4, 1)
@@ -325,13 +286,13 @@ def _zero3_meshes(rank, root):
                                       shardings=sh)
             state, at = restore_checkpoint(directory, like, step=1, shardings=sh)
         layout = state.params.layout
-        return dict(at=at, state=_numpy(state), mesh=tuple(pm.shape.values()),
+        return dict(at=at, state=P.state_numpy(state), mesh=tuple(pm.shape.values()),
                     data_split=len(layout.data_split))
 
     from_single = restored(os.path.join(root, "single"), 1)
     a = train.main(ZERO3_ARGS + ["--ckpt-dir", a_dir])
     a = dict(losses=a["losses"], grad_norms=a["grad_norms"],
-             mesh=tuple(a["mesh"].shape.values()), state=_numpy(a["state"]),
+             mesh=tuple(a["mesh"].shape.values()), state=P.state_numpy(a["state"]),
              data_split=len(a["state"].params.layout.data_split))
     if rank == 0:
         for d in (b_dir, c_dir):
@@ -346,8 +307,7 @@ def _zero3_meshes(rank, root):
 
 
 def _saved(directory, step):
-    with np.load(os.path.join(directory, f"step_{step:08d}", "arrays.npz")) as f:
-        return _by_port_name({k: f[k] for k in f.files}, ZERO3_ARCH)
+    return P.saved_state(directory, step, ZERO3_ARCH)
 
 
 def _reference_step(directory, step):
@@ -406,7 +366,7 @@ def test_zero3_checkpoints_cross_meshes_and_the_single_process(tmp_path, monkeyp
     cfg = get_config(ZERO3_ARCH)
     like = M.init_train_state(torch.Generator().manual_seed(9), cfg, device="cpu")
     state, at = restore_checkpoint(os.path.join(root, "c"), like)
-    here = _numpy(state)
+    here = P.state_numpy(state)
     for k, v in _saved(os.path.join(root, "c"), 1).items():
         assert np.array_equal(here[k], v), k
     c = train.main(ZERO3_ARGS + ["--ckpt-dir", os.path.join(root, "c")])

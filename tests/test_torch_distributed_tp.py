@@ -9,8 +9,10 @@ summed over "model"), granite-20b on (1, 2) (its single kv head), all at
 f32 (losses and grad norms rtol 1e-5, parameters rtol 1e-5 / atol 1e-6),
 and internlm2 as shipped (bf16 compute) on (2, 2) at the bf16
 tolerance.  Each rank holds its shard of every parameter and AdamW
-moment at the shape the sanitized spec gives.  (The cases without a
-tensor-parallel path raise: ``test_torch_distributed_ckpt.py``.)
+moment at the shape the sanitized spec gives.  (Embeddings input and
+whisper's encoder-decoder are ``test_torch_distributed_tp_inputs.py``'s;
+the layer kinds without a tensor-parallel path raise:
+``test_torch_distributed_ckpt.py``.)
 """
 import pytest
 

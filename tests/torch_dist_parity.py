@@ -376,3 +376,70 @@ def check(key, c, got, want, witness=None):
     print(f"{key}: {left_out} of {total} entries with 0 < |grad| < "
           f"{GRAD_FLOOR} at some step left out; held to the witness: {held}")
     return held
+
+
+# -- trainer states and checkpoints ------------------------------------------------
+
+
+def state_numpy(state):
+    """A trainer state's parameters and moments whole (numpy, the shards
+    gathered on a process mesh), keyed ``p:``/``m:``/``v:`` + name."""
+    from repro_torch.parallel import distributed as D
+
+    layout = state.params.layout
+    out = {}
+    for prefix, tensors in (("p", dict(state.params.named_parameters())),
+                            ("m", state.opt_state.m), ("v", state.opt_state.v)):
+        for name, t in tensors.items():
+            t = t.detach()
+            if layout is not None:
+                t = D.gather_full(t, layout.specs[name], layout.mesh)
+            out[f"{prefix}:{name}"] = t.numpy().copy()
+    return out
+
+
+def saved_state(directory, step, arch):
+    """The arrays of ``arch``'s checkpoint of ``step`` in ``directory``
+    (the reference's paths) by :func:`state_numpy`'s keys."""
+    from repro_torch.checkpoint.checkpoint import _reference_paths
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+
+    with np.load(os.path.join(directory, f"step_{step:08d}", "arrays.npz")) as f:
+        arrays = {k: f[k] for k in f.files}
+    cfg = get_config(arch)
+    names = list(tfm.model_axes(cfg))
+    paths = _reference_paths(names, cfg)
+    out = {}
+    for prefix, tag in ((".params", "p"), (".opt_state/.m", "m"),
+                        (".opt_state/.v", "v")):
+        for name in names:
+            path, j = paths[name]
+            arr = arrays[f"{prefix}/{path}"]
+            out[f"{tag}:{name}"] = arr if j is None else arr[j]
+    return out
+
+
+def reference_checkpoint(directory, arch):
+    """The reference's ``restore_checkpoint`` of the last checkpoint in
+    ``directory`` (``arch``'s state): its step and its arrays by
+    :func:`state_numpy`'s keys."""
+    import jax
+
+    import repro.configs as rc
+    from repro.checkpoint import checkpoint as ref_ck
+    from repro.models import model as ref_model
+    from repro_torch.configs import get_config
+    from repro_torch.models import params
+
+    like = jax.eval_shape(lambda: ref_model.init_train_state(
+        jax.random.PRNGKey(0), rc.get_config(arch)))
+    state, at = ref_ck.restore_checkpoint(directory, like)
+    assert int(state.step) == at
+    out = {}
+    for prefix, tree in (("p", state.params), ("m", state.opt_state.m),
+                         ("v", state.opt_state.v)):
+        for name, t in params.from_reference(jax.tree.map(np.asarray, tree),
+                                             get_config(arch)).items():
+            out[f"{prefix}:{name}"] = t.numpy()
+    return at, out
