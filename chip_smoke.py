@@ -228,7 +228,7 @@ run in order and the first failure exits non-zero:
      or plain version runs.  recurrentgemma-9b and deepseek-v2-236b are
      held to the reference on the CPU only;
  23. tensor parallelism for the dense layer's other inputs, the same
-     launch's last two runs, two ranks sharing ``cuda:0`` over gloo on a
+     launch's next two runs, two ranks sharing ``cuda:0`` over gloo on a
      (1, 2) mesh, batch 2, 2 steps, each against its single process (run
      before the go): (q) qwen2-vl-2b at full width cut to 4 of its 28
      layers, 2,048 positions of float patch embeddings with M-RoPE (its
@@ -239,7 +239,21 @@ run in order and the first failure exits non-zero:
      all-reduces over "model" a step exactly those of the brackets
      (``tp_all_reduces``), with their MB and host seconds; each rank's
      step peak below the single process's; no kernel or plain version
-     runs.
+     runs;
+ 24. tensor parallelism for MoE experts and MLA heads, the launch's runs
+     after 23's, in the same way: (e) granite-moe-3b-a800m at full width
+     (40 experts top-8, 20 a rank) cut to 4 of its 32 layers, batch 2 x
+     2,048, and (m) deepseek-v2-236b at full width (128 MLA heads, 64 a
+     rank) cut to its first layer (dense MLP: its first MoE layer's
+     3.77B parameters, with their moments and gradients, pass what one
+     card holds for two ranks and the single process; its MoE layers are
+     held to the reference on the CPU only): both steps' losses and
+     grad norms within ``TP_MOE_RTOL``; the all-reduces over "model" a
+     step exactly ``tp_all_reduces``'s; each rank's state bytes and step
+     peak below the single process's; and for (e) the (token, choice)
+     pairs of step 1 whose expert (or whose place under the capacity)
+     differs from the single process's routing (at most
+     ``ROUTE_FLIP_LIMIT`` of them), and between the ranks (none may).
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
@@ -254,6 +268,7 @@ as its last line ``{"ok": true, "device": {...}}``.  Data is random from
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -3679,7 +3694,9 @@ def train_ranks(spec_path: str) -> int:
         argv = list(run["argv"])
         at = argv.index("--arch") + 1
         argv[at] = cut_config(argv[at], run["layers"])
-        train.main(argv)
+        with recording_routes(run.get("routes"), argv[at],
+                              int(os.environ["RANK"])):
+            train.main(argv)
         gc.collect()
         torch.cuda.empty_cache()
         if dist.get_rank() == 0:  # its report is written
@@ -3725,7 +3742,7 @@ def stop_ranks(proc) -> None:
 def _ranks_failed(d: str, rc) -> None:
     tails = [pathlib.Path(d, n).read_text()[-4000:] for n in ("ranks.out",
                                                              "ranks.err")]
-    fail(f"torchrun of phases 21b/c and 22 exited with {rc}:\n" + "\n".join(tails))
+    fail(f"torchrun of phases 21b/c to 24 exited with {rc}:\n" + "\n".join(tails))
 
 
 def wait_ranks(proc, d: str, timeout: float = 400) -> None:
@@ -3753,14 +3770,69 @@ def wait_done(proc, d: str, paths, timeout: float = 240) -> None:
         time.sleep(0.05)
 
 
-def single_run(argv, report):
+@contextlib.contextmanager
+def recording_routes(path: Optional[str], arch: str, rank: int = 0):
+    """With ``path``, ``models.moe._route`` recorded in this process while
+    the block trains ``arch``: its first calls, one a MoE layer (the first
+    step's forward), each call's experts (G, g, k) and kept pairs, saved
+    to ``{path}.{rank}.npz`` after."""
+    if path is None:
+        yield
+        return
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    layers = sum(k.endswith("moe") for k in get_config(arch).layer_kinds())
+    inner, calls = moe._route, []
+
+    def route(*args, **kw):
+        out = inner(*args, **kw)
+        if len(calls) < layers:
+            calls.append((out[1].to(torch.int16).cpu().numpy(), out[3].cpu().numpy()))
+        return out
+
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = inner
+    np.savez(f"{path}.{rank}.npz",
+             **{f"experts{i}": e for i, (e, _) in enumerate(calls)},
+             **{f"kept{i}": k for i, (_, k) in enumerate(calls)})
+
+
+def route_differences(path_a: str, path_b: str) -> dict:
+    """The (token, choice) pairs of two :func:`recording_routes` files:
+    in all, whose expert differs, and whose keep under the capacity
+    differs (of those with the same expert)."""
+    import numpy as np
+
+    with np.load(path_a) as a, np.load(path_b) as b:
+        if sorted(a.files) != sorted(b.files):
+            fail(f"routes {path_a} and {path_b} hold other layers: "
+                 f"{a.files} / {b.files}")
+        out = dict(layers=len(a.files) // 2, pairs=0, expert=0, kept=0)
+        for i in range(out["layers"]):
+            ea, eb = a[f"experts{i}"], b[f"experts{i}"]
+            same = ea == eb
+            out["pairs"] += ea.size
+            out["expert"] += int((~same).sum())
+            out["kept"] += int((same & (a[f"kept{i}"] != b[f"kept{i}"])).sum())
+    return out
+
+
+def single_run(argv, report, routes: Optional[str] = None):
     """``launch.train.main(argv)`` in this process (no torchrun: the
     single-process trainer); its report, the deterministic algorithms
-    switched off after."""
+    switched off after; with ``routes``, step 1's MoE routing recorded
+    (:func:`recording_routes`)."""
     from repro_torch.launch import train
 
     try:
-        train.main(argv + ["--report", report])
+        with recording_routes(routes, argv[argv.index("--arch") + 1]):
+            train.main(argv + ["--report", report])
     finally:
         torch.use_deterministic_algorithms(False)
     gc.collect()
@@ -3830,25 +3902,30 @@ def _rel(rank, one):
 DIST_COMMON = ["--seq", "2048", "--log-every", "1", "--lr", "3e-4",
                "--warmup", "1", "--deterministic"]
 # the launch's runs: arch, model-parallel, layers; 21b and 21c, then 22,
-# then 23's two
+# then 23's two, then 24's two
 DIST_CASES = {"b": (DIST_ARCH, 2, None), "c": (DIST_ARCH, 1, DIST_DP_LAYERS),
               "z": ("granite-20b", 1, 2), "q": ("qwen2-vl-2b", 2, 4),
-              "w": ("whisper-medium", 2, 4)}
+              "w": ("whisper-medium", 2, 4), "e": ("granite-moe-3b-a800m", 2, 4),
+              "m": ("deepseek-v2-236b", 2, 1)}
+# the runs whose step-1 MoE routing is recorded (deepseek's first layer
+# is dense)
+ROUTED = ("e",)
 # a run's arguments beyond DIST_COMMON's: whisper's decoder over its text
 # context of 448 tokens (its encoder over the config's 1,500 frames)
 DIST_EXTRA = {"w": ["--seq", "448"]}
 
 
 def start_distributed(seed, d):
-    """Starts the torchrun launch of two ranks for 21b, 21c, 22 and 23,
+    """Starts the torchrun launch of two ranks for 21b, 21c, 22, 23 and 24,
     reporting into ``d``; they wait for :func:`phase_distributed`."""
     common = DIST_COMMON + ["--seed", str(seed)]
     runs = {key: common + ["--arch", arch, "--global-batch", "2", "--steps", "2"]
             + DIST_EXTRA.get(key, []) for key, (arch, _, _) in DIST_CASES.items()}
     spec = dict(go=os.path.join(d, "go"), device="cuda:0", runs=[dict(
-        layers=layers, done=f"{d}/{key}.done", argv=runs[key] + [
-            "--model-parallel", str(mp), "--device", "cuda:0",
-            "--dist-backend", "gloo", "--report", f"{d}/{key}.json"])
+        layers=layers, done=f"{d}/{key}.done",
+        routes=f"{d}/{key}_routes" if key in ROUTED else None,
+        argv=runs[key] + ["--model-parallel", str(mp), "--device", "cuda:0",
+                          "--dist-backend", "gloo", "--report", f"{d}/{key}.json"])
         for key, (_, mp, layers) in DIST_CASES.items()])
     return dict(d=d, go=spec["go"], runs=runs, t_launch=time.perf_counter(),
                 proc=start_ranks(2, spec, d))
@@ -3891,14 +3968,15 @@ def phase_distributed(prk, seed, smi, ranks):
         f"grad norms {[round(x, 4) for _, x in rank['grad_norms']]}); step ms "
         f"{_steps(rank)} vs {_steps(one)}; peak {_gb(rank['peak_bytes'])} vs "
         f"{_gb(one['peak_bytes'])} GB; main {_phases(rank)}; on {smi}")
-    # the single-process references of (b), (c) and phases 22 and 23, two
+    # the single-process references of (b), (c) and phases 22 to 24, two
     # steps each
     singles = ranks["singles"] = {}
     for key, (arch, _, layers) in DIST_CASES.items():
         argv = list(runs[key])
         argv[argv.index("--arch") + 1] = cut_config(arch, layers)
-        singles[key] = single_run(argv + ["--device", "cuda"],
-                                  f"{d}/single_{key}.json")
+        singles[key] = single_run(
+            argv + ["--device", "cuda"], f"{d}/single_{key}.json",
+            f"{d}/single_{key}_routes" if key in ROUTED else None)
     t_go = ranks["t_go"] = time.perf_counter()
     open(ranks["go"], "w").close()
     wait_done(proc, d, [f"{d}/{key}.done" for key in ("b", "c")])
@@ -4079,47 +4157,52 @@ TP_INPUTS_RTOL = {"q": {"loss": (8e-6, 8e-6), "grad_norm": (2.5e-5, 1e-4)},
 def tp_all_reduces(cfg) -> int:
     """The all-reduces over "model" of one training step of ``cfg`` on a
     tensor-parallel mesh whose kv heads split, under ``remat="dots"``:
-    per layer a "g" after each block's wo, an "f" after each norm that
-    feeds a column-parallel matmul, and the attention "g"s the backward
-    recomputes (2 + 2 + 1 in a dense or encoder layer, 3 + 3 + 2 in a
-    decoder layer with cross-attention); the vocabulary-parallel lookup
-    of token ids (one "g"), the encoder output's "f", the final norm's
-    "f", the cross entropy's max, sum and target, and the grad norm."""
+    per layer a "g" after each block's wo (the MoE block's output), an
+    "f" after each norm that feeds a column-parallel matmul, and the
+    attention "g"s the backward recomputes (2 + 2 + 1 in a dense, MoE,
+    MLA or encoder layer, 3 + 3 + 2 in a decoder layer with
+    cross-attention); the vocabulary-parallel lookup of token ids (one
+    "g"), the encoder output's "f", the final norm's "f", the cross
+    entropy's max, sum and target, the grad norm, and one coalesced sum
+    of the partial gradients where a split block holds a whole leaf (the
+    MoE router, MLA's latent projections)."""
     dec = 8 if cfg.is_encoder_decoder else 5
     enc = cfg.encoder_layers if cfg.is_encoder_decoder else 0
     tokens = cfg.input_mode != "embeddings" or cfg.is_encoder_decoder
+    partial = any(k.endswith("moe") or k.startswith("mla")
+                  for k in cfg.layer_kinds())
     return (dec * cfg.num_layers + 5 * enc + int(tokens)
-            + int(cfg.is_encoder_decoder) + 1 + 3 + 1)
+            + int(cfg.is_encoder_decoder) + 1 + 3 + 1 + int(partial))
 
 
-def phase_tp_inputs(prk, smi, ranks):
-    """Phase 23 (see the module docstring): the launch's last two runs,
-    tensor parallelism over "model" for qwen2-vl-2b (embeddings input,
-    M-RoPE) and whisper-medium (encoder-decoder), against the single
-    processes :func:`phase_distributed` ran before the go; returns its
-    report."""
+def _tp_runs(prk, smi, ranks, phase: str, keys, rtol) -> dict:
+    """Phases 23 and 24's runs ``keys`` of the launch (their reports
+    written): each held to its single process within ``rtol`` (by key),
+    its all-reduces over "model" a step to :func:`tp_all_reduces`, its
+    step peak below the single process's; no kernel or plain version
+    runs.  Returns the report by key."""
     from repro_torch.configs import get_config
 
-    t0 = time.perf_counter()
-    d, proc = ranks["d"], ranks["proc"]
-    wait_ranks(proc, d)
-    t_end = time.perf_counter()
-    out = {}
-    for key in ("q", "w"):
+    d, out = ranks["d"], {}
+    for key in keys:
         arch, mp, layers = DIST_CASES[key]
         cfg = get_config(cut_config(arch, layers))
         with open(f"{d}/{key}.json") as f:
             rank = json.load(f)
         one = ranks["singles"][key]
         rel = _rel(rank, one)
-        limits = TP_INPUTS_RTOL[key]
+        limits = rtol[key]
         reduces = [(n, round(gb * 1e3, 1), sec)
                    for n, gb, sec in _per_step(rank, "all_reduce")]
         want = tp_all_reduces(cfg)
         seq = DIST_EXTRA.get(key, ["--seq", "2048"])[1]
-        what = (f"{layers} + {layers} layers, decoder 2 x {seq} over "
-                f"{cfg.encoder_seq} frames" if cfg.is_encoder_decoder
-                else f"{layers} layers, batch 2 x {seq} of embeddings, M-RoPE")
+        if cfg.is_encoder_decoder:
+            what = (f"{layers} + {layers} layers, decoder 2 x {seq} over "
+                    f"{cfg.encoder_seq} frames")
+        elif cfg.input_mode == "embeddings":
+            what = f"{layers} layers, batch 2 x {seq} of embeddings, M-RoPE"
+        else:
+            what = f"{layers} layers {cfg.layer_kinds()}, batch 2 x {seq}"
         out[key] = dict(arch=arch, layers=layers, mesh=rank["mesh"],
                         losses=rank["losses"], grad_norms=rank["grad_norms"],
                         single_losses=one["losses"],
@@ -4133,8 +4216,8 @@ def phase_tp_inputs(prk, smi, ranks):
                         all_reduce_calls_mb_s=reduces, all_reduces_predicted=want,
                         collectives=rank["collectives"], main=_phases(rank),
                         single_main=_phases(one))
-        log(f"[phase 23{key}] {arch} at full width, {what}: two ranks on cuda:0 "
-            f"over gloo, a (1, {mp}) tensor-parallel mesh: losses "
+        log(f"[phase {phase}{key}] {arch} at full width, {what}: two ranks on "
+            f"cuda:0 over gloo, a (1, {mp}) tensor-parallel mesh: losses "
             f"{[round(x, 6) for _, x in rank['losses']]} vs "
             f"{[round(x, 6) for _, x in one['losses']]} (rel by step "
             f"{[f'{e:.2e}' for e in rel['loss']]}), grad norms "
@@ -4153,29 +4236,94 @@ def phase_tp_inputs(prk, smi, ranks):
               and all(math.isfinite(x) for _, x in rank["losses"]
                       + rank["grad_norms"]))
         if not ok:
-            fail(f"phase 23{key}: {rank['mesh']} ({rank['backend']}) against the "
-                 f"single process: relative {rel} (limits by step {limits}); "
+            fail(f"phase {phase}{key}: {rank['mesh']} ({rank['backend']}) against "
+                 f"the single process: relative {rel} (limits by step {limits}); "
                  f"losses {rank['losses']} / {one['losses']}, grad norms "
                  f"{rank['grad_norms']} / {one['grad_norms']}")
         counts = [step.get("all_reduce[model]", {}).get("calls", 0)
                   for step in rank["collectives"]]
         if counts != [want] * 2:
-            fail(f"phase 23{key}: all-reduces over 'model' a step {counts}, "
+            fail(f"phase {phase}{key}: all-reduces over 'model' a step {counts}, "
                  f"not the {want} of the tensor-parallel brackets")
         if not all(p < one["peak_bytes"][0] for p in rank["peak_bytes"]):
-            fail(f"phase 23{key}: a rank's step peak {rank['peak_bytes']} is not "
-                 f"below the single process's {one['peak_bytes']}")
+            fail(f"phase {phase}{key}: a rank's step peak {rank['peak_bytes']} is "
+                 f"not below the single process's {one['peak_bytes']}")
         for r in (rank, one):
             if r["launches"] or r["plain_calls"]:
-                fail(f"phase 23{key}: the trainer launched {r['launches']}, "
+                fail(f"phase {phase}{key}: the trainer launched {r['launches']}, "
                      f"plain calls {r['plain_calls']}")
     if sum(prk.LAUNCHES.values()) or sum(prk.PLAIN_CALLS.values()):
-        fail(f"phase 23 launched {dict(prk.LAUNCHES)}, plain calls "
+        fail(f"phase {phase} launched {dict(prk.LAUNCHES)}, plain calls "
              f"{dict(prk.PLAIN_CALLS)}")
+    return out
+
+
+def phase_tp_inputs(prk, smi, ranks):
+    """Phase 23 (see the module docstring): the launch's runs after 22,
+    tensor parallelism over "model" for qwen2-vl-2b (embeddings input,
+    M-RoPE) and whisper-medium (encoder-decoder), against the single
+    processes :func:`phase_distributed` ran before the go; returns its
+    report."""
+    t0 = time.perf_counter()
+    wait_done(ranks["proc"], ranks["d"], [f"{ranks['d']}/{k}.done" for k in "qw"])
+    t_end = time.perf_counter()
+    out = _tp_runs(prk, smi, ranks, "23", ("q", "w"), TP_INPUTS_RTOL)
     out["after_z_s"] = t_end - t0
     out["seconds"] = time.perf_counter() - t0
     log(f"[phase 23] {out['seconds']:.1f} s (the ranks' runs after 22: main "
         f"{[out[k]['main']['main'] for k in ('q', 'w')]} s)")
+    return out
+
+
+# --- phase 24: tensor parallelism for MoE experts and MLA heads ----------------
+
+# Phase 24's ranks against one process, relative, at steps 1 and 2, by
+# run: about ten times the errors of the first run on the card
+# (granite-moe 5.29e-7 and 7.06e-7 for the loss, 2.13e-6 and 3.40e-6 for
+# the grad norm, with 891 of step 1's 131,072 routing pairs on another
+# expert; deepseek 4.95e-7 and 7.42e-7, 6.21e-6 and 2.38e-6;
+# deterministic algorithms on; PERF.md section 6).
+TP_MOE_RTOL = {"e": {"loss": (5e-6, 7e-6), "grad_norm": (2e-5, 3.5e-5)},
+               "m": {"loss": (5e-6, 7.5e-6), "grad_norm": (6e-5, 2.5e-5)}}
+# the share of step 1's (token, choice) pairs that may take another
+# expert than one process's: about ten times the first run's 0.68%
+ROUTE_FLIP_LIMIT = 0.07
+
+
+def phase_tp_moe(prk, smi, ranks):
+    """Phase 24 (see the module docstring): the launch's last two runs,
+    tensor parallelism over "model" for granite-moe-3b-a800m (experts)
+    and deepseek-v2-236b (MLA heads), against the single processes
+    :func:`phase_distributed` ran before the go, and (e)'s step-1 routing
+    against the single process's; returns its report."""
+    t0 = time.perf_counter()
+    d, proc = ranks["d"], ranks["proc"]
+    wait_ranks(proc, d)
+    t_end = time.perf_counter()
+    out = _tp_runs(prk, smi, ranks, "24", ("e", "m"), TP_MOE_RTOL)
+    for key in ROUTED:
+        one = f"{d}/single_{key}_routes.0.npz"
+        vs_one = route_differences(f"{d}/{key}_routes.0.npz", one)
+        between = route_differences(f"{d}/{key}_routes.0.npz",
+                                    f"{d}/{key}_routes.1.npz")
+        out[key]["routes_vs_single"] = vs_one
+        out[key]["routes_between_ranks"] = between
+        log(f"[phase 24{key}] step 1's routing, {vs_one['layers']} MoE layers, "
+            f"{vs_one['pairs']} (token, choice) pairs: {vs_one['expert']} take "
+            f"another expert than the single process's and {vs_one['kept']} "
+            f"another keep under the capacity (bf16 compute: \"g\" sums the "
+            f"attention output in another order); between the two ranks "
+            f"{between['expert']} and {between['kept']}; on {smi}")
+        if between["expert"] or between["kept"] or not vs_one["pairs"]:
+            fail(f"phase 24{key}: the ranks routed apart ({between}) or no "
+                 f"routing was recorded ({vs_one})")
+        if vs_one["expert"] + vs_one["kept"] > ROUTE_FLIP_LIMIT * vs_one["pairs"]:
+            fail(f"phase 24{key}: {vs_one} of step 1's routing pairs differ "
+                 f"from the single process's, above {ROUTE_FLIP_LIMIT:.0%}")
+    out["after_w_s"] = t_end - t0
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 24] {out['seconds']:.1f} s (the ranks' runs after 23: main "
+        f"{[out[k]['main']['main'] for k in ('e', 'm')]} s)")
     return out
 
 
@@ -4359,7 +4507,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as d21:
         # phase 21's two ranks start Python, torch and their CUDA contexts
         # while phase 20 runs, then wait
-        ranks = start_distributed(args.seed, d21)  # 21b, 21c, 22 and 23
+        ranks = start_distributed(args.seed, d21)  # 21b, 21c, 22, 23 and 24
         try:
             # phase 20: the mesh rules and the dry run
             mesh_dryrun = phase_mesh_and_dryrun(prk, args.seed, smi)
@@ -4373,6 +4521,9 @@ def main(argv=None) -> int:
             # phase 23: tensor parallelism for embeddings input and whisper
             tp_inputs = phase_tp_inputs(prk, smi, ranks)
             clock("phase 23")
+            # phase 24: tensor parallelism for MoE experts and MLA heads
+            tp_moe = phase_tp_moe(prk, smi, ranks)
+            clock("phase 24")
         finally:
             stop_ranks(ranks["proc"])
     for k in kernels:
@@ -4394,6 +4545,7 @@ def main(argv=None) -> int:
     log(json.dumps({"distributed": distributed}))
     log(json.dumps({"zero3": zero3}))
     log(json.dumps({"tp_inputs": tp_inputs}))
+    log(json.dumps({"tp_moe": tp_moe}))
     log(json.dumps({"kernels": kernels + knn_kernels + family_kernels
                     + shard_kernels}))
     log(smi)

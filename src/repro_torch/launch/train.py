@@ -26,8 +26,9 @@ ranks out as a ("data", "model") mesh, every rank draws the state from
 shardings=)``: each leaf whole in turn, its shard kept; the values of
 placing the whole draw), takes its rows of each global batch
 (``distributed.local_batch``) and steps; the gradients are reduced over
-the mesh, tensor parallelism (Megatron's, over "model") runs for the
-dense token-input archs, and the ``fsdp_params`` archs' parameters are
+the mesh, tensor parallelism (Megatron's, over "model") runs for every
+layer kind but the SSD, RG-LRU and local-attention ones (MoE splits its
+experts, MLA its heads), and the ``fsdp_params`` archs' parameters are
 split over the data axis too (ZeRO-3, ``parallel.zero3``: gathered a
 layer at a time, their gradients reduce-scattered).  The default device
 is ``cuda:{LOCAL_RANK}`` (it must exist); ``--dist-backend gloo`` lets

@@ -22,6 +22,14 @@ gradient of a token is the sum of its k slots' gradients, gathered
 (:class:`_Dispatch`), and the gradient of an expert output row is its one
 pair's, scattered to a unique destination (:class:`_Combine`); autograd's
 own backward of a gather would add them with atomics.
+
+Under tensor parallelism (``parallel.tensor_parallel``) ``params`` holds
+one rank's experts, ``first_expert`` on: every rank routes every token
+(the router is whole), so the top-k, the queue places and the drops are
+the whole layer's, and a rank dispatches only the pairs of its experts
+(the others go to the discarded column and weigh 0).  Its output, and
+its part of the shared experts' (split over ``"ffn"`` as the dense
+MLP), is a partial sum the caller completes over ``"model"``.
 """
 from __future__ import annotations
 
@@ -152,9 +160,12 @@ def moe_apply(
     routing: str = "exact",          # "exact" | "approx"
     recall_target: float = 0.95,
     router_scale: Optional[float] = None,
+    first_expert: int = 0,
 ) -> torch.Tensor:
     """Grouped-capacity MoE forward: tokens reshaped to (G, g), each group
-    dispatched to (E, cap) slots independently."""
+    dispatched to (E, cap) slots independently.  ``params["wi"]`` holds
+    experts ``first_expert`` on (all ``num_experts`` of them in a whole
+    model); the output sums those experts' pairs only."""
     b, s, d = x.shape
     k = experts_per_token
     tokens = b * s
@@ -168,29 +179,33 @@ def moe_apply(
         params, xt, experts_per_token=k, num_experts=num_experts, cap=cap,
         routing=routing, recall_target=recall_target, router_scale=router_scale)
 
-    # Dispatch: the token of each (expert, slot); an empty slot reads the
-    # zero row g.  Destinations of kept pairs are unique; dropped pairs
-    # all go to the column num_experts * cap, which is cut off.
-    flat = top_e * cap + slot
-    dst = torch.where(keep, flat, num_experts * cap).reshape(n_groups, g * k)
+    # Dispatch: the token of each (expert, slot) of the local experts; an
+    # empty slot reads the zero row g.  Destinations of kept pairs are
+    # unique; dropped pairs and another rank's all go to the column
+    # local * cap, which is cut off.
+    local = params["wi"].shape[0]
+    mine = keep & (top_e >= first_expert) & (top_e < first_expert + local)
+    flat = (top_e - first_expert) * cap + slot
+    dst = torch.where(mine, flat, local * cap).reshape(n_groups, g * k)
     tok = torch.arange(g, device=x.device)[:, None].expand(g, k).reshape(1, g * k)
     tok = tok.expand(n_groups, -1)
-    src = torch.full((n_groups, num_experts * cap + 1), g, dtype=torch.long,
+    src = torch.full((n_groups, local * cap + 1), g, dtype=torch.long,
                      device=x.device)
     src.scatter_(1, dst, tok)
-    expert_in = _Dispatch.apply(xt, src[:, : num_experts * cap], dst, k
-                                ).reshape(n_groups, num_experts, cap, d)
+    expert_in = _Dispatch.apply(xt, src[:, : local * cap], dst, k
+                                ).reshape(n_groups, local, cap, d)
 
     # Expert FFNs: (G, E, cap, d) x (E, d, f).
     h = expert_in @ params["wi"]
     gate = expert_in @ params["wg"]
     h = F.silu(gate) * h
-    expert_out = (h @ params["wo"]).reshape(n_groups, num_experts * cap, d)
+    expert_out = (h @ params["wo"]).reshape(n_groups, local * cap, d)
 
-    # Combine: each token's k outputs (a dropped pair weighs 0), weights in
-    # the compute dtype as the reference's combine tensor holds them.
+    # Combine: each token's k outputs (a dropped pair, or another rank's,
+    # weighs 0), weights in the compute dtype as the reference's combine
+    # tensor holds them.
     got = _Combine.apply(expert_out, dst).reshape(n_groups, g, k, d)
-    w = torch.where(keep, top_p, 0.0).to(x.dtype)
+    w = torch.where(mine, top_p, 0.0).to(x.dtype)
     y = (w[..., None, :] @ got)[..., 0, :]
 
     if "shared_wi" in params:

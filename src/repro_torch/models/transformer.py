@@ -299,12 +299,14 @@ def _shard_plan(cfg: ModelConfig, shardings: Dict, shapes: Dict[str, Tuple[int, 
     cuts, the ``parallel.distributed.ShardLayout`` and the
     ``TensorParallel`` (None without a ``"model"`` axis > 1).  The data
     axis may cut any family (ZeRO-3, ``parallel.zero3``); a ``"model"``
-    axis > 1 raises for any layer kind but the dense decoder's and
-    whisper's encoder's and decoder's (ROADMAP items 14b.2b and 14b.2c),
-    and a ``"pod"`` axis > 1 raises (14b.4).  Under tensor parallelism
-    every block the model runs must be split over ``"model"``: a spec
-    that left the encoder or the cross-attention whole would run each
-    rank's part at full heads."""
+    axis > 1 raises for the SSD, RG-LRU and local-attention layers (ROADMAP
+    item 14b.2c), and a ``"pod"`` axis > 1 raises (14b.4).  Under tensor
+    parallelism every block the model runs must be split over
+    ``"model"``: each dim whose logical axis maps to it (heads, d_ff,
+    experts, the vocabulary; only kv heads may stay whole, Megatron's GQA
+    convention) must be cut, or a rank would run its part of a block at
+    full heads or with every expert.  A leaf of a split block that
+    ``"model"`` leaves whole is ``partial`` (``TP.SPLIT_BLOCKS``)."""
     from repro_torch.launch import shardspecs as SS
 
     mesh = next(iter(shardings.values())).mesh
@@ -316,26 +318,23 @@ def _shard_plan(cfg: ModelConfig, shardings: Dict, shapes: Dict[str, Tuple[int, 
         for kind in cfg.layer_kinds():
             if kind not in TP.TP_KINDS:
                 raise NotImplementedError(TP.unsupported_kind(kind))
-        must = [("embed.embedding", 0), ("layers.0.attn.wq", 1),
-                ("layers.0.attn.wo", 0), ("layers.0.mlp.wi", 1),
-                ("layers.0.mlp.wo", 0)]
-        if cfg.is_encoder_decoder:
-            must += [("encoder.0.attn.wq", 1), ("encoder.0.mlp.wi", 1),
-                     ("layers.0.cross.wq", 1)]
-        for name, dim in must:
-            if tuple(specs[name])[dim] != "model":
-                raise ValueError(
-                    f"{cfg.name}: {name} is not split over a 'model' axis "
-                    f"of {mp} (spec {tuple(specs[name])}); tensor "
-                    f"parallelism needs heads, d_ff and the vocabulary "
-                    f"divisible by {mp}")
+        axes = model_axes(cfg)
         logical = SS.param_shardings(cfg, mesh)
+        for name in shapes:
+            for dim, (ax, entry) in enumerate(zip(axes[name], logical[name].spec)):
+                if (ax != "kv_heads" and "model" in D.spec_axes((entry,))
+                        and tuple(specs[name])[dim] != "model"):
+                    raise ValueError(
+                        f"{cfg.name}: {name} is not split over a 'model' axis "
+                        f"of {mp} (spec {tuple(specs[name])}); tensor "
+                        f"parallelism needs its {ax} ({shapes[name][dim]}) "
+                        f"divisible by {mp}")
         split = [n for n, s in specs.items() if "model" in D.spec_axes(s)]
-        partial = [n for n, s in specs.items()
-                   if "model" not in D.spec_axes(s)
-                   and "model" in D.spec_axes(logical[n].spec)]
-        tp = TP.TensorParallel(mesh, cfg,
-                               kv_sharded="layers.0.attn.wk" in split)
+        partial = [n for n in specs if n not in split
+                   and n.split(".")[0] in ("layers", "encoder")
+                   and n.split(".")[2] in TP.SPLIT_BLOCKS]
+        wk = [n for n in shapes if n.endswith(".attn.wk")]
+        tp = TP.TensorParallel(mesh, cfg, kv_sharded=set(wk) <= set(split))
     data_dims = {n: dim for n in shapes
                  if (dim := D.data_dim(specs[n], len(shapes[n]), mesh)) is not None}
     layout = D.ShardLayout(mesh, specs, split, partial, data_dims)
@@ -436,12 +435,13 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> List
 # --------------------------------------------------------------------------
 
 
-def _moe(params, h, cfg: ModelConfig, group_size: int):
+def _moe(params, h, cfg: ModelConfig, group_size: int, tp=None):
     return moe_lib.moe_apply(
         params["moe"], h,
         experts_per_token=cfg.experts_per_token, num_experts=cfg.num_experts,
         capacity_factor=cfg.moe_capacity_factor, group_size=group_size,
         routing=cfg.router_topk_impl, recall_target=cfg.knn_recall_target,
+        first_expert=0 if tp is None else tp.expert_start,
     )
 
 
@@ -449,10 +449,12 @@ def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
                       return_cache: bool, enc_out=None, mrope_positions=None,
                       tp=None):
     """An attention layer over the full sequence.  Under tensor
-    parallelism (``tp``, a dense, enc or dec layer's shard) Megatron's
-    operators bracket each block, the decoder's cross-attention too:
-    ``copy_to_model`` after its norm, ``reduce_from_model`` after its
-    ``wo``."""
+    parallelism (``tp``, the layer's shard) Megatron's operators bracket
+    each block, the decoder's cross-attention too: ``copy_to_model``
+    after its norm, ``reduce_from_model`` after its ``wo`` (after the
+    MoE block's output: its experts' and shared experts' parts).  MLA
+    runs its heads of ``wq_b``/``wk_b``/``wv_b``/``wo`` from the whole
+    latent projections, MoE its experts of every token's routing."""
     h = rms_norm(x, params["pre_norm"], cfg.norm_eps)
     if tp is not None:
         h = TP.copy_to_model(h, tp)
@@ -460,7 +462,8 @@ def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
     if kind.startswith("mla"):
         out = attn.mla_train(
             params["attn"], h, positions,
-            num_heads=cfg.num_heads, kv_lora_rank=cfg.kv_lora_rank,
+            num_heads=cfg.num_heads if tp is None else tp.num_heads,
+            kv_lora_rank=cfg.kv_lora_rank,
             qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
             rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk,
             return_cache=return_cache, scores_dtype=cfg.attn_scores_dtype,
@@ -498,7 +501,7 @@ def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
     if tp is not None:
         h = TP.copy_to_model(h, tp)
     if kind.endswith("moe"):
-        y = _moe(params, h, cfg, cfg.moe_group_size)
+        y = _moe(params, h, cfg, cfg.moe_group_size, tp)
     else:
         y = mlp_apply(params["mlp"], h, act=cfg.act)
     if tp is not None:
@@ -512,10 +515,10 @@ def layer_train(params, x, positions, cfg: ModelConfig, kind: str = "dense",
     """One layer over the full sequence -> (output, cache): with
     ``return_cache`` the layer's decode cache for the sequence, else None.
     Differentiable in every input and parameter (the decode caches are
-    built from the forward's values, not written in place).  ``tp``: a
-    dense, enc or dec layer's tensor-parallel shard
-    (``parallel.tensor_parallel``); a dec layer's ``enc_out`` has passed
-    ``copy_to_model`` already (:func:`forward_train`)."""
+    built from the forward's values, not written in place).  ``tp``: the
+    layer's tensor-parallel shard (``parallel.tensor_parallel``; a kind of
+    ``TP_KINDS``); a dec layer's ``enc_out`` has passed ``copy_to_model``
+    already (:func:`forward_train`)."""
     if tp is not None and kind not in TP.TP_KINDS:
         raise NotImplementedError(TP.unsupported_kind(kind))
     if kind == "ssm":

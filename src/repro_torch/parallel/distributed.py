@@ -564,9 +564,11 @@ def local_batch(batch: Dict, mesh: Mesh) -> Dict:
 class ShardLayout:
     """How a rank's model shard sits on its :class:`ProcessMesh`:
     ``specs`` (each parameter's sanitized spec, by name), ``split`` (the
-    names the ``"model"`` axis cuts), ``partial`` (the names it leaves
-    whole although their logical axes map to it: kv heads that do not
-    divide the group, whose gradients hold one rank's heads' part) and
+    names the ``"model"`` axis cuts), ``partial`` (the leaves of a split
+    block it leaves whole, whose gradients hold one rank's heads' or
+    experts' part: kv heads that do not divide the group, MLA's latent
+    projections and norms, the MoE router;
+    ``parallel.tensor_parallel.SPLIT_BLOCKS``) and
     ``data_split`` (the names the data axis cuts, ZeRO-3's; ``data_dims``
     maps each to its dim).  The training step reduces gradients and
     their norm through it."""

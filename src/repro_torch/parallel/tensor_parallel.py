@@ -13,7 +13,9 @@ out as Megatron-LM's operators (Shoeybi et al., 2019), each a
     feeds every decoder layer's column-parallel cross wk/wv.
   * :func:`reduce_from_model` ("g"): all-reduce forward, identity
     backward, after each row-parallel matmul (attention's and the MLP's
-    ``wo``).
+    ``wo``) and after the MoE block, whose output is each rank's experts'
+    part (``models.moe.moe_apply`` with ``first_expert=``) plus its part of
+    the shared experts.
   * :func:`vocab_parallel_embed`: each rank looks up the ids of its
     vocabulary rows (the others' give zeros), then "g".
   * :func:`vocab_parallel_cross_entropy`: the max, the sum of exponents
@@ -21,12 +23,21 @@ out as Megatron-LM's operators (Shoeybi et al., 2019), each a
     padded ids masked as the reference's ``loss_fn`` masks them.
 
 :class:`TensorParallel` is a model's part of one ``"model"`` group: its
-heads, its kv heads and its vocabulary rows.  Where the kv heads do not
-divide the group (``launch.shardspecs._sanitize_spec`` keeps them whole,
-Megatron's GQA convention), each local query head reads its global kv
-head (:meth:`TensorParallel.kv_index`); wk's and wv's gradients then hold
-only this rank's heads' part, and the training step sums them over
-``"model"``.
+heads, its kv heads, its experts and its vocabulary rows.  Where the kv
+heads do not divide the group (``launch.shardspecs._sanitize_spec`` keeps
+them whole, Megatron's GQA convention), each local query head reads its
+global kv head (:meth:`TensorParallel.kv_index`).
+
+A block of a split layer (:data:`SPLIT_BLOCKS`) runs between an "f" and
+a "g", so every rank reads each of its leaves; a leaf that ``"model"``
+leaves whole there (those whole kv heads; MLA's ``wq_a``, ``q_norm``,
+``wkv_a`` and ``kv_norm``, which feed every head; the MoE router, which
+routes to every expert) then gets only this rank's heads' or experts'
+part of its gradient, and the training step sums it over ``"model"``
+(``parallel.distributed.ShardLayout.partial``).  MoE is split as the
+reference's GSPMD splits its one-hot dispatch: every rank routes every
+token of its data shard (the same top-k, queue places and capacity drops
+on each) and runs only its experts' slots; no all-to-all.
 """
 from __future__ import annotations
 
@@ -40,6 +51,7 @@ __all__ = [
     "TensorParallel",
     "unsupported_kind",
     "TP_KINDS",
+    "SPLIT_BLOCKS",
     "copy_to_model",
     "reduce_from_model",
     "vocab_parallel_embed",
@@ -47,35 +59,37 @@ __all__ = [
 ]
 
 
-# what each missing tensor-parallel case waits for (ROADMAP items 14b.2b and
-# 14b.2c)
-_KIND_ITEMS = {"moe": ("MoE (experts over \"model\")", "14b.2b"),
-               "mla": ("MLA", "14b.2b"),
-               "ssm": ("the Mamba-2 SSD block", "14b.2c"),
-               "rglru": ("RG-LRU", "14b.2c"),
-               "local_attn": ("local attention", "14b.2c")}
-# the layer kinds with a tensor-parallel path: the dense decoder layer and
-# whisper's encoder and decoder layers (the same blocks, split the same way)
-TP_KINDS = frozenset({"dense", "enc", "dec"})
+# what each missing tensor-parallel case waits for (ROADMAP item 14b.2c)
+_KIND_ITEMS = {"ssm": "the Mamba-2 SSD block", "rglru": "RG-LRU",
+               "local_attn": "local attention"}
+# the layer kinds with a tensor-parallel path: the dense decoder layer,
+# whisper's encoder and decoder layers, MoE (experts over "model") and
+# MLA (heads over "model") with a dense MLP or MoE
+TP_KINDS = frozenset({"dense", "enc", "dec", "moe", "mla_dense", "mla_moe"})
+# the blocks of a TP_KINDS layer that run between an "f" and a "g"
+SPLIT_BLOCKS = frozenset({"attn", "cross", "mlp", "moe"})
 
 
 def unsupported_kind(kind: str) -> str:
     """Why a layer of ``kind`` has no tensor-parallel path yet."""
-    what, item = next((v for k, v in _KIND_ITEMS.items() if kind.startswith(k)
-                       or kind.endswith(k)), (kind, "14b.2"))
+    what = _KIND_ITEMS.get(kind, kind)
     return (f"tensor parallelism for {kind} layers ({what}) is ROADMAP item "
-            f"{item}; the dense, enc and dec layers have a tensor-parallel path")
+            f"14b.2c; the dense, enc, dec, moe, mla_dense and mla_moe layers "
+            f"have a tensor-parallel path")
 
 
 class TensorParallel:
     """The calling rank's part of the ``"model"`` axis of ``mesh`` for a
     model of ``cfg`` (global sizes): ``num_heads`` query heads from
     head ``rank * num_heads``, ``num_kv_heads`` kv heads (all of them
-    where they do not divide the group, ``kv_sharded`` False) and
+    where they do not divide the group, ``kv_sharded`` False),
+    ``num_experts`` routed experts from ``expert_start`` and
     ``vocab_size`` rows of the (padded) vocabulary from ``vocab_start``.
     A cross-attention's kv heads are its query heads
     (``attention.cross_attn_defs``), so they split with them: its local
-    heads are ``num_heads``."""
+    heads are ``num_heads``.  MLA has no kv heads: its ``wk_b`` and
+    ``wv_b`` split with its query heads, and it never reads
+    :meth:`kv_index`."""
 
     def __init__(self, mesh, cfg, *, kv_sharded: bool):
         self.mesh = mesh
@@ -87,6 +101,8 @@ class TensorParallel:
         self.kv_sharded = kv_sharded
         self.num_kv_heads = (cfg.num_kv_heads // self.size if kv_sharded
                              else cfg.num_kv_heads)
+        self.num_experts = cfg.num_experts // self.size
+        self.expert_start = self.rank * self.num_experts
         self.vocab_size = cfg.padded_vocab // self.size
         self.vocab_start = self.rank * self.vocab_size
         self.true_vocab = cfg.vocab_size
@@ -102,9 +118,12 @@ class TensorParallel:
         return torch.arange(first, first + self.num_heads, device=device) // groups
 
     def __repr__(self) -> str:
+        experts = (f"experts {self.expert_start}.."
+                   f"{self.expert_start + self.num_experts}, "
+                   if self.num_experts else "")
         return (f"TensorParallel(rank {self.rank} of {self.size}: {self.num_heads} "
                 f"heads, {self.num_kv_heads} kv heads"
-                f"{'' if self.kv_sharded else ' (whole)'}, vocab rows "
+                f"{'' if self.kv_sharded else ' (whole)'}, {experts}vocab rows "
                 f"{self.vocab_start}..{self.vocab_start + self.vocab_size})")
 
 

@@ -175,14 +175,18 @@ def _refusals(rank, payload):
 
     out = {}
     tp = D.init_process_mesh(2, device="cpu")
-    for arch in ("granite-moe-3b-a800m-smoke", "deepseek-v2-236b-smoke",
-                 "mamba2-2.7b-smoke", "recurrentgemma-9b-smoke"):
+    for arch in ("mamba2-2.7b-smoke", "recurrentgemma-9b-smoke"):
         out[arch] = attempt(lambda: init(get_config(arch), tp))
         out[f"{arch}+fsdp"] = attempt(lambda: init(dataclasses.replace(
             get_config(arch), fsdp_params=True), tp))
-    # the dense layer's other inputs have a path (item 14b.2a): they place
+    # the dense layer's other inputs (item 14b.2a), MoE and MLA (14b.2b)
+    # have a path: they place
     for arch in ("whisper-medium-smoke", "qwen2-vl-2b-smoke"):
         out[arch] = shapes(init(get_config(arch), tp))
+    for arch in ("granite-moe-3b-a800m-smoke", "deepseek-v2-236b-smoke"):
+        out[arch] = shapes(init(get_config(arch), tp))
+        out[f"{arch}+fsdp"] = shapes(init(dataclasses.replace(
+            get_config(arch), fsdp_params=True), tp))
     dense = init(get_config("internlm2-1.8b-smoke"), tp)
     tokens = torch.zeros((1, 8), dtype=torch.int64)
     out["prefill"] = attempt(lambda: tfm.forward_prefill(dense.params, tokens))
@@ -199,19 +203,20 @@ def _refusals(rank, payload):
 
 
 def test_cases_without_a_path_raise(tmp_path):
-    """TP for MoE, MLA, SSD and RG-LRU with local attention raises naming
-    item 14b (14b.2b or 14b.2c) on a (2, 2) mesh, with or without
-    ``fsdp_params`` (ZeRO-3 has a path, their tensor parallelism has
-    none), as do serving a shard (tensor-parallel or ZeRO-3) and
-    re-meshing one; nothing runs whole on one rank instead.  whisper and
-    embeddings input (qwen2-vl) place on (2, 2), their heads halved (their
-    parity is ``test_torch_distributed_tp_inputs.py``'s).  granite-20b
-    with ``fsdp_params`` on (4, 1) places (ZeRO-3: every parameter's
-    embed dim a quarter), and on (1, 4), a data axis of 1, places too
-    (the split drops)."""
+    """TP for SSD and RG-LRU with local attention raises naming item 14b.2c
+    on a (2, 2) mesh, with or without ``fsdp_params`` (ZeRO-3 has a path,
+    their tensor parallelism has none), as do serving a shard
+    (tensor-parallel or ZeRO-3) and re-meshing one; nothing runs whole on
+    one rank instead.  whisper, embeddings input (qwen2-vl), MoE
+    (granite-moe) and MLA (deepseek-v2) place on (2, 2), with and without
+    ``fsdp_params``: heads and experts halved, the MoE router and MLA's
+    ``wkv_a`` whole over "model" (their parity is
+    ``test_torch_distributed_tp_{inputs,moe}.py``'s).  granite-20b with
+    ``fsdp_params`` on (4, 1) places (ZeRO-3: every parameter's embed dim
+    a quarter), and on (1, 4), a data axis of 1, places too (the split
+    drops)."""
     out = P.spawn(4, _refusals, None, str(tmp_path))
-    families = ("granite-moe-3b-a800m-smoke", "deepseek-v2-236b-smoke",
-                "mamba2-2.7b-smoke", "recurrentgemma-9b-smoke")
+    families = ("mamba2-2.7b-smoke", "recurrentgemma-9b-smoke")
     for key in (*families, *(f"{a}+fsdp" for a in families), "remesh",
                 "prefill", "prefill_zero3"):
         assert out[key] is not None, key
@@ -219,12 +224,27 @@ def test_cases_without_a_path_raise(tmp_path):
         assert kind == "NotImplementedError", (key, kind, msg)
         if not key.startswith("prefill"):
             assert "14b" in msg, (key, msg)
-    for arch, what, item in (("granite-moe-3b-a800m-smoke", "MoE", "14b.2b"),
-                             ("deepseek-v2-236b-smoke", "MLA", "14b.2b"),
-                             ("mamba2-2.7b-smoke", "SSD", "14b.2c"),
-                             ("recurrentgemma-9b-smoke", "RG-LRU", "14b.2c")):
+    for arch, what in (("mamba2-2.7b-smoke", "SSD"),
+                       ("recurrentgemma-9b-smoke", "RG-LRU")):
         for key in (arch, f"{arch}+fsdp"):
-            assert what in out[key][1] and item in out[key][1], (key, out[key])
+            assert what in out[key][1] and "14b.2c" in out[key][1], (key, out[key])
+    # experts and heads over "model" (2), the embed dim over "data" (2)
+    # with fsdp_params; the router and wkv_a cut over "data" only
+    for fsdp, dp in (("", 1), ("+fsdp", 2)):
+        moe = out[f"granite-moe-3b-a800m-smoke{fsdp}"]
+        assert moe["layers.1.moe.wi"] == (4, 64 // dp, 32)
+        assert moe["layers.1.moe.wo"] == (4, 32, 64 // dp)
+        assert moe["layers.1.attn.wq"] == (64 // dp, 2, 16)
+        assert moe["layers.1.moe.router"] == (64 // dp, 8)
+        mla = out[f"deepseek-v2-236b-smoke{fsdp}"]
+        assert mla["layers.0.attn.wq_b"] == (48, 2, 24)
+        assert mla["layers.0.attn.wk_b"] == (32, 2, 16)
+        assert mla["layers.2.attn.wo"] == (2, 16, 64 // dp)
+        assert mla["layers.2.moe.wg"] == (4, 64 // dp, 32)
+        assert mla["layers.2.moe.shared_wo"] == (16, 64 // dp)
+        assert mla["layers.2.moe.router"] == (64 // dp, 8)
+        assert mla["layers.1.attn.wkv_a"] == (64 // dp, 40)
+        assert mla["layers.1.attn.kv_norm"] == (32,)
     whisper, qwen = out["whisper-medium-smoke"], out["qwen2-vl-2b-smoke"]
     assert whisper["encoder.0.attn.wq"] == (64, 2, 16)
     assert whisper["layers.1.cross.wk"] == (64, 2, 16)

@@ -21,12 +21,9 @@ whisper checkpoint written on (2, 2)
 restores bit for bit on (4, 1) and in one process, and the reference's
 ``restore_checkpoint`` reads it as the gathered state.
 """
-import numpy as np
 import pytest
-import torch
 
 import torch_dist_parity as P
-from repro_torch.launch import train
 
 from torch_train_parity import few_threads  # noqa: F401 (a fixture)
 
@@ -106,60 +103,11 @@ ARGS = ["--arch", WHISPER, "--seq", "32", "--global-batch", "4", "--lr", "3e-3",
         "--log-every", "1", "--device", "cpu", "--steps", "2", "--ckpt-every", "1"]
 
 
-def _whisper_meshes(rank, root):
-    """The trainer on (2, 2) to step 2, checkpoints at 1 and 2; then the
-    step-1 checkpoint restored as (4, 1) shards, gathered."""
-    from repro_torch.checkpoint import restore_checkpoint
-    from repro_torch.configs import get_config
-    from repro_torch.launch import shardspecs as SS
-    from repro_torch.models import model as M
-    from repro_torch.parallel import distributed as D
-    from repro_torch.parallel.sharding import use_mesh
-
-    out = train.main(ARGS + ["--model-parallel", "2", "--ckpt-dir", root])
-    a = dict(mesh=tuple(out["mesh"].shape.values()), tp=repr(out["state"].params.tp),
-             state=P.state_numpy(out["state"]), losses=out["losses"])
-    pm = D.init_process_mesh(1, device="cpu")
-    cfg = get_config(WHISPER)
-    with use_mesh(pm):
-        sh = SS.train_state_specs(cfg, pm)
-        like = M.init_train_state(torch.Generator().manual_seed(9), cfg,
-                                  shardings=sh)
-        state, at = restore_checkpoint(root, like, step=1, shardings=sh)
-    return dict(a=a, on_41=dict(at=at, state=P.state_numpy(state),
-                                mesh=tuple(pm.shape.values())))
-
-
 def test_whisper_checkpoint_crosses_meshes_and_the_single_process(tmp_path,
                                                                   monkeypatch):
     """whisper-medium-smoke (bf16 compute) trained on (2, 2) checkpoints in
     the reference's format: its step-1 checkpoint restores bit for bit on
     (4, 1) and in one process, and the reference reads its step-2
     checkpoint as the (2, 2) run's gathered state."""
-    from repro_torch.checkpoint import restore_checkpoint
-    from repro_torch.configs import get_config
-    from repro_torch.models import model as M
-
     monkeypatch.delenv("WORLD_SIZE", raising=False)
-    root = str(tmp_path)
-    out = P.spawn(4, _whisper_meshes, root, root)
-    a, on_41 = out["a"], out["on_41"]
-    assert a["mesh"] == (2, 2) and "2 heads" in a["tp"] and len(a["losses"]) == 2
-    assert on_41["mesh"] == (4, 1) and on_41["at"] == 1
-    want = P.saved_state(root, 1, WHISPER)
-    assert want.keys() == on_41["state"].keys()
-    for k, v in want.items():
-        assert np.array_equal(on_41["state"][k], v), k
-    like = M.init_train_state(torch.Generator().manual_seed(9), get_config(WHISPER),
-                              device="cpu")
-    state, at = restore_checkpoint(root, like, step=1)
-    assert at == 1 and state.params.layout is None
-    here = P.state_numpy(state)
-    for k, v in want.items():
-        assert np.array_equal(here[k], v), k
-    # the reference reads the last checkpoint as the gathered state
-    at, got = P.reference_checkpoint(root, WHISPER)
-    assert at == 2
-    assert got.keys() == a["state"].keys()
-    for k, v in a["state"].items():
-        assert np.array_equal(got[k], v), k
+    P.check_checkpoint_meshes(WHISPER, ARGS, str(tmp_path), "2 heads")

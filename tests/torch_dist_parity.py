@@ -42,15 +42,19 @@ BF16_RTOL = 2e-2
 
 def case(arch, mesh, *, dtype="float32", seq=32, batch=4, grad_dtype=None,
          mask=False, seed=3, device="cpu", fsdp=False, remat=None,
-         microbatches=1):
+         microbatches=1, partial_grads=False):
     """One run: ``arch`` at ``dtype`` (None: the config's own) on a
     ``mesh`` of ``MESHES`` of ranks on ``device``, ``batch`` x ``seq``
     tokens a step in ``microbatches`` parts; ``fsdp`` sets the config's
     ``fsdp_params`` (the embed dim over the data axis: ZeRO-3), ``remat``
-    its remat policy (None: the config's own)."""
+    its remat policy (None: the config's own); ``partial_grads`` holds the
+    first step's reduced gradients of the layout's ``partial`` leaves
+    against the whole model's on the global batch and across the ranks
+    (:func:`_partial_check`)."""
     return dict(arch=arch, mesh=MESHES[mesh], dtype=dtype, seq=seq, batch=batch,
                 grad_dtype=grad_dtype, mask=mask, seed=seed, device=device,
-                fsdp=fsdp, remat=remat, microbatches=microbatches)
+                fsdp=fsdp, remat=remat, microbatches=microbatches,
+                partial_grads=partial_grads)
 
 
 def config(module, c):
@@ -207,6 +211,38 @@ def _gradients(state, cfg, batch, specs, pm):
             for (n, _), g in zip(named, grads)}
 
 
+def _whole_gradients(model, cfg, batch):
+    """The gradients of a whole model's loss on ``batch`` (numpy, by
+    name), the parameters' ``grad`` cleared after."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+    M.loss_fn(model, cfg, batch).backward()
+    out = {}
+    for n, p in model.named_parameters():
+        out[n] = p.grad.numpy().copy()
+        p.grad = None
+    return out
+
+
+def _partial_check(names, grads, whole):
+    """The reduced gradients of ``names`` (gathered whole on each rank):
+    whether every rank holds the same values bit for bit, and each leaf's
+    largest difference from the whole model's gradient ``whole``,
+    relative to that gradient's largest magnitude."""
+    import torch.distributed as dist
+
+    mine = {n: grads[n] for n in names}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    equal = all(np.array_equal(other[n], mine[n]) for other in every for n in names)
+    err = {n: float(np.max(np.abs(mine[n] - whole[n])) / np.max(np.abs(whole[n])))
+           for n in names}
+    return dict(names=sorted(names), equal=equal, err=err)
+
+
 def _port_case(c, init):
     """One case on this rank: the reference's initial parameters (or,
     with ``init`` None, the port's from a CPU generator seeded with the
@@ -239,6 +275,9 @@ def _port_case(c, init):
         with torch.no_grad():
             for name, p in state.params.named_parameters():
                 p.copy_(whole[name])
+        whole_grads = (_whole_gradients(state.params, cfg,
+                                        batch_of(SyntheticTokenSource, cfg, c, 0))
+                       if c.get("partial_grads") else None)
         state = place(state, sh)
         bad = []
         for tree, specs in ((dict(state.params.named_parameters()), sh.params),
@@ -250,12 +289,15 @@ def _port_case(c, init):
                     bad.append((name, tuple(t.shape), want))
         step = M.make_train_step(cfg, learning_rate=LR, grad_dtype=c["grad_dtype"],
                                  microbatches=c.get("microbatches", 1))
-        losses, norms, small, collectives = [], [], None, []
+        losses, norms, small, collectives, partial = [], [], None, [], None
         for i in range(STEPS):
             b = D.local_batch(batch_of(SyntheticTokenSource, cfg, c, i), pm)
             b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(pm.device)
                  for k, v in b.items()}
             grads = _gradients(state, cfg, b, sh.params, pm)
+            if i == 0 and whole_grads is not None:
+                partial = _partial_check(state.params.layout.partial, grads,
+                                         whole_grads)
             small = {n: ((np.abs(g) < GRAD_FLOOR) & (g != 0))
                      | (small[n] if small else False) for n, g in grads.items()}
             D.reset_collectives()
@@ -267,7 +309,7 @@ def _port_case(c, init):
                  for n, p in state.params.named_parameters()}
     layout = state.params.layout
     return dict(losses=losses, grad_norms=norms, final=final, small=small,
-                bad_shapes=bad, collectives=collectives,
+                bad_shapes=bad, collectives=collectives, partial_grads=partial,
                 shapes={n: tuple(p.shape) for n, p in state.params.named_parameters()},
                 tp=repr(state.params.tp), split=sorted(layout.split),
                 partial=sorted(layout.partial), data_split=sorted(layout.data_split))
@@ -379,6 +421,69 @@ def check(key, c, got, want, witness=None):
 
 
 # -- trainer states and checkpoints ------------------------------------------------
+
+
+def trainer_meshes(rank, payload):
+    """On 4 ranks, ``payload`` ``(arch, argv, root)``: the trainer with
+    ``argv`` on (2, 2), checkpointing into ``root`` at steps 1 and 2; then
+    the step-1 checkpoint restored as (4, 1) shards, gathered."""
+    import torch
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardspecs as SS
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.parallel import distributed as D
+    from repro_torch.parallel.sharding import use_mesh
+
+    arch, argv, root = payload
+    out = train.main(argv + ["--model-parallel", "2", "--ckpt-dir", root])
+    a = dict(mesh=tuple(out["mesh"].shape.values()), tp=repr(out["state"].params.tp),
+             state=state_numpy(out["state"]), losses=out["losses"])
+    pm = D.init_process_mesh(1, device="cpu")
+    cfg = get_config(arch)
+    with use_mesh(pm):
+        sh = SS.train_state_specs(cfg, pm)
+        like = M.init_train_state(torch.Generator().manual_seed(9), cfg,
+                                  shardings=sh)
+        state, at = restore_checkpoint(root, like, step=1, shardings=sh)
+    return dict(a=a, on_41=dict(at=at, state=state_numpy(state),
+                                mesh=tuple(pm.shape.values())))
+
+
+def check_checkpoint_meshes(arch, argv, root, tp_has):
+    """``arch`` trained by :func:`trainer_meshes` (its ``repr(tp)`` holds
+    ``tp_has``): the step-1 checkpoint restores bit for bit on (4, 1) and
+    in one process, and the reference reads the step-2 checkpoint as the
+    (2, 2) run's gathered state."""
+    import torch
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    out = spawn(4, trainer_meshes, (arch, argv, root), root)
+    a, on_41 = out["a"], out["on_41"]
+    assert a["mesh"] == (2, 2) and tp_has in a["tp"] and len(a["losses"]) == 2
+    assert on_41["mesh"] == (4, 1) and on_41["at"] == 1
+    want = saved_state(root, 1, arch)
+    assert want.keys() == on_41["state"].keys()
+    for k, v in want.items():
+        assert np.array_equal(on_41["state"][k], v), k
+    like = M.init_train_state(torch.Generator().manual_seed(9), get_config(arch),
+                              device="cpu")
+    state, at = restore_checkpoint(root, like, step=1)
+    assert at == 1 and state.params.layout is None
+    here = state_numpy(state)
+    for k, v in want.items():
+        assert np.array_equal(here[k], v), k
+    # the reference reads the last checkpoint as the gathered state
+    at, got = reference_checkpoint(root, arch)
+    assert at == 2
+    assert got.keys() == a["state"].keys()
+    for k, v in a["state"].items():
+        assert np.array_equal(got[k], v), k
 
 
 def state_numpy(state):
