@@ -225,8 +225,8 @@ run in order and the first failure exits non-zero:
      peaking at no more than its shard plus two of the largest whole
      leaf; each rank's step peak below the single process's; rank 0's
      all-gather and reduce-scatter calls, GB and seconds a step; no kernel
-     or plain version runs.  recurrentgemma-9b and deepseek-v2-236b are
-     held to the reference on the CPU only;
+     or plain version runs.  recurrentgemma-9b's and deepseek-v2-236b's
+     ZeRO-3 are held to the reference on the CPU only;
  23. tensor parallelism for the dense layer's other inputs, the same
      launch's next two runs, two ranks sharing ``cuda:0`` over gloo on a
      (1, 2) mesh, batch 2, 2 steps, each against its single process (run
@@ -237,7 +237,7 @@ run in order and the first failure exits non-zero:
      (its text context) and its encoder over the 1,500 frames: both
      steps' losses and grad norms within ``TP_INPUTS_RTOL``; rank 0's
      all-reduces over "model" a step exactly those of the brackets
-     (``tp_all_reduces``), with their MB and host seconds; each rank's
+     (``tp_collectives``), with their MB and host seconds; each rank's
      step peak below the single process's; no kernel or plain version
      runs;
  24. tensor parallelism for MoE experts and MLA heads, the launch's runs
@@ -249,11 +249,27 @@ run in order and the first failure exits non-zero:
      card holds for two ranks and the single process; its MoE layers are
      held to the reference on the CPU only): both steps' losses and
      grad norms within ``TP_MOE_RTOL``; the all-reduces over "model" a
-     step exactly ``tp_all_reduces``'s; each rank's state bytes and step
+     step exactly ``tp_collectives``'s; each rank's state bytes and step
      peak below the single process's; and for (e) the (token, choice)
      pairs of step 1 whose expert (or whose place under the capacity)
      differs from the single process's routing (at most
-     ``ROUTE_FLIP_LIMIT`` of them), and between the ranks (none may).
+     ``ROUTE_FLIP_LIMIT`` of them), and between the ranks (none may);
+ 25. tensor parallelism for the recurrent blocks, the launch's last two
+     runs, in the same way: (s) mamba2-2.7b at full width (80 SSD heads,
+     40 a rank; ``in_proj`` and the conv gathered over "model", since
+     their contiguous cut does not follow the heads) cut to 4 of its 64
+     layers, and (r) recurrentgemma-9b at full width cut to 3 of its 38
+     layers (RG-LRU, RG-LRU, local attention: 2,048 of the 4,096 LRU
+     channels and 8 of the 16 heads a rank, the one kv head whole, the
+     dense gates' outputs reduce-scattered), batch 2 x 2,048: both steps'
+     losses and grad norms within ``TP_RECURRENT_RTOL``; the all-reduces,
+     all-gathers and reduce-scatters over "model" a step exactly
+     ``tp_collectives``'s; each rank's step peak below the single
+     process's.  recurrentgemma's single process (44 GB of f32 state
+     whole) and its two ranks (22 GB each) do not fit the card at once:
+     the single process runs in this process before the go, while the
+     ranks hold only their CUDA contexts, and frees the card before they
+     draw their shards.
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
@@ -3902,11 +3918,12 @@ def _rel(rank, one):
 DIST_COMMON = ["--seq", "2048", "--log-every", "1", "--lr", "3e-4",
                "--warmup", "1", "--deterministic"]
 # the launch's runs: arch, model-parallel, layers; 21b and 21c, then 22,
-# then 23's two, then 24's two
+# then 23's two, 24's two and 25's two
 DIST_CASES = {"b": (DIST_ARCH, 2, None), "c": (DIST_ARCH, 1, DIST_DP_LAYERS),
               "z": ("granite-20b", 1, 2), "q": ("qwen2-vl-2b", 2, 4),
               "w": ("whisper-medium", 2, 4), "e": ("granite-moe-3b-a800m", 2, 4),
-              "m": ("deepseek-v2-236b", 2, 1)}
+              "m": ("deepseek-v2-236b", 2, 1), "s": ("mamba2-2.7b", 2, 4),
+              "r": ("recurrentgemma-9b", 2, 3)}
 # the runs whose step-1 MoE routing is recorded (deepseek's first layer
 # is dense)
 ROUTED = ("e",)
@@ -3916,7 +3933,7 @@ DIST_EXTRA = {"w": ["--seq", "448"]}
 
 
 def start_distributed(seed, d):
-    """Starts the torchrun launch of two ranks for 21b, 21c, 22, 23 and 24,
+    """Starts the torchrun launch of two ranks for 21b, 21c and 22 to 25,
     reporting into ``d``; they wait for :func:`phase_distributed`."""
     common = DIST_COMMON + ["--seed", str(seed)]
     runs = {key: common + ["--arch", arch, "--global-batch", "2", "--steps", "2"]
@@ -4096,10 +4113,9 @@ def phase_zero3(prk, smi, ranks):
                all_gather_calls_gb_s=gathers, reduce_scatter_calls_gb_s=scatters,
                collective_s_mb=_collective_s(rank), main=_phases(rank),
                single_main=_phases(one), after_go_s=t_end - ranks["t_go"])
-    log(f"[phase 22] {arch} at full width, {layers} layers (recurrentgemma-9b and "
-        f"deepseek-v2-236b are held on the CPU only: their tables or a MoE "
-        f"layer pass what two ranks and the single-process reference can "
-        f"share on one card), batch 2 x 2048: two ranks on cuda:0 over gloo, "
+    log(f"[phase 22] {arch} at full width, {layers} layers (the ZeRO-3 of "
+        f"recurrentgemma-9b and deepseek-v2-236b is held to the reference on "
+        f"the CPU only), batch 2 x 2048: two ranks on cuda:0 over gloo, "
         f"a (2, 1) mesh, ZeRO-3 (embed dim over 'data'): losses "
         f"{[round(x, 6) for _, x in rank['losses']]} vs "
         f"{[round(x, 6) for _, x in one['losses']]} (rel by step "
@@ -4154,31 +4170,46 @@ TP_INPUTS_RTOL = {"q": {"loss": (8e-6, 8e-6), "grad_norm": (2.5e-5, 1e-4)},
                   "w": {"loss": (9e-6, 3.5e-5), "grad_norm": (2e-4, 1.7e-4)}}
 
 
-def tp_all_reduces(cfg) -> int:
-    """The all-reduces over "model" of one training step of ``cfg`` on a
-    tensor-parallel mesh whose kv heads split, under ``remat="dots"``:
-    per layer a "g" after each block's wo (the MoE block's output), an
-    "f" after each norm that feeds a column-parallel matmul, and the
-    attention "g"s the backward recomputes (2 + 2 + 1 in a dense, MoE,
-    MLA or encoder layer, 3 + 3 + 2 in a decoder layer with
-    cross-attention); the vocabulary-parallel lookup of token ids (one
-    "g"), the encoder output's "f", the final norm's "f", the cross
-    entropy's max, sum and target, the grad norm, and one coalesced sum
-    of the partial gradients where a split block holds a whole leaf (the
-    MoE router, MLA's latent projections)."""
-    dec = 8 if cfg.is_encoder_decoder else 5
+MODEL_OPS = ("all_reduce", "all_gather", "reduce_scatter")
+
+
+def tp_collectives(cfg, mp: int = 2) -> dict:
+    """The collectives over "model" of one training step of ``cfg`` on a
+    (1, ``mp``) tensor-parallel mesh under ``remat="dots"``, by op.
+    All-reduces: per layer a "g" after each block's output, an "f" after
+    each norm that feeds a column-parallel matmul, and the "g"s the
+    backward recomputes (2 + 2 + 1 in a dense, MoE, MLA, encoder,
+    local-attention or RG-LRU layer, 3 + 3 + 2 in a decoder layer with
+    cross-attention; an SSD layer's "f" and "g", its gated norm's sum of
+    squares forward and backward, and that sum again in the recompute);
+    the vocabulary-parallel lookup of token ids (one "g"), the encoder
+    output's "f", the final norm's "f", the cross entropy's max, sum and
+    target, the grad norm, and one coalesced sum of the partial gradients
+    where a split block holds a whole leaf (the MoE router, MLA's latent
+    projections, kv heads that do not divide ``mp``).  An SSD layer
+    all-gathers ``in_proj``, ``conv_w`` and ``conv_b`` in the forward and
+    the recompute and reduce-scatters their gradients; an RG-LRU layer's
+    dense gates reduce-scatter their outputs in the forward and the
+    recompute and all-gather their gradients (block-diagonal gates need
+    neither)."""
+    kinds = list(cfg.layer_kinds())
     enc = cfg.encoder_layers if cfg.is_encoder_decoder else 0
     tokens = cfg.input_mode != "embeddings" or cfg.is_encoder_decoder
-    partial = any(k.endswith("moe") or k.startswith("mla")
-                  for k in cfg.layer_kinds())
-    return (dec * cfg.num_layers + 5 * enc + int(tokens)
-            + int(cfg.is_encoder_decoder) + 1 + 3 + 1 + int(partial))
+    attn = any(k in ("dense", "moe", "local_attn", "dec") for k in kinds)
+    partial = (any(k.endswith("moe") or k.startswith("mla") for k in kinds)
+               or (attn and cfg.num_kv_heads % mp != 0))
+    dense_gates = 0 if cfg.lru_gate_blocks else kinds.count("rglru")
+    ssm = kinds.count("ssm")
+    reduces = (sum(8 if k == "dec" else 5 for k in kinds) + 5 * enc + int(tokens)
+               + int(cfg.is_encoder_decoder) + 1 + 3 + 1 + int(partial))
+    return {"all_reduce": reduces, "all_gather": 6 * ssm + 2 * dense_gates,
+            "reduce_scatter": 3 * ssm + 4 * dense_gates}
 
 
 def _tp_runs(prk, smi, ranks, phase: str, keys, rtol) -> dict:
-    """Phases 23 and 24's runs ``keys`` of the launch (their reports
+    """Phases 23 to 25's runs ``keys`` of the launch (their reports
     written): each held to its single process within ``rtol`` (by key),
-    its all-reduces over "model" a step to :func:`tp_all_reduces`, its
+    its collectives over "model" a step to :func:`tp_collectives`, its
     step peak below the single process's; no kernel or plain version
     runs.  Returns the report by key."""
     from repro_torch.configs import get_config
@@ -4192,9 +4223,9 @@ def _tp_runs(prk, smi, ranks, phase: str, keys, rtol) -> dict:
         one = ranks["singles"][key]
         rel = _rel(rank, one)
         limits = rtol[key]
-        reduces = [(n, round(gb * 1e3, 1), sec)
-                   for n, gb, sec in _per_step(rank, "all_reduce")]
-        want = tp_all_reduces(cfg)
+        ops = {op: [(n, round(gb * 1e3, 1), sec) for n, gb, sec
+                    in _per_step(rank, f"{op}[model]")] for op in MODEL_OPS}
+        want = tp_collectives(cfg, mp)
         seq = DIST_EXTRA.get(key, ["--seq", "2048"])[1]
         if cfg.is_encoder_decoder:
             what = (f"{layers} + {layers} layers, decoder 2 x {seq} over "
@@ -4213,7 +4244,7 @@ def _tp_runs(prk, smi, ranks, phase: str, keys, rtol) -> dict:
                         init_peak_bytes=rank["init_peak_bytes"],
                         state_bytes=rank["state_bytes"],
                         single_state_bytes=one["state_bytes"],
-                        all_reduce_calls_mb_s=reduces, all_reduces_predicted=want,
+                        model_calls_mb_s=ops, model_calls_predicted=want,
                         collectives=rank["collectives"], main=_phases(rank),
                         single_main=_phases(one))
         log(f"[phase {phase}{key}] {arch} at full width, {what}: two ranks on "
@@ -4224,8 +4255,8 @@ def _tp_runs(prk, smi, ranks, phase: str, keys, rtol) -> dict:
             f"{[round(x, 6) for _, x in rank['grad_norms']]} vs "
             f"{[round(x, 6) for _, x in one['grad_norms']]} (rel "
             f"{[f'{e:.2e}' for e in rel['grad_norm']]}; limits {limits}); step "
-            f"ms {_steps(rank)} vs {_steps(one)} alone; rank 0's all-reduces "
-            f"(calls, MB, s) a step {reduces} (predicted {want} calls; "
+            f"ms {_steps(rank)} vs {_steps(one)} alone; rank 0's collectives "
+            f"over 'model' (calls, MB, s) a step {ops} (predicted {want} calls; "
             f"host-staged: no interconnect measured); peak per rank "
             f"{_gb(rank['peak_bytes'])} GB vs {_gb(one['peak_bytes'])} GB alone "
             f"(state {_gb(rank['state_bytes'])} vs {_gb(one['state_bytes'])}); "
@@ -4240,10 +4271,10 @@ def _tp_runs(prk, smi, ranks, phase: str, keys, rtol) -> dict:
                  f"the single process: relative {rel} (limits by step {limits}); "
                  f"losses {rank['losses']} / {one['losses']}, grad norms "
                  f"{rank['grad_norms']} / {one['grad_norms']}")
-        counts = [step.get("all_reduce[model]", {}).get("calls", 0)
-                  for step in rank["collectives"]]
+        counts = [{op: step.get(f"{op}[model]", {}).get("calls", 0)
+                   for op in MODEL_OPS} for step in rank["collectives"]]
         if counts != [want] * 2:
-            fail(f"phase {phase}{key}: all-reduces over 'model' a step {counts}, "
+            fail(f"phase {phase}{key}: collectives over 'model' a step {counts}, "
                  f"not the {want} of the tensor-parallel brackets")
         if not all(p < one["peak_bytes"][0] for p in rank["peak_bytes"]):
             fail(f"phase {phase}{key}: a rank's step peak {rank['peak_bytes']} is "
@@ -4291,14 +4322,14 @@ ROUTE_FLIP_LIMIT = 0.07
 
 
 def phase_tp_moe(prk, smi, ranks):
-    """Phase 24 (see the module docstring): the launch's last two runs,
+    """Phase 24 (see the module docstring): the launch's runs after 23's,
     tensor parallelism over "model" for granite-moe-3b-a800m (experts)
     and deepseek-v2-236b (MLA heads), against the single processes
     :func:`phase_distributed` ran before the go, and (e)'s step-1 routing
     against the single process's; returns its report."""
     t0 = time.perf_counter()
     d, proc = ranks["d"], ranks["proc"]
-    wait_ranks(proc, d)
+    wait_done(proc, d, [f"{d}/{k}.done" for k in "em"])
     t_end = time.perf_counter()
     out = _tp_runs(prk, smi, ranks, "24", ("e", "m"), TP_MOE_RTOL)
     for key in ROUTED:
@@ -4324,6 +4355,39 @@ def phase_tp_moe(prk, smi, ranks):
     out["seconds"] = time.perf_counter() - t0
     log(f"[phase 24] {out['seconds']:.1f} s (the ranks' runs after 23: main "
         f"{[out[k]['main']['main'] for k in ('e', 'm')]} s)")
+    return out
+
+
+# --- phase 25: tensor parallelism for the recurrent blocks ----------------------
+
+# Phase 25's ranks against one process, relative, at steps 1 and 2, by
+# run: about ten times the errors of the first run on the card (mamba2
+# 1.49e-6 and 8.83e-6 for the loss, 1.65e-4 and 6.71e-5 for the grad
+# norm: each rank's part of in_proj's bf16 gradient is rounded before
+# the reduce-scatter sums it; recurrentgemma 1.38e-6 and 1.15e-6,
+# 1.89e-5 and 1.33e-5; deterministic algorithms on; PERF.md section 6).
+TP_RECURRENT_RTOL = {"s": {"loss": (1.5e-5, 9e-5), "grad_norm": (1.7e-3, 7e-4)},
+                     "r": {"loss": (1.4e-5, 1.2e-5), "grad_norm": (1.9e-4, 1.4e-4)}}
+
+
+def phase_tp_recurrent(prk, smi, ranks):
+    """Phase 25 (see the module docstring): the launch's last two runs,
+    tensor parallelism over "model" for mamba2-2.7b (SSD heads) and
+    recurrentgemma-9b (RG-LRU channels and local attention's heads),
+    against the single processes :func:`phase_distributed` ran before the
+    go (recurrentgemma's 44 GB of state whole never beside the ranks'
+    shards); returns its report."""
+    t0 = time.perf_counter()
+    d, proc = ranks["d"], ranks["proc"]
+    wait_ranks(proc, d)
+    t_end = time.perf_counter()
+    out = _tp_runs(prk, smi, ranks, "25", ("s", "r"), TP_RECURRENT_RTOL)
+    out["after_m_s"] = t_end - t0
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 25] {out['seconds']:.1f} s (the ranks' runs after 24: main "
+        f"{[out[k]['main']['main'] for k in ('s', 'r')]} s; single processes, "
+        f"before the go: main "
+        f"{[_phases(ranks['singles'][k])['main'] for k in ('s', 'r')]} s)")
     return out
 
 
@@ -4524,6 +4588,9 @@ def main(argv=None) -> int:
             # phase 24: tensor parallelism for MoE experts and MLA heads
             tp_moe = phase_tp_moe(prk, smi, ranks)
             clock("phase 24")
+            # phase 25: tensor parallelism for the recurrent blocks
+            tp_recurrent = phase_tp_recurrent(prk, smi, ranks)
+            clock("phase 25")
         finally:
             stop_ranks(ranks["proc"])
     for k in kernels:
@@ -4546,6 +4613,7 @@ def main(argv=None) -> int:
     log(json.dumps({"zero3": zero3}))
     log(json.dumps({"tp_inputs": tp_inputs}))
     log(json.dumps({"tp_moe": tp_moe}))
+    log(json.dumps({"tp_recurrent": tp_recurrent}))
     log(json.dumps({"kernels": kernels + knn_kernels + family_kernels
                     + shard_kernels}))
     log(smi)

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel import tensor_parallel as TP
 
 __all__ = ["rglru_defs", "rglru_train", "rglru_decode", "RGLRUCache",
            "rglru_init_cache"]
@@ -55,17 +56,25 @@ def rglru_defs(d_model: int, lru_width: int, *, gate_blocks: int = 0):
     return defs
 
 
-def _gate_matmul(x, w):
+def _gate_matmul(x, w, tp=None):
+    """``x`` through a gate.  Under ``tp`` ``x`` holds the rank's
+    channels: a block-diagonal gate's blocks are the rank's (no
+    collective); a dense gate's rows are, so ``x @ w`` is a partial sum
+    of every output channel, reduce-scattered to the rank's."""
     if w.ndim == 3:  # block-diagonal (blocks, blk, blk)
         blocks, blk, _ = w.shape
         xb = x.reshape(x.shape[:-1] + (blocks, blk))
         return torch.einsum("...hk,hkl->...hl", xb, w).reshape(x.shape)
+    if tp is not None:
+        return TP.reduce_scatter_to_model(x @ w, tp)
     return x @ w
 
 
-def _gates(params, x):
-    r = torch.sigmoid(_gate_matmul(x, params["w_rec_gate"]) + params["b_rec_gate"])
-    i = torch.sigmoid(_gate_matmul(x, params["w_input_gate"]) + params["b_input_gate"])
+def _gates(params, x, tp=None):
+    r = torch.sigmoid(_gate_matmul(x, params["w_rec_gate"], tp)
+                      + params["b_rec_gate"])
+    i = torch.sigmoid(_gate_matmul(x, params["w_input_gate"], tp)
+                      + params["b_input_gate"])
     log_a = -_C * r * F.softplus(params["lam"])   # log a_t  (<= 0)
     a = torch.exp(log_a)
     gated_x = i * x
@@ -113,15 +122,20 @@ def _associative_scan(a, b):
 
 
 def rglru_train(params: Dict, u: torch.Tensor, *, return_cache: bool = False,
-                scan_impl: str = "associative", scan_chunk: int = 256):
+                scan_impl: str = "associative", scan_chunk: int = 256, tp=None):
     """RG-LRU over a full sequence.  ``scan_impl="associative"`` scans the
     whole sequence at once; ``"linear"`` (used for S > ``scan_chunk``, a
     multiple of it) scans each chunk and carries the state across
-    chunks, so the scan's intermediates are O(B, chunk, lru)."""
+    chunks, so the scan's intermediates are O(B, chunk, lru).  Under
+    ``tp`` (the layer's tensor-parallel shard) every leaf holds the
+    rank's channels (``wx``/``wy`` column-parallel, ``wo`` row-parallel):
+    the conv, the gates, the scan and the GeLU gate run on them, and the
+    output is the rank's part of ``wo``'s, which the caller sums over
+    ``"model"``."""
     b, s, d = u.shape
     x_raw = u @ params["wx"]
     x = _conv(params, x_raw, s)
-    a, bx = _gates(params, x)
+    a, bx = _gates(params, x, tp)
 
     if scan_impl == "linear" and s > scan_chunk and s % scan_chunk == 0:
         h0 = torch.zeros((b, a.shape[-1]), dtype=torch.float32, device=u.device)

@@ -7,6 +7,14 @@ length.  Decode is one recurrent state update a token, written into the
 cache in place (the state and the conv window), so a CUDA graph of the
 step keeps it.  The state stays f32; the casts sit where the
 reference's ``.astype`` calls are.
+
+Under tensor parallelism a rank runs its heads.  ``in_proj`` and the
+conv are stored as the spec cuts them, contiguously over ``"conv_dim"``,
+which does not follow the heads; the forward gathers the weights over
+``"model"`` and takes the rank's columns (the weight route: the
+weight's bytes, 54.1 MB a layer at mamba2-2.7b's width in bf16, stay
+below the 86.6 MB of ``in_proj``'s output at batch 2 x 2,048, and do not
+grow with the batch; ``parallel.tensor_parallel.gather_from_model``).
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel import tensor_parallel as TP
 
 __all__ = ["ssm_dims", "ssm_defs", "ssm_train", "ssm_decode", "SSMCache",
            "ssm_init_cache"]
@@ -61,10 +70,35 @@ def _split_proj(proj, d_inner, n_state, num_heads):
     return z, xbc, dt
 
 
-def _gated_norm(y, z, scale, eps=1e-5):
+def _gated_norm(y, z, scale, eps=1e-5, tp=None, width=None):
+    """RMS norm of ``y * silu(z)`` over its last dim; under ``tp`` the
+    rank's channels of a ``width``-wide whole, their mean of squares
+    taken over the group."""
     y = y * F.silu(z)
-    var = torch.mean(torch.square(y.to(torch.float32)), dim=-1, keepdim=True)
+    if tp is None:
+        var = torch.mean(torch.square(y.to(torch.float32)), dim=-1, keepdim=True)
+    else:
+        var = TP.sum_squares(y, tp) / width
     return (y.to(torch.float32) * torch.rsqrt(var + eps) * scale).to(y.dtype)
+
+
+def _rank_inputs(params, tp, d_inner, n_state, head_dim):
+    """``in_proj``, ``conv_w`` and ``conv_b`` for the rank's heads under
+    ``tp``: each leaf gathered whole over ``"model"`` (its contiguous cut
+    does not follow the heads), then the rank's ``z``, ``x`` and ``dt``
+    columns and the whole ``B`` and ``C`` (one group, read by every
+    head) taken, in ``_split_proj``'s order."""
+    h0, hn = tp.ssm_head_start, tp.ssm_heads
+    c0, cn = h0 * head_dim, hn * head_dim
+    bc = slice(2 * d_inner, 2 * d_inner + 2 * n_state)
+    w = TP.gather_from_model(params["in_proj"], 1, tp)
+    dt0 = 2 * d_inner + 2 * n_state + h0
+    w_in = torch.cat([w[:, c0:c0 + cn], w[:, d_inner + c0:d_inner + c0 + cn],
+                      w[:, bc], w[:, dt0:dt0 + hn]], dim=1)
+    conv = [TP.gather_from_model(params[k], -1, tp) for k in ("conv_w", "conv_b")]
+    conv_w, conv_b = (torch.cat([t[..., c0:c0 + cn], t[..., d_inner:]], dim=-1)
+                      for t in conv)
+    return w_in, conv_w, conv_b
 
 
 def ssm_train(
@@ -76,19 +110,30 @@ def ssm_train(
     n_state: int = 128,
     chunk: int = 256,
     return_cache: bool = False,
+    tp=None,
 ):
+    """The SSD block over a full sequence.  Under ``tp`` (the layer's
+    tensor-parallel shard) it runs the rank's ``tp.ssm_heads`` heads
+    (:func:`_rank_inputs`) and returns its part of ``out_proj``'s
+    output, which the caller sums over ``"model"``."""
     b, s, d_model = u.shape
     d_inner, nh, conv_dim = ssm_dims(
         d_model, expand=expand, head_dim=head_dim, n_state=n_state
     )
     p = head_dim
-    proj = u @ params["in_proj"]
+    width = d_inner
+    if tp is None:
+        w_in, conv_w, conv_b = params["in_proj"], params["conv_w"], params["conv_b"]
+    else:
+        w_in, conv_w, conv_b = _rank_inputs(params, tp, d_inner, n_state, p)
+        d_inner, nh = tp.ssm_heads * p, tp.ssm_heads
+    proj = u @ w_in
     z, xbc, dt = _split_proj(proj, d_inner, n_state, nh)
     # Short causal conv over (x, B, C).
     xbc_pad = F.pad(xbc, (0, 0, CONV_W - 1, 0))
     conv = sum(
-        xbc_pad[:, i : i + s] * params["conv_w"][i] for i in range(CONV_W)
-    ) + params["conv_b"]
+        xbc_pad[:, i : i + s] * conv_w[i] for i in range(CONV_W)
+    ) + conv_b
     conv = F.silu(conv)
     x = conv[..., :d_inner].reshape(b, s, nh, p)
     B = conv[..., d_inner : d_inner + n_state]             # (B, S, N), 1 group
@@ -110,7 +155,10 @@ def ssm_train(
     cum = torch.cumsum(dar, dim=2)                         # (B, nc, c, H)
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (B, nc, c, c, H) log decay i<-j
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=u.device))
-    decay = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    # masked before the exp (the same values as the reference's
+    # where(causal, exp(seg), 0)): over a long chunk the anti-causal
+    # entries' exp overflows, and where's backward turns 0 * inf into NaN
+    decay = torch.exp(seg.masked_fill(~causal[None, None, :, :, None], -torch.inf))
 
     # Diagonal (intra-chunk) term: Y_intra = (C Bᵀ ⊙ decay ⊙ dt) X
     cb = torch.einsum("bcin,bcjn->bcij", Cr, Br)            # (B, nc, c, c)
@@ -144,7 +192,8 @@ def ssm_train(
 
     y = (y_intra + y_inter).reshape(b, s, nh, p)
     y = y + x * params["d_skip"][None, None, :, None].to(x.dtype)
-    y = _gated_norm(y.reshape(b, s, d_inner), z, params["norm"])
+    y = _gated_norm(y.reshape(b, s, d_inner), z, params["norm"], tp=tp,
+                    width=width)
     out = y @ params["out_proj"]
     if return_cache:
         return out, SSMCache(state=state, conv=xbc[:, -(CONV_W - 1):])

@@ -298,15 +298,19 @@ def _shard_plan(cfg: ModelConfig, shardings: Dict, shapes: Dict[str, Tuple[int, 
     ``(cut, layout, tp)`` — the local shape of each parameter an axis
     cuts, the ``parallel.distributed.ShardLayout`` and the
     ``TensorParallel`` (None without a ``"model"`` axis > 1).  The data
-    axis may cut any family (ZeRO-3, ``parallel.zero3``); a ``"model"``
-    axis > 1 raises for the SSD, RG-LRU and local-attention layers (ROADMAP
-    item 14b.2c), and a ``"pod"`` axis > 1 raises (14b.4).  Under tensor
-    parallelism every block the model runs must be split over
-    ``"model"``: each dim whose logical axis maps to it (heads, d_ff,
-    experts, the vocabulary; only kv heads may stay whole, Megatron's GQA
-    convention) must be cut, or a rank would run its part of a block at
-    full heads or with every expert.  A leaf of a split block that
-    ``"model"`` leaves whole is ``partial`` (``TP.SPLIT_BLOCKS``)."""
+    axis may cut any family (ZeRO-3, ``parallel.zero3``) and the
+    ``"model"`` axis any layer kind (``TP.TP_KINDS``); a ``"pod"`` axis
+    > 1 raises (ROADMAP item 14b.4).  Under tensor parallelism every
+    block the model runs must be split over ``"model"``: each dim whose
+    logical axis maps to it (heads, d_ff, experts, the vocabulary, SSD
+    heads and ``conv_dim``, ``lru_width``; only kv heads may stay whole,
+    Megatron's GQA convention) must be cut, or a rank would run its part
+    of a block at full heads or with every expert.  Every leaf keeps the
+    spec's contiguous cut: the SSD's ``in_proj`` and conv, whose cut does
+    not follow the heads, are gathered where they are read
+    (``models.ssm``).  A leaf of a split block that ``"model"`` leaves
+    whole is ``partial`` (``TP.SPLIT_BLOCKS``): the kv heads where they
+    are whole, MLA's latent projections and norms, the MoE router."""
     from repro_torch.launch import shardspecs as SS
 
     mesh = next(iter(shardings.values())).mesh
@@ -315,9 +319,6 @@ def _shard_plan(cfg: ModelConfig, shardings: Dict, shapes: Dict[str, Tuple[int, 
     mp = mesh.shape.get("model", 1)
     tp, split, partial = None, (), ()
     if mp > 1:
-        for kind in cfg.layer_kinds():
-            if kind not in TP.TP_KINDS:
-                raise NotImplementedError(TP.unsupported_kind(kind))
         axes = model_axes(cfg)
         logical = SS.param_shardings(cfg, mesh)
         for name in shapes:
@@ -445,6 +446,16 @@ def _moe(params, h, cfg: ModelConfig, group_size: int, tp=None):
     )
 
 
+def _split_in(h, tp):
+    """A block's input under ``tp``: "f" (else ``h``)."""
+    return h if tp is None else TP.copy_to_model(h, tp)
+
+
+def _split_out(y, tp):
+    """A block's output under ``tp``: "g" over its ranks' parts."""
+    return y if tp is None else TP.reduce_from_model(y, tp)
+
+
 def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
                       return_cache: bool, enc_out=None, mrope_positions=None,
                       tp=None):
@@ -455,9 +466,7 @@ def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
     MoE block's output: its experts' and shared experts' parts).  MLA
     runs its heads of ``wq_b``/``wk_b``/``wv_b``/``wo`` from the whole
     latent projections, MoE its experts of every token's routing."""
-    h = rms_norm(x, params["pre_norm"], cfg.norm_eps)
-    if tp is not None:
-        h = TP.copy_to_model(h, tp)
+    h = _split_in(rms_norm(x, params["pre_norm"], cfg.norm_eps), tp)
     cache = None
     if kind.startswith("mla"):
         out = attn.mla_train(
@@ -482,31 +491,21 @@ def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
         )
     if return_cache:
         out, cache = out
-    if tp is not None:
-        out = TP.reduce_from_model(out, tp)
-    x = x + out
+    x = x + _split_out(out, tp)
     if kind == "dec":
-        h = rms_norm(x, params["cross_norm"], cfg.norm_eps)
-        if tp is not None:
-            h = TP.copy_to_model(h, tp)
+        h = _split_in(rms_norm(x, params["cross_norm"], cfg.norm_eps), tp)
         enc_kv = attn.encode_cross_kv(params["cross"], enc_out)
         out = attn.cross_attention(
             params["cross"], h, enc_kv,
             num_heads=cfg.num_heads if tp is None else tp.num_heads,
             q_chunk=cfg.q_chunk, scores_dtype=cfg.attn_scores_dtype)
-        if tp is not None:
-            out = TP.reduce_from_model(out, tp)
-        x = x + out
-    h = rms_norm(x, params["mlp_norm"], cfg.norm_eps)
-    if tp is not None:
-        h = TP.copy_to_model(h, tp)
+        x = x + _split_out(out, tp)
+    h = _split_in(rms_norm(x, params["mlp_norm"], cfg.norm_eps), tp)
     if kind.endswith("moe"):
         y = _moe(params, h, cfg, cfg.moe_group_size, tp)
     else:
         y = mlp_apply(params["mlp"], h, act=cfg.act)
-    if tp is not None:
-        y = TP.reduce_from_model(y, tp)
-    return x + y, cache
+    return x + _split_out(y, tp), cache
 
 
 def layer_train(params, x, positions, cfg: ModelConfig, kind: str = "dense",
@@ -516,31 +515,36 @@ def layer_train(params, x, positions, cfg: ModelConfig, kind: str = "dense",
     ``return_cache`` the layer's decode cache for the sequence, else None.
     Differentiable in every input and parameter (the decode caches are
     built from the forward's values, not written in place).  ``tp``: the
-    layer's tensor-parallel shard (``parallel.tensor_parallel``; a kind of
-    ``TP_KINDS``); a dec layer's ``enc_out`` has passed ``copy_to_model``
-    already (:func:`forward_train`)."""
-    if tp is not None and kind not in TP.TP_KINDS:
-        raise NotImplementedError(TP.unsupported_kind(kind))
+    layer's tensor-parallel shard (``parallel.tensor_parallel``): every
+    block runs between "f" (after its norm) and "g" (the sum of the
+    ranks' parts of its output): attention and the MLP on a rank's heads
+    and ``d_ff`` (a local-attention layer's too, its kv head whole), MoE
+    on its experts, RG-LRU on its channels (the dense gates'
+    outputs reduce-scattered), the SSD on its heads (``in_proj`` and the
+    conv gathered, the gated norm's sum of squares summed); a dec
+    layer's ``enc_out`` has passed ``copy_to_model`` already
+    (:func:`forward_train`)."""
     if kind == "ssm":
-        h = rms_norm(x, params["pre_norm"], cfg.norm_eps)
+        h = _split_in(rms_norm(x, params["pre_norm"], cfg.norm_eps), tp)
         y = ssm_lib.ssm_train(
             params["ssm"], h, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
             n_state=cfg.ssm_state, chunk=cfg.ssm_chunk, return_cache=return_cache,
+            tp=tp,
         )
         cache = None
         if return_cache:
             y, cache = y
-        return x + y, cache
+        return x + _split_out(y, tp), cache
     if kind == "rglru":
-        h = rms_norm(x, params["pre_norm"], cfg.norm_eps)
+        h = _split_in(rms_norm(x, params["pre_norm"], cfg.norm_eps), tp)
         y = rglru_lib.rglru_train(params["rglru"], h, return_cache=return_cache,
-                                  scan_impl=cfg.lru_scan_impl)
+                                  scan_impl=cfg.lru_scan_impl, tp=tp)
         cache = None
         if return_cache:
             y, cache = y
-        x = x + y
-        h = rms_norm(x, params["mlp_norm"], cfg.norm_eps)
-        return x + mlp_apply(params["mlp"], h, act=cfg.act), cache
+        x = x + _split_out(y, tp)
+        h = _split_in(rms_norm(x, params["mlp_norm"], cfg.norm_eps), tp)
+        return x + _split_out(mlp_apply(params["mlp"], h, act=cfg.act), tp), cache
     x, cache = _apply_attn_train(params, x, positions, cfg, kind, return_cache,
                                  enc_out, mrope_positions, tp)
     if return_cache and kind == "local_attn":

@@ -1721,6 +1721,41 @@ def test_two_gloo_ranks_on_one_card_moe_mla_match_the_cpu(cuda_device, tmp_path)
                                        err_msg=f"{key} {name}")
 
 
+def test_two_gloo_ranks_on_one_card_recurrent_match_the_cpu(cuda_device, tmp_path):
+    """Tensor parallelism for the SSD and RG-LRU with local attention with
+    two ranks sharing the card over gloo: mamba2-2.7b-smoke and
+    recurrentgemma-9b-smoke at f32 on a (1, 2) mesh (half the SSD heads,
+    ``in_proj`` and the conv gathered over "model"; half the RG-LRU
+    channels, the dense gates' outputs reduce-scattered; the one kv head
+    whole, its gradients summed) agree with the same ranks on the CPU:
+    losses and grad norms within rtol 1e-5, the parameters within rtol
+    1e-5 / atol 1e-6 where no step's gradient fell below 1e-6, the same
+    names split and summed, and the same collectives a step."""
+    import torch_dist_parity as P
+
+    cases = {"ssm": P.case("mamba2-2.7b-smoke", "tp2"),
+             "rglru": P.case("recurrentgemma-9b-smoke", "tp2")}
+    cpu = P.spawn(2, P.port_cases, {k: (c, None) for k, c in cases.items()},
+                  str(tmp_path))
+    card = P.spawn(2, P.port_cases, {k: (dict(c, device="cuda:0"), None)
+                                     for k, c in cases.items()}, str(tmp_path))
+    for key in cases:
+        got, want = card[key], cpu[key]
+        assert not got["bad_shapes"] and got["split"] == want["split"]
+        assert got["partial"] == want["partial"]
+        assert got["collectives"] == want["collectives"]
+        assert any(k.startswith("reduce_scatter[model]")
+                   for k in got["collectives"][0])
+        for name in ("losses", "grad_norms"):
+            np.testing.assert_allclose(got[name], want[name], rtol=P.F32_RTOL,
+                                       err_msg=f"{key} {name}")
+        for name, p in got["final"].items():
+            keep = ~(want["small"][name] | got["small"][name])
+            np.testing.assert_allclose(p[keep], want["final"][name][keep],
+                                       rtol=P.F32_RTOL, atol=P.F32_ATOL,
+                                       err_msg=f"{key} {name}")
+
+
 def test_two_gloo_ranks_on_one_card_zero3_match_the_cpu(cuda_device, tmp_path):
     """ZeRO-3 with two ranks sharing the card over gloo: granite-20b-smoke
     with ``fsdp_params`` at f32 on a (2, 1) mesh, each layer's parameters

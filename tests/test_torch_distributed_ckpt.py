@@ -175,15 +175,12 @@ def _refusals(rank, payload):
 
     out = {}
     tp = D.init_process_mesh(2, device="cpu")
-    for arch in ("mamba2-2.7b-smoke", "recurrentgemma-9b-smoke"):
-        out[arch] = attempt(lambda: init(get_config(arch), tp))
-        out[f"{arch}+fsdp"] = attempt(lambda: init(dataclasses.replace(
-            get_config(arch), fsdp_params=True), tp))
-    # the dense layer's other inputs (item 14b.2a), MoE and MLA (14b.2b)
-    # have a path: they place
+    # the dense layer's other inputs (item 14b.2a), MoE and MLA (14b.2b),
+    # the SSD, RG-LRU and local attention (14b.2c) have a path: they place
     for arch in ("whisper-medium-smoke", "qwen2-vl-2b-smoke"):
         out[arch] = shapes(init(get_config(arch), tp))
-    for arch in ("granite-moe-3b-a800m-smoke", "deepseek-v2-236b-smoke"):
+    for arch in ("granite-moe-3b-a800m-smoke", "deepseek-v2-236b-smoke",
+                 "mamba2-2.7b-smoke", "recurrentgemma-9b-smoke"):
         out[arch] = shapes(init(get_config(arch), tp))
         out[f"{arch}+fsdp"] = shapes(init(dataclasses.replace(
             get_config(arch), fsdp_params=True), tp))
@@ -203,31 +200,40 @@ def _refusals(rank, payload):
 
 
 def test_cases_without_a_path_raise(tmp_path):
-    """TP for SSD and RG-LRU with local attention raises naming item 14b.2c
-    on a (2, 2) mesh, with or without ``fsdp_params`` (ZeRO-3 has a path,
-    their tensor parallelism has none), as do serving a shard
-    (tensor-parallel or ZeRO-3) and re-meshing one; nothing runs whole on
-    one rank instead.  whisper, embeddings input (qwen2-vl), MoE
-    (granite-moe) and MLA (deepseek-v2) place on (2, 2), with and without
-    ``fsdp_params``: heads and experts halved, the MoE router and MLA's
-    ``wkv_a`` whole over "model" (their parity is
-    ``test_torch_distributed_tp_{inputs,moe}.py``'s).  granite-20b with
-    ``fsdp_params`` on (4, 1) places (ZeRO-3: every parameter's embed dim
-    a quarter), and on (1, 4), a data axis of 1, places too (the split
-    drops)."""
+    """Serving a shard (tensor-parallel or ZeRO-3) and re-meshing one raise
+    on a (2, 2) mesh; nothing runs whole on one rank instead.  Every
+    family places on (2, 2), with and without ``fsdp_params``: whisper,
+    embeddings input (qwen2-vl), MoE (granite-moe) and MLA (deepseek-v2)
+    with heads and experts halved, the MoE router and MLA's ``wkv_a``
+    whole over "model"; the SSD (mamba2) and RG-LRU with local attention
+    (recurrentgemma) at the contiguous cut of the sanitized spec, the one
+    kv head whole (their parity is
+    ``test_torch_distributed_tp_{inputs,moe,recurrent}.py``'s).
+    granite-20b with ``fsdp_params`` on (4, 1) places (ZeRO-3: every
+    parameter's embed dim a quarter), and on (1, 4), a data axis of 1,
+    places too (the split drops)."""
     out = P.spawn(4, _refusals, None, str(tmp_path))
-    families = ("mamba2-2.7b-smoke", "recurrentgemma-9b-smoke")
-    for key in (*families, *(f"{a}+fsdp" for a in families), "remesh",
-                "prefill", "prefill_zero3"):
+    for key in ("remesh", "prefill", "prefill_zero3"):
         assert out[key] is not None, key
         kind, msg = out[key]
         assert kind == "NotImplementedError", (key, kind, msg)
         if not key.startswith("prefill"):
             assert "14b" in msg, (key, msg)
-    for arch, what in (("mamba2-2.7b-smoke", "SSD"),
-                       ("recurrentgemma-9b-smoke", "RG-LRU")):
-        for key in (arch, f"{arch}+fsdp"):
-            assert what in out[key][1] and "14b.2c" in out[key][1], (key, out[key])
+    # the SSD's and RG-LRU's leaves cut contiguously over "model" (2),
+    # the embed dim over "data" (2) with fsdp_params
+    for fsdp, dp in (("", 1), ("+fsdp", 2)):
+        ssm = out[f"mamba2-2.7b-smoke{fsdp}"]
+        assert ssm["layers.0.ssm.in_proj"] == (64 // dp, 148)
+        assert ssm["layers.0.ssm.conv_w"] == (4, 80)
+        assert ssm["layers.1.ssm.out_proj"] == (64, 64 // dp)
+        assert ssm["layers.1.ssm.dt_bias"] == (4,)
+        rg = out[f"recurrentgemma-9b-smoke{fsdp}"]
+        assert rg["layers.0.rglru.w_input_gate"] == (32, 64)
+        assert rg["layers.1.rglru.wx"] == (64 // dp, 32)
+        assert rg["layers.3.rglru.wo"] == (32, 64 // dp)
+        assert rg["layers.2.attn.wq"] == (64 // dp, 2, 16)
+        assert rg["layers.2.attn.wk"] == (64 // dp, 1, 16)
+        assert rg["layers.4.mlp.wi"] == (64 // dp, 64)
     # experts and heads over "model" (2), the embed dim over "data" (2)
     # with fsdp_params; the router and wkv_a cut over "data" only
     for fsdp, dp in (("", 1), ("+fsdp", 2)):

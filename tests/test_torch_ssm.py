@@ -60,6 +60,37 @@ def test_ssm_train_matches_reference(chunk):
     assert cache.state.dtype == torch.float32
 
 
+def test_ssm_gradient_is_finite_over_a_long_chunk():
+    """mamba2-2.7b's chunk of 256 at real decays: the anti-causal log
+    decays sum past exp's f32 range.  The port masks them before the exp,
+    so its gradients are finite and equal the reference's over chunks of
+    16 (the SSD is the same function at any chunk); the reference's own
+    gradients at a chunk of 256 are not finite (ROADMAP's reference
+    caveats)."""
+    import jax
+
+    p = _params(3)
+    p["a_log"] = np.full_like(p["a_log"], 0.5)     # a = -1.65, as the init
+    p["dt_bias"] = np.full_like(p["dt_bias"], 1.0)
+    x = np.random.default_rng(4).standard_normal((1, 256, 32), dtype=np.float32)
+    c = np.random.default_rng(5).standard_normal((1, 256, 32), dtype=np.float32)
+    ours = {k: t(v).requires_grad_() for k, v in p.items()}
+    (ssm.ssm_train(ours, t(x), chunk=256, **KW) * t(c)).sum().backward()
+
+    def ref_grads(chunk):
+        def loss(q):
+            return jnp.sum(ref_ssm.ssm_train(q, jnp.asarray(x), chunk=chunk, **KW) * c)
+        return jax.grad(loss)({k: jnp.asarray(v) for k, v in p.items()})
+
+    assert not all(np.all(np.isfinite(np32(g))) for g in ref_grads(256).values())
+    want = ref_grads(16)
+    for k, v in ours.items():
+        g, w = v.grad.numpy(), np32(want[k])
+        assert np.all(np.isfinite(g)), k
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4 * np.abs(w).max(),
+                                   err_msg=k)
+
+
 def test_ssm_train_keeps_the_chunk_check():
     p = _params(1)
     with pytest.raises(ValueError, match="chunk"):

@@ -42,7 +42,7 @@ BF16_RTOL = 2e-2
 
 def case(arch, mesh, *, dtype="float32", seq=32, batch=4, grad_dtype=None,
          mask=False, seed=3, device="cpu", fsdp=False, remat=None,
-         microbatches=1, partial_grads=False):
+         microbatches=1, partial_grads=False, override=None):
     """One run: ``arch`` at ``dtype`` (None: the config's own) on a
     ``mesh`` of ``MESHES`` of ranks on ``device``, ``batch`` x ``seq``
     tokens a step in ``microbatches`` parts; ``fsdp`` sets the config's
@@ -50,17 +50,21 @@ def case(arch, mesh, *, dtype="float32", seq=32, batch=4, grad_dtype=None,
     its remat policy (None: the config's own); ``partial_grads`` holds the
     first step's reduced gradients of the layout's ``partial`` leaves
     against the whole model's on the global batch and across the ranks
-    (:func:`_partial_check`)."""
+    (:func:`_partial_check`); ``override`` (field -> value) replaces
+    other fields of the config, alike in both packages."""
     return dict(arch=arch, mesh=MESHES[mesh], dtype=dtype, seq=seq, batch=batch,
                 grad_dtype=grad_dtype, mask=mask, seed=seed, device=device,
                 fsdp=fsdp, remat=remat, microbatches=microbatches,
-                partial_grads=partial_grads)
+                partial_grads=partial_grads, override=override)
 
 
 def config(module, c):
     """The case's config of ``module``'s registry (the reference's or the
-    port's), with the case's dtype, ``fsdp_params`` and remat."""
+    port's), with the case's dtype, ``fsdp_params``, remat and
+    ``override``."""
     cfg = module.get_config(c["arch"])
+    if c.get("override"):
+        cfg = dataclasses.replace(cfg, **c["override"])
     if c["dtype"]:
         cfg = dataclasses.replace(cfg, dtype=c["dtype"])
     if c.get("fsdp"):
@@ -368,6 +372,78 @@ def port(cases, ref, tmp):
                    if c["mesh"][0] * c["mesh"][1] == world}
         out.update(spawn(world, port_cases, payload, tmp))
     return out
+
+
+def _operator_case(op, tp, pm, gen):
+    """One operator of ``parallel.tensor_parallel`` on this rank's cut of
+    whole inputs drawn from ``gen`` (the same on every rank), against
+    the whole computation under autograd: the largest differences of
+    its output and of each input's gradient from the whole's cut.  The
+    loss is each rank's part weighted by coefficients of its own, so the
+    whole's gradient sums every rank's."""
+    import torch
+
+    from repro_torch.parallel import tensor_parallel as TP
+
+    n, r = tp.size, tp.rank
+    b, s, w = 2, 3, 8 * n
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, dtype=torch.float64).float()
+
+    cut = slice(r * w // n, (r + 1) * w // n)
+    if op == "sum_squares":  # an RMS norm over a split last dim
+        x, c = draw(b, s, w), draw(b, s, w)
+        whole = {"x": x.clone().requires_grad_()}
+        xw = whole["x"]
+        want = xw * torch.rsqrt(torch.mean(xw * xw, -1, keepdim=True) + 1e-5)
+        (c * want).sum().backward()
+        mine = {"x": x[..., cut].clone().requires_grad_()}
+        xr = mine["x"]
+        got = xr * torch.rsqrt(TP.sum_squares(xr, tp) / w + 1e-5)
+        (c[..., cut] * got).sum().backward()
+        want, cuts = want[..., cut], {"x": (Ellipsis, cut)}
+    elif op == "reduce_scatter":  # a matmul over a split contraction dim
+        x, m, c = draw(b, s, w), draw(w, w), draw(b, s, w)
+        whole = {"x": x.clone().requires_grad_(), "w": m.clone().requires_grad_()}
+        want = whole["x"] @ whole["w"]
+        (c * want).sum().backward()
+        mine = {"x": x[..., cut].clone().requires_grad_(),
+                "w": m[cut].clone().requires_grad_()}
+        got = TP.reduce_scatter_to_model(mine["x"] @ mine["w"], tp)
+        (c[..., cut] * got).sum().backward()
+        want, cuts = want[..., cut], {"x": (Ellipsis, cut), "w": (cut,)}
+    else:  # "gather": a leaf's cuts made whole, each rank's loss its own
+        t, cs = draw(5, w), [draw(5, w) for _ in range(n)]
+        whole = {"t": t.clone().requires_grad_()}
+        want = whole["t"]
+        sum((ci * want).sum() for ci in cs).backward()
+        mine = {"t": t[:, cut].clone().requires_grad_()}
+        got = TP.gather_from_model(mine["t"], 1, tp)
+        (cs[r] * got).sum().backward()
+        cuts = {"t": (slice(None), cut)}
+    return dict(forward=float((got - want).detach().abs().max()),
+                grads={k: float((mine[k].grad - whole[k].grad[cuts[k]]).abs().max())
+                       for k in mine})
+
+
+def operator_checks(rank, payload):
+    """Each operator of ``payload`` (:func:`_operator_case`) on a (1, n)
+    mesh of the CPU: every rank's errors, by operator."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import distributed as D
+    from repro_torch.parallel import tensor_parallel as TP
+
+    pm = D.init_process_mesh(dist.get_world_size(), device="cpu")
+    tp = TP.TensorParallel(pm, get_config("internlm2-1.8b-smoke"), kv_sharded=True)
+    gen = torch.Generator().manual_seed(5)
+    mine = {op: _operator_case(op, tp, pm, gen) for op in payload}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
 
 
 def _close(a, b):
