@@ -269,7 +269,25 @@ run in order and the first failure exits non-zero:
      whole) and its two ranks (22 GB each) do not fit the card at once:
      the single process runs in this process before the go, while the
      ranks hold only their CUDA contexts, and frees the card before they
-     draw their shards.
+     draw their shards;
+ 26. checkpoints a slab at a time and re-meshing in place, the launch's
+     last run (:func:`ckpt_ranks`): (a) phase 22's granite-20b (full
+     width, 2 layers, 16.4 GB of f32 state whole) steps once on (2, 1)
+     (ZeRO-3), batch 2 x 2,048, and is saved twice, synchronously and
+     with ``AsyncCheckpointer`` plus ``wait()``: the two byte-equal as
+     arrays; (b) ``remesh_state`` moves it onto (1, 2), tensor
+     parallelism; (c) the save restored at (1, 2) into a fresh shard is
+     bit-equal to (b), and step 2 on each gives the same loss and
+     grad_norm; (d) after the launch this process restores the save whole
+     on ``cuda:0``, every leaf (cut as each rank held it) equal to the
+     ranks' step-1 shards by sha256.  Each rank's ``HOST_PEAK`` over each
+     save and the restore is at most one slab (the largest, the 49,152 x
+     6,144 f32 embedding, 1.21 GB), its share (the async save's copy)
+     and ``CKPT_SLACK``, beside the growth of its ``VmHWM`` (``ru_maxrss``
+     where /proc/self/status has no such line) and the whole state the
+     old path held on every rank (computed); the seconds of the
+     saves, the restore and the re-mesh, the checkpoint's GB and the free
+     disk before the saves (too little fails the run).
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
@@ -3689,7 +3707,8 @@ def train_ranks(spec_path: str) -> int:
     runs
     ``launch.train.main`` on each entry's ``argv``, all under one process
     group, rank 0 touching the entry's ``done`` file after each; an entry
-    with ``layers`` trains ``arch`` cut to that depth."""
+    with ``layers`` trains ``arch`` cut to that depth; phase 26's entry
+    (``ckpt``) runs :func:`ckpt_ranks`."""
     import torch.distributed as dist
 
     from repro_torch.launch import train
@@ -3710,9 +3729,12 @@ def train_ranks(spec_path: str) -> int:
         argv = list(run["argv"])
         at = argv.index("--arch") + 1
         argv[at] = cut_config(argv[at], run["layers"])
-        with recording_routes(run.get("routes"), argv[at],
-                              int(os.environ["RANK"])):
-            train.main(argv)
+        if run.get("ckpt"):  # phase 26: step, save, re-mesh, restore
+            ckpt_ranks(argv, run)
+        else:
+            with recording_routes(run.get("routes"), argv[at],
+                                  int(os.environ["RANK"])):
+                train.main(argv)
         gc.collect()
         torch.cuda.empty_cache()
         if dist.get_rank() == 0:  # its report is written
@@ -3933,7 +3955,7 @@ DIST_EXTRA = {"w": ["--seq", "448"]}
 
 
 def start_distributed(seed, d):
-    """Starts the torchrun launch of two ranks for 21b, 21c and 22 to 25,
+    """Starts the torchrun launch of two ranks for 21b, 21c and 22 to 26,
     reporting into ``d``; they wait for :func:`phase_distributed`."""
     common = DIST_COMMON + ["--seed", str(seed)]
     runs = {key: common + ["--arch", arch, "--global-batch", "2", "--steps", "2"]
@@ -3944,6 +3966,12 @@ def start_distributed(seed, d):
         argv=runs[key] + ["--model-parallel", str(mp), "--device", "cuda:0",
                           "--dist-backend", "gloo", "--report", f"{d}/{key}.json"])
         for key, (_, mp, layers) in DIST_CASES.items()])
+    spec["runs"].append(dict(
+        ckpt=True, layers=CKPT["layers"], done=f"{d}/k.done", dir=d,
+        report=f"{d}/k.json", seed=seed,
+        argv=common + ["--arch", CKPT["arch"], "--global-batch", "2", "--steps",
+                       "1", "--model-parallel", "1", "--device", "cuda:0",
+                       "--dist-backend", "gloo"]))
     return dict(d=d, go=spec["go"], runs=runs, t_launch=time.perf_counter(),
                 proc=start_ranks(2, spec, d))
 
@@ -4371,15 +4399,15 @@ TP_RECURRENT_RTOL = {"s": {"loss": (1.5e-5, 9e-5), "grad_norm": (1.7e-3, 7e-4)},
 
 
 def phase_tp_recurrent(prk, smi, ranks):
-    """Phase 25 (see the module docstring): the launch's last two runs,
-    tensor parallelism over "model" for mamba2-2.7b (SSD heads) and
+    """Phase 25 (see the module docstring): the launch's two runs before
+    phase 26's, tensor parallelism over "model" for mamba2-2.7b (SSD heads) and
     recurrentgemma-9b (RG-LRU channels and local attention's heads),
     against the single processes :func:`phase_distributed` ran before the
     go (recurrentgemma's 44 GB of state whole never beside the ranks'
     shards); returns its report."""
     t0 = time.perf_counter()
     d, proc = ranks["d"], ranks["proc"]
-    wait_ranks(proc, d)
+    wait_done(proc, d, [f"{d}/{key}.done" for key in ("s", "r")])
     t_end = time.perf_counter()
     out = _tp_runs(prk, smi, ranks, "25", ("s", "r"), TP_RECURRENT_RTOL)
     out["after_m_s"] = t_end - t0
@@ -4388,6 +4416,360 @@ def phase_tp_recurrent(prk, smi, ranks):
         f"{[out[k]['main']['main'] for k in ('s', 'r')]} s; single processes, "
         f"before the go: main "
         f"{[_phases(ranks['singles'][k])['main'] for k in ('s', 'r')]} s)")
+    return out
+
+
+# --- phase 26: checkpoints a slab at a time, and re-meshing in place -----------
+
+# granite-20b at full width cut to 2 layers (phase 22's): ZeRO-3 on (2, 1)
+CKPT = dict(arch="granite-20b", layers=2)
+# a rank's HOST_PEAK beyond its largest slab (and, in an async save, its
+# share): gloo's staging of one gather round on rank 0 (two ranks' parts
+# of 64 MiB), a part's round copied to the host and a written chunk
+CKPT_SLACK = 4 * (64 << 20)
+# free disk the two saves need beyond their 2 x the checkpoint's bytes
+CKPT_DISK_MARGIN = 4e9
+
+
+def vm_hwm() -> int:
+    """This process's peak resident set, bytes: ``VmHWM`` of
+    /proc/self/status (read only), or where that line is missing (the
+    card's sandbox has none) ``getrusage``'s ``ru_maxrss``, the same
+    mark."""
+    import resource
+
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmHWM:"):
+                return int(line.split()[1]) * 1024
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def sha256s(tensors: dict, threads: int = 4) -> dict:
+    """sha256 of each tensor's bytes (as stored: f32), by key: each copied
+    to the host in turn and hashed on a thread (hashlib releases the GIL),
+    at most ``threads`` in flight."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    def digest(t):
+        return hashlib.sha256(memoryview(t.numpy().reshape(-1).view(np.uint8))).hexdigest()
+
+    out, pending = {}, []
+    with ThreadPoolExecutor(threads) as pool:
+        for key, t in tensors.items():
+            pending.append((key, pool.submit(digest, t.detach().to("cpu").contiguous())))
+            if len(pending) >= threads:
+                k, fut = pending.pop(0)
+                out[k] = fut.result()
+        for k, fut in pending:
+            out[k] = fut.result()
+    return out
+
+
+def state_tensors(state) -> dict:
+    """A train state's parameters and moments by ``p:``/``m:``/``v:`` +
+    name."""
+    out = {f"p:{n}": p.detach() for n, p in state.params.named_parameters()}
+    for tree in ("m", "v"):
+        out.update({f"{tree}:{n}": t for n, t in getattr(state.opt_state, tree).items()})
+    return out
+
+
+def rank_part(t, spec, mesh, coords: dict):
+    """The part of the whole ``t`` under ``spec`` that the rank at
+    ``coords`` (index by axis) of a mesh of ``mesh``'s shape holds, as
+    ``parallel.distributed.local_shard`` cuts it."""
+    from repro_torch.parallel import distributed as D
+
+    for dim, axis in D.spec_cuts(spec, t.ndim, mesh):
+        t = t.chunk(mesh.shape[axis], dim=dim)[coords[axis]]
+    return t
+
+
+def same_checkpoints(a: str, b: str) -> list:
+    """The entries of two ``arrays.npz`` whose bytes differ (and those in
+    one only), compared a slab at a time over memory maps."""
+    import zipfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import checkpoint as ck
+
+    names = []
+    for path in (a, b):
+        with zipfile.ZipFile(path) as z:
+            names.append(sorted(n[:-len(".npy")] for n in z.namelist()))
+    ra, rb = ck._NpzReader(a), ck._NpzReader(b)
+    try:
+        bad = sorted(set(names[0]) ^ set(names[1]))
+        for key in names[0]:
+            if key in bad:
+                continue
+            _, shape, dtype = ra.head(key)
+            if rb.head(key)[1:] != (shape, dtype):
+                bad.append(key)
+                continue
+            for j in range(shape[0]) if len(shape) > 2 else [None]:
+                with ra.slab(key, j) as x, rb.slab(key, j) as y:
+                    word = np.uint64 if x.nbytes % 8 == 0 else np.uint8
+                    if not np.array_equal(x.reshape(-1).view(word),
+                                          y.reshape(-1).view(word)):
+                        bad.append(key)
+                        break
+    finally:
+        ra.close()
+        rb.close()
+    return bad
+
+
+def ckpt_ranks(argv, run) -> None:
+    """Phase 26's side in each rank of the launch: (a) the trainer's step
+    1 on (2, 1) (ZeRO-3), saved synchronously and with
+    ``AsyncCheckpointer`` (each timed, with ``HOST_PEAK`` and the growth
+    of ``VmHWM``), the two saves compared on rank 0, each rank's
+    step-1 shards hashed; (b) ``remesh_state`` onto (1, 2); (c) the sync
+    save restored into a fresh (1, 2) shard; (b) and (c) held bit-equal,
+    then step 2 on each.  Rank 0 writes the ranks' reports to
+    ``run["report"]``, each rank its digests beside it."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.data.pipeline import SyntheticTokenSource
+    from repro_torch.ft.elastic import remesh_state
+    from repro_torch.launch import shardspecs as SS
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim.adamw import cosine_schedule
+    from repro_torch.parallel import distributed as D
+    from repro_torch.parallel.sharding import use_mesh
+
+    rank, d = int(os.environ["RANK"]), run["dir"]
+    device = torch.device(argv[argv.index("--device") + 1])
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    out = train.main(argv)
+    state, mesh = out["state"], out["mesh"]
+    cfg = state.params.cfg
+    whole = tfm.Transformer(cfg, device="meta")
+    whole_bytes = 12 * sum(p.numel() for p in whole.parameters())
+    slab = 4 * max(p.numel() for p in whole.parameters())
+    share = sum(t.numel() * t.element_size() for t in state_tensors(state).values())
+    me = dict(rank=rank, mesh=dict(mesh.shape), losses=out["losses"],
+              grad_norms=out["grad_norms"], whole_bytes=whole_bytes, slab=slab,
+              share=share)
+    me["free_disk"] = shutil.disk_usage(d).free
+    if me["free_disk"] < 2 * whole_bytes + CKPT_DISK_MARGIN:
+        raise RuntimeError(f"phase 26: {me['free_disk'] / 1e9:.1f} GB free in {d}; "
+                           f"two checkpoints of {whole_bytes / 1e9:.1f} GB need "
+                           f"{(2 * whole_bytes + CKPT_DISK_MARGIN) / 1e9:.1f}")
+    dirs = {k: f"{d}/ck_{k}" for k in ("sync", "async")}
+
+    def measured(label, fn):
+        sync()
+        hwm, t0 = vm_hwm(), time.perf_counter()
+        ck.reset_host_peak()
+        result = fn()
+        sync()
+        me[f"{label}_s"] = time.perf_counter() - t0
+        me[f"{label}_host_peak"] = ck.reset_host_peak()
+        me[f"{label}_hwm_before"], me[f"{label}_hwm_after"] = hwm, vm_hwm()
+        return result
+
+    measured("save", lambda: ck.save_checkpoint(dirs["sync"], 1, state))
+    writer = ck.AsyncCheckpointer(dirs["async"], mesh=mesh)
+
+    def async_save():
+        t0 = time.perf_counter()
+        writer.save(1, state)
+        me["async_blocked_s"] = time.perf_counter() - t0
+        writer.wait(timeout=600)
+
+    measured("async", async_save)
+    me["held_after_saves"] = ck.HOST_PEAK["held"]
+    if rank == 0:
+        step1 = {k: f"{dirs[k]}/step_00000001" for k in dirs}
+        me["ckpt_bytes"] = os.path.getsize(f"{step1['sync']}/arrays.npz")
+        t0 = time.perf_counter()
+        me["saves_differ"] = same_checkpoints(*(f"{step1[k]}/arrays.npz"
+                                                for k in ("sync", "async")))
+        me["compare_s"] = time.perf_counter() - t0
+        metas = [pathlib.Path(step1[k], "META.json").read_text() for k in dirs]
+        me["metas_equal"] = metas[0] == metas[1]
+    t0 = time.perf_counter()
+    with open(f"{run['report']}.digests.{rank}", "w") as f:
+        json.dump(sha256s(state_tensors(state)), f)
+    me["hash_s"] = time.perf_counter() - t0
+    # (b) the state re-meshed in place onto (1, 2)
+    mesh12 = D.init_process_mesh(2, device=device, backend="gloo")
+    state_b = measured("remesh", lambda: remesh_state(state, tfm.model_axes(cfg),
+                                                      mesh12))
+    layout = state_b.params.layout
+    me["remesh_holds_old_mesh"] = (layout.mesh is not mesh12
+                                   or state_b.params.tp.mesh is not mesh12)
+    del state, out
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # (c) the sync save restored into a fresh (1, 2) shard
+    specs = SS.train_state_specs(cfg, mesh12)
+    with use_mesh(mesh12):
+        like = M.init_train_state(
+            torch.Generator(device=device).manual_seed(run["seed"] + 1), cfg,
+            shardings=specs)
+    state_c, at = measured("restore", lambda: ck.restore_checkpoint(
+        dirs["sync"], like, shardings=specs))
+    tb, tc = state_tensors(state_b), state_tensors(state_c)
+    me["b_c_unequal"] = [k for k in tb if tb[k].shape != tc[k].shape
+                         or not torch.equal(tb[k].view(torch.int32),
+                                            tc[k].view(torch.int32))]
+    me["steps_bc"] = (int(state_b.step), int(state_c.step), at)
+    # step 2 on each, the batch the trainer's step 2 takes
+    src = SyntheticTokenSource(cfg.vocab_size, 2048, 2, seed=run["seed"],
+                               input_mode=cfg.input_mode, d_model=cfg.d_model)
+    batch = train.to_device(D.local_batch(src.batch(1), mesh12), device)
+    step = M.make_train_step(cfg, learning_rate=cosine_schedule(3e-4, 1, 2))
+    for key, st in (("b", state_b), ("c", state_c)):
+        t0 = time.perf_counter()
+        with use_mesh(mesh12):
+            st, m = step(st, batch)
+        me[f"step2_{key}"] = (float(m["loss"]), float(m["grad_norm"]))
+        me[f"step2_{key}_s"] = time.perf_counter() - t0
+    me["peak_device_bytes"] = (torch.cuda.max_memory_allocated(device)
+                               if device.type == "cuda" else 0)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, me)
+    if rank == 0:
+        with open(run["report"], "w") as f:
+            json.dump(every, f)
+
+
+def phase_ckpt(prk, smi, ranks, seed):
+    """Phase 26 (see the module docstring): the launch's last run
+    (:func:`ckpt_ranks`), then (d) in this process after the launch
+    ends: the sync save restored whole on ``cuda:0``, every leaf cut as
+    each rank held it and hashed against the ranks' step-1 digests;
+    returns its report."""
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardspecs as SS
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    d, proc = ranks["d"], ranks["proc"]
+    wait_ranks(proc, d)
+    t_end = time.perf_counter()
+    prk.reset_counts()
+    with open(f"{d}/k.json") as f:
+        every = json.load(f)
+    r0 = every[0]
+    whole, slab = r0["whole_bytes"], r0["slab"]
+    def gb(nbytes):
+        return round(nbytes / 1e9, 3)
+
+    # (d) one process: the checkpoint restored whole on the card
+    cfg = get_config(cut_config(CKPT["arch"], CKPT["layers"]))
+    like = M.init_train_state(torch.Generator(device="cuda").manual_seed(seed + 2),
+                              cfg, device="cuda")
+    hwm = vm_hwm()
+    torch.cuda.synchronize()
+    ck.reset_host_peak()
+    t1 = time.perf_counter()
+    one, at = ck.restore_checkpoint(f"{d}/ck_sync", like)
+    torch.cuda.synchronize()
+    one_s, one_peak, one_hwm = time.perf_counter() - t1, ck.reset_host_peak(), vm_hwm()
+    mesh21 = logical_mesh((2, 1), ("data", "model"))
+    specs = SS.train_state_specs(cfg, mesh21)
+    differ = []
+    t1 = time.perf_counter()
+    for r in range(2):
+        with open(f"{d}/k.json.digests.{r}") as f:
+            want = json.load(f)
+        coords = {"data": r, "model": 0}
+        parts = {k: rank_part(t, specs.params[k.split(":", 1)[1]].spec, mesh21, coords)
+                 for k, t in state_tensors(one).items()}
+        got = sha256s(parts, threads=8)
+        differ += [(r, k) for k in want if got.get(k) != want[k]]
+        differ += [(r, k) for k in got if k not in want]
+    hash_s = time.perf_counter() - t1
+    one_step = int(one.step)
+    del like, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(ranks=every, one=dict(restore_s=one_s, host_peak=one_peak,
+                                     hwm_before=hwm, hwm_after=one_hwm, at=at,
+                                     step=one_step, differ=differ, hash_s=hash_s),
+               whole_bytes=whole, slab=slab, after_25_s=t_end - t0)
+    for r in every:
+        log(f"[phase 26a] rank {r['rank']}, {CKPT['arch']} at full width, "
+            f"{CKPT['layers']} layers, ZeRO-3 {tuple(r['mesh'].values())}: step 1 "
+            f"loss {r['losses']}, grad norm {r['grad_norms']}; save "
+            f"{r['save_s']:.2f} s, HOST_PEAK {gb(r['save_host_peak'])} GB, VmHWM "
+            f"{gb(r['save_hwm_before'])} -> {gb(r['save_hwm_after'])} GB; async "
+            f"save blocked {r['async_blocked_s']:.2f} s, done in "
+            f"{r['async_s']:.2f} s, HOST_PEAK {gb(r['async_host_peak'])} GB (its "
+            f"share {gb(r['share'])}), VmHWM {gb(r['async_hwm_before'])} -> "
+            f"{gb(r['async_hwm_after'])} GB; (b) remesh onto (1, 2) "
+            f"{r['remesh_s']:.2f} s; (c) restore at (1, 2) {r['restore_s']:.2f} s, "
+            f"HOST_PEAK {gb(r['restore_host_peak'])} GB, VmHWM "
+            f"{gb(r['restore_hwm_before'])} -> {gb(r['restore_hwm_after'])} GB; "
+            f"step 2 (b) {r['step2_b']} in {r['step2_b_s']:.2f} s, (c) "
+            f"{r['step2_c']} in {r['step2_c_s']:.2f} s; card peak "
+            f"{gb(r['peak_device_bytes'])} GB; the old path held the whole "
+            f"state on every rank's host: {gb(whole)} GB (computed); the largest "
+            f"slab {gb(slab)} GB; free disk before the save "
+            f"{gb(r['free_disk'])} GB; on {smi}")
+    log(f"[phase 26a] checkpoint {gb(r0['ckpt_bytes'])} GB; the sync and async "
+        f"saves differ in {r0['saves_differ']} (compared in "
+        f"{r0['compare_s']:.1f} s); the ranks hashed their step-1 shards in "
+        f"{[round(r['hash_s'], 1) for r in every]} s")
+    log(f"[phase 26d] this process restored the checkpoint whole on cuda:0 in "
+        f"{one_s:.2f} s, HOST_PEAK {gb(one_peak)} GB, VmHWM {gb(hwm)} -> "
+        f"{gb(one_hwm)} GB; every leaf cut as each rank held it against the "
+        f"ranks' step-1 sha256: {len(differ)} differ (hashed in {hash_s:.1f} s)")
+    problems = []
+    for r in every:
+        if r["b_c_unequal"] or r["steps_bc"] != [1, 1, 1]:
+            problems.append(f"rank {r['rank']}: (b) and (c) differ in "
+                            f"{r['b_c_unequal'][:5]}, steps {r['steps_bc']}")
+        if r["step2_b"] != r["step2_c"] or not all(
+                math.isfinite(x) for x in r["step2_b"]):
+            problems.append(f"rank {r['rank']}: step 2 (b) {r['step2_b']} != (c) "
+                            f"{r['step2_c']}")
+        if r["remesh_holds_old_mesh"] or r["held_after_saves"]:
+            problems.append(f"rank {r['rank']}: the re-meshed state holds the old "
+                            f"mesh, or {r['held_after_saves']} host bytes held")
+        for op, share in (("save", 0), ("restore", 0), ("async", r["share"])):
+            limit = slab + share + CKPT_SLACK
+            if not r[f"{op}_host_peak"] <= limit or (
+                    not share and r[f"{op}_host_peak"] >= whole / 2):
+                problems.append(f"rank {r['rank']}: HOST_PEAK over the {op} "
+                                f"{r[f'{op}_host_peak']} B, limit {limit} B (one "
+                                f"slab, share, slack; under half the whole state)")
+    if every[0]["save_host_peak"] < slab:
+        problems.append(f"rank 0's save HOST_PEAK {every[0]['save_host_peak']} B "
+                        f"is below the slab it writes, {slab} B")
+    if r0["saves_differ"] or not r0["metas_equal"]:
+        problems.append(f"the sync and async saves differ: {r0['saves_differ']}")
+    if differ or one_step != 1 or at != 1:
+        problems.append(f"(d) the whole restore differs from the ranks' step-1 "
+                        f"shards in {differ[:5]} (step {one_step}, at {at})")
+    if not one_peak <= slab + CKPT_SLACK:
+        problems.append(f"(d) HOST_PEAK {one_peak} B over one slab {slab} B")
+    if sum(prk.LAUNCHES.values()) or sum(prk.PLAIN_CALLS.values()):
+        problems.append(f"launched {dict(prk.LAUNCHES)}, plain calls "
+                        f"{dict(prk.PLAIN_CALLS)}")
+    if problems:
+        fail("phase 26: " + "; ".join(problems))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 26] {out['seconds']:.1f} s (the ranks' run after 25 "
+        f"{t_end - t0:.1f} s)")
     return out
 
 
@@ -4571,7 +4953,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as d21:
         # phase 21's two ranks start Python, torch and their CUDA contexts
         # while phase 20 runs, then wait
-        ranks = start_distributed(args.seed, d21)  # 21b, 21c, 22, 23 and 24
+        ranks = start_distributed(args.seed, d21)  # 21b, 21c and 22 to 26
         try:
             # phase 20: the mesh rules and the dry run
             mesh_dryrun = phase_mesh_and_dryrun(prk, args.seed, smi)
@@ -4591,6 +4973,9 @@ def main(argv=None) -> int:
             # phase 25: tensor parallelism for the recurrent blocks
             tp_recurrent = phase_tp_recurrent(prk, smi, ranks)
             clock("phase 25")
+            # phase 26: checkpoints a slab at a time, re-meshing in place
+            ckpt = phase_ckpt(prk, smi, ranks, args.seed)
+            clock("phase 26")
         finally:
             stop_ranks(ranks["proc"])
     for k in kernels:
@@ -4614,6 +4999,7 @@ def main(argv=None) -> int:
     log(json.dumps({"tp_inputs": tp_inputs}))
     log(json.dumps({"tp_moe": tp_moe}))
     log(json.dumps({"tp_recurrent": tp_recurrent}))
+    log(json.dumps({"ckpt": ckpt}))
     log(json.dumps({"kernels": kernels + knn_kernels + family_kernels
                     + shard_kernels}))
     log(smi)

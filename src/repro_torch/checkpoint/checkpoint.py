@@ -19,16 +19,29 @@ A state is written in the reference's layout: a port
 (``.params/['layers']/[0]/['attn']/['wq']``), dict keys in sorted order,
 as the reference flattens its pytree.
 
-Under a process mesh (``parallel.distributed``: one process a device)
-a state is a rank's shard.  Saving gathers every leaf whole over each
-axis that cuts it, ``"model"`` and, for a ZeRO-3 state, the data axis
-(host tensors: gloo, also beside NCCL), and rank 0 writes it; every rank
-calls the save.  Restoring reads the whole arrays on every rank and
-keeps each rank's shard, as the reference's restore with ``shardings=``
-does, so a checkpoint written under one mesh resumes under another, in
-a single process, or as ZeRO-3 shards (a rank then holds the whole
-arrays on the host for a moment: the limit for a model whose state
-does not fit one host).
+``arrays.npz`` is what ``np.savez`` writes (a ZIP of stored ``.npy``
+entries with zip64 extras), written and read **a slab at a time**: one
+unstacked leaf, or one layer's array of a stacked run (a C-order stack is
+its layers' slabs back to back under one header for the whole
+``(count, ...)`` shape).  A restore reads each slab at its offset in the
+file through a memory map; a compressed entry, which neither package
+writes, raises.  So the host holds one slab, never the state:
+``HOST_PEAK`` keeps the high-water mark of the host bytes this code
+holds (:func:`reset_host_peak`).
+
+Under a process mesh (``parallel.distributed``: one process a device) a
+state is a rank's shard, and every rank calls the save and the restore.
+Saving gathers each slab **to rank 0 only** (``dist.gather`` over the
+group of the axes that cut it, ``"model"``, the data axis of a ZeRO-3
+leaf or both, on host tensors: gloo, also beside NCCL, in rounds of at
+most 64 MiB a rank), and rank 0 writes it and drops it before the next:
+a rank holds its part of one slab in flight, rank 0 one slab.
+Restoring, each rank maps each slab, keeps its shard and drops the slab,
+so a checkpoint written under one mesh resumes under another, in a
+single process, or as ZeRO-3 shards (as the reference's restore with
+``shardings=`` does).  :class:`AsyncCheckpointer` copies the rank's own
+part to the host at ``save`` (what blocks the step) and gathers and
+writes on a thread of every rank, over gloo groups of its own.
 
 Named snapshots (``save_snapshot``/``load_snapshot``) keep
 ``arrays.npz`` plus ``META.json`` (its ``array_dtypes`` names each
@@ -40,11 +53,15 @@ tensor.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import shutil
+import struct
 import threading
-from typing import Any, List, Optional, Tuple
+import zipfile
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,9 +74,55 @@ __all__ = [
     "restore_checkpoint",
     "latest_step",
     "AsyncCheckpointer",
+    "HOST_PEAK",
+    "reset_host_peak",
     "save_snapshot",
     "load_snapshot",
 ]
+
+
+# -- the host bytes a checkpoint holds ----------------------------------------
+
+# ``held``: the host bytes this process's checkpoint code holds now (a
+# slab mapped or gathered, a part in flight, an async save's copies);
+# ``peak``: their high-water mark since :func:`reset_host_peak`
+HOST_PEAK: Dict[str, int] = {"held": 0, "peak": 0}
+_HOST_LOCK = threading.Lock()
+# a gather's round and a written chunk of an assembled slab, at most
+_CHUNK_BYTES = 64 << 20
+
+
+def reset_host_peak() -> int:
+    """``HOST_PEAK["peak"]`` as it stands; the mark is then reset to
+    what is held now."""
+    with _HOST_LOCK:
+        peak = HOST_PEAK["peak"]
+        HOST_PEAK["peak"] = HOST_PEAK["held"]
+    return peak
+
+
+def _hold(nbytes: int) -> None:
+    with _HOST_LOCK:
+        HOST_PEAK["held"] += nbytes
+        HOST_PEAK["peak"] = max(HOST_PEAK["peak"], HOST_PEAK["held"])
+
+
+def _release(nbytes: int) -> None:
+    with _HOST_LOCK:
+        HOST_PEAK["held"] -= nbytes
+
+
+@contextlib.contextmanager
+def _holding(nbytes: int):
+    _hold(nbytes)
+    try:
+        yield
+    finally:
+        _release(nbytes)
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else t.nbytes
 
 
 # -- training checkpoints ----------------------------------------------------
@@ -84,37 +147,6 @@ def _lead(state) -> bool:
     return layout is None or layout.mesh.rank == 0
 
 
-def _whole(tensors, layout):
-    """A dict of a shard's tensors gathered whole (on the host) over
-    every axis that cuts each."""
-    from repro_torch.parallel.distributed import gather_full
-
-    return {k: gather_full(t.detach().cpu(), layout.specs[k], layout.mesh)
-            for k, t in tensors.items()}
-
-
-def _reference_tree(state):
-    """``state`` in the reference's layout: a port TrainState with its
-    model and moments restacked per run (a shard's gathered whole first:
-    a collective, every rank calls it); any other tree as it is."""
-    if not _is_train_state(state):
-        return state
-    from repro_torch.models.params import to_reference
-    from repro_torch.optim.adamw import AdamWState
-
-    cfg = state.params.cfg
-    params = {k: v.detach() for k, v in state.params.state_dict().items()}
-    m, v = state.opt_state.m, state.opt_state.v
-    layout = _layout(state)
-    if layout is not None:
-        params, m, v = (_whole(t, layout) for t in (params, m, v))
-    return type(state)(
-        step=state.step,
-        params=to_reference(params, cfg),
-        opt_state=AdamWState(m=to_reference(m, cfg), v=to_reference(v, cfg)),
-    )
-
-
 def _flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     """(path, leaf) pairs in ``jax.tree_util`` order and spelling: a named
     tuple's fields ``.name``, dict keys sorted as ``['key']``, sequence
@@ -136,9 +168,16 @@ def _flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     return [(prefix, tree)]
 
 
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    """The stored dtype of a tensor's values: f32 for bf16 (npz has no
+    bf16; a restore casts back to the target's dtype)."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.float32)
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
 def _host(leaf, copy: bool = False) -> np.ndarray:
-    """A leaf as a host numpy array (a bf16 tensor widened to f32: npz
-    has no bf16; a restore casts it back to the target's dtype); with
+    """A leaf as a host numpy array (a bf16 tensor widened to f32); with
     ``copy`` never a view of the leaf's memory."""
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
@@ -150,95 +189,26 @@ def _host(leaf, copy: bool = False) -> np.ndarray:
     return np.array(leaf, copy=True) if copy else np.asarray(leaf)
 
 
-def _to_host(tree):
-    """The reference-layout tree with every leaf copied to a host numpy
-    array."""
-    if tree is None:
-        return None
-    if hasattr(tree, "_fields"):
-        return type(tree)(*(_to_host(getattr(tree, f)) for f in tree._fields))
-    if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_host(v) for v in tree)
-    return _host(tree, copy=True)
+class _Part:
+    """A slab's source in this process: ``value`` (a tensor on any
+    device, its part under ``spec`` on a process mesh; or a numpy leaf)
+    and the host bytes an async save's copy of it holds (``held``)."""
+
+    __slots__ = ("value", "spec", "held")
+
+    def __init__(self, value, spec=None):
+        self.value, self.spec, self.held = value, spec, 0
 
 
-def save_checkpoint(directory: str, step: int, state) -> str:
-    """Synchronous atomic save of ``state`` (a port TrainState, or a tree
-    of named tuples, dicts, lists and arrays/tensors) in the reference's
-    layout.  Returns the committed path.  A shard on a process mesh is
-    gathered (every rank calls this) and rank 0 writes."""
-    final = os.path.join(directory, f"step_{step:08d}")
-    tree = _reference_tree(state)
-    if not _lead(state):
-        return final
-    os.makedirs(directory, exist_ok=True)
-    tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    leaves = _flatten_with_paths(tree)
-    arrays = {k: _host(v) for k, v in leaves}
-    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
-    with open(os.path.join(tmp, "META.json"), "w") as f:
-        json.dump({"step": step, "leaf_paths": [k for k, _ in leaves]}, f)
-    # Commit.
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-    return final
+class _Entry:
+    """One ``.npy`` entry: its path, whole shape and stored dtype, and
+    its slabs' parts in order (a stacked run's layers, or one)."""
 
+    __slots__ = ("key", "shape", "dtype", "stacked", "parts")
 
-def latest_step(directory: str) -> Optional[int]:
-    """The newest committed step under ``directory`` (``.tmp`` and
-    directories without ``META.json`` do not count), or None."""
-    if not os.path.isdir(directory):
-        return None
-    steps = []
-    for name in os.listdir(directory):
-        if name.startswith("step_") and not name.endswith(".tmp"):
-            meta = os.path.join(directory, name, "META.json")
-            if os.path.exists(meta):  # only committed checkpoints count
-                steps.append(int(name[5:]))
-    return max(steps) if steps else None
-
-
-@torch.no_grad()
-def _fill(like, arrays, prefix: str = ""):
-    """``like`` with each leaf restored from ``arrays`` (path -> array):
-    a tensor copied into in place, a numpy leaf replaced."""
-    if like is None:
-        return None
-    if hasattr(like, "_fields"):
-        return type(like)(*(_fill(getattr(like, f), arrays, _join(prefix, f".{f}"))
-                            for f in like._fields))
-    if isinstance(like, dict):
-        return {k: _fill(v, arrays, _join(prefix, f"[{k!r}]"))
-                for k, v in like.items()}
-    if isinstance(like, (list, tuple)):
-        return type(like)(_fill(v, arrays, _join(prefix, f"[{i}]"))
-                          for i, v in enumerate(like))
-    arr = arrays[prefix]
-    if isinstance(like, torch.Tensor):
-        _copy_in(like, arr, prefix)
-        return like
-    if hasattr(like, "dtype") and arr.dtype != like.dtype:
-        arr = arr.astype(like.dtype)
-    return arr
-
-
-def _join(prefix: str, part: str) -> str:
-    return f"{prefix}/{part}" if prefix else part
-
-
-def _copy_in(target: torch.Tensor, arr, path: str) -> None:
-    if tuple(arr.shape) != tuple(target.shape):
-        raise ValueError(f"{path}: checkpoint shape {tuple(arr.shape)} != "
-                         f"{tuple(target.shape)}")
-    if not isinstance(arr, torch.Tensor):
-        arr = torch.from_numpy(np.ascontiguousarray(arr))
-    target.copy_(arr.to(target.dtype))
+    def __init__(self, key, shape, dtype, stacked, parts):
+        self.key, self.shape, self.dtype = key, tuple(shape), np.dtype(dtype)
+        self.stacked, self.parts = stacked, parts
 
 
 def _reference_paths(names, cfg):
@@ -266,27 +236,469 @@ def _reference_paths(names, cfg):
     return out
 
 
-@torch.no_grad()
-def _restore_train_state(like, arrays):
-    model = like.params
-    paths = _reference_paths([n for n, _ in model.named_parameters()],
-                             model.cfg)
-    targets = [(".params", dict(model.named_parameters())),
-               (".opt_state/.m", like.opt_state.m),
-               (".opt_state/.v", like.opt_state.v)]
-    layout = model.layout
-    for prefix, tensors in targets:
-        for name, t in tensors.items():
-            path, j = paths[name]
-            key = f"{prefix}/{path}"
-            arr = arrays[key] if j is None else arrays[key][j]
-            if layout is not None:  # the whole array: keep the rank's shard
-                from repro_torch.parallel.distributed import local_shard
+def _train_entries(state) -> List[_Entry]:
+    """A TrainState's entries in the reference's layout and flatten
+    order, each slab's part one of ``state``'s tensors (a rank's shard,
+    its spec beside it, on a process mesh); ``.step`` is ``state.step``.
+    The shapes are the whole arrays' (a ``"meta"`` model's)."""
+    from repro_torch.models.params import to_reference
+    from repro_torch.models.transformer import Transformer
 
-                arr = local_shard(torch.from_numpy(np.ascontiguousarray(arr)),
-                                  layout.specs[name], layout.mesh)
-            _copy_in(t, arr, key)
-    return like._replace(step=torch.as_tensor(arrays[".step"], dtype=torch.int32))
+    model = state.params
+    cfg = model.cfg
+    whole = {n: tuple(p.shape)
+             for n, p in Transformer(cfg, device="meta").named_parameters()}
+    paths = _reference_paths(list(whole), cfg)
+    layout = model.layout
+    slabs: Dict[str, list] = {}
+    for prefix, tensors in ((".params", dict(model.named_parameters())),
+                            (".opt_state/.m", state.opt_state.m),
+                            (".opt_state/.v", state.opt_state.v)):
+        for name, (path, j) in paths.items():
+            spec = layout.specs[name] if layout is not None else None
+            slabs.setdefault(f"{prefix}/{path}", []).append(
+                (j, name, _Part(tensors[name], spec)))
+    skeleton = to_reference({n: torch.empty(0, device="meta") for n in whole}, cfg)
+    order = _flatten_with_paths(type(state)(
+        step=0, params=skeleton,
+        opt_state=type(state.opt_state)(m=skeleton, v=skeleton)))
+    out = []
+    for key, _ in order:
+        if key == ".step":
+            step = np.asarray(_host(state.step))
+            out.append(_Entry(key, step.shape, step.dtype, False, [_Part(step)]))
+            continue
+        parts = sorted(slabs[key], key=lambda s: s[0] or 0)
+        j, name, first = parts[0]
+        shape = whole[name] if j is None else (len(parts),) + whole[name]
+        out.append(_Entry(key, shape, _np_dtype(first.value.dtype), j is not None,
+                          [p for _, _, p in parts]))
+    return out
+
+
+def _tree_entries(tree) -> List[_Entry]:
+    """Any other tree's entries: one a leaf, in the reference's order."""
+    out = []
+    for key, leaf in _flatten_with_paths(tree):
+        if isinstance(leaf, torch.Tensor):
+            shape, dtype = tuple(leaf.shape), _np_dtype(leaf.dtype)
+        else:
+            a = np.asarray(leaf)
+            shape, dtype = a.shape, a.dtype
+        out.append(_Entry(key, shape, dtype, False, [_Part(leaf)]))
+    return out
+
+
+def _entries(state) -> List[_Entry]:
+    return _train_entries(state) if _is_train_state(state) else _tree_entries(state)
+
+
+def _bytes_of(a) -> memoryview:
+    """The bytes of a contiguous array or tensor, C order."""
+    if isinstance(a, torch.Tensor):
+        a = a.numpy()
+    return memoryview(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
+
+
+def _host_chunk(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous host tensor of ``t``'s values (bf16 widened to f32):
+    ``t``'s own memory where it is one."""
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.to("cpu").contiguous()
+
+
+def _copied(host: torch.Tensor, t: torch.Tensor) -> int:
+    """The bytes of ``host`` (``_host_chunk(t)``) where it is a copy, 0
+    where it is ``t``'s own memory."""
+    same = (t.device.type == "cpu"
+            and host.untyped_storage().data_ptr() == t.untyped_storage().data_ptr())
+    return 0 if same else _nbytes(host)
+
+
+class _NpzWriter:
+    """``arrays.npz`` as ``np.savez`` writes it, an entry at a time:
+    :meth:`entry` writes the ``.npy`` header for the entry's whole shape
+    and yields the open entry, into which the caller writes the data in
+    C order."""
+
+    def __init__(self, path: str):
+        self._zip = zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                                    allowZip64=True)
+
+    @contextlib.contextmanager
+    def entry(self, key: str, shape, dtype):
+        with self._zip.open(key + ".npy", mode="w", force_zip64=True) as f:
+            np.lib.format.write_array_header_1_0(f, {
+                "descr": np.lib.format.dtype_to_descr(np.dtype(dtype)),
+                "fortran_order": False, "shape": tuple(int(s) for s in shape)})
+            yield f
+
+    def close(self) -> None:
+        self._zip.close()
+
+
+class _NpzReader:
+    """An ``arrays.npz`` read a slab at a time at its offset in the file:
+    an entry's ``.npy`` header from its stored data, then a memory map
+    over the slab's bytes (never an entry from its start, never every
+    entry)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._file = open(path, "rb")
+        self._zip = zipfile.ZipFile(self._file)
+        self._heads: Dict[str, Tuple[int, Tuple[int, ...], np.dtype]] = {}
+
+    def close(self) -> None:
+        self._zip.close()
+        self._file.close()
+
+    def head(self, key: str) -> Tuple[int, Tuple[int, ...], np.dtype]:
+        """Entry ``key``'s data offset in the file, shape and dtype."""
+        if key in self._heads:
+            return self._heads[key]
+        try:
+            info = self._zip.getinfo(key + ".npy")
+        except KeyError:
+            raise KeyError(f"{key}: no such array in {self.path}") from None
+        if info.compress_type != zipfile.ZIP_STORED or info.flag_bits & 0x1:
+            raise ValueError(
+                f"{key}: a compressed or encrypted entry in {self.path}; "
+                "checkpoints are written stored (as np.savez writes them) and "
+                "read a slab at a time at its offset, which such an entry has not")
+        self._file.seek(info.header_offset)
+        local = struct.unpack(zipfile.structFileHeader,
+                              self._file.read(zipfile.sizeFileHeader))
+        if local[0] != zipfile.stringFileHeader:
+            raise ValueError(f"{key}: a bad local header in {self.path}")
+        # the local header's own name and extra-field lengths
+        self._file.seek(info.header_offset + zipfile.sizeFileHeader
+                        + local[10] + local[11])
+        version = np.lib.format.read_magic(self._file)
+        read = {(1, 0): np.lib.format.read_array_header_1_0,
+                (2, 0): np.lib.format.read_array_header_2_0}.get(version)
+        if read is None:
+            raise ValueError(f"{key}: .npy format {version} in {self.path}")
+        shape, fortran, dtype = read(self._file)
+        if fortran or dtype.hasobject:
+            raise ValueError(f"{key}: a Fortran-order or object array in {self.path}")
+        self._heads[key] = (self._file.tell(), tuple(shape), dtype)
+        return self._heads[key]
+
+    @contextlib.contextmanager
+    def slab(self, key: str, index: Optional[int] = None):
+        """Entry ``key`` (or its ``index``-th slab along dim 0: a layer of
+        a stacked run) as a numpy array over the file's bytes, counted in
+        ``HOST_PEAK`` while the block runs."""
+        offset, shape, dtype = self.head(key)
+        if index is not None:
+            if not shape or not 0 <= index < shape[0]:
+                raise ValueError(f"{key}: no slab {index} in shape {shape}")
+            shape = shape[1:]
+            offset += index * math.prod(shape) * dtype.itemsize
+        nbytes = math.prod(shape) * dtype.itemsize
+        with _holding(nbytes):
+            if not shape or not nbytes:  # a scalar, or empty: read as it is
+                self._file.seek(offset)
+                arr = np.frombuffer(self._file.read(nbytes), dtype=dtype)
+                yield arr.reshape(shape).copy()
+            else:  # copy-on-write: a writable view the file never sees
+                arr = np.memmap(self.path, dtype=dtype, mode="c", offset=offset,
+                                shape=shape)
+                yield arr
+                del arr
+
+
+# -- saving --------------------------------------------------------------------
+
+
+def _cut_group(spec, ndim: int, mesh) -> Tuple[list, Optional[str]]:
+    """The cuts of a leaf under ``spec`` (``distributed.spec_cuts``) and
+    the group its gather to rank 0 runs over: ``"model"``, ``"data"``,
+    ``"world"`` (both cut), or None (nothing cuts it)."""
+    from repro_torch.parallel import distributed as D
+
+    cuts = D.spec_cuts(spec, ndim, mesh)
+    axes = {axis for _, axis in cuts}
+    if not axes:
+        return cuts, None
+    return cuts, "world" if len(axes) > 1 else axes.pop()
+
+
+def _sends(spec, ndim: int, mesh) -> bool:
+    """Whether the calling rank's part of a leaf under ``spec`` goes to
+    rank 0: rank 0's own, or a part of a cut leaf from a rank at index 0
+    of every axis that does not cut it (the others hold copies)."""
+    cuts, group = _cut_group(spec, ndim, mesh)
+    if group is None:
+        return mesh.rank == 0
+    cutting = {axis for _, axis in cuts}
+    return all(mesh.axis_index(a) == 0 for a in ("data", "model")
+               if a not in cutting)
+
+
+@contextlib.contextmanager
+def _gathered(part: torch.Tensor, spec, mesh, groups, rounds: Dict):
+    """This rank's ``part`` of a slab under ``spec`` gathered to rank 0,
+    which gets ``(pieces, cuts)``: each rank's part by its index along
+    every cut axis (in the cuts' order), in one host buffer the size of
+    the slab; every other rank gets None.  ``dist.gather`` over the cut
+    axes' group of ``groups`` in rounds of at most ``_CHUNK_BYTES`` a
+    rank (gloo stages a round's parts in a temporary on rank 0), each
+    round's part copied to the host just before it is sent: from a card
+    into one pinned buffer of a round, kept in ``rounds`` for the save's
+    next slabs."""
+    import torch.distributed as dist
+
+    cuts, kind = _cut_group(spec, part.ndim, mesh)
+    lead = mesh.rank == 0
+    if kind is None or not _sends(spec, part.ndim, mesh):
+        if lead:  # whole on rank 0 already
+            whole = _host_chunk(part.detach())
+            with _holding(_copied(whole, part)):
+                yield {(): whole}, cuts
+        else:
+            yield None
+        return
+    m = mesh.shape.get("model", 1)
+    n = {"world": mesh.size, "model": m, "data": mesh.shape.get("data", 1)}[kind]
+    flat = part.detach().reshape(-1)
+    dtype = torch.float32 if flat.dtype == torch.bfloat16 else flat.dtype
+    size = torch.empty(0, dtype=dtype).element_size()
+    buf = torch.empty((n, flat.numel()), dtype=dtype) if lead else None
+    step = max(1, _CHUNK_BYTES // size)
+    if flat.is_cuda and "pinned" not in rounds:
+        rounds["pinned"] = torch.empty(_CHUNK_BYTES, dtype=torch.uint8,
+                                       pin_memory=True)
+        _hold(_CHUNK_BYTES)  # released at the save's end
+    with _holding(_nbytes(buf) if lead else 0):
+        for lo in range(0, flat.numel(), step):
+            hi = min(lo + step, flat.numel())
+            if flat.is_cuda:
+                src = rounds["pinned"][:(hi - lo) * size].view(dtype)
+                src.copy_(flat[lo:hi])
+                extra = 0
+            else:
+                src = _host_chunk(flat[lo:hi])
+                extra = _copied(src, flat)
+            temp = n * (hi - lo) * size if lead else 0
+            with _holding(temp + extra):
+                dist.gather(src, [buf[i, lo:hi] for i in range(n)] if lead else None,
+                            dst=0, group=groups[kind])
+            del src
+        if not lead:
+            yield None
+            return
+
+        def coords(i):
+            at = {"model": {"model": i}, "data": {"data": i},
+                  "world": {"data": i // m, "model": i % m}}[kind]
+            return tuple(at[axis] for _, axis in cuts)
+
+        yield {coords(i): buf[i].view(part.shape) for i in range(n)}, cuts
+
+
+def _join(pieces: Dict[tuple, torch.Tensor], cuts) -> torch.Tensor:
+    """The pieces (by their index along each cut) concatenated whole."""
+    if not cuts:
+        return pieces[()]
+    dim = cuts[0][0]
+    count = 1 + max(c[0] for c in pieces)
+    return torch.cat([_join({c[1:]: t for c, t in pieces.items() if c[0] == i},
+                            cuts[1:]) for i in range(count)], dim=dim)
+
+
+def _write_slab(f, pieces: Dict[tuple, torch.Tensor], cuts) -> None:
+    """The slab the pieces make, written to ``f`` in C order a chunk of
+    dim-0 rows at a time (each chunk concatenated from the pieces' rows,
+    at most ``_CHUNK_BYTES``)."""
+    if not cuts:
+        f.write(_bytes_of(pieces[()]))
+        return
+    counts = [1 + max(c[k] for c in pieces) for k in range(len(cuts))]
+    piece = next(iter(pieces.values()))
+    whole = list(piece.shape)
+    for (dim, _), count in zip(cuts, counts):
+        whole[dim] *= count
+    step = max(1, _CHUNK_BYTES // max(1, math.prod(whole[1:]) * piece.element_size()))
+    first = cuts[0][0] == 0  # dim 0 is cut: a chunk lies in one piece's rows
+    rest = cuts[1:] if first else cuts
+    for i in range(counts[0] if first else 1):
+        sub = ({c[1:]: t for c, t in pieces.items() if c[0] == i} if first
+               else pieces)
+        for lo in range(0, piece.shape[0], step):
+            chunk = _join({c: t[lo:lo + step] for c, t in sub.items()}, rest)
+            with _holding(_nbytes(chunk) if rest else 0):
+                f.write(_bytes_of(chunk))
+            del chunk
+
+
+def _emit(f, part: _Part, layout, groups, rounds: Dict) -> None:
+    """One slab: this process's part written (the only process) or
+    gathered to rank 0, which writes it to ``f`` (``rounds``: the save's
+    pinned round buffer, :func:`_gathered`)."""
+    value = part.value
+    if layout is None:
+        if isinstance(value, torch.Tensor):
+            host = _host_chunk(value.detach())
+            with _holding(_copied(host, value)):
+                f.write(_bytes_of(host))
+        else:
+            f.write(_bytes_of(np.asarray(value)))
+        return
+    if value is None:  # an async save's copy another rank sends
+        return
+    if not isinstance(value, torch.Tensor):  # the step: rank 0's own
+        if f is not None:
+            f.write(_bytes_of(np.asarray(part.value)))
+        return
+    with _gathered(part.value, part.spec, layout.mesh, groups, rounds) as got:
+        if got is not None:
+            _write_slab(f, *got)
+
+
+def _write(directory: str, step: int, entries: List[_Entry], layout,
+           groups) -> str:
+    """Every entry's slabs in order: written by this process, or under a
+    process mesh gathered to rank 0 (every rank calls this), which writes
+    and commits ``step_XXXXXXXX``; every rank returns after the commit.
+    An async save's host copies are released as each slab is sent."""
+    from repro_torch.parallel import distributed as D
+
+    final = os.path.join(directory, f"step_{step:08d}")
+    lead = layout is None or layout.mesh.rank == 0
+    groups = groups or (None if layout is None else D.axis_groups(layout.mesh))
+    writer, rounds = None, {}
+    if lead:
+        os.makedirs(directory, exist_ok=True)
+        tmp = final + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        writer = _NpzWriter(os.path.join(tmp, "arrays.npz"))
+    try:
+        for entry in entries:
+            block = (writer.entry(entry.key, entry.shape, entry.dtype) if lead
+                     else contextlib.nullcontext())
+            with block as f:
+                for part in entry.parts:
+                    _emit(f, part, layout, groups, rounds)
+                    _release(part.held)
+                    part.value, part.held = None, 0
+    finally:
+        if writer is not None:
+            writer.close()
+        if rounds.pop("pinned", None) is not None:
+            _release(_CHUNK_BYTES)
+    if lead:
+        with open(os.path.join(tmp, "META.json"), "w") as f:
+            json.dump({"step": step, "leaf_paths": [e.key for e in entries]}, f)
+        # Commit.
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    if layout is not None:  # every rank returns once rank 0 has committed
+        import torch.distributed as dist
+
+        dist.all_reduce(torch.zeros(1), group=groups["world"])
+    return final
+
+
+def save_checkpoint(directory: str, step: int, state) -> str:
+    """Synchronous atomic save of ``state`` (a port TrainState, or a tree
+    of named tuples, dicts, lists and arrays/tensors) in the reference's
+    layout, a slab at a time.  Returns the committed path.  A shard on a
+    process mesh is gathered to rank 0 a slab at a time over the mesh's
+    groups (every rank calls this), rank 0 writes, and every rank returns
+    once it has committed."""
+    return _write(directory, step, _entries(state), _layout(state), None)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    """The newest committed step under ``directory`` (``.tmp`` and
+    directories without ``META.json`` do not count), or None."""
+    if not os.path.isdir(directory):
+        return None
+    steps = []
+    for name in os.listdir(directory):
+        if name.startswith("step_") and not name.endswith(".tmp"):
+            meta = os.path.join(directory, name, "META.json")
+            if os.path.exists(meta):  # only committed checkpoints count
+                steps.append(int(name[5:]))
+    return max(steps) if steps else None
+
+
+# -- restoring -----------------------------------------------------------------
+
+
+def _join_path(prefix: str, part: str) -> str:
+    return f"{prefix}/{part}" if prefix else part
+
+
+@torch.no_grad()
+def _copy_in(target: torch.Tensor, arr, path: str, spec=None, mesh=None) -> None:
+    """``target`` overwritten with ``arr`` (a slab; on a process mesh the
+    rank's shard of it under ``spec``), cast to its dtype."""
+    src = torch.from_numpy(arr) if isinstance(arr, np.ndarray) else arr
+    if spec is not None:
+        from repro_torch.parallel.distributed import local_shard
+
+        src = local_shard(src, spec, mesh)
+    if tuple(src.shape) != tuple(target.shape):
+        raise ValueError(f"{path}: checkpoint shape {tuple(src.shape)} != "
+                         f"{tuple(target.shape)}")
+    # a copy to a card goes through a contiguous host temporary in the
+    # target's dtype where the shard is strided or of another dtype
+    temp = (target.device.type != "cpu"
+            and (not src.is_contiguous() or src.dtype != target.dtype))
+    with _holding(src.numel() * target.element_size() if temp else 0):
+        target.copy_(src)
+
+
+@torch.no_grad()
+def _fill(like, reader: _NpzReader, prefix: str = ""):
+    """``like`` with each leaf restored from ``reader`` an entry at a
+    time: a tensor copied into in place, a numpy leaf replaced."""
+    if like is None:
+        return None
+    if hasattr(like, "_fields"):
+        return type(like)(*(_fill(getattr(like, f), reader, _join_path(prefix, f".{f}"))
+                            for f in like._fields))
+    if isinstance(like, dict):
+        return {k: _fill(v, reader, _join_path(prefix, f"[{k!r}]"))
+                for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_fill(v, reader, _join_path(prefix, f"[{i}]"))
+                          for i, v in enumerate(like))
+    with reader.slab(prefix) as arr:
+        if isinstance(like, torch.Tensor):
+            _copy_in(like, arr, prefix)
+            return like
+        out = np.array(arr)
+    if hasattr(like, "dtype") and out.dtype != like.dtype:
+        out = out.astype(like.dtype)
+    return out
+
+
+@torch.no_grad()
+def _restore_train_state(like, reader: _NpzReader):
+    layout = _layout(like)
+    step = None
+    for entry in _train_entries(like):
+        if entry.key == ".step":
+            with reader.slab(entry.key) as arr:
+                step = torch.as_tensor(np.array(arr), dtype=torch.int32)
+            continue
+        got = reader.head(entry.key)[1]
+        if got != entry.shape:
+            raise ValueError(f"{entry.key}: checkpoint shape {got} != {entry.shape}")
+        for j, part in enumerate(entry.parts):
+            key = f"{entry.key}[{j}]" if entry.stacked else entry.key
+            with reader.slab(entry.key, j if entry.stacked else None) as arr:
+                _copy_in(part.value, arr, key, part.spec,
+                         None if layout is None else layout.mesh)
+    return like._replace(step=step)
 
 
 def restore_checkpoint(directory: str, like, step: Optional[int] = None,
@@ -298,62 +710,122 @@ def restore_checkpoint(directory: str, like, step: Optional[int] = None,
     are overwritten in place, on their devices; the returned state holds
     them and a new step) or a tree of tensors (copied into in place) and
     numpy arrays (replaced).  The checkpoint may come from either
-    package; each array is cast to the dtype of its target.
+    package; each array is cast to the dtype of its target.  A slab (one
+    layer of a stacked run, or one leaf) is read at a time through a
+    memory map of the file, and dropped before the next.
 
     ``shardings``: a matching tree of ``parallel.sharding.NamedSharding``
     (``launch.shardspecs.train_state_shardings``).  ``like`` is placed on
     their devices first (``parallel.sharding.place``) and the arrays are
     copied there straight from the file: the elastic-restart path onto
-    another mesh.  On a process mesh every rank reads the whole arrays
-    and keeps its shard (a ``like`` placed already stays as it is)."""
+    another mesh.  On a process mesh every rank reads each slab and keeps
+    its shard (a ``like`` placed already stays as it is)."""
     if shardings is not None and _layout(like) is None:
         like = place(like, shardings)
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint under {directory}")
-    path = os.path.join(directory, f"step_{step:08d}")
-    with np.load(os.path.join(path, "arrays.npz")) as data:
-        arrays = {k: data[k] for k in data.files}
-    if _is_train_state(like):
-        return _restore_train_state(like, arrays), step
-    return _fill(like, arrays), step
+    reader = _NpzReader(os.path.join(directory, f"step_{step:08d}", "arrays.npz"))
+    try:
+        if _is_train_state(like):
+            return _restore_train_state(like, reader), step
+        return _fill(like, reader), step
+    finally:
+        reader.close()
 
 
 class AsyncCheckpointer:
     """Background-thread checkpoint writer with at-most-one in flight.
 
     ``save`` copies the state to host memory synchronously (the only part
-    that blocks the train loop) and commits it on the worker thread;
-    ``wait()`` joins outstanding work (call before exit).  The ``keep``
-    newest committed steps survive each save.
-    """
+    that blocks the train loop) and writes it on a worker thread;
+    ``wait()`` joins outstanding work (call before exit) and raises what
+    the worker raised.  The ``keep`` newest committed steps survive each
+    save.
 
-    def __init__(self, directory: str, keep: int = 3):
+    Under a process mesh every rank constructs it and calls ``save`` and
+    ``wait``: ``save`` copies only the rank's own part of each slab it
+    sends to rank 0 (see :func:`save_checkpoint`), and every rank's
+    worker gathers them to rank 0 a slab at a time over gloo groups of
+    the checkpointer's own (``parallel.distributed.host_groups``), never
+    the mesh's, so its collectives cannot interleave with the step's.
+    ``mesh`` makes the groups at construction (every rank, in the same
+    order); a state on another process mesh makes its own at its first
+    ``save``."""
+
+    def __init__(self, directory: str, keep: int = 3, mesh=None):
         self.directory = directory
         self.keep = keep
         self._pending: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
         self._lock = threading.Lock()
+        self._groups: Dict[tuple, Dict[str, object]] = {}
+        if getattr(mesh, "is_process_mesh", False):
+            self._groups_of(mesh)
+
+    def _groups_of(self, mesh):
+        from repro_torch.parallel.distributed import host_groups
+
+        key = tuple(mesh.shape.items())
+        if key not in self._groups:
+            self._groups[key] = host_groups(mesh)
+        return self._groups[key]
 
     def save(self, step: int, state):
-        host_state = _to_host(_reference_tree(state))
-        if not _lead(state):  # a shard: gathered to rank 0, which writes
-            return
         self.wait()
+        layout = _layout(state)
+        groups = None if layout is None else self._groups_of(layout.mesh)
+        entries = _entries(state)
+        for entry in entries:  # the host copies the worker writes or sends
+            for part in entry.parts:
+                if layout is not None and isinstance(part.value, torch.Tensor) \
+                        and not _sends(part.spec, part.value.ndim, layout.mesh):
+                    part.value = None  # another rank sends this copy
+                    continue
+                value = part.value
+                if isinstance(value, torch.Tensor):
+                    host = _host_chunk(value.detach())
+                    part.value = host if _copied(host, value) else host.clone()
+                else:
+                    part.value = _host(value, copy=True)
+                part.held = _nbytes(part.value)
+                _hold(part.held)
+        lead = _lead(state)
 
         def worker():
-            save_checkpoint(self.directory, step, host_state)
-            self._gc()
+            try:
+                _write(self.directory, step, entries, layout, groups)
+                if lead:
+                    self._gc()
+            except BaseException as e:  # noqa: BLE001 (raised again by wait)
+                self._error = e
+            finally:
+                for entry in entries:
+                    for part in entry.parts:
+                        _release(part.held)
+                        part.value, part.held = None, 0
 
         with self._lock:
             self._pending = threading.Thread(target=worker, daemon=True)
             self._pending.start()
 
-    def wait(self):
+    def wait(self, timeout: Optional[float] = None):
+        """Joins the worker (at most ``timeout`` seconds: then raises
+        ``TimeoutError``) and raises what it raised."""
         with self._lock:
             t = self._pending
         if t is not None:
-            t.join()
+            t.join(timeout)
+            if t.is_alive():
+                raise TimeoutError(f"a checkpoint is still being written after "
+                                   f"{timeout} s")
+        with self._lock:
+            if self._pending is t:
+                self._pending = None
+            error, self._error = self._error, None
+        if error is not None:
+            raise error
 
     def _gc(self):
         steps = sorted(

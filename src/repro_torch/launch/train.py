@@ -27,15 +27,20 @@ shardings=)``: each leaf whole in turn, its shard kept; the values of
 placing the whole draw), takes its rows of each global batch
 (``distributed.local_batch``) and steps; the gradients are reduced over
 the mesh, tensor parallelism (Megatron's, over "model") runs for every
-layer kind but the SSD, RG-LRU and local-attention ones (MoE splits its
-experts, MLA its heads), and the ``fsdp_params`` archs' parameters are
+layer kind (MoE splits its experts, MLA its heads, the SSD its heads,
+RG-LRU its channels), and the ``fsdp_params`` archs' parameters are
 split over the data axis too (ZeRO-3, ``parallel.zero3``: gathered a
 layer at a time, their gradients reduce-scattered).  The default device
 is ``cuda:{LOCAL_RANK}`` (it must exist); ``--dist-backend gloo`` lets
 ranks share one card (``--device cuda:0``) or run on the CPU
-(``--device cpu``, where gloo is the default).  Rank 0 logs, checkpoints
-(the shards gathered to it, the reference's format) and writes
-``--report``.
+(``--device cpu``, where gloo is the default).  Rank 0 logs, writes
+the checkpoints (the reference's format: each slab gathered to it on
+the checkpointer's thread of every rank, over gloo groups of its own,
+``checkpoint.AsyncCheckpointer``) and ``--report``.  A run resumes from
+``--ckpt-dir`` at any process count: to change the count, stop and
+relaunch torchrun with the same ``--ckpt-dir`` (the shards of any mesh
+restore a slab at a time; re-meshing in place over the same ranks is
+``ft.elastic.remesh_state``).
 
 CPU-runnable end to end with the smoke configs:
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b-smoke \\
@@ -157,7 +162,9 @@ def main(argv=None) -> dict:
         start = 0
         ck = None
         if args.ckpt_dir:
-            ck = AsyncCheckpointer(args.ckpt_dir)
+            # every rank: its groups are made here, by all ranks
+            ck = AsyncCheckpointer(args.ckpt_dir,
+                                   mesh=mesh if D.is_process_mesh(mesh) else None)
             at = latest_step(args.ckpt_dir)
             if D.is_process_mesh(mesh):  # every rank resumes rank 0's step
                 at = torch.tensor([-1 if at is None else at], device=device)

@@ -69,6 +69,7 @@ __all__ = [
     "resolve_device",
     "init_model",
     "init_shard",
+    "reshard_model",
     "init_layer_cache",
     "init_caches",
     "layer_train",
@@ -260,20 +261,18 @@ class Transformer(ParamTree):
 
     @torch.no_grad()
     def shard(self, shardings: Dict) -> "Transformer":
-        """The calling rank's part of this whole model under
-        ``shardings`` (a sanitized ``parallel.sharding.NamedSharding`` a
-        parameter name, on a ``parallel.distributed.ProcessMesh``), on the
-        rank's device, with its ``layout`` set (and ``tp`` where
-        ``"model"`` cuts it).  Raises where the port has no path for the
-        layout (:func:`_shard_plan`)."""
+        """The calling rank's part of this model under ``shardings`` (a
+        sanitized ``parallel.sharding.NamedSharding`` a parameter name, on
+        a ``parallel.distributed.ProcessMesh``), on the rank's device,
+        with its ``layout`` set (and ``tp`` where ``"model"`` cuts it).
+        A whole model is cut; a shard on another process mesh of the same
+        ranks is re-placed (:func:`reshard_model`).  Raises where the port
+        has no path for the layout (:func:`_shard_plan`)."""
         mesh = next(iter(shardings.values())).mesh
         if self.layout is not None:
             if self.layout.mesh is mesh:
                 return self
-            raise NotImplementedError(
-                "re-placing a shard onto another process mesh (elastic "
-                "re-meshing across process counts) is ROADMAP item 14b.3; "
-                "restore a checkpoint instead")
+            return reshard_model(self, shardings)[0]
         params = dict(self.named_parameters())
         cut, layout, tp = _shard_plan(
             self.cfg, shardings, {n: tuple(p.shape) for n, p in params.items()})
@@ -290,6 +289,41 @@ class Transformer(ParamTree):
         local.layout = layout
         local.tp = tp
         return local
+
+
+@torch.no_grad()
+def reshard_model(model: Transformer, shardings: Dict, moments=()):
+    """``model`` (a rank's shard on one process mesh) re-placed onto the
+    process mesh of ``shardings`` (sanitized, over the same ranks; every
+    rank calls this): a new local model with ``_shard_plan``'s cut,
+    ``layout`` and ``tp`` for the new mesh; a name at a time, the
+    parameter and its entry in each of ``moments`` (dicts of tensors
+    keyed and cut as the parameters, such as AdamW's ``m`` and ``v``)
+    gathered whole over the old cut, cut for the new mesh and freed
+    before the next (``parallel.distributed.reshard``).  Returns ``(local, [moments
+    re-placed])``.  Nothing of the result holds the old mesh (its groups
+    stay alive for other meshes' use)."""
+    old = model.layout
+    mesh = next(iter(shardings.values())).mesh
+    if old is None or not D.is_process_mesh(mesh):
+        raise ValueError("reshard_model re-places a shard onto a process mesh")
+    whole = {n: tuple(p.shape)
+             for n, p in Transformer(model.cfg, device="meta").named_parameters()}
+    cut, layout, tp = _shard_plan(model.cfg, shardings, whole)
+    params = dict(model.named_parameters())
+    local = Transformer(model.cfg, device=mesh.device,
+                        dtype=next(iter(params.values())).dtype, shapes=cut)
+    out = [{} for _ in moments]
+    for name, p in local.named_parameters():
+        def move(t):
+            return D.reshard(t, old.specs[name], old.mesh, layout.specs[name], mesh)
+
+        p.copy_(move(params[name]))
+        for tree, new in zip(moments, out):
+            new[name] = move(tree[name])
+    local.requires_grad_(any(p.requires_grad for p in params.values()))
+    local.layout, local.tp = layout, tp
+    return local, out
 
 
 def _shard_plan(cfg: ModelConfig, shardings: Dict, shapes: Dict[str, Tuple[int, ...]]):

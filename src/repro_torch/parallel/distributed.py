@@ -31,7 +31,11 @@ design of that path, not a fallback).  The training path uses
 :func:`all_reduce` and :func:`broadcast`, and under ZeRO-3
 :func:`all_gather` and :func:`reduce_scatter` along a dim (the
 parameters gathered a layer at a time, their gradients scattered back:
-``parallel.zero3``); a checkpoint also gathers (:func:`gather_full`).
+``parallel.zero3``).  A checkpoint gathers each slab to rank 0 over the
+axes that cut it (``checkpoint.checkpoint``; :func:`axis_groups`, or
+:func:`host_groups`, gloo groups of its own for a writer's thread), and
+``ft.elastic.remesh_state`` moves a state onto another process mesh of
+the same ranks a leaf at a time (:func:`reshard`).
 """
 from __future__ import annotations
 
@@ -53,6 +57,10 @@ __all__ = [
     "torchrun_env",
     "local_shard",
     "gather_full",
+    "reshard",
+    "spec_cuts",
+    "axis_groups",
+    "host_groups",
     "all_reduce",
     "all_reduce_coalesced",
     "all_gather",
@@ -457,7 +465,7 @@ def barrier(mesh: Optional[ProcessMesh] = None) -> None:
 # -- shards --------------------------------------------------------------------
 
 
-def _cuts(spec, ndim: int, mesh: Mesh):
+def spec_cuts(spec, ndim: int, mesh: Mesh):
     """``(dim, axis)`` for each dim ``spec`` cuts: ``axis`` is
     ``"model"`` or ``"data"`` (``("pod", "data")`` read as one group;
     axes of size 1 cut nothing)."""
@@ -481,7 +489,7 @@ def _cuts(spec, ndim: int, mesh: Mesh):
 
 def data_dim(spec, ndim: int, mesh: Mesh) -> Optional[int]:
     """The dim ``spec`` cuts over the data axis (ZeRO-3's), or None."""
-    return next((dim for dim, axis in _cuts(spec, ndim, mesh)
+    return next((dim for dim, axis in spec_cuts(spec, ndim, mesh)
                  if axis == "data"), None)
 
 
@@ -490,7 +498,7 @@ def local_shard(tensor: torch.Tensor, spec, mesh: ProcessMesh) -> torch.Tensor:
     sanitized ``PartitionSpec``): each dim mapped to ``"model"`` or to
     ``("pod", "data")`` cut into equal parts, the rank's by its index
     along that axis.  A view; the caller copies."""
-    for dim, axis in _cuts(spec, tensor.ndim, mesh):
+    for dim, axis in spec_cuts(spec, tensor.ndim, mesh):
         n = mesh.shape[axis]
         if tensor.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(tensor.shape)} does not "
@@ -503,9 +511,26 @@ def local_shape(shape: Sequence[int], spec, mesh: ProcessMesh) -> Tuple[int, ...
     """The shape of the calling rank's part of a ``shape`` tensor under
     ``spec``."""
     out = list(shape)
-    for dim, axis in _cuts(spec, len(shape), mesh):
+    for dim, axis in spec_cuts(spec, len(shape), mesh):
         out[dim] //= mesh.shape[axis]
     return tuple(out)
+
+
+def reshard(shard: torch.Tensor, spec, mesh: ProcessMesh, new_spec,
+            new_mesh: ProcessMesh) -> torch.Tensor:
+    """The calling rank's part under ``new_spec`` on ``new_mesh`` of the
+    tensor whose part under ``spec`` on ``mesh`` is ``shard`` (two
+    process meshes of the same ranks): gathered whole over ``mesh``'s
+    cuts (:func:`gather_full`, a collective: every rank calls it), then
+    cut for ``new_mesh``; a new contiguous tensor on ``new_mesh``'s
+    device, the whole freed on return.  Under gloo a card's shard is
+    gathered on the host (as :func:`gather_full` stages it) and cut
+    there: only the new part goes back to the card."""
+    shard = shard.detach()
+    if _staged(shard, mesh):
+        shard = shard.cpu()
+    part = local_shard(gather_full(shard, spec, mesh), new_spec, new_mesh)
+    return part.to(new_mesh.device, copy=True).contiguous()
 
 
 def gather_full(shard: torch.Tensor, spec, mesh: ProcessMesh) -> torch.Tensor:
@@ -513,7 +538,7 @@ def gather_full(shard: torch.Tensor, spec, mesh: ProcessMesh) -> torch.Tensor:
     shards gathered in rank order over each axis that cuts a dim (every
     group gathers its own).  On the shard's device; under gloo a CUDA
     shard is gathered on the host."""
-    cuts = _cuts(spec, shard.ndim, mesh)
+    cuts = spec_cuts(spec, shard.ndim, mesh)
     if not cuts:
         return shard
     device = shard.device
@@ -622,6 +647,39 @@ class ShardLayout:
         if self.data_split:
             data = all_reduce(data, DATA, mesh=self.mesh)
         return torch.sqrt(sums[False, False] + model[0] + data)
+
+
+def _axis_ranks(mesh: ProcessMesh, axis: str):
+    """The rank lists of the groups along ``axis`` (rank ``r`` sits at
+    ``(r // model, r % model)``), in axis order."""
+    d, m = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+    if axis == "model":
+        return [[i * m + j for j in range(m)] for i in range(d)]
+    return [[i * m + j for i in range(d)] for j in range(m)]
+
+
+def axis_groups(mesh: ProcessMesh) -> Dict[str, object]:
+    """The calling rank's groups of ``mesh``: ``"model"``, ``"data"`` and
+    ``"world"`` (every rank), the ones the mesh's collectives use (gloo
+    for host tensors, also beside NCCL)."""
+    return {"model": mesh.group("model"), "data": mesh.group("data"),
+            "world": dist.group.WORLD}
+
+
+def host_groups(mesh: ProcessMesh) -> Dict[str, object]:
+    """New gloo groups over ``mesh``'s ranks, as :func:`axis_groups` lays
+    them out: for collectives of host tensors that run beside the mesh's
+    own (a checkpoint writer's thread) and so must never interleave with
+    them.  Every rank calls this, in the same order (each group is made
+    by every rank)."""
+    out = {"world": dist.new_group(backend="gloo")}
+    for axis in ("model", "data"):
+        for ranks in _axis_ranks(mesh, axis):
+            if len(ranks) > 1:
+                group = dist.new_group(ranks, backend="gloo")
+                if mesh.rank in ranks:
+                    out[axis] = group
+    return out
 
 
 def is_process_mesh(mesh) -> bool:
