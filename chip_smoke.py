@@ -287,7 +287,26 @@ run in order and the first failure exits non-zero:
      where /proc/self/status has no such line) and the whole state the
      old path held on every rank (computed); the seconds of the
      saves, the restore and the re-mesh, the checkpoint's GB and the free
-     disk before the saves (too little fails the run).
+     disk before the saves (too little fails the run);
+ 27. a rank of eight whose attention runs whole, counted: a second
+     torchrun launch of chip_smoke (``--train-ranks``), eight gloo ranks
+     sharing ``cuda:0`` on a (1, 8) mesh, started after phase 26,
+     trains starcoder2-7b at full width cut to 2 of its 32 layers, batch
+     1 x 2,048, 2 steps at lr 3e-6 (``WHOLE``): its 36 query heads and 4
+     kv heads stay whole on every rank (8 does not divide 36: the
+     attention block runs whole, outside "f" and "g"), its d_ff of
+     18,432 and its vocabulary of 49,152 split 8 ways.  Both steps' loss
+     and grad norm against one process on ``cuda:0`` at the same weights
+     and batch (run once every rank is ready, before the go) within
+     ``WHOLE_RTOL``; step 2, the warm step, is timed; rank 0's
+     collectives in step 1
+     (calls and bytes by op and axes) equal to ``launch.dryrun
+     .count_cell``'s count of the same step as rank 0 of a fake (1, 8)
+     process mesh, and rank 0's dot FLOPs of step 1 under
+     ``FlopCounterMode`` (step 2 runs bare) equal to the count's; each rank's step peak
+     below the single process's; the step seconds and the share of them
+     rank 0 spent in host-staged collectives; no kernel or plain
+     version runs.
 
 The build step prints, per kernel, ptxas's registers, spills and shared
 memory, and the tensor-core (HGMMA) instructions in its SASS; a scan
@@ -3701,14 +3720,15 @@ def cut_config(arch: str, layers: Optional[int]) -> str:
 
 
 def train_ranks(spec_path: str) -> int:
-    """A rank of phase 21's torchrun launch (``--train-ranks SPEC``): it
-    makes its CUDA context, waits for the spec's ``go`` file (the parent
-    runs phase 20, 21a and the single-process references meanwhile), then
-    runs
+    """A rank of phase 21's torchrun launch (``--train-ranks SPEC``), or
+    of phase 27's: it makes its CUDA context, touches ``{go}.ready{RANK}``
+    and waits for the spec's ``go`` file (the parent runs phase 20, 21a
+    and the single-process references meanwhile), then runs
     ``launch.train.main`` on each entry's ``argv``, all under one process
     group, rank 0 touching the entry's ``done`` file after each; an entry
-    with ``layers`` trains ``arch`` cut to that depth; phase 26's entry
-    (``ckpt``) runs :func:`ckpt_ranks`."""
+    with ``layers`` trains ``arch`` cut to that depth, one with ``flops``
+    counts step 1's dot FLOPs (:func:`counting_flops`); phase 26's
+    entry (``ckpt``) runs :func:`ckpt_ranks`."""
     import torch.distributed as dist
 
     from repro_torch.launch import train
@@ -3719,6 +3739,7 @@ def train_ranks(spec_path: str) -> int:
     # every run asks for them; the first call in a process takes ~8 s on
     # the card's machine (PERF.md section 6), paid here while waiting
     torch.use_deterministic_algorithms(True, warn_only=True)
+    open(f"{spec['go']}.ready{os.environ['RANK']}", "w").close()
     deadline, agent = time.monotonic() + 900, os.getppid()
     while not os.path.exists(spec["go"]):
         if time.monotonic() > deadline or os.getppid() != agent:
@@ -3732,8 +3753,9 @@ def train_ranks(spec_path: str) -> int:
         if run.get("ckpt"):  # phase 26: step, save, re-mesh, restore
             ckpt_ranks(argv, run)
         else:
-            with recording_routes(run.get("routes"), argv[at],
-                                  int(os.environ["RANK"])):
+            rank = int(os.environ["RANK"])
+            with recording_routes(run.get("routes"), argv[at], rank), \
+                    counting_flops(run.get("flops"), rank):
                 train.main(argv)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3839,6 +3861,43 @@ def recording_routes(path: Optional[str], arch: str, rank: int = 0):
     np.savez(f"{path}.{rank}.npz",
              **{f"experts{i}": e for i, (e, _) in enumerate(calls)},
              **{f"kept{i}": k for i, (_, k) in enumerate(calls)})
+
+
+@contextlib.contextmanager
+def counting_flops(path: Optional[str], rank: int = 0):
+    """With ``path``, the first step that a train step built by
+    ``models.model.make_train_step`` in this process takes while the
+    block runs is run under ``FlopCounterMode`` (later steps, the timed
+    ones, run bare): step 1's dot FLOPs, saved to ``{path}.{rank}.json``
+    after."""
+    if path is None:
+        yield
+        return
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import model as M
+
+    inner, counted = M.make_train_step, []
+
+    def make(*args, **kw):
+        step = inner(*args, **kw)
+
+        def counted_step(state, batch):
+            if counted:  # step 1 is counted; the timed steps run bare
+                return step(state, batch)
+            with FlopCounterMode(display=False) as flops:
+                out = step(state, batch)
+            counted.append(float(flops.get_total_flops()))
+            return out
+        return counted_step
+
+    M.make_train_step = make
+    try:
+        yield
+    finally:
+        M.make_train_step = inner
+    with open(f"{path}.{rank}.json", "w") as f:
+        json.dump(counted, f)
 
 
 def route_differences(path_a: str, path_b: str) -> dict:
@@ -4773,6 +4832,150 @@ def phase_ckpt(prk, smi, ranks, seed):
     return out
 
 
+# --- phase 27: a rank of eight whose attention runs whole, counted -------------
+
+# starcoder2-7b at full width on (1, 8): its 36 heads (and 4 kv heads)
+# whole on every rank, d_ff and the vocabulary split 8 ways; lr a
+# hundredth of phase 21's: AdamW's first update is lr x sign(g) on every
+# element, so elements whose gradient is rounding noise move by the full
+# rate in either run (at 3e-4, on an H100, both runs' loss went from
+# 10.85 to 12.3 and step 2's errors to 5.33e-4 for the loss and 1.02e-3
+# for the grad norm, beyond phase 23's limits)
+WHOLE = {"arch": "starcoder2-7b", "ranks": 8, "layers": 2, "lr": "3e-6"}
+# Both steps' loss and grad norm against one process's, relative: phase
+# 23's limits by step for two gloo ranks, the larger of its two runs'
+# (TP_INPUTS_RTOL)
+WHOLE_RTOL = {k: tuple(max(TP_INPUTS_RTOL[run][k][i] for run in "qw")
+                       for i in range(2)) for k in ("loss", "grad_norm")}
+
+
+def start_whole(seed, d):
+    """Starts phase 27's torchrun launch of eight ranks reporting into
+    ``d``; they wait for :func:`phase_whole`."""
+    os.makedirs(d, exist_ok=True)
+    argv = list(DIST_COMMON)
+    argv[argv.index("--lr") + 1] = WHOLE["lr"]
+    argv += ["--seed", str(seed), "--arch", WHOLE["arch"], "--global-batch",
+             "1", "--steps", "2"]
+    spec = dict(go=os.path.join(d, "go"), device="cuda:0", runs=[dict(
+        layers=WHOLE["layers"], done=f"{d}/x.done", flops=f"{d}/x_flops",
+        argv=argv + ["--model-parallel", str(WHOLE["ranks"]), "--device",
+                     "cuda:0", "--dist-backend", "gloo", "--report",
+                     f"{d}/x.json"])])
+    return dict(d=d, go=spec["go"], argv=argv, t_launch=time.perf_counter(),
+                proc=start_ranks(WHOLE["ranks"], spec, d))
+
+
+def phase_whole(prk, smi, ranks, seed):
+    """Phase 27 (see the module docstring) with the ranks
+    :func:`start_whole` started: once every rank is ready, the single
+    process in this process, then the go, the ranks' report held to it
+    and to the dry run's count of rank 0's step; returns its report."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.dryrun import count_cell
+    from repro_torch.parallel.distributed import fake_process_mesh
+
+    t0 = time.perf_counter()
+    prk.reset_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    d, proc = ranks["d"], ranks["proc"]
+    # the ranks' Python, torch and CUDA contexts start beside no timed run
+    wait_done(proc, d, [f"{ranks['go']}.ready{r}" for r in range(WHOLE["ranks"])])
+    t_ready = time.perf_counter()
+    name = cut_config(WHOLE["arch"], WHOLE["layers"])
+    argv = list(ranks["argv"])
+    argv[argv.index("--arch") + 1] = name
+    one = single_run(argv + ["--device", "cuda"], f"{d}/single_x.json")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_go = time.perf_counter()
+    open(ranks["go"], "w").close()
+    wait_ranks(proc, d)
+    t_end = time.perf_counter()
+    with open(f"{d}/x.json") as f:
+        rank = json.load(f)
+    with open(f"{d}/x_flops.0.json") as f:
+        card_flops = json.load(f)
+    # the dry run's count of the same step, rank 0 of a fake (1, 8) mesh
+    cfg = get_config(name)
+    seq = int(argv[argv.index("--seq") + 1])
+    t_count = time.perf_counter()
+    with fake_process_mesh((1, WHOLE["ranks"]), ("data", "model")) as mesh:
+        cost = count_cell(cfg, ShapeConfig("train", seq, 1, "train"), mesh)
+    count_s = time.perf_counter() - t_count
+    card = {k: {"calls": v["calls"], "bytes": v["bytes"]}
+            for k, v in rank["collectives"][0].items()}
+    rel = _rel(rank, one)
+    staged = [sum(c["seconds"] for c in step.values()) for step in rank["collectives"]]
+    share = [s / t for s, t in zip(staged, rank["step_s"])]
+    out = dict(arch=WHOLE["arch"], layers=WHOLE["layers"], mesh=rank["mesh"],
+               losses=rank["losses"], grad_norms=rank["grad_norms"],
+               single_losses=one["losses"], single_grad_norms=one["grad_norms"],
+               rel_err=rel, limits=WHOLE_RTOL, step_ms=_steps(rank),
+               single_step_ms=_steps(one), collective_s=staged,
+               collective_share=share, peak_bytes=rank["peak_bytes"],
+               single_peak_bytes=one["peak_bytes"],
+               state_bytes=rank["state_bytes"],
+               single_state_bytes=one["state_bytes"],
+               collectives=rank["collectives"], counted_collectives=cost.collectives,
+               card_dot_flops=card_flops, counted_dot_flops=cost.dot_flops,
+               count_s=count_s, main=_phases(rank), single_main=_phases(one),
+               before_go_s=t_go - t0, after_go_s=t_end - t_go)
+    log(f"[phase 27] {WHOLE['arch']} at full width, {WHOLE['layers']} layers, "
+        f"batch 1 x {seq}: {WHOLE['ranks']} ranks on cuda:0 over gloo, a "
+        f"{rank['mesh']} mesh, attention whole on every rank: losses "
+        f"{[round(x, 6) for _, x in rank['losses']]} vs "
+        f"{[round(x, 6) for _, x in one['losses']]} (rel by step "
+        f"{[f'{e:.2e}' for e in rel['loss']]}), grad norms "
+        f"{[round(x, 6) for _, x in rank['grad_norms']]} vs "
+        f"{[round(x, 6) for _, x in one['grad_norms']]} (rel "
+        f"{[f'{e:.2e}' for e in rel['grad_norm']]}; limits by step "
+        f"{WHOLE_RTOL}; lr {WHOLE['lr']}); on {smi}")
+    log(f"[phase 27] peak per rank {_gb(rank['peak_bytes'])} GB vs "
+        f"{_gb(one['peak_bytes'])} GB for one process (state "
+        f"{_gb(rank['state_bytes'])} vs {_gb(one['state_bytes'])} GB); on {smi}")
+    log(f"[phase 27] step ms {_steps(rank)} vs {_steps(one)} alone; rank 0's "
+        f"host-staged collectives {[round(s, 3) for s in staged]} s a step, "
+        f"{[round(x, 4) for x in share]} of the step (calls, MB, s: "
+        f"{_collective_s(rank)}); on {smi}")
+    log(f"[phase 27] rank 0's step 1 against the dry run's count as rank 0 of a "
+        f"fake (1, {WHOLE['ranks']}) mesh (counted in {count_s:.1f} s): "
+        f"collectives {card} vs {cost.collectives}; dot FLOPs {card_flops} vs "
+        f"{cost.dot_flops}; the ranks' main {_phases(rank)}, before the go "
+        f"{t_go - t0:.1f} s, after it {t_end - t_go:.1f} s")
+    ok = (rank["mesh"] == {"data": 1, "model": WHOLE["ranks"]}
+          and rank["backend"] == "gloo"
+          and len(rank["losses"]) == len(one["losses"]) == 2
+          and all(e <= lim for k in rel for e, lim in zip(rel[k], WHOLE_RTOL[k]))
+          and all(math.isfinite(x) for _, x in rank["losses"] + rank["grad_norms"]))
+    if not ok:
+        fail(f"phase 27: {rank['mesh']} ({rank['backend']}) against the single "
+             f"process: relative {rel} (limits by step {WHOLE_RTOL}); losses "
+             f"{rank['losses']} / {one['losses']}, grad norms "
+             f"{rank['grad_norms']} / {one['grad_norms']}")
+    if card != cost.collectives:
+        fail(f"phase 27: rank 0's collectives in step 1 {card}, the dry run's "
+             f"count {cost.collectives}")
+    if not card_flops or card_flops[0] != cost.dot_flops:
+        fail(f"phase 27: rank 0's step-1 dot FLOPs {card_flops}, the dry run's "
+             f"count {cost.dot_flops}")
+    if not all(p < one["peak_bytes"][0] for p in rank["peak_bytes"]):
+        fail(f"phase 27: a rank's step peak {rank['peak_bytes']} is not below "
+             f"the single process's {one['peak_bytes']}")
+    for r in (rank, one):
+        if r["launches"] or r["plain_calls"]:
+            fail(f"phase 27: the trainer launched {r['launches']}, plain calls "
+                 f"{r['plain_calls']}")
+    if sum(prk.LAUNCHES.values()) or sum(prk.PLAIN_CALLS.values()):
+        fail(f"phase 27 launched {dict(prk.LAUNCHES)}, plain calls "
+             f"{dict(prk.PLAIN_CALLS)}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 27] {out['seconds']:.1f} s (the 8 ranks ready "
+        f"{t_ready - ranks['t_launch']:.1f} s after torchrun's start)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4950,6 +5153,7 @@ def main(argv=None) -> int:
     # phase 19: the kNN workload registry, then training on the card
     training = phase_training(prk, args.seed, results, smi)
     clock("phase 19")
+    whole_ranks = None
     with tempfile.TemporaryDirectory() as d21:
         # phase 21's two ranks start Python, torch and their CUDA contexts
         # while phase 20 runs, then wait
@@ -4976,8 +5180,14 @@ def main(argv=None) -> int:
             # phase 26: checkpoints a slab at a time, re-meshing in place
             ckpt = phase_ckpt(prk, smi, ranks, args.seed)
             clock("phase 26")
+            # phase 27: a rank of eight with whole attention, counted
+            whole_ranks = start_whole(args.seed, os.path.join(d21, "whole"))
+            whole = phase_whole(prk, smi, whole_ranks, args.seed)
+            clock("phase 27")
         finally:
             stop_ranks(ranks["proc"])
+            if whole_ranks is not None:
+                stop_ranks(whole_ranks["proc"])
     for k in kernels:
         for key in ("launches", "plain_calls"):
             k[key] = results[key].get(k["name"], 0)
@@ -5000,6 +5210,7 @@ def main(argv=None) -> int:
     log(json.dumps({"tp_moe": tp_moe}))
     log(json.dumps({"tp_recurrent": tp_recurrent}))
     log(json.dumps({"ckpt": ckpt}))
+    log(json.dumps({"whole_tp": whole}))
     log(json.dumps({"kernels": kernels + knn_kernels + family_kernels
                     + shard_kernels}))
     log(smi)

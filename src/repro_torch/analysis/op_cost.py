@@ -1,6 +1,7 @@
 """Op-level cost of a torch program: the port's counterpart of
 ``src/repro/analysis/hlo_cost.py`` (``analyze_hlo``) and of
-``src/repro/analysis/hlo.py`` (``collective_bytes``, ``op_census``).
+``src/repro/analysis/hlo.py`` (``collective_bytes``, ``op_census``:
+:func:`collective_traffic`, :func:`op_census`).
 
 The reference reads the optimized HLO of a compiled program: the dot
 FLOPs, a fusion-boundary byte estimate, an element count of the other
@@ -24,9 +25,13 @@ the ops underneath:
     the program created that were alive at once (a storage lives until
     its last tensor goes, an autograd-saved one included);
   * ``trace``: one :class:`OpRecord` an aten op, which :func:`op_census`
-    counts by name and :func:`collective_bytes` reads for the copies
-    between two distinct devices (shards that share a device send
-    nothing).
+    counts by name;
+  * ``collectives``: what the port's own collective layer
+    (``parallel.distributed.COLLECTIVES``) recorded in the run, calls
+    and bytes by ``"op[axes]"``: a rank's program on a process mesh
+    (``parallel.distributed.fake_process_mesh``), which
+    :func:`collective_traffic` prices as the reference prices its HLO's
+    collectives.
 
 The port's models loop over their layers in Python, so every layer is
 counted as it runs and ``while_trips`` (the reference's scan trip
@@ -82,12 +87,10 @@ from repro_torch.search.metrics import get_metric
 from repro_torch.search.stages import finalize_values, rescore_candidates
 
 __all__ = ["OpCost", "OpRecord", "ProgramCost", "program_cost", "op_census",
-           "device_copies", "collective_bytes", "search_cost"]
+           "collective_traffic", "search_cost"]
 
 _DOTS = {"mm", "bmm", "addmm", "baddbmm", "matmul", "einsum", "dot", "mv",
          "convolution", "_scaled_dot_product_flash_attention"}
-# the copies of a tensor: the position of the source among the inputs
-_COPIES = {"_to_copy": 0, "copy_": 1, "_copy_from": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +133,9 @@ class ProgramCost:
     output_bytes: int
     peak_bytes: int
     trace: Tuple[OpRecord, ...]
+    # calls and bytes of the port's collectives by "op[axes]"
+    collectives: Dict[str, Dict[str, float]] = dataclasses.field(
+        default_factory=dict)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -220,6 +226,8 @@ def program_cost(fn, *args, device=None, **kwargs) -> ProgramCost:
     on them for real."""
     from torch._subclasses.fake_tensor import FakeCopyMode, FakeTensorMode
 
+    from repro_torch.parallel import distributed as D
+
     arg_bytes = sum(map(_nbytes, _tensors((args, kwargs))))
     leaves = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
     # a host scalar (a TrainState's step) goes in as a constant of its value
@@ -237,9 +245,14 @@ def program_cost(fn, *args, device=None, **kwargs) -> ProgramCost:
     with FakeCopyMode(mode):
         args, kwargs = copy.deepcopy((args, kwargs), memo)
     counter, flops = _OpCounter(), FlopCounterMode(display=False)
-    with mode:
-        with flops, counter:
-            out = fn(*args, **kwargs)
+    before = D.reset_collectives()
+    try:
+        with mode:
+            with flops, counter:
+                out = fn(*args, **kwargs)
+    finally:
+        ran = D.reset_collectives()
+        D.COLLECTIVES.update(before)
     out_bytes = sum(map(_nbytes, _tensors(out)))
     lo, hi = float(arg_bytes + out_bytes), float(counter.bytes)
     return ProgramCost(
@@ -247,7 +260,9 @@ def program_cost(fn, *args, device=None, **kwargs) -> ProgramCost:
         hbm_bytes=math.sqrt(lo * hi) if lo and hi else max(lo, hi),
         hbm_bytes_lo=lo, hbm_bytes_hi=hi, cop_count=float(counter.cops),
         while_trips={}, argument_bytes=arg_bytes, output_bytes=out_bytes,
-        peak_bytes=arg_bytes + counter.peak, trace=tuple(counter.trace))
+        peak_bytes=arg_bytes + counter.peak, trace=tuple(counter.trace),
+        collectives={k: {"calls": v["calls"], "bytes": v["bytes"]}
+                     for k, v in sorted(ran.items())})
 
 
 def op_census(trace) -> Dict[str, int]:
@@ -256,27 +271,29 @@ def op_census(trace) -> Dict[str, int]:
     return dict(collections.Counter(r.op for r in trace))
 
 
-def device_copies(trace):
-    """``(kind, bytes)`` of each copy between two distinct devices in
-    ``trace``, the kind ``"{source type}->{destination type}"``."""
-    for r in trace:
-        i = _COPIES.get(r.op)
-        if i is None or len(r.in_devices) <= i or not r.out_devices:
-            continue
-        src, dst = r.in_devices[i], r.out_devices[0]
-        if src != dst:
-            yield f"{src.type}->{dst.type}", r.out_bytes
+# the reference's kind of each of the port's collective ops, and the
+# multiple of the recorded bytes (an all-reduce's result, an all-gather's
+# result, a reduce-scatter's operand, a broadcast's tensor) its ring
+# conventions count (src/repro/analysis/hlo.py)
+_WIRE = {"all_reduce": ("all-reduce", 2), "all_gather": ("all-gather", 1),
+         "reduce_scatter": ("reduce-scatter", 1),
+         "broadcast": ("collective-broadcast", 1)}
 
 
-def collective_bytes(trace) -> Tuple[float, Dict[str, float]]:
-    """The bytes of every copy between two distinct devices in ``trace``:
-    (total, by kind).  The port's cross-device traffic is these copies
-    (the reference parses its collectives from HLO); a copy within one
-    device moves nothing between devices."""
+def collective_traffic(collectives) -> Tuple[float, Dict[str, float], Dict[str, int]]:
+    """A :class:`ProgramCost`'s ``collectives`` (calls and bytes by
+    ``"op[axes]"``) as the reference reads a per-device program's
+    collectives: (wire bytes in all, wire bytes by kind, calls by kind),
+    the kinds ``"all-reduce"``, ``"all-gather"`` and ``"reduce-scatter"``;
+    an all-reduce moves twice its result's bytes, an all-gather its
+    result's, a reduce-scatter its operand's."""
     by_kind: Dict[str, float] = collections.Counter()
-    for kind, n in device_copies(trace):
-        by_kind[kind] += n
-    return float(sum(by_kind.values())), dict(by_kind)
+    calls: Dict[str, int] = collections.Counter()
+    for key, entry in collectives.items():
+        kind, times = _WIRE[key.split("[")[0]]
+        by_kind[kind] += times * entry["bytes"]
+        calls[kind] += int(entry["calls"])
+    return float(sum(by_kind.values())), dict(by_kind), dict(calls)
 
 
 @contextlib.contextmanager

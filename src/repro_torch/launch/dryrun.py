@@ -1,32 +1,45 @@
 """Dry run: count a cell's step on fake tensors, and its rooflines.
 
-Port of ``src/repro/launch/dryrun.py``.  For each (arch x shape) cell on
-one card this writes ``{arch}_{shape}_{mesh}.json`` (into ``--out``)
-with the reference's keys:
-  * the counted cost of the step (``analysis.op_cost.program_cost``: dot
-    FLOPs, bytes, COPs, the live-bytes peak) where the reference compiles
-    the step and reads its HLO,
-  * the cross-device copies (``collective_bytes``; none on one card),
+Port of ``src/repro/launch/dryrun.py``.  For each (arch x shape) cell
+this writes ``{arch}_{shape}_{mesh}.json`` (into ``--out``) with the
+reference's keys:
+  * the counted cost of rank 0's step (``analysis.op_cost.program_cost``:
+    dot FLOPs, bytes, COPs, the live-bytes peak) where the reference
+    compiles the per-device program and reads its HLO,
+  * its collectives (``collective_bytes``, ``collective_breakdown``,
+    ``collective_counts``): what the port's own collective layer records
+    in the step (``parallel.distributed.COLLECTIVES``), priced by the
+    reference's ring conventions (``analysis.op_cost.collective_traffic``),
   * the roofline terms on a hardware profile (``"h100"`` by default),
   * MODEL_FLOPS = 6*N(_active)*D and the useful-compute ratio.
 
-:func:`count_cell` builds the train state or the parameters on
-``device="meta"`` (nothing is allocated), places them by
-``launch.shardspecs`` under the cell's rules and counts the train,
-prefill or decode step as the port runs it.  ``"single"`` is one card
-(``chips: 1``, a (1, 1) mesh).  The reference's ``"multi"`` cell (its
-512-chip pod) has no counterpart: the port has no partitioner, so no
-per-device program exists to count; :func:`run_cell` refuses it.
+:func:`count_cell` counts a cell's step on a mesh.  On a process mesh
+of fake ranks (``launch.mesh.production_process_mesh``, the reference's
+(16, 16) ``("data", "model")`` mesh of 256 chips, as rank 0) it builds
+the rank's shard of the train state on ``device="meta"`` (nothing drawn
+or allocated), places its rows of the batch and counts the port's own
+tensor-parallel and ZeRO-3 train step, collectives included.  On a
+logical mesh (a (1, 1) one over ``"meta"``) it places the whole state,
+or the parameters, and counts the train, prefill or decode step of one
+process.  ``"single"`` (:func:`run_cell`) is the reference's cell:
+rank 0 of (16, 16), ``chips: 256``.  It counts the port's program for
+that rank, which is not the reference's where a block stays whole over
+"model" (heads or experts 16 does not divide: starcoder2-7b,
+qwen2-vl-2b, granite-moe-3b-a800m): the port runs such a block at full
+size on every rank, where GSPMD still splits its dots (6 heads over 4
+count 2.069x the reference's FLOPs; ROADMAP item 14c.4).  Its serving cells (prefill, decode,
+``long_500k``) raise: serving a shard is ROADMAP item 14c.2 (count one
+on a (1, 1) mesh with :func:`count_cell`).  ``"multi"`` (512 chips) has
+a ``"pod"`` axis: ROADMAP item 14b.4.
 
 Usage (on the CPU; nothing runs on a card):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2-1.8b \\
       --shape train_4k --mesh single
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --shape train_4k
 """
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import os
 import time
@@ -37,23 +50,26 @@ import torch
 
 from repro_torch.analysis.op_cost import (
     ProgramCost,
-    collective_bytes,
-    device_copies,
+    collective_traffic,
     program_cost,
 )
 from repro_torch.configs import ASSIGNED_ARCHS, SHAPES, get_config
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.roofline import HARDWARE
 from repro_torch.launch import shardspecs as SS
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import production_process_mesh
 from repro_torch.models import model as M
 from repro_torch.models import transformer as tfm
 from repro_torch.optim.adamw import adamw_init
+from repro_torch.parallel import distributed as D
 from repro_torch.parallel.mesh import Mesh
 from repro_torch.parallel.sharding import place, use_mesh
 
 __all__ = ["model_flops", "ideal_memory_bytes", "count_cell", "roofline",
-           "run_cell", "main"]
+           "cell_record", "run_cell", "main"]
+
+# what serving a shard on a process mesh waits for
+SERVING_ITEM = "serving a shard (prefill and decode on a process mesh) is ROADMAP item 14c.2"
 
 
 def _knn_attn_for_cell(cfg: ModelConfig, shape: ShapeConfig) -> bool:
@@ -124,8 +140,18 @@ def count_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh) -> ProgramCost:
     """The cell's step (train, prefill, or decode with the kNN attention
     where ``_knn_attn_for_cell`` says) counted on fake tensors, its
     arguments built on ``"meta"`` and placed by the cell's shardings,
-    under ``use_mesh(mesh, rules=shardspecs.cell_rules(...))``."""
+    under ``use_mesh(mesh, rules=shardspecs.cell_rules(...))``.  On a
+    process mesh (``parallel.distributed.fake_process_mesh``) the count
+    is the calling rank's: ``place`` keeps its shard of the state and its
+    rows of the batch, still on ``"meta"``, and the result's
+    ``collectives`` are those it runs; a serving step there raises
+    (:data:`SERVING_ITEM`)."""
     specs = M.input_specs(cfg, shape)
+    ranks = D.is_process_mesh(mesh)
+    if ranks and shape.kind != "train":
+        raise NotImplementedError(
+            f"{cfg.name} x {shape.name} on a process mesh {dict(mesh.shape)}: "
+            f"{SERVING_ITEM}; count_cell counts its step on a (1, 1) mesh")
     with use_mesh(mesh, rules=SS.cell_rules(cfg, shape, mesh)):
         if shape.kind == "train":
             state = _abstract_train_state(cfg)
@@ -198,31 +224,21 @@ def roofline(cfg: ModelConfig, shape: ShapeConfig, cost: ProgramCost,
     }
 
 
-def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
-             hw_name: str = "h100") -> Dict[str, Any]:
-    """One cell's record, the reference's keys: ``lower_s`` is the time to
-    build and count the step (the port compiles nothing: ``compile_s`` is
-    0), ``xla_cost_analysis`` holds the counted FLOPs and the
-    fusion-boundary bytes, ``memory`` the exact argument and output
-    bytes and the counted peak."""
-    if mesh_kind == "multi":
-        raise ValueError(
-            "the multi-pod cell (512 chips) has no counterpart in the port: "
-            "one process with no partitioner has no per-device program to "
-            "count; run mesh_kind='single' (one card)")
-    if mesh_kind != "single":
-        raise ValueError(f"mesh_kind {mesh_kind!r}: 'single' or 'multi'")
-    cfg = get_config(arch)
-    shape = SHAPES[shape_name]
-    mesh = make_host_mesh(1, devices=["meta"])
-    chips = 1
+def cell_record(cfg: ModelConfig, shape: ShapeConfig, mesh_kind: str,
+                cost: ProgramCost, chips: int, hw_name: str = "h100",
+                lower_s: float = 0.0) -> Dict[str, Any]:
+    """A counted step as the reference's cell record: ``cost`` is one
+    device's program (rank 0's) on a mesh of ``chips``.  ``lower_s`` is
+    the time to build and count the step (the port compiles nothing:
+    ``compile_s`` is 0), ``xla_cost_analysis`` holds the counted FLOPs
+    and the fusion-boundary bytes, ``memory`` the exact argument and
+    output bytes and the counted peak, the collectives those of
+    ``cost.collectives`` by the reference's kinds."""
     result: Dict[str, Any] = {
-        "arch": arch, "shape": shape_name, "mesh": mesh_kind, "chips": chips,
+        "arch": cfg.name, "shape": shape.name, "mesh": mesh_kind, "chips": chips,
         "knn_attention": _knn_attn_for_cell(cfg, shape),
     }
-    t0 = time.time()
-    cost = count_cell(cfg, shape, mesh)
-    result["lower_s"] = round(time.time() - t0, 2)
+    result["lower_s"] = lower_s
     result["compile_s"] = 0.0
     result["xla_cost_analysis"] = {"flops": cost.dot_flops,
                                    "bytes": cost.hbm_bytes_hi}
@@ -233,7 +249,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
         "peak_bytes": cost.peak_bytes,
     }
     t2 = time.time()
-    coll_total, coll_kinds = collective_bytes(cost.trace)
+    coll_total, coll_kinds, coll_calls = collective_traffic(cost.collectives)
     result["analyze_s"] = round(time.time() - t2, 2)
     result["hlo_flops_per_device"] = cost.dot_flops
     result["hlo_bytes_per_device"] = cost.hbm_bytes
@@ -243,10 +259,33 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
     result["while_trips"] = cost.while_trips
     result["collective_bytes"] = coll_total
     result["collective_breakdown"] = coll_kinds
-    result["collective_counts"] = dict(collections.Counter(
-        kind for kind, _ in device_copies(cost.trace)))
+    result["collective_counts"] = coll_calls
     result["roofline"] = roofline(cfg, shape, cost, coll_total, hw_name, chips)
     return result
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str = "single",
+             hw_name: str = "h100") -> Dict[str, Any]:
+    """One cell's record (:func:`cell_record`): ``"single"`` is rank 0 of
+    the reference's (16, 16) mesh of 256 chips, counted on a fake process
+    mesh (``launch.mesh.production_process_mesh``; ``hlo_flops`` is its
+    FLOPs x 256).  The port's program: a block kept whole over "model"
+    counts at full size, more than the reference's split dots (module
+    docstring).  A serving cell there raises (:data:`SERVING_ITEM`),
+    and so does ``"multi"`` (ROADMAP item 14b.4)."""
+    if mesh_kind == "multi":
+        raise NotImplementedError(
+            f"the multi-pod cell (512 chips, a (2, 16, 16) mesh): {D.POD_ITEM}")
+    if mesh_kind != "single":
+        raise ValueError(f"mesh_kind {mesh_kind!r}: 'single' or 'multi'")
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    t0 = time.time()
+    with production_process_mesh() as mesh:
+        cost = count_cell(cfg, shape, mesh)
+        chips = mesh.size
+    return cell_record(cfg, shape, mesh_kind, cost, chips, hw_name,
+                       lower_s=round(time.time() - t0, 2))
 
 
 def main(argv=None) -> int:
@@ -254,14 +293,15 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
-    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--all", action="store_true",
+                    help="every arch, and every shape unless --shape names one")
     ap.add_argument("--out", default="dryrun_torch")
     ap.add_argument("--skip-existing", action="store_true")
     args = ap.parse_args(argv)
 
     os.makedirs(args.out, exist_ok=True)
     archs = list(ASSIGNED_ARCHS) if args.all or not args.arch else [args.arch]
-    shapes = list(SHAPES) if args.all or not args.shape else [args.shape]
+    shapes = [args.shape] if args.shape else list(SHAPES)
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
 
     failures = 0

@@ -9,26 +9,40 @@ axis carries only data parallelism.
 
 :func:`make_production_mesh` is that logical mesh over one named device
 (``"meta"`` by default: nothing lives there): it serves the spec trees of
-``launch/shardspecs.py`` and the dry run.  :func:`make_host_mesh` is a
-small mesh over the visible cards (or given devices) for the trainer,
-examples and tests.
+``launch/shardspecs.py``.  :func:`production_process_mesh` is the same
+mesh as one rank of a fake process group: the dry run counts that rank's
+program on it.  :func:`make_host_mesh` is a small mesh over the visible
+cards (or given devices) for the trainer, examples and tests.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.parallel import distributed as D
 from repro_torch.parallel.mesh import Mesh, make_mesh
 
-__all__ = ["make_production_mesh", "make_host_mesh"]
+__all__ = ["make_production_mesh", "production_process_mesh", "make_host_mesh"]
+
+SINGLE_POD = ((16, 16), ("data", "model"))
+MULTI_POD = ((2, 16, 16), ("pod", "data", "model"))
 
 
 def make_production_mesh(*, multi_pod: bool = False, device="meta") -> Mesh:
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = MULTI_POD if multi_pod else SINGLE_POD
     return make_mesh(shape, axes, devices=[device] * math.prod(shape))
+
+
+@contextlib.contextmanager
+def production_process_mesh():
+    """The (16, 16) production mesh as rank 0 of a fake process
+    group (``parallel.distributed.fake_process_mesh``: no other process,
+    the rank's tensors on ``"meta"``), destroyed on leaving."""
+    with D.fake_process_mesh(*SINGLE_POD) as mesh:
+        yield mesh
 
 
 def make_host_mesh(model_parallel: int = 1,

@@ -334,17 +334,23 @@ def _shard_plan(cfg: ModelConfig, shardings: Dict, shapes: Dict[str, Tuple[int, 
     ``TensorParallel`` (None without a ``"model"`` axis > 1).  The data
     axis may cut any family (ZeRO-3, ``parallel.zero3``) and the
     ``"model"`` axis any layer kind (``TP.TP_KINDS``); a ``"pod"`` axis
-    > 1 raises (ROADMAP item 14b.4).  Under tensor parallelism every
-    block the model runs must be split over ``"model"``: each dim whose
-    logical axis maps to it (heads, d_ff, experts, the vocabulary, SSD
-    heads and ``conv_dim``, ``lru_width``; only kv heads may stay whole,
-    Megatron's GQA convention) must be cut, or a rank would run its part
-    of a block at full heads or with every expert.  Every leaf keeps the
-    spec's contiguous cut: the SSD's ``in_proj`` and conv, whose cut does
-    not follow the heads, are gathered where they are read
-    (``models.ssm``).  A leaf of a split block that ``"model"`` leaves
-    whole is ``partial`` (``TP.SPLIT_BLOCKS``): the kv heads where they
-    are whole, MLA's latent projections and norms, the MoE router."""
+    > 1 raises (ROADMAP item 14b.4).
+
+    Under tensor parallelism each block (``layers.{i}.attn``, ``.mlp``,
+    ... of ``TP.SPLIT_BLOCKS``) is split or whole over ``"model"``: every
+    dim whose logical axis maps to it (heads, d_ff, experts, SSD heads
+    and ``conv_dim``, ``lru_width``) cut, or none.  A whole block (the
+    sanitized spec keeps its heads or experts whole where the axis does
+    not divide them) runs at full size on every rank
+    (``TensorParallel.block``); a block that is cut in part raises,
+    naming the leaf.  In a split block only kv heads may stay whole
+    (Megatron's GQA convention); in a whole one they are whole too.  The
+    vocabulary must be cut.  Every leaf keeps the spec's contiguous cut:
+    the SSD's ``in_proj`` and conv, whose cut does not follow the heads,
+    are gathered where they are read (``models.ssm``).  A leaf of a
+    split block that ``"model"`` leaves whole is ``partial``: the kv
+    heads where they are whole, MLA's latent projections and norms, the
+    MoE router."""
     from repro_torch.launch import shardspecs as SS
 
     mesh = next(iter(shardings.values())).mesh
@@ -353,28 +359,77 @@ def _shard_plan(cfg: ModelConfig, shardings: Dict, shapes: Dict[str, Tuple[int, 
     mp = mesh.shape.get("model", 1)
     tp, split, partial = None, (), ()
     if mp > 1:
-        axes = model_axes(cfg)
-        logical = SS.param_shardings(cfg, mesh)
-        for name in shapes:
-            for dim, (ax, entry) in enumerate(zip(axes[name], logical[name].spec)):
-                if (ax != "kv_heads" and "model" in D.spec_axes((entry,))
-                        and tuple(specs[name])[dim] != "model"):
-                    raise ValueError(
-                        f"{cfg.name}: {name} is not split over a 'model' axis "
-                        f"of {mp} (spec {tuple(specs[name])}); tensor "
-                        f"parallelism needs its {ax} ({shapes[name][dim]}) "
-                        f"divisible by {mp}")
+        blocks = _model_blocks(cfg, mesh, specs, shapes, SS.param_shardings(cfg, mesh))
+        whole = {b.split(".")[2] for b, s in blocks.items() if not s}
+        for name in {b.split(".")[2] for b, s in blocks.items() if s} & whole:
+            raise ValueError(f"{cfg.name}: the {name} blocks are split over "
+                             f"'model' in some layers and whole in others")
         split = [n for n, s in specs.items() if "model" in D.spec_axes(s)]
-        partial = [n for n in specs if n not in split
-                   and n.split(".")[0] in ("layers", "encoder")
-                   and n.split(".")[2] in TP.SPLIT_BLOCKS]
+        partial = [n for n in specs if n not in split and blocks.get(_block_of(n))]
         wk = [n for n in shapes if n.endswith(".attn.wk")]
-        tp = TP.TensorParallel(mesh, cfg, kv_sharded=set(wk) <= set(split))
+        tp = TP.TensorParallel(mesh, cfg, kv_sharded=set(wk) <= set(split),
+                               whole=whole)
     data_dims = {n: dim for n in shapes
                  if (dim := D.data_dim(specs[n], len(shapes[n]), mesh)) is not None}
     layout = D.ShardLayout(mesh, specs, split, partial, data_dims)
     cut = {n: local[n] for n in shapes if local[n] != tuple(shapes[n])}
     return cut, layout, tp
+
+
+def _block_of(name: str) -> Optional[str]:
+    """The block a parameter belongs to (``layers.3.attn``), or None
+    outside the layers' blocks."""
+    parts = name.split(".")
+    if parts[0] in ("layers", "encoder") and parts[2] in TP.SPLIT_BLOCKS:
+        return ".".join(parts[:3])
+    return None
+
+
+def _model_blocks(cfg: ModelConfig, mesh, specs, shapes, logical) -> Dict[str, bool]:
+    """Each block's cut over ``"model"`` under the sanitized ``specs``:
+    True where split, False where whole (see :func:`_shard_plan`).
+    Raises for a block cut in part, naming the leaf, and for a leaf
+    outside the blocks (the vocabulary) that the axis leaves whole."""
+    axes = model_axes(cfg)
+    mp = mesh.shape["model"]
+    states: Dict[str, Dict[str, str]] = {}
+    for name in shapes:
+        dims = [(dim, ax) for dim, (ax, entry) in
+                enumerate(zip(axes[name], logical[name].spec))
+                if "model" in D.spec_axes((entry,))]
+        cut = {tuple(specs[name])[dim] == "model" for dim, ax in dims
+               if ax != "kv_heads"}
+        block = _block_of(name)
+        if block is None:
+            if False in cut:
+                dim, ax = next((d, a) for d, a in dims
+                               if tuple(specs[name])[d] != "model")
+                raise ValueError(
+                    f"{cfg.name}: {name} is not split over a 'model' axis of "
+                    f"{mp} (spec {tuple(specs[name])}); tensor parallelism "
+                    f"needs its {ax} ({shapes[name][dim]}) divisible by {mp}")
+            continue
+        kv = [tuple(specs[name])[dim] == "model" for dim, ax in dims
+              if ax == "kv_heads"]
+        state = ("part" if len(cut) > 1 else "split" if True in cut
+                 else "whole" if cut else "kv cut" if any(kv) else None)
+        if state is not None:
+            states.setdefault(block, {})[name] = state
+    out = {}
+    for block, leaves in states.items():
+        split = [n for n, s in leaves.items() if s == "split"]
+        bad = [n for n, s in leaves.items()
+               if s == "part" or (split and s == "whole")
+               or (not split and s == "kv cut")]
+        if bad:
+            other = f" while {split[0]} is split" if split else ""
+            raise ValueError(
+                f"{cfg.name}: {bad[0]} (spec {tuple(specs[bad[0]])}) is cut "
+                f"over 'model' otherwise than the rest of {block}{other}: a "
+                f"block is split over a 'model' axis of {mp} or runs whole on "
+                f"every rank")
+        out[block] = bool(split)
+    return out
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator, device=None,
@@ -480,6 +535,12 @@ def _moe(params, h, cfg: ModelConfig, group_size: int, tp=None):
     )
 
 
+def _block(tp, name: str):
+    """The shard block ``name`` runs under: ``tp``, or None where the
+    block runs whole (or no shard)."""
+    return None if tp is None else tp.block(name)
+
+
 def _split_in(h, tp):
     """A block's input under ``tp``: "f" (else ``h``)."""
     return h if tp is None else TP.copy_to_model(h, tp)
@@ -499,7 +560,9 @@ def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
     after its norm, ``reduce_from_model`` after its ``wo`` (after the
     MoE block's output: its experts' and shared experts' parts).  MLA
     runs its heads of ``wq_b``/``wk_b``/``wv_b``/``wo`` from the whole
-    latent projections, MoE its experts of every token's routing."""
+    latent projections, MoE its experts of every token's routing.  A
+    block that runs whole (``TensorParallel.block``) takes neither."""
+    layer_tp, tp = tp, _block(tp, "attn")
     h = _split_in(rms_norm(x, params["pre_norm"], cfg.norm_eps), tp)
     cache = None
     if kind.startswith("mla"):
@@ -527,6 +590,7 @@ def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
         out, cache = out
     x = x + _split_out(out, tp)
     if kind == "dec":
+        tp = _block(layer_tp, "cross")
         h = _split_in(rms_norm(x, params["cross_norm"], cfg.norm_eps), tp)
         enc_kv = attn.encode_cross_kv(params["cross"], enc_out)
         out = attn.cross_attention(
@@ -534,6 +598,7 @@ def _apply_attn_train(params, x, positions, cfg: ModelConfig, kind: str,
             num_heads=cfg.num_heads if tp is None else tp.num_heads,
             q_chunk=cfg.q_chunk, scores_dtype=cfg.attn_scores_dtype)
         x = x + _split_out(out, tp)
+    tp = _block(layer_tp, "moe" if kind.endswith("moe") else "mlp")
     h = _split_in(rms_norm(x, params["mlp_norm"], cfg.norm_eps), tp)
     if kind.endswith("moe"):
         y = _moe(params, h, cfg, cfg.moe_group_size, tp)
@@ -557,8 +622,11 @@ def layer_train(params, x, positions, cfg: ModelConfig, kind: str = "dense",
     outputs reduce-scattered), the SSD on its heads (``in_proj`` and the
     conv gathered, the gated norm's sum of squares summed); a dec
     layer's ``enc_out`` has passed ``copy_to_model`` already
-    (:func:`forward_train`)."""
+    (:func:`forward_train`).  A block that runs whole on every rank
+    (``TensorParallel.block``) runs as in one process, outside "f" and
+    "g"."""
     if kind == "ssm":
+        tp = _block(tp, "ssm")
         h = _split_in(rms_norm(x, params["pre_norm"], cfg.norm_eps), tp)
         y = ssm_lib.ssm_train(
             params["ssm"], h, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
@@ -570,15 +638,16 @@ def layer_train(params, x, positions, cfg: ModelConfig, kind: str = "dense",
             y, cache = y
         return x + _split_out(y, tp), cache
     if kind == "rglru":
-        h = _split_in(rms_norm(x, params["pre_norm"], cfg.norm_eps), tp)
+        rtp, mtp = _block(tp, "rglru"), _block(tp, "mlp")
+        h = _split_in(rms_norm(x, params["pre_norm"], cfg.norm_eps), rtp)
         y = rglru_lib.rglru_train(params["rglru"], h, return_cache=return_cache,
-                                  scan_impl=cfg.lru_scan_impl, tp=tp)
+                                  scan_impl=cfg.lru_scan_impl, tp=rtp)
         cache = None
         if return_cache:
             y, cache = y
-        x = x + _split_out(y, tp)
-        h = _split_in(rms_norm(x, params["mlp_norm"], cfg.norm_eps), tp)
-        return x + _split_out(mlp_apply(params["mlp"], h, act=cfg.act), tp), cache
+        x = x + _split_out(y, rtp)
+        h = _split_in(rms_norm(x, params["mlp_norm"], cfg.norm_eps), mtp)
+        return x + _split_out(mlp_apply(params["mlp"], h, act=cfg.act), mtp), cache
     x, cache = _apply_attn_train(params, x, positions, cfg, kind, return_cache,
                                  enc_out, mrope_positions, tp)
     if return_cache and kind == "local_attn":
@@ -798,7 +867,9 @@ def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor, zero3=None,
     (replicated).  Under ``tp`` each layer is split as the decoder's;
     the output is then ``copy_to_model``'s: every decoder layer's
     column-parallel cross wk/wv reads it, so its gradient, summed over
-    the decoder layers, is all-reduced over ``"model"`` once."""
+    the decoder layers, is all-reduced over ``"model"`` once (not where
+    the cross-attention runs whole: its gradient is then every rank's
+    own)."""
     s = enc_embeds.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=enc_embeds.device)
     x = enc_embeds.to(_compute_dtype(cfg))
@@ -810,7 +881,8 @@ def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor, zero3=None,
     with _regathering(zero3):
         x = rms_norm(x, _take(zero3, params["enc_final_norm"], "enc_final_norm"),
                      cfg.norm_eps)
-    return x if tp is None else TP.copy_to_model(x, tp)
+    cross = _block(tp, "cross")
+    return x if cross is None else TP.copy_to_model(x, cross)
 
 
 def _forward(params, cfg: ModelConfig, tokens_or_embeds, positions, *,

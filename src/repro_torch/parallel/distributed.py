@@ -39,6 +39,7 @@ the same ranks a leaf at a time (:func:`reshard`).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import time
@@ -79,6 +80,7 @@ __all__ = [
     "data_dim",
     "COLLECTIVES",
     "reset_collectives",
+    "fake_process_mesh",
 ]
 
 # the data group: the batch's axes, and ZeRO-3's parameter split
@@ -130,7 +132,8 @@ class ProcessMesh(Mesh):
     own), so a :class:`~repro_torch.parallel.sharding.NamedSharding` on
     it places on that device.  ``device_mesh`` is the
     ``torch.distributed`` ``DeviceMesh`` whose groups the collectives
-    use; ``backend`` is ``"nccl"`` or ``"gloo"``."""
+    use; ``backend`` is ``"nccl"`` or ``"gloo"`` (``"fake"`` for
+    :func:`fake_process_mesh`)."""
 
     is_process_mesh = True
 
@@ -202,6 +205,9 @@ def init_process_mesh(model_parallel: int = 1, *, device,
         backend = "nccl" if device.type == "cuda" else "gloo"
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend {backend!r}: 'nccl' or 'gloo'")
+    if dist.is_initialized() and "fake" in str(dist.get_backend()):
+        raise RuntimeError("the process group is a fake one "
+                           "(fake_process_mesh): it runs no collective")
     if backend == "nccl" and device.type != "cuda":
         raise ValueError("NCCL runs on cards; the CPU takes backend='gloo'")
     if backend == "nccl":
@@ -245,6 +251,36 @@ def init_process_mesh(model_parallel: int = 1, *, device,
         raise RuntimeError(f"the process group counts {one.item()} ranks, "
                            f"not {world}")
     return mesh
+
+
+@contextlib.contextmanager
+def fake_process_mesh(shape: Sequence[int], names: Sequence[str], *,
+                      rank: int = 0):
+    """A :class:`ProcessMesh` of ``shape`` (axes ``names``) as rank
+    ``rank`` of a process group that has no other process: torch's fake
+    backend (``torch.testing._internal.distributed.fake_pg``), whose
+    collectives return at once and change nothing, and ``"meta"`` as the
+    rank's device.  Counting a rank's program (``launch.dryrun
+    .count_cell``) runs the port's own collectives on it, so
+    :data:`COLLECTIVES` records what the rank would send.  Refuses to
+    start where a process group is up (it never counts on a trainer's
+    group); the group it starts is destroyed on leaving."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already up in this process: a "
+                           "fake process mesh runs only where none is")
+    shape, world = tuple(int(n) for n in shape), int(np.prod(shape))
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} of a {shape} mesh")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        dm = init_device_mesh("cpu", shape, mesh_dim_names=tuple(names))
+        yield ProcessMesh(dm, torch.device("meta"), "fake")
+    finally:
+        dist.destroy_process_group()
 
 
 # -- collectives --------------------------------------------------------------
@@ -608,6 +644,11 @@ class ShardLayout:
         self.data_split = frozenset(self.data_dims)
         self.model_size = mesh.shape.get("model", 1)
         self.data_size = mesh.axis_size(DATA)
+
+    def __deepcopy__(self, memo):
+        # a copy of a shard's model lies on the same ranks (the fake
+        # copies of ``analysis.op_cost.program_cost``)
+        return self
 
     def reduce_gradients(self, names, grads, grad_dtype=None):
         """The step's f32 gradients: the partial ones summed over

@@ -68,6 +68,17 @@ sums it over ``"model"``
 reference's GSPMD splits its one-hot dispatch: every rank routes every
 token of its data shard (the same top-k, queue places and capacity drops
 on each) and runs only its experts' slots; no all-to-all.
+
+A block whose dims ``"model"`` leaves whole (``launch.shardspecs
+._sanitize_spec`` keeps whole a dim the axis does not divide:
+starcoder2-7b's 36 heads, granite-moe's 24 heads and 40 experts over 16)
+runs whole on every rank of the group, the values of the reference's
+step on those replicated specs (whose partitioner may still split the
+block's dots among the devices): :meth:`TensorParallel.block` gives
+None for it, so it sits outside the operators (no "f" before it: its
+input's gradient is the same on every rank, and an all-reduce would sum
+``size`` equal copies; no "g" after it).  Its leaves' gradients are then
+the same on every rank and are reduced over the data axes only.
 """
 from __future__ import annotations
 
@@ -111,31 +122,50 @@ class TensorParallel:
     its query heads (``attention.cross_attn_defs``), so they split with
     them: its local heads are ``num_heads``.  MLA has no kv heads: its
     ``wk_b`` and ``wv_b`` split with its query heads, and it never reads
-    :meth:`kv_index`."""
+    :meth:`kv_index`.  ``whole`` names the blocks (of
+    :data:`SPLIT_BLOCKS`) that run whole on every rank: their sizes are
+    the global ones (every head, every expert, from 0)."""
 
-    def __init__(self, mesh, cfg, *, kv_sharded: bool):
+    def __init__(self, mesh, cfg, *, kv_sharded: bool, whole=frozenset()):
         self.mesh = mesh
         self.size = mesh.shape["model"]
         self.rank = mesh.axis_index("model")
+        self.whole = frozenset(whole)
         self.global_heads = cfg.num_heads
         self.global_kv_heads = cfg.num_kv_heads
-        self.num_heads = cfg.num_heads // self.size
-        self.kv_sharded = kv_sharded
-        self.num_kv_heads = (cfg.num_kv_heads // self.size if kv_sharded
+        self.num_heads = self._part("attn", cfg.num_heads)
+        self.kv_sharded = kv_sharded and "attn" not in self.whole
+        self.num_kv_heads = (cfg.num_kv_heads // self.size if self.kv_sharded
                              else cfg.num_kv_heads)
-        self.num_experts = cfg.num_experts // self.size
-        self.expert_start = self.rank * self.num_experts
+        self.num_experts = self._part("moe", cfg.num_experts)
+        self.expert_start = self._start("moe", self.num_experts)
         self.vocab_size = cfg.padded_vocab // self.size
         self.vocab_start = self.rank * self.vocab_size
         self.true_vocab = cfg.vocab_size
         kinds = set(cfg.layer_kinds())
         ssm_heads = (cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
                      if "ssm" in kinds else 0)
-        self.ssm_heads = ssm_heads // self.size
-        self.ssm_head_start = self.rank * self.ssm_heads
+        self.ssm_heads = self._part("ssm", ssm_heads)
+        self.ssm_head_start = self._start("ssm", self.ssm_heads)
         lru = (cfg.lru_width or cfg.d_model) if "rglru" in kinds else 0
-        self.lru_width = lru // self.size
-        self.lru_start = self.rank * self.lru_width
+        self.lru_width = self._part("rglru", lru)
+        self.lru_start = self._start("rglru", self.lru_width)
+
+    def _part(self, block: str, n: int) -> int:
+        return n if block in self.whole else n // self.size
+
+    def _start(self, block: str, part: int) -> int:
+        return 0 if block in self.whole else self.rank * part
+
+    def block(self, name: str) -> Optional["TensorParallel"]:
+        """What block ``name`` (of :data:`SPLIT_BLOCKS`) runs under: this
+        shard where the block is split, None where it runs whole."""
+        return None if name in self.whole else self
+
+    def __deepcopy__(self, memo):
+        # a copy of a shard's model lies on the same ranks (the fake
+        # copies of ``analysis.op_cost.program_cost``)
+        return self
 
     def kv_index(self, device) -> Optional[torch.Tensor]:
         """Where the kv heads are whole: each local query head's global kv
@@ -144,7 +174,7 @@ class TensorParallel:
         if self.kv_sharded:
             return None
         groups = self.global_heads // self.global_kv_heads
-        first = self.rank * self.num_heads
+        first = self._start("attn", self.num_heads)
         return torch.arange(first, first + self.num_heads, device=device) // groups
 
     def __repr__(self) -> str:
@@ -155,10 +185,12 @@ class TensorParallel:
                f"{self.ssm_head_start + self.ssm_heads}, " if self.ssm_heads else "")
         lru = (f"lru channels {self.lru_start}.."
                f"{self.lru_start + self.lru_width}, " if self.lru_width else "")
+        whole = f"whole {sorted(self.whole)}, " if self.whole else ""
         return (f"TensorParallel(rank {self.rank} of {self.size}: {self.num_heads} "
                 f"heads, {self.num_kv_heads} kv heads"
                 f"{'' if self.kv_sharded else ' (whole)'}, {experts}{ssm}{lru}"
-                f"vocab rows {self.vocab_start}..{self.vocab_start + self.vocab_size})")
+                f"{whole}vocab rows {self.vocab_start}.."
+                f"{self.vocab_start + self.vocab_size})")
 
 
 def _reduce(t: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:

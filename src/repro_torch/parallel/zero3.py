@@ -48,6 +48,12 @@ from repro_torch.parallel import distributed as D
 __all__ = ["Zero3"]
 
 
+def _storage(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage (its views share it), fake and
+    meta tensors' too (whose data pointers are all 0)."""
+    return t.untyped_storage()._cdata
+
+
 class _Gather(torch.autograd.Function):
     """``shard`` cast to ``dtype`` and all-gathered over the data axis
     along ``dim``; the backward reduce-scatters the gradient in
@@ -98,7 +104,7 @@ class Zero3:
         out = _Gather.apply(p, self.dims[name], self.dtype, self.grad_dtype,
                             self.mesh)
         if self._live is not None:
-            self._live[out.untyped_storage().data_ptr()] = (out, name, p)
+            self._live[_storage(out)] = (out, name, p)
         return out
 
     def tree(self, tree: Dict, prefix: str) -> Dict:
@@ -123,7 +129,7 @@ class Zero3:
     def _pack(self, t: torch.Tensor):
         hit = None
         if self._live is not None and t.layout == torch.strided:
-            hit = self._live.get(t.untyped_storage().data_ptr())
+            hit = self._live.get(_storage(t))
         if hit is None or hit[0].dtype != t.dtype:
             return t
         _, name, shard = hit

@@ -9,8 +9,10 @@ dense family here, exactly; the other families in
 ``search_cost`` (rebuilt on ``program_cost``) keeps the parent's counts.
 ``analysis.rooflines`` renders the reference's strings from the same cell
 records and the same plans.  The full-width internlm2-1.8b ``train_4k``
-cell is counted without allocating its 22.7 GB of state, with the
-reference's record keys.
+cell is counted as rank 0 of the reference's (16, 16) mesh without
+allocating its shard's 2.6 GB of state, leaving no process group, with
+the reference's record keys (``test_torch_dryrun_mesh.py`` holds rank 0's counts on small meshes to
+the reference's per-device programs).
 """
 import json
 import re
@@ -25,16 +27,13 @@ from repro.configs.knn_workloads import KNN_WORKLOADS as REF_WORKLOADS
 from repro_torch.analysis import rooflines
 from repro_torch.analysis.op_cost import (
     OpCost,
-    collective_bytes,
     op_census,
     program_cost,
     search_cost,
 )
 from repro_torch.configs import KNN_WORKLOADS
 from repro_torch.launch import dryrun
-from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
-from repro_torch.parallel import make_mesh
 from repro_torch.search import Index
 
 import torch_dryrun_parity as parity
@@ -119,35 +118,6 @@ def test_program_cost_runs_nothing_on_real_tensors():
     assert cost.argument_bytes == 16 + 4 and cost.peak_bytes == 20 + 4
 
 
-@pytest.mark.parametrize("devices,want", [
-    (["cpu", "meta", "meta", "meta"], True), (["cpu"] * 4, False)])
-def test_collective_bytes_count_copies_between_distinct_devices(devices, want):
-    """``_knn_decode_attention_cp`` over 4 shards: the 3 shards on another
-    device than the first get their slices (cpu->meta bytes) and send
-    their winners back (meta->cpu); 4 shards of one device send nothing
-    (C7's rule)."""
-    mesh = make_mesh((4,), ("model",), devices=devices)
-    b, s, kv, hd, h, k = 2, 256, 2, 16, 4, 8
-    args = [torch.empty(b, h, hd, device="meta"),
-            torch.empty(b, s, kv, hd, device="meta"),
-            torch.empty(b, s, kv, hd, device="meta"),
-            torch.empty(s, dtype=torch.bool, device="meta")]
-    cost = program_cost(
-        lambda *a: attn._knn_decode_attention_cp(
-            *a, k=k, recall_target=0.95, mesh=mesh, cp_axes=("model",),
-            kv_groups=h // kv), *args, device="cpu")
-    total, kinds = collective_bytes(cost.trace)
-    if not want:
-        assert total == 0 and kinds == {}
-        return
-    assert total == kinds["cpu->meta"] + kinds["meta->cpu"]
-    # out: 3 shards' q, keys, values and valid rows; back: 3 shards'
-    # winners (f32 values, int64 positions, bf16 value rows)
-    assert kinds["cpu->meta"] == 3 * (b * h * hd * 4 + 2 * b * (s // 4) * kv * hd * 4
-                                      + s // 4)
-    assert kinds["meta->cpu"] % (3 * b * h * (4 + 8 + hd * 2)) == 0
-
-
 # --- search_cost, rebuilt on program_cost ----------------------------------------
 
 # the parent tree's counts (fb6322d) of one search of 64 queries, N=3000,
@@ -196,6 +166,20 @@ def _ref_keys():
     return top, block('result["memory"] = {'), block('result["roofline"] = {')
 
 
+def _shard_params(cfg, model: int = 16) -> int:
+    """The parameters of rank 0's shard: each dim whose logical axis maps
+    to "model" (heads, kv heads, d_ff, vocabulary) divided where 16
+    divides it, as the reference's ``_sanitize_spec`` keeps it."""
+    over = {"heads", "kv_heads", "ffn", "vocab"}
+    total = 0
+    for name, p in tfm.Transformer(cfg, device="meta").named_parameters():
+        n = 1
+        for size, ax in zip(p.shape, tfm.model_axes(cfg)[name]):
+            n *= size // model if ax in over and size % model == 0 else size
+        total += n
+    return total
+
+
 @pytest.fixture(scope="module")
 def full_cell():
     before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
@@ -206,46 +190,69 @@ def full_cell():
 
 def test_full_width_train_cell_is_counted_without_allocating(full_cell):
     cell, grown = full_cell
+    import torch.distributed as dist
+
     from repro_torch.configs import SHAPES, get_config
 
     cfg = get_config("internlm2-1.8b")
-    n = sum(p.numel() for p in tfm.Transformer(cfg, device="meta").parameters())
+    assert not dist.is_initialized()  # run_cell's fake group is gone
     top, memory, roof = _ref_keys()
     assert set(cell) == top
     assert set(cell["memory"]) == memory and set(cell["roofline"]) == roof
-    # f32 masters and both moments (12 bytes a parameter), the step, the batch
-    batch = 2 * SHAPES["train_4k"].global_batch * SHAPES["train_4k"].seq_len * 4
-    assert cell["memory"]["argument_bytes"] == 12 * n + 4 + batch
+    # rank 0 of (16, 16): f32 masters and both moments of its shard (12
+    # bytes a parameter; the 8 kv heads whole over 16), the step, its 16
+    # of the batch's 256 rows
+    batch = 2 * SHAPES["train_4k"].global_batch // 16 * SHAPES["train_4k"].seq_len * 4
+    assert cell["memory"]["argument_bytes"] == 12 * _shard_params(cfg) + 4 + batch
     assert grown < 2e9 < cell["memory"]["argument_bytes"]
     assert cell["memory"]["peak_bytes"] > cell["memory"]["argument_bytes"]
-    assert cell["chips"] == 1 and cell["mesh"] == "single"
-    assert cell["collective_bytes"] == 0.0 and cell["collective_counts"] == {}
+    assert cell["chips"] == 256 and cell["mesh"] == "single"
+    assert cell["hlo_flops"] == 256 * cell["hlo_flops_per_device"]
+    kinds = cell["collective_breakdown"]
+    assert cell["collective_bytes"] == sum(kinds.values()) > 0
+    # no ZeRO-3 (internlm2 has no fsdp_params): all-reduces only, of the
+    # data axis' gradients and "model"'s operators
+    assert set(kinds) == set(cell["collective_counts"]) == {"all-reduce"}
     r = cell["roofline"]
     assert r["model_flops"] == dryrun.model_flops(cfg, SHAPES["train_4k"])
-    # the port's dots beyond 6·N·D: attention's scores and values, the
-    # forward again where remat="dots" recomputes the batched products
-    assert 0.8 < r["useful_ratio"] < 0.9 and r["dominant"] == "compute"
+    # the port's dots beyond 6·N·D / 256: attention's scores and values,
+    # the forward again where remat="dots" recomputes the batched
+    # products, and the whole kv heads' projections on every rank of
+    # "model"; Megatron's all-reduces of 16 x 4,096 tokens over the h100
+    # profile's link dominate
+    assert 0.4 < r["useful_ratio"] < 0.6 and r["dominant"] == "collective"
     assert r["step_time_s"] == max(r[k] for k in ("compute_s", "memory_s",
                                                   "collective_s", "instruction_s"))
-    with pytest.raises(ValueError, match="partitioner"):
+    with pytest.raises(NotImplementedError, match=r"14b\.4"):
         dryrun.run_cell("internlm2-1.8b", "train_4k", "multi")
 
 
 def test_cli_writes_cells_and_the_tables_render(tmp_path, capsys):
+    """Every shape of a smoke arch on both meshes: the training cell on
+    "single" counts (rank 0 of (16, 16)); the serving cells there
+    (ROADMAP item 14c.2) and every "multi" cell (item 14b.4) are written
+    as error records."""
     out = str(tmp_path)
-    rc = dryrun.main(["--arch", "internlm2-1.8b-smoke", "--shape", "long_500k",
-                      "--mesh", "both", "--out", out])
-    assert rc == 1  # the multi cell is refused and written as an error
-    with open(tmp_path / "internlm2-1.8b-smoke_long_500k_single.json") as f:
-        single = json.load(f)
-    with open(tmp_path / "internlm2-1.8b-smoke_long_500k_multi.json") as f:
-        multi = json.load(f)
-    assert single["knn_attention"] and "error" not in single
-    assert multi["error"].startswith("ValueError")
+    rc = dryrun.main(["--arch", "internlm2-1.8b-smoke", "--mesh", "both",
+                      "--out", out])
+    assert rc == 1  # the refused cells are written as errors
+    cells = {}
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        for mesh in ("single", "multi"):
+            with open(tmp_path / f"internlm2-1.8b-smoke_{shape}_{mesh}.json") as f:
+                cells[shape, mesh] = json.load(f)
+    single = cells["train_4k", "single"]
+    assert "error" not in single and single["chips"] == 256
+    assert single["collective_bytes"] > 0
+    for (shape, mesh), cell in cells.items():
+        if (shape, mesh) != ("train_4k", "single"):
+            assert cell["error"].startswith("NotImplementedError")
+            assert ("14b.4" if mesh == "multi" else "14c.2") in cell["error"]
     rooflines.main(["--dir", out])
     text = capsys.readouterr().out
-    assert "| internlm2-1.8b-smoke | long_500k | **memory** |" in text
+    assert "| internlm2-1.8b-smoke | train_4k | **" in text
     assert "| internlm2-1.8b-smoke | long_500k | multi | FAIL |" in text
+    assert "| internlm2-1.8b-smoke | long_500k | single | FAIL |" in text
     rooflines.main(["--knn"])
     assert "| sift1m | h100 | 245 x 2^12 |" in capsys.readouterr().out
 
@@ -254,7 +261,14 @@ def test_tables_are_the_references(full_cell, tmp_path):
     """The same cell records through both modules: the dry-run table, the
     roofline tables and the hill-climb picks; the plan table over the
     reference's a100 plans and over the port's."""
-    small = dryrun.run_cell("internlm2-1.8b-smoke", "long_500k")
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    # a serving cell counted on a (1, 1) mesh (the production mesh's
+    # serving cells are ROADMAP item 14c.2)
+    cfg, shape = get_config("internlm2-1.8b-smoke"), SHAPES["long_500k"]
+    cost = dryrun.count_cell(cfg, shape, make_host_mesh(1, devices=["meta"]))
+    small = dryrun.cell_record(cfg, shape, "single", cost, chips=1)
     cells = [full_cell[0], small, dict(small, mesh="multi"),
              {"arch": "x", "shape": "y", "mesh": "single", "error": "E" * 80}]
     assert rooflines.dryrun_table(cells) == ref_rooflines.dryrun_table(cells)

@@ -23,6 +23,8 @@ in ROADMAP's divergences; the tests hold each to it within 1e-5:
 """
 import os
 
+import numpy as np
+
 _flags = os.environ.get("XLA_FLAGS")
 import repro.launch.dryrun as ref_dryrun  # noqa: E402 (it sets XLA_FLAGS)
 
@@ -85,3 +87,83 @@ def check(arch: str, step: str) -> None:
     assert abs(ratio - want) <= 1e-5, (arch, step, ours, ref, ratio, want)
     if want == 1.0:
         assert ours == ref, (arch, step, ours, ref)
+
+
+# -- rank 0 of a process mesh against the reference's per-device program -------
+
+# the meshes of 4 devices: (data, model)
+MESHES = ((4, 1), (2, 2), (1, 4))
+
+
+def mesh_config(module, arch: str, override=None):
+    """``arch`` of ``module``'s registry (the reference's or the port's)
+    with the fields of ``override`` replaced, alike in both packages."""
+    import dataclasses
+
+    cfg = module.get_config(arch)
+    return dataclasses.replace(cfg, **override) if override else cfg
+
+
+def ref_mesh_run(cases):
+    """In a child on 4 fake devices: each case ``(arch, override)``'s
+    smoke train step lowered on a (d, m) host mesh of each of
+    :data:`MESHES` and compiled; its per-device dot FLOPs
+    (``analyze_hlo``) and collectives (``collective_bytes``: wire bytes
+    by kind), by ``(key, mesh)``."""
+    import jax
+
+    import repro.configs as rc
+    from repro.analysis.hlo import collective_bytes as ref_collectives
+
+    out = {}
+    for key, (arch, override) in cases.items():
+        cfg, shape = mesh_config(rc, arch, override), RefShape(*SHAPES["train"])
+        for dims in MESHES:
+            devices = np.array(jax.devices()[:4]).reshape(dims)
+            mesh = jax.sharding.Mesh(devices, ("data", "model"),
+                                     axis_types=(jax.sharding.AxisType.Auto,) * 2)
+            with ref_use_mesh(mesh, rules=ref_ss.cell_rules(cfg, shape, mesh)):
+                hlo = ref_dryrun.lower_cell(cfg, shape, mesh).compile().as_text()
+            out[key, dims] = dict(dot_flops=analyze_hlo(hlo).dot_flops,
+                                  collectives=ref_collectives(hlo)[1])
+    return out
+
+
+_MESH_CHILD = """
+import sys
+sys.path.insert(0, "tests")
+import torch_dryrun_parity
+publish(torch_dryrun_parity.ref_mesh_run(@CASES@))
+"""
+
+
+def ref_mesh_counts(cases, parts: int = 3):
+    """:func:`ref_mesh_run` on 4 fake host devices, the cases dealt into
+    ``parts`` subprocesses that run at once (XLA compiles each program
+    on one core)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from conftest import FakeDeviceRunner
+
+    keys = sorted(cases)
+    shares = [{k: cases[k] for k in keys[i::parts]} for i in range(parts)]
+
+    def run(share):
+        return FakeDeviceRunner()(_MESH_CHILD.replace("@CASES@", repr(share)),
+                                  n=4, timeout=900)
+    out = {}
+    with ThreadPoolExecutor(parts) as pool:
+        for part in pool.map(run, shares):
+            out.update(part)
+    return out
+
+
+def port_mesh_count(arch: str, override, dims):
+    """The port's count of the same step as rank 0 of a fake process mesh
+    of ``dims``."""
+    import repro_torch.configs as pc
+    from repro_torch.parallel.distributed import fake_process_mesh
+
+    with fake_process_mesh(dims, ("data", "model")) as mesh:
+        return count_cell(mesh_config(pc, arch, override),
+                          ShapeConfig(*SHAPES["train"]), mesh)
